@@ -1,0 +1,55 @@
+// Shared helpers for the hand-written Hopper kernels.
+//
+// Words are the reference's uint32 bitmap words; the Python side stores
+// them as int32 tensors (the same bytes) and the kernels read them as
+// uint32_t, four at a time as one 16-byte uint4 vector per thread.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#define PT_EXPORT extern "C" __attribute__((visibility("default")))
+
+#define PT_BLOCK 256
+
+__device__ __forceinline__ unsigned pt_popc4(uint4 v) {
+  return __popc(v.x) + __popc(v.y) + __popc(v.z) + __popc(v.w);
+}
+
+// Sum of one value per thread over a PT_BLOCK-thread block; the result is
+// valid in thread 0. Integer addition, so the order does not matter.
+__device__ __forceinline__ unsigned long long pt_block_sum(
+    unsigned long long v) {
+  __shared__ unsigned long long warp_sums[PT_BLOCK / 32];
+  for (int off = 16; off > 0; off >>= 1) {
+    v += __shfl_down_sync(0xffffffffu, v, off);
+  }
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if (lane == 0) warp_sums[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    v = lane < PT_BLOCK / 32 ? warp_sums[lane] : 0ull;
+    for (int off = 16; off > 0; off >>= 1) {
+      v += __shfl_down_sync(0xffffffffu, v, off);
+    }
+  }
+  return v;
+}
+
+// Blocks to keep in flight for a streaming kernel: eight PT_BLOCK-thread
+// blocks per SM fill the SM's 2048 threads.
+static inline int pt_resident_blocks() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (sms <= 0) sms = 132;
+  }
+  return sms * 8;
+}
+
+PT_EXPORT const char* pt_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

@@ -1,0 +1,180 @@
+"""Builds the hand-written CUDA kernels and binds them through ctypes.
+
+Each ``csrc/<name>.cu`` is compiled at first use, on the machine that
+has the card, with
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+         -Xcompiler -fPIC -o _build/lib<name>.so csrc/<name>.cu
+
+into ``pilosa_tpu_torch/_build/`` (git-ignored), and loaded with
+``ctypes``. The sources have a plain C interface and include no PyTorch
+header, so one file builds in seconds. Pointers are ``data_ptr()`` ints
+and the stream is PyTorch's current stream; every C entry returns
+``cudaGetLastError()`` and :meth:`Kernel.launch` raises when it is not 0.
+
+A failed build or launch raises: nothing here falls back to the plain
+torch versions. Those run only for tensors that lie on the CPU, a
+decision the callers in ``ops`` make from the tensor's device.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+import torch
+
+CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "_build")
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+]
+
+
+class KernelBuildError(RuntimeError):
+    pass
+
+
+class KernelLaunchError(RuntimeError):
+    pass
+
+
+def resolve_device(device: "str | torch.device" = "cuda") -> torch.device:
+    """The device an entry point runs on. ``cuda`` without a card
+    raises; the CPU is used only when the caller names it."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "CUDA is not available; pass device='cpu' to run the plain "
+                "torch versions of the kernels on the CPU"
+            )
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    path = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(path):
+        return path
+    found = shutil.which("nvcc")
+    if found is None:
+        raise KernelBuildError("nvcc not found (set CUDA_HOME)")
+    return found
+
+
+def _lib_path(name: str) -> str:
+    return os.path.join(BUILD_DIR, f"lib{name}.so")
+
+
+def _stale(name: str) -> bool:
+    lib = _lib_path(name)
+    if not os.path.exists(lib):
+        return True
+    built = os.path.getmtime(lib)
+    sources = [os.path.join(CSRC, f"{name}.cu"), os.path.join(CSRC, "common.cuh")]
+    return any(os.path.getmtime(s) > built for s in sources)
+
+
+def build(names: list[str], force: bool = False) -> dict[str, float]:
+    """Compile every stale source in ``names`` (every one with
+    ``force``) with one nvcc process each, all started together. Returns
+    the seconds each build took (0.0 for a library already current)."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    procs = {}
+    for name in names:
+        if not force and not _stale(name):
+            continue
+        tmp = f"{_lib_path(name)}.{os.getpid()}.tmp"
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
+        procs[name] = (
+            subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT),
+            tmp,
+            time.perf_counter(),
+        )
+    seconds = {name: 0.0 for name in names}
+    errors = []
+    for name, (proc, tmp, t0) in procs.items():
+        out, _ = proc.communicate(timeout=600)
+        seconds[name] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            errors.append(f"{name}.cu: nvcc exited {proc.returncode}\n{out.decode(errors='replace')}")
+            continue
+        os.replace(tmp, _lib_path(name))
+    if errors:
+        raise KernelBuildError("\n".join(errors))
+    return seconds
+
+
+class Kernel:
+    """One hand-written kernel: its source, its C entry and its count of
+    launches (raised only where the kernel is launched)."""
+
+    def __init__(self, name: str, argtypes: list, replaces: str):
+        self.name = name
+        self.source = f"pilosa_tpu_torch/csrc/{name}.cu"
+        self.replaces = replaces
+        self.launches = 0
+        self._argtypes = argtypes
+        self._fn = None
+        self._errstr = None
+        self._lock = threading.Lock()
+
+    def _bind(self):
+        with self._lock:
+            if self._fn is None:
+                build([self.name])
+                lib = ctypes.CDLL(_lib_path(self.name))
+                fn = getattr(lib, self.name)
+                fn.argtypes = self._argtypes
+                fn.restype = ctypes.c_int
+                err = lib.pt_error_string
+                err.argtypes = [ctypes.c_int]
+                err.restype = ctypes.c_char_p
+                self._errstr = err
+                self._fn = fn
+        return self._fn
+
+    def launch(self, device: torch.device, *args) -> None:
+        """Call the C entry on ``device``'s current stream; raise on a
+        non-zero cudaGetLastError()."""
+        fn = self._bind()
+        stream = torch.cuda.current_stream(device).cuda_stream
+        with torch.cuda.device(device):
+            err = fn(*args, ctypes.c_void_p(stream))
+        if err != 0:
+            msg = self._errstr(err).decode(errors="replace")
+            raise KernelLaunchError(f"{self.name}: CUDA error {err}: {msg}")
+        with self._lock:
+            self.launches += 1
+
+
+_VP, _LL = ctypes.c_void_p, ctypes.c_longlong
+
+TREE_EVAL = Kernel(
+    "tree_eval",
+    [_VP, _LL, _VP, _VP, _VP],
+    # _Planner.plan, run by count_async (:1656) and bitmap_device (:1640)
+    "pilosa_tpu/executor/compile.py:1334",
+)
+ROW_COUNTS = Kernel(
+    "row_counts",
+    [_VP, _LL, _LL, _VP, _VP, _LL, _VP, _VP],
+    # matrix_filter_counts; also ops/topn.py:29 candidate_counts
+    "pilosa_tpu/ops/bitwise.py:102",
+)
+STACK_DELTA = Kernel(
+    "stack_delta",
+    [_VP, _VP, _LL, _LL, _LL, _VP, _VP, _LL, _VP, _VP],
+    "pilosa_tpu/executor/compile.py:194",  # _apply_stack_delta
+)
+KERNELS = {k.name: k for k in (TREE_EVAL, ROW_COUNTS, STACK_DELTA)}

@@ -1,0 +1,544 @@
+"""Metrics: counters/gauges/timers with expvar-style JSON and Prometheus
+text exposition.
+
+Reference: stats.go (StatsClient interface with tags), stats/ adapters
+(statsd/expvar) and the /metrics Prometheus route. One in-process registry
+replaces the adapter zoo; both wire formats read from it.
+"""
+
+from __future__ import annotations
+
+import bisect
+import threading
+import time
+
+from pilosa_tpu_torch.utils import sanitize
+from collections import defaultdict
+
+
+def _log_buckets() -> tuple[float, ...]:
+    """Log-spaced latency boundaries, 1-2.5-5 per decade from 100 µs to
+    500 s — ~3 buckets/decade keeps quantile error within the decade
+    step while spanning sub-ms kernel dispatches through wedged-device
+    timeouts. Roughly the Prometheus client default, extended down."""
+    out = []
+    for exp in range(-4, 3):
+        for mant in (1.0, 2.5, 5.0):
+            out.append(mant * 10.0**exp)
+    return tuple(out)
+
+
+DEFAULT_BUCKETS = _log_buckets()
+
+
+def _count_buckets() -> tuple[float, ...]:
+    """Power-of-two boundaries for COUNT distributions (wave occupancy,
+    batch sizes): 1..4096 — small counts resolve exactly, large ones to
+    within a factor of two."""
+    return tuple(float(1 << i) for i in range(13))
+
+
+COUNT_BUCKETS = _count_buckets()
+
+
+# one-line HELP strings for the exposition format, keyed by family name
+# minus the ``pilosa_tpu_`` prefix; families not listed here get a
+# generic line (the metric⇄docs drift analyzer rule keeps the REAL
+# catalog in docs/observability.md complete — this dict only feeds the
+# human-readable scrape output)
+_METRIC_HELP = {
+    "http_requests": "requests per HTTP route",
+    "http_request_seconds": "per-route HTTP handler latency",
+    "query_seconds": "end-to-end /index/{i}/query latency",
+    "executor_call_seconds": "per-PQL-call dispatch time in the local executor",
+    "executor_readback_seconds": "the one device-to-host readback wave per request",
+    "fanout_rpc_seconds": "coordinator-to-peer query RPC latency per leg",
+    "fanout_batch_rpc_seconds": "coalesced multi-query fan-out RPC latency",
+    "internal_query_batch_seconds": "serve time of /internal/query/batch",
+    "queries_routed": "read calls per engine picked by the cost router",
+    "queries_served": "read legs this node executed",
+    "queries_gated": "queries arriving during the device-probe window",
+    "queries_deduped": "queries answered by single-flight dedup",
+    "queries_partial": "queries answered with partial results",
+    "queries_rejected": "requests shed by admission control",
+    "queries_per_wave": "occupancy of cross-query device waves",
+    "wave_flush_reason": "why each wave dispatched",
+    "legs_per_batch_rpc": "legs coalesced per multi-query fan-out RPC",
+    "legs_failed_over": "fan-out legs re-planned onto a surviving replica",
+    "rpc_retries": "idempotent RPC retry attempts",
+    "rpc_backpressure": "RPCs answered 429 by a peer's admission control",
+    "breaker_state": "per-peer circuit breaker state (0 closed, 1 open, 2 half-open)",
+    "connections_open": "open HTTP connections on the event front end",
+    "connections_accepted": "accepted HTTP connections",
+    "connections_aborted_midbody": "connections torn down mid-request-body",
+    "admission_queue_depth": "admission queue depth at arrival, per class",
+    "admission_wait_seconds": "time spent queued in admission, per class",
+    "eventloop_unhandled_exceptions": "exceptions nothing awaited (bugs)",
+    "compaction_pending": "queued plus in-flight background compactions",
+    "compactions_total": "completed background compactions",
+    "compactions_failed": "compactions aborted by a disk error",
+    "compactions_crashed": "compactions torn by an injected crash",
+    "stack_evictions_total": "device-cache evictions under the byte budget",
+    "rows_promoted": "rows promoted into tiered compressed residency",
+    "rows_demoted": "resident rows LRU-demoted back to host-only serving",
+    "residency_bytes": "device bytes held by tiered container stores",
+    "flightrec_retained_total": "queries retained by the flight recorder",
+    "profiler_samples_total": "stack samples taken by the continuous profiler",
+    "eventloop_lag_seconds": "scheduled-callback wakeup delay on the event loop",
+    "gil_wait_seconds": "cross-thread no-op wakeup overshoot (GIL-contention estimate)",
+    "worker_utilization": "sampled in-flight/limit fraction per admission class",
+    "lock_wait_seconds": "time blocked acquiring a contended hot lock, per family",
+    "lock_contended_total": "contended acquires per hot-lock family",
+    "resource_pressure": "used/limit fraction per resource-ledger subsystem",
+    "resource_bytes": "bytes used per resource-ledger subsystem",
+    "router_misroute_total": "settled queries whose measured cost exceeded another route's estimate",
+    "router_estimate_error_ratio": "measured over estimated cost for the chosen route",
+    "workload_observed_total": "settled public queries observed by the workload plane",
+    "workload_sampled_total": "queries recorded into the workload capture ring",
+    "workload_fingerprints_tracked": "distinct fingerprints held by the heavy-hitter sketch",
+    "workload_spill_segments": "workload capture spill segments on disk",
+    "slo_burn_rate": "error-budget burn rate per call type and window (1.0 = spending exactly the budget)",
+    "slo_budget_remaining": "fraction of the error budget left over the longest SLO window",
+}
+
+
+class Ewma:
+    """Exponentially weighted moving average — the calibration primitive
+    behind the query router's online crossover (executor/router.py): the
+    first observation seeds the value, later ones fold in with weight
+    ``alpha``.  Thread-safe the cheap way: ``update`` races lose an
+    observation at worst, never corrupt the float."""
+
+    __slots__ = ("alpha", "value")
+
+    def __init__(self, alpha: float = 0.3, value: float | None = None):
+        if not 0.0 < alpha <= 1.0:
+            raise ValueError(f"alpha must be in (0, 1], got {alpha}")
+        self.alpha = alpha
+        self.value = value
+
+    def update(self, x: float) -> float:
+        v = self.value
+        self.value = x if v is None else v + self.alpha * (x - v)
+        return self.value
+
+
+class Histogram:
+    """Log-bucketed latency histogram with percentile snapshots and
+    Prometheus ``_bucket``/``_sum``/``_count`` exposition (reference:
+    the statsd adapter's Histogram/Timing fed per-tag distributions;
+    here the in-process registry keeps the distribution itself so
+    p50/p95/p99 are readable without a statsd backend). Thread-safe:
+    ``observe`` takes a per-histogram lock, so concurrent HTTP handler
+    threads never lose increments."""
+
+    __slots__ = ("buckets", "counts", "count", "sum", "_lock")
+
+    def __init__(self, buckets: tuple[float, ...] | None = None):
+        self.buckets = tuple(buckets) if buckets is not None else DEFAULT_BUCKETS
+        # counts[i] observations ≤ buckets[i]; counts[-1] is the +Inf bucket
+        self.counts = [0] * (len(self.buckets) + 1)
+        self.count = 0
+        self.sum = 0.0
+        self._lock = sanitize.make_lock("Histogram._lock", loop_safe=True)
+
+    def observe(self, value: float) -> None:
+        i = bisect.bisect_left(self.buckets, value)
+        with self._lock:
+            self.counts[i] += 1
+            self.count += 1
+            self.sum += value
+
+    def percentile(self, q: float) -> float:
+        """Approximate q-quantile (q in [0, 1]) by linear interpolation
+        within the containing bucket — same estimator as PromQL's
+        histogram_quantile, so dashboards and snapshots agree. Returns
+        the largest finite boundary for observations in +Inf."""
+        with self._lock:
+            total = self.count
+            counts = list(self.counts)
+        if total == 0:
+            return 0.0
+        rank = q * total
+        cum = 0
+        for i, c in enumerate(counts):
+            if c == 0:
+                continue
+            if cum + c >= rank:
+                if i >= len(self.buckets):  # +Inf bucket
+                    return self.buckets[-1]
+                lo = self.buckets[i - 1] if i > 0 else 0.0
+                hi = self.buckets[i]
+                frac = (rank - cum) / c
+                return lo + (hi - lo) * frac
+            cum += c
+        return self.buckets[-1]
+
+    def totals(self) -> tuple[int, float]:
+        """(count, sum) under one lock acquisition — the exposition path
+        reads these per scrape and must not pay for percentiles."""
+        with self._lock:
+            return self.count, self.sum
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            count, total = self.count, self.sum
+        return {
+            "count": count,
+            "totalSeconds": total,
+            "p50": self.percentile(0.50),
+            "p95": self.percentile(0.95),
+            "p99": self.percentile(0.99),
+        }
+
+    def cumulative(self) -> list[tuple[float, int]]:
+        """[(le, cumulative_count), ...] ending at (inf, count) — the
+        Prometheus exposition shape."""
+        with self._lock:
+            counts = list(self.counts)
+        out = []
+        cum = 0
+        for le, c in zip(self.buckets, counts):
+            cum += c
+            out.append((le, cum))
+        out.append((float("inf"), cum + counts[-1]))
+        return out
+
+
+class StatsClient:
+    def __init__(self, prefix: str = "pilosa_tpu"):
+        self.prefix = prefix
+        self._lock = sanitize.make_lock("StatsClient._lock", loop_safe=True)
+        self._counters: dict[tuple, float] = defaultdict(float)
+        self._gauges: dict[tuple, float] = {}
+        self._timings: dict[tuple, Histogram] = {}
+        # non-latency value distributions (queries_per_wave): same
+        # Histogram machinery, count-shaped buckets, no _seconds suffix
+        self._dists: dict[tuple, Histogram] = {}
+
+    @staticmethod
+    def _key(name: str, tags: dict | None) -> tuple:
+        return (name, tuple(sorted((tags or {}).items())))
+
+    def count(self, name: str, value: float = 1, tags: dict | None = None) -> None:
+        with self._lock:
+            self._counters[self._key(name, tags)] += value
+
+    def gauge(self, name: str, value: float, tags: dict | None = None) -> None:
+        with self._lock:
+            self._gauges[self._key(name, tags)] = value
+
+    def timing(self, name: str, seconds: float, tags: dict | None = None) -> None:
+        key = self._key(name, tags)
+        with self._lock:
+            hist = self._timings.get(key)
+            if hist is None:
+                hist = self._timings[key] = Histogram()
+        hist.observe(seconds)
+
+    def observe(
+        self,
+        name: str,
+        value: float,
+        tags: dict | None = None,
+        buckets: tuple[float, ...] | None = None,
+    ) -> None:
+        """Record into a VALUE distribution (e.g. ``queries_per_wave``):
+        a real histogram like timing(), but with count-shaped buckets
+        and no seconds unit.  ``buckets`` overrides the boundary set at
+        series creation (e.g. the router audit's error-RATIO
+        distribution needs sub-1.0 resolution the power-of-two count
+        buckets can't give); later calls reuse whatever the series was
+        created with."""
+        key = self._key(name, tags)
+        with self._lock:
+            hist = self._dists.get(key)
+            if hist is None:
+                hist = self._dists[key] = Histogram(buckets or COUNT_BUCKETS)
+        hist.observe(value)
+
+    def histogram(self, name: str, tags: dict | None = None) -> Histogram | None:
+        """The live Histogram behind a timer series (tests, bench, and
+        the profile surface read percentiles through this)."""
+        with self._lock:
+            return self._timings.get(self._key(name, tags))
+
+    def distribution(self, name: str, tags: dict | None = None) -> Histogram | None:
+        """The live Histogram behind a value-distribution series
+        (bench reads queries_per_wave percentiles through this)."""
+        with self._lock:
+            return self._dists.get(self._key(name, tags))
+
+    def close(self) -> None:
+        """Release emission resources (no-op for registry-only clients)."""
+
+    def timer(self, name: str, tags: dict | None = None):
+        """Context manager recording elapsed seconds."""
+        client = self
+
+        class _Timer:
+            def __enter__(self):
+                self.t0 = time.perf_counter()
+                return self
+
+            def __exit__(self, *exc):
+                client.timing(name, time.perf_counter() - self.t0, tags)
+                return False
+
+        return _Timer()
+
+    # ------------------------------------------------------------- output
+    def expvar(self) -> dict:
+        """JSON snapshot (reference: /debug/vars)."""
+        with self._lock:
+            fmt = lambda k: k[0] + (
+                "{" + ",".join(f"{t}={v}" for t, v in k[1]) + "}" if k[1] else ""
+            )
+            counters = dict(self._counters)
+            gauges = dict(self._gauges)
+            timings = dict(self._timings)
+            dists = dict(self._dists)
+        out = {
+            "counters": {fmt(k): v for k, v in counters.items()},
+            "gauges": {fmt(k): v for k, v in gauges.items()},
+            "timings": {fmt(k): h.snapshot() for k, h in timings.items()},
+        }
+        if dists:
+            out["distributions"] = {
+                fmt(k): h.snapshot() for k, h in dists.items()
+            }
+        return out
+
+    def _timing_family(self, name: str) -> str:
+        """Timer series name → Prometheus metric family: the _seconds
+        unit suffix is appended once (call sites already named the hot
+        timers *_seconds)."""
+        base = f"{self.prefix}_{name}"
+        return base if name.endswith("_seconds") else base + "_seconds"
+
+    @staticmethod
+    def _escape_label(value) -> str:
+        """Exposition-format label-value escaping: backslash, double
+        quote, and newline must be escaped or a value containing any of
+        them corrupts every scrape after it."""
+        return (
+            str(value)
+            .replace("\\", "\\\\")
+            .replace('"', '\\"')
+            .replace("\n", "\\n")
+        )
+
+    def _help_text(self, family: str, kind: str) -> str:
+        base = family[len(self.prefix) + 1 :] if family.startswith(
+            self.prefix + "_"
+        ) else family
+        return _METRIC_HELP.get(base, f"pilosa-tpu {kind} {base}")
+
+    def prometheus(self) -> str:
+        """Prometheus text exposition (reference: /metrics), conformant
+        with the exposition format: one ``# HELP`` + ``# TYPE`` pair per
+        metric family (not per series), label values escaped.  Timers
+        expose as real histograms — cumulative ``_bucket{le=...}`` series
+        plus ``_sum``/``_count`` — so p95/p99 are PromQL-derivable."""
+        lines = []
+        with self._lock:
+            counters = sorted(self._counters.items())
+            gauges = sorted(self._gauges.items())
+            timings = sorted(self._timings.items())
+            dists = sorted(self._dists.items())
+
+        def labels(k, extra: str = ""):
+            inner = ",".join(
+                f'{t}="{self._escape_label(v)}"' for t, v in k[1]
+            )
+            if extra:
+                inner = f"{inner},{extra}" if inner else extra
+            return "{" + inner + "}" if inner else ""
+
+        seen_families = set()
+
+        def header(family: str, kind: str) -> None:
+            if family in seen_families:
+                return
+            seen_families.add(family)
+            lines.append(f"# HELP {family} {self._help_text(family, kind)}")
+            lines.append(f"# TYPE {family} {kind}")
+
+        for k, v in counters:
+            family = f"{self.prefix}_{k[0]}"
+            header(family, "counter")
+            lines.append(f"{family}{labels(k)} {v}")
+        for k, v in gauges:
+            family = f"{self.prefix}_{k[0]}"
+            header(family, "gauge")
+            lines.append(f"{family}{labels(k)} {v}")
+        # distributions expose under their bare name (no _seconds unit)
+        series = [(self._timing_family(k[0]), k, h) for k, h in timings] + [
+            (f"{self.prefix}_{k[0]}", k, h) for k, h in dists
+        ]
+        for family, k, hist in series:
+            header(family, "histogram")
+            for le, cum in hist.cumulative():
+                le_str = "+Inf" if le == float("inf") else f"{le:g}"
+                le_label = labels(k, f'le="{le_str}"')
+                lines.append(f"{family}_bucket{le_label} {cum}")
+            count, total = hist.totals()
+            lines.append(f"{family}_sum{labels(k)} {total}")
+            lines.append(f"{family}_count{labels(k)} {count}")
+        return "\n".join(lines) + "\n"
+
+
+class StatsdStats(StatsClient):
+    """StatsClient that ALSO emits each update as a statsd datagram
+    (reference: stats/statsd adapter). Datagram format is classic statsd
+    with dogstatsd-style ``|#tag:value`` tags; UDP, fire-and-forget —
+    emission failures never affect the serving path. The in-process
+    registry still accumulates, so /metrics and /debug/vars keep
+    working alongside."""
+
+    def __init__(self, host: str, port: int, prefix: str = "pilosa_tpu"):
+        super().__init__(prefix=prefix)
+        import socket
+
+        self._sock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        # resolve ONCE here — sendto with a hostname would do a
+        # synchronous DNS lookup per metric, in the request path
+        self._sock.connect((host, port))
+
+    @staticmethod
+    def _num(value: float) -> str:
+        # plain decimal only: %g's scientific notation for >=1e6 is
+        # dropped by strict statsd parsers
+        if float(value).is_integer():
+            return str(int(value))
+        return f"{value:.6f}".rstrip("0").rstrip(".")
+
+    def _emit(self, name: str, value: str, kind: str, tags: dict | None) -> None:
+        msg = f"{self.prefix}.{name}:{value}|{kind}"
+        if tags:
+            msg += "|#" + ",".join(f"{t}:{v}" for t, v in sorted(tags.items()))
+        try:
+            self._sock.send(msg.encode())
+        except OSError:
+            pass
+
+    def count(self, name: str, value: float = 1, tags: dict | None = None) -> None:
+        super().count(name, value, tags)
+        self._emit(name, self._num(value), "c", tags)
+
+    def gauge(self, name: str, value: float, tags: dict | None = None) -> None:
+        super().gauge(name, value, tags)
+        self._emit(name, self._num(value), "g", tags)
+
+    def timing(self, name: str, seconds: float, tags: dict | None = None) -> None:
+        super().timing(name, seconds, tags)
+        self._emit(name, self._num(seconds * 1e3), "ms", tags)
+
+    def observe(
+        self,
+        name: str,
+        value: float,
+        tags: dict | None = None,
+        buckets: tuple[float, ...] | None = None,
+    ) -> None:
+        # value distributions (queries_per_wave, legs_per_batch_rpc)
+        # emit as dogstatsd histograms — "every update" includes these
+        super().observe(name, value, tags, buckets)
+        self._emit(name, self._num(value), "h", tags)
+
+    def close(self) -> None:
+        self._sock.close()
+
+
+def make_stats(service: str, statsd_host: str = "") -> StatsClient:
+    """Factory from config: ``metric_service`` = prometheus (registry,
+    read by /metrics and /debug/vars), statsd (registry + UDP emission
+    to ``statsd_host`` as host:port), or none. Misconfiguration raises —
+    a silently inert metrics setup is only discovered when dashboards
+    stay empty."""
+    if service == "statsd":
+        if not statsd_host:
+            raise ValueError(
+                "metric_service = 'statsd' requires statsd_host (host:port)"
+            )
+        host, sep, port = statsd_host.rpartition(":")
+        if not sep:
+            host, port = statsd_host, "8125"
+        try:
+            return StatsdStats(host or "127.0.0.1", int(port))
+        except (ValueError, OSError) as e:
+            raise ValueError(f"bad statsd_host {statsd_host!r}: {e}") from e
+    if service in ("", "none", "nop"):
+        return NopStats()
+    if service != "prometheus":
+        raise ValueError(
+            f"unknown metric_service {service!r}; use prometheus, statsd, or none"
+        )
+    return StatsClient()
+
+
+class NopStats(StatsClient):
+    def count(self, *a, **k):
+        pass
+
+    def gauge(self, *a, **k):
+        pass
+
+    def timing(self, *a, **k):
+        pass
+
+    def observe(self, *a, **k):
+        pass
+
+
+class IngestMeter:
+    """Rolling ingest-throughput accounting (docs/ingest.md): lifetime
+    totals plus a sliding-window rate, read by the /debug/resources
+    "ingest" row so an operator can see sustained Mbit/s without
+    scraping counters twice and differencing. Window math is monotonic
+    throughout."""
+
+    WINDOW_S = 60.0
+
+    def __init__(self) -> None:
+        self._lock = sanitize.make_lock("IngestMeter._lock")
+        self.bytes_total = 0
+        self.bits_total = 0
+        self.posts_total = 0
+        self._events: list[tuple[float, int, int]] = []
+
+    def record(self, nbytes: int, bits: int = 0) -> None:
+        now = time.monotonic()
+        with self._lock:
+            self.bytes_total += nbytes
+            self.bits_total += bits
+            self.posts_total += 1
+            self._events.append((now, nbytes, bits))
+            self._trim(now)
+
+    def _trim(self, now: float) -> None:
+        cut = now - self.WINDOW_S
+        i = bisect.bisect_right(self._events, (cut, 1 << 62, 1 << 62))
+        if i:
+            del self._events[:i]
+
+    def snapshot(self) -> dict:
+        now = time.monotonic()
+        with self._lock:
+            self._trim(now)
+            if self._events:
+                span = max(now - self._events[0][0], 1e-9)
+                wb = sum(e[1] for e in self._events)
+                wbits = sum(e[2] for e in self._events)
+            else:
+                span, wb, wbits = 0.0, 0, 0
+            return {
+                "bytesTotal": self.bytes_total,
+                "bitsTotal": self.bits_total,
+                "postsTotal": self.posts_total,
+                "windowSeconds": round(min(span, self.WINDOW_S), 3),
+                "recentBytesPerS": round(wb / span, 1) if span else 0.0,
+                "recentMbitSetPerS": (
+                    round(wbits / span / 1e6, 4) if span else 0.0
+                ),
+            }

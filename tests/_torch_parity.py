@@ -1,0 +1,53 @@
+"""One seeded data set, written into a holder of either package.
+
+The port's tests hold pilosa_tpu_torch against pilosa_tpu on the same
+bits: ``fill(core, holder)`` takes a package's ``core`` module and writes
+the identical data through that package's own Field API.
+"""
+
+from datetime import datetime, timedelta
+
+import numpy as np
+
+N_SHARDS = 3
+
+
+def fill(core, holder, seed: int = 7):
+    """Index "i" with existence tracking and fields:
+
+    f   set, rows 0-5 random; row 5 is all ones across shard 0 (all-ones
+        words) and row 4 holds only column 31 of each word in shard 1
+        (words with only the high bit set)
+    g   set, rows 0-2 random
+    t   time, quantum YMD, rows 0-2 over 2020-2021
+    v   int in [-1000, 1000]
+    """
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+
+    rng = np.random.default_rng(seed)
+    idx = holder.create_index("i")
+    n_cols = N_SHARDS * SHARD_WIDTH
+    f = idx.create_field("f")
+    cols = rng.integers(0, n_cols, 4000).astype(np.uint64)
+    rows = rng.integers(0, 5, 4000).astype(np.uint64)
+    full = np.arange(SHARD_WIDTH, dtype=np.uint64)
+    high = np.arange(SHARD_WIDTH + 31, 2 * SHARD_WIDTH, 32, dtype=np.uint64)
+    f.import_bulk(
+        np.concatenate([rows, np.full(full.size, 5, np.uint64), np.full(high.size, 4, np.uint64)]),
+        np.concatenate([cols, full, high]),
+    )
+    g = idx.create_field("g")
+    gcols = rng.integers(0, n_cols, 1500).astype(np.uint64)
+    g.import_bulk(rng.integers(0, 3, 1500).astype(np.uint64), gcols)
+    t = idx.create_field("t", core.FieldOptions(field_type="time", time_quantum="YMD"))
+    tcols = rng.integers(0, n_cols, 600).astype(np.uint64)
+    days = rng.integers(0, 700, 600)
+    stamps = [datetime(2020, 1, 1) + timedelta(days=int(d), hours=5) for d in days]
+    t.import_bulk(rng.integers(0, 3, 600).astype(np.uint64), tcols, timestamps=stamps)
+    v = idx.create_field(
+        "v", core.FieldOptions(field_type="int", min=-1000, max=1000, has_range=True)
+    )
+    vcols = rng.choice(n_cols, 500, replace=False).astype(np.uint64)
+    v.import_values(vcols, rng.integers(-1000, 1001, 500).astype(np.int64))
+    idx.mark_columns_exist(np.concatenate([cols, full, high, gcols, tcols, vcols]))
+    return idx

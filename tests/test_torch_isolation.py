@@ -1,0 +1,76 @@
+"""pilosa_tpu_torch stands alone: it imports neither JAX nor pilosa_tpu.
+
+The runtime check runs in a subprocess, because this test process
+already imported jax through conftest.
+"""
+
+import os
+import re
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_SERVE_ONE = """
+import sys
+import numpy as np
+from pilosa_tpu_torch.core import Holder
+from pilosa_tpu_torch.server import API
+
+api = API(Holder(None), device="cpu", route_mode="device")
+api.create_index("i")
+api.create_field("i", "f")
+api.import_bits("i", "f", {"rowIDs": [1, 1, 2], "columnIDs": [3, 70000, 3]})
+assert api.query("i", "Count(Intersect(Row(f=1), Row(f=2)))") == {"results": [1]}
+bad = sorted(m for m in sys.modules if m in ("jax", "jaxlib", "pilosa_tpu")
+             or m.startswith(("jax.", "jaxlib.", "pilosa_tpu.")))
+print("LOADED", bad)
+"""
+
+
+def test_serving_a_query_loads_no_jax_and_no_pilosa_tpu():
+    env = dict(os.environ, PILOSA_TPU_SHARD_WIDTH_EXP="16")
+    out = subprocess.run(
+        [sys.executable, "-c", _SERVE_ONE],
+        cwd=REPO,
+        env=env,
+        capture_output=True,
+        text=True,
+        timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout, out.stdout
+
+
+_IMPORT = re.compile(r"^\s*(import|from)\s+(jax|pilosa_tpu)(\.|\s|$)")
+
+
+def test_no_source_line_imports_jax_or_pilosa_tpu():
+    sources = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _dirs, files in os.walk(os.path.join(REPO, "pilosa_tpu_torch")):
+        sources += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    offenders = []
+    for path in sources:
+        with open(path) as fh:
+            for n, line in enumerate(fh, 1):
+                if _IMPORT.match(line):
+                    offenders.append(f"{os.path.relpath(path, REPO)}:{n}: {line.strip()}")
+    assert len(sources) > 30
+    assert offenders == []
+
+
+def test_chip_smoke_rehearses_on_the_cpu(capsys):
+    """chip_smoke.py's steps on the plain versions at a tiny size: the
+    same data recipe, queries, numpy checks, write phase and kernel
+    comparisons, without the card lines or the final ok line."""
+    import json
+
+    sys.path.insert(0, REPO)
+    import chip_smoke
+
+    assert chip_smoke.main(device="cpu", n_shards=64) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    kernels = json.loads(lines[-2])["kernels"]
+    assert [k["name"] for k in kernels] == ["tree_eval", "row_counts", "stack_delta"]
+    assert all(k["max_abs_err"] == 0 for k in kernels)
+    assert not any(line.startswith('{"ok"') for line in lines)
