@@ -1,12 +1,12 @@
-"""Drive pilosa_tpu_torch's main path on one CUDA card and check it.
+"""Drive pilosa_tpu_torch's paths on one CUDA card and check them.
 
     python3 chip_smoke.py
 
 Run from the root of a checkout. In order:
 
-1. build the three kernels from ``pilosa_tpu_torch/csrc`` with nvcc for
-   sm_90a, one nvcc process each, all started together;
-2. two paths, each with every kernel's launch count set to 0 just
+1. build the kernels from ``pilosa_tpu_torch/csrc`` with nvcc for
+   sm_90a, one nvcc process per source, all started together;
+2. three paths, each with every kernel's launch count set to 0 just
    before it and read just after, and printed on a line of its own:
    - the main path: ``API(holder, device="cuda", route_mode="device")``
      over 10,240 shards × 8 rows (10.7 B columns; bench.py's default
@@ -16,13 +16,21 @@ Run from the root of a checkout. In order:
      Options shard subset through ``API.query``, each answer checked
      against numpy over the same blocks; then a Set into one shard and
      Counts that must move by the write and ride the delta scatter on the
-     10 GiB stacks. Every kernel must launch here;
+     10 GiB stacks. K1, K2 and K3 must launch here;
    - the write phase, on a small holder built with ``API.import_roaring``
      and ``API.import_bits``: Set, then Count, which must move and ride
      the delta scatter;
-3. each kernel against its plain torch version on the card at the main
+   - the taxi path, on a holder shaped after Pilosa's NYC-taxi demo
+     (1,024 shards × 2^20 = 1.07 B rides; cab_type, passenger_count and
+     an int total_amount of depth 20; 16 synthetic blocks cycled over
+     the shards): BSI conditions, Sum, Min, Max and GroupBy (fused, with
+     filter= and limit=, and aggregate=Sum) through ``API.query``, each
+     answer checked against numpy. K1, K4, K5 and K6 must launch here;
+3. each kernel against its plain torch version on the card at its
    path's shapes (all-ones and bit-31 words, rows -1 and >= R, _OOB
-   delta entries, an empty Union()), exact equality, and its time beside
+   delta entries, an empty Union(); BSI constants 0, negative and
+   |c| >= 2^D, lo > hi, a stack with fewer planes than 2 + D, a shard
+   with no value; group padding), exact equality, and its time beside
    its bound and the plain version's;
 4. print the card (nvidia-smi name and power limit), the launch counts,
    the router's calibration after the main path, the times, the kernel
@@ -33,6 +41,7 @@ Any failure raises, and the script then exits non-zero without the last
 line. It needs one CUDA card; without one it exits 1 at once.
 """
 
+import gc
 import json
 import os
 import subprocess
@@ -45,6 +54,11 @@ N_SHARDS = 10240
 R_PAD = 8
 G = 64  # distinct random blocks cycled over the shards (bench.py:118-137)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM memory rate (NVIDIA data sheet)
+# the taxi path: Pilosa's NYC-taxi demo (~1.1 B rides) as 1,024 shards of
+# 2^20 columns, one ride per column
+T_SHARDS = 1024
+T_G = 16  # distinct shard blocks cycled over the shards
+T_MIN, T_MAX = -100_000, 1_000_000  # total_amount in cents: depth 20
 
 
 def log(*a):
@@ -92,9 +106,350 @@ def bound_ms(nbytes: int) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
-def main(device: str = "cuda", n_shards: int = N_SHARDS) -> int:
-    """``device="cpu"`` with a small ``n_shards`` rehearses the same
-    steps on the plain versions, without the card lines or the ok line."""
+def kernel_entry(k, launches: dict, err: int, t: dict, path: str) -> dict:
+    """One kernel's entry of the JSON line: its launches on ``path``, the
+    path it is measured for, and its counts on every path beside them."""
+    return {
+        "name": k.name,
+        "route": "cuda",
+        "source": k.source,
+        "replaces": k.replaces,
+        "launches": launches[path],
+        "max_abs_err": err,
+        "ms": t["ms"],
+        "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": t["library_ms"],
+        "path": path,
+        "launches_by_path": launches,
+    }
+
+
+def pack(bits: np.ndarray) -> np.ndarray:
+    """bool[..., n] → uint32[..., n / 32], column c at bit c % 32 of word
+    c // 32 (the fragments' packed layout)."""
+    return np.packbits(bits, axis=-1, bitorder="little").view(np.uint32)
+
+
+def taxi_blocks(rng, width: int) -> list[dict]:
+    """T_G blocks of ``width`` rides each: cab_type (3 rows), passenger
+    count (0-9, mostly 1) and total_amount in cents (mostly 500-6,000,
+    8 % up to 100,000, 0.1 % refunds down to -100,000, 0.5 % without a
+    fare). Block 3 holds the field's max (1,000,000), block 5 its min
+    (-100,000); every block holds 2,000, 5,000, 10,000 and 0."""
+    blocks = []
+    for g in range(T_G):
+        cab = rng.choice(3, width, p=[0.62, 0.30, 0.08])
+        pc = rng.choice(10, width, p=[0.02, 0.62, 0.14, 0.05, 0.04, 0.05, 0.04, 0.02, 0.01, 0.01])
+        amt = rng.integers(500, 6001, width)
+        tail = rng.random(width) < 0.08
+        amt[tail] = rng.integers(6001, 100_001, int(tail.sum()))
+        refund = rng.random(width) < 0.001
+        amt[refund] = -rng.integers(1, 100_001, int(refund.sum()))
+        has = rng.random(width) >= 0.005
+        amt[:6] = [T_MAX if g == 3 else T_MAX - 1, T_MIN if g == 5 else T_MIN + 1, 2000, 5000, 10_000, 0]
+        has[:6] = True
+        blocks.append({"cab": cab, "pc": pc, "amt": amt.astype(np.int64), "has": has})
+    return blocks
+
+
+def taxi_path(torch, device: str, n_shards: int) -> list:
+    """The NYC-taxi aggregates on their own holder: BSI conditions, Sum,
+    Min, Max and GroupBy through ``API.query``, each answer held against
+    numpy over the blocks; then K1's CMP, K4, K5 and K6 against their
+    plain versions at this path's shapes. Returns the kernel entries of
+    K4-K6 as {name: (max |kernel - plain|, times)}, and the path's
+    launch counts."""
+    from pilosa_tpu_torch import ops
+    from pilosa_tpu_torch.core import VIEW_BSI, FieldOptions, Holder
+    from pilosa_tpu_torch.executor.executor import _Pending
+    from pilosa_tpu_torch.ops import _cuda, bitwise, bsi, groupby
+    from pilosa_tpu_torch.server import API
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH, WORDS_PER_SHARD
+
+    on_card = device == "cuda"
+    W = WORDS_PER_SHARD
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    # ------------------------------------------------------------ data
+    t0 = time.perf_counter()
+    blocks = taxi_blocks(np.random.default_rng(13), SHARD_WIDTH)
+    depth = max(abs(T_MIN).bit_length(), abs(T_MAX).bit_length())  # 20
+    mats = []
+    for b in blocks:
+        cab = np.zeros((8, W), np.uint32)
+        cab[:3] = pack(b["cab"][None, :] == np.arange(3)[:, None])
+        pc = np.zeros((16, W), np.uint32)
+        pc[:10] = pack(b["pc"][None, :] == np.arange(10)[:, None])
+        ex = np.zeros((8, W), np.uint32)
+        ex[0] = 0xFFFFFFFF  # every column is a ride
+        bits = np.empty((2 + depth, SHARD_WIDTH), dtype=bool)
+        bits[0] = b["has"]
+        bits[1] = b["has"] & (b["amt"] < 0)
+        mag = np.abs(b["amt"])
+        for k in range(depth):
+            bits[2 + k] = b["has"] & (((mag >> k) & 1) == 1)
+        # a fragment pads its 22 BSI rows to 32, as host_matrix does
+        bs = np.zeros((32, W), np.uint32)
+        bs[: 2 + depth] = pack(bits)
+        mats.append({"cab": cab, "pc": pc, "ex": ex, "bsi": bs})
+    h = Holder(None)
+    idx = h.create_index("taxi")
+    cab_f = idx.create_field("cab_type")
+    pc_f = idx.create_field("passenger_count")
+    amt_f = idx.create_field("total_amount", FieldOptions(field_type="int", min=T_MIN, max=T_MAX))
+    if amt_f.bit_depth != depth:
+        raise AssertionError(f"total_amount depth {amt_f.bit_depth} != {depth}")
+    views = [
+        (cab_f.create_view_if_not_exists("standard"), "cab", True),
+        (pc_f.create_view_if_not_exists("standard"), "pc", True),
+        (amt_f.create_view_if_not_exists(VIEW_BSI), "bsi", False),
+        (idx.existence_field().create_view_if_not_exists("standard"), "ex", False),
+    ]
+    for s in range(n_shards):
+        for view, key, real in views:
+            frag = view.create_fragment_if_not_exists(s)
+            m = mats[s % T_G][key]
+            if real and s == n_shards - 1:
+                # Rows() reads row ids from roaring storage: the last
+                # shard holds its set rows as true bits
+                r, c = np.nonzero(np.unpackbits(m.view(np.uint8), axis=1, bitorder="little"))
+                frag.union_positions(r.astype(np.uint64) * SHARD_WIDTH + c.astype(np.uint64))
+                continue
+            frag._np_matrix = m
+            frag._all_dirty = False
+    shards = list(range(n_shards))
+    times = {"taxi_data_s": time.perf_counter() - t0}
+
+    # numpy answers over the blocks, each block counted once per shard
+    mult = np.bincount(np.arange(n_shards) % T_G, minlength=T_G)
+
+    def tot(fn) -> int:
+        return sum(int(mult[g]) * int(fn(b)) for g, b in enumerate(blocks) if mult[g])
+
+    def extreme(sel, want_max: bool) -> dict:
+        vals = [b["amt"][sel(b) & b["has"]] for g, b in enumerate(blocks) if mult[g]]
+        best = (max if want_max else min)(int(v.max() if want_max else v.min()) for v in vals if v.size)
+        return {"value": best, "count": tot(lambda b: ((b["amt"] == best) & sel(b) & b["has"]).sum())}
+
+    def group_by(sel=None, limit=None) -> list:
+        counts = np.zeros(30, dtype=np.int64)
+        for g, b in enumerate(blocks):
+            key = b["cab"] * 10 + b["pc"]
+            counts += int(mult[g]) * np.bincount(key if sel is None else key[sel(b)], minlength=30)
+        out = [
+            {"group": [{"field": "cab_type", "rowID": c // 10}, {"field": "passenger_count", "rowID": c % 10}],
+             "count": int(counts[c])}
+            for c in np.flatnonzero(counts).tolist()
+        ]
+        return out[:limit] if limit else out
+
+    has = lambda b: b["has"]  # noqa: E731
+    gb_agg = [
+        {"group": [{"field": "passenger_count", "rowID": p}],
+         "count": tot(lambda b, p=p: (b["pc"] == p).sum()),
+         "sum": tot(lambda b, p=p: b["amt"][(b["pc"] == p) & b["has"]].sum())}
+        for p in range(10)
+    ]
+    gb_q = "GroupBy(Rows(cab_type), Rows(passenger_count))"
+    agg_q = "GroupBy(Rows(passenger_count), aggregate=Sum(field=total_amount))"
+    checks = [
+        ("Sum(field=total_amount)", {"value": tot(lambda b: b["amt"][b["has"]].sum()), "count": tot(lambda b: b["has"].sum())}),
+        ("Sum(Row(cab_type=1), field=total_amount)", {
+            "value": tot(lambda b: b["amt"][(b["cab"] == 1) & b["has"]].sum()),
+            "count": tot(lambda b: ((b["cab"] == 1) & b["has"]).sum())}),
+        ("Min(field=total_amount)", extreme(has, False)),
+        ("Max(Row(passenger_count=2), field=total_amount)", extreme(lambda b: b["pc"] == 2, True)),
+        ("Count(Row(total_amount > 5000))", tot(lambda b: ((b["amt"] > 5000) & b["has"]).sum())),
+        ("Count(Row(total_amount < 0))", tot(lambda b: ((b["amt"] < 0) & b["has"]).sum())),
+        ("Count(Intersect(Row(cab_type=0), Row(-500 <= total_amount <= 2000)))",
+         tot(lambda b: ((b["cab"] == 0) & (b["amt"] >= -500) & (b["amt"] <= 2000) & b["has"]).sum())),
+        ("Count(Row(total_amount != null))", tot(lambda b: b["has"].sum())),
+        ("Count(Row(total_amount == 2000000))", 0),
+        (gb_q, group_by()),
+        (gb_q[:-1] + ", filter=Row(total_amount > 10000))", group_by(lambda b: (b["amt"] > 10_000) & b["has"])),
+        (gb_q[:-1] + ", limit=5)", group_by(limit=5)),
+        (agg_q, gb_agg),
+    ]
+    times["taxi_expect_s"] = time.perf_counter() - t0 - times["taxi_data_s"]
+
+    # ------------------------------------------------------- taxi path
+    for k in _cuda.KERNELS.values():
+        k.reset()
+    api = API(h, device=device, route_mode="device")
+    comp = api.executor.compiler
+    t0 = time.perf_counter()
+    bm = comp.stacks.matrix(idx, amt_f, VIEW_BSI, shards)[0]
+    cabm = comp.stacks.matrix(idx, cab_f, "standard", shards)[0]
+    pcm = comp.stacks.matrix(idx, pc_f, "standard", shards)[0]
+    comp.stacks.matrix(idx, idx.existence_field(), "standard", shards)
+    sync()
+    times["taxi_stack_upload_s"] = time.perf_counter() - t0
+    for pql, want in checks:
+        got = api.query("taxi", pql)["results"][0]
+        if got != want:
+            raise AssertionError(f"{pql}: {json.dumps(got)[:300]} != numpy {json.dumps(want)[:300]}")
+        log(f"ok  {pql[:70]}  -> {json.dumps(got)[:80]}")
+    # the fused GroupBy is one deferred [G, K] readback
+    fused = api.executor.dispatch("taxi", gb_q)
+    if not isinstance(fused[0], _Pending) or list(fused[0].arrays[0].shape) != [4, 16]:
+        raise AssertionError(f"{gb_q} did not take the fused path: {fused}")
+    api.executor.settle(fused)
+    if fused[0].value != checks[9][1]:
+        raise AssertionError(f"{gb_q} deferred: {fused[0].value} != numpy")
+    for key, pql in (
+        ("sum", "Sum(field=total_amount)"),
+        ("min", "Min(field=total_amount)"),
+        ("count_condition", "Count(Row(total_amount > 5000))"),
+        ("groupby_fused", gb_q),
+        ("groupby_sum", agg_q),
+    ):
+        lat = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            api.query("taxi", pql)
+            lat.append(time.perf_counter() - t0)
+        times[f"taxi_{key}_p50_ms"] = float(np.median(lat)) * 1e3
+    sync()
+    launches = {name: k.launches for name, k in _cuda.KERNELS.items()}
+    log("launches on the taxi path:", json.dumps(launches))
+    log("launches on the taxi path by mode:", json.dumps({n: k.modes for n, k in _cuda.KERNELS.items() if k.modes}))
+    path_kernels = ("tree_eval", "bsi_sum", "bsi_minmax", "gb_counts", "gb_masks")
+    if on_card and any(launches[n] <= 0 for n in path_kernels):
+        raise AssertionError(f"a kernel of the taxi path never launched: {launches}")
+
+    # ------------------------------------------- kernels vs plain versions
+    dev = api.executor.device
+    D = depth  # noqa: N806
+    # an edge BSI stack of 12 planes (the other 10 of 2 + D read zero):
+    # all-ones and bit-31 words, shard 0 without any value
+    edge = torch.full((12, n_shards, W), -1, dtype=torch.int32, device=dev)
+    edge[0, 0].zero_()
+    edge[1].fill_(-(2**31))
+    for p in range(3, 12, 3):
+        edge[p].fill_(-(2**31))
+    edge[7] = torch.randint(-(2**31), 2**31 - 1, (n_shards, W), dtype=torch.int32, device=dev)
+    errs = {"tree_eval": 0, "bsi_sum": 0, "bsi_minmax": 0, "gb_counts": 0, "gb_masks": 0}
+    C, L, A = bitwise.OP_CMP, bitwise.OP_LOAD, bitwise.OP_AND
+    top = (1 << D) - 1
+    cmp_cases = []
+    for st in (bm, edge):
+        for op, c in ((">", 5000), ("<", 0), ("==", 0), (">=", -500), ("<=", 2000), ("!=", 2000),
+                      ("==", 2_000_000), ("<", -2_000_000), (">", top), ("<=", -top), ("==", -99_999)):
+            cmp_cases.append(([st], [], [(C, 0)], [(0, D, op, c)]))
+        # between with lo > hi selects nothing
+        cmp_cases.append(([st], [], [(C, 0), (C, 1), (A, 0)], [(0, D, ">=", 2000), (0, D, "<=", -500)]))
+    cmp_cases.append(([cabm, bm], [(0, 0)], [(L, 0), (C, 0), (A, 0)], [(1, D, ">=", -500)]))
+    for stacks_, leaves, prog, conds in cmp_cases:
+        for count in (True, False):
+            got = ops.tree_eval(stacks_, leaves, prog, n_shards, count=count, device=dev, conds=conds)
+            want = bitwise.tree_eval_plain(stacks_, leaves, prog, n_shards, count, dev, conds)
+            errs["tree_eval"] = max(errs["tree_eval"], max_abs_err(torch, got, want))
+            del got, want
+    ones = comp.ones(n_shards)
+    i32 = lambda v: torch.tensor(v, dtype=torch.int32, device=dev)  # noqa: E731
+    rows16 = i32(list(range(10)) + [-1] * 6)
+    rows_c = i32([0, 1, 2, -1])
+    # the aggregate GroupBy's 16 group masks (6 of them padding) and the
+    # fused GroupBy's 4 level-0 masks (1 padding)
+    masks16 = ops.gb_masks(ones[None], pcm, i32([0] * 16), rows16)
+    masks4 = ops.gb_masks(ones[None], cabm, i32([0] * 4), rows_c)
+    # 20 masks and depth 30 take the grouped kernel's second group and
+    # plane passes
+    masks20 = torch.cat([masks16, masks4])
+    for st, d, m in ((bm, D, None), (bm, D, masks16), (bm, 5, None), (edge, D, None), (edge, D, masks4),
+                     (bm, D, masks20), (bm, 30, masks4), (bm, 40, None)):
+        got = ops.bsi_sum(st, d, m)
+        want = bsi.bsi_sum_plain(st, d, m)
+        errs["bsi_sum"] = max([errs["bsi_sum"]] + [max_abs_err(torch, a, b) for a, b in zip(got, want)])
+    filt = ops.tree_eval([cabm], [(0, 1)], [(L, 0)], n_shards, count=False, device=dev)
+    filt0 = filt.clone()
+    filt0[0].zero_()  # a shard with nothing under the filter
+    for st, f, want_max in ((bm, None, False), (bm, None, True), (bm, filt, True), (bm, filt0, False),
+                            (edge, None, True), (edge, None, False), (edge, filt, True)):
+        got = ops.bsi_min_max(st, D, f, want_max)
+        want = bsi.bsi_min_max_plain(st, D, f, want_max)
+        errs["bsi_minmax"] = max([errs["bsi_minmax"]] + [max_abs_err(torch, a, b) for a, b in zip(got, want)])
+    edge2 = edge[:2].contiguous()
+    for m, mat, rows in ((masks4, pcm, rows16), (masks4, pcm, i32([9, -1, 16, 2**30, 0, 3])),
+                         (masks16, cabm, rows_c), (edge2, pcm, rows16)):
+        got = ops.gb_counts(m, mat, rows)
+        want = groupby.gb_counts_plain(m, mat, rows)
+        errs["gb_counts"] = max(errs["gb_counts"], max_abs_err(torch, got, want))
+    for m, mat, g_idx, row_sel in ((ones[None], cabm, i32([0] * 4), rows_c),
+                                   (masks4, pcm, i32([0, 1, 2, 3, 0, 1, 7]), i32([1, -1, 9, 2, 16, 0, 3])),
+                                   (edge2, pcm, i32([1, 0]), i32([2, -1]))):
+        got = ops.gb_masks(m, mat, g_idx, row_sel)
+        want = groupby.gb_masks_plain(m, mat, g_idx, row_sel)
+        errs["gb_masks"] = max(errs["gb_masks"], max_abs_err(torch, got, want))
+        del got, want
+    log("max |kernel - plain| on the taxi path's shapes:", json.dumps(errs))
+    if any(errs.values()):
+        raise AssertionError(f"a kernel disagrees with its plain version: {errs}")
+    del edge, edge2, filt0, masks20
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # --------------------------------------------------------- timings
+    plane = n_shards * W * 4
+    gt5000 = [(0, D, ">", 5000)]
+    zeros16 = i32([0] * 16)
+    k1c = dict(
+        ms=cuda_ms(torch, lambda: ops.tree_eval([bm], [], [(C, 0)], n_shards, True, device=dev, conds=gt5000), 20),
+        plain_ms=cuda_ms(torch, lambda: bitwise.tree_eval_plain([bm], [], [(C, 0)], n_shards, True, dev, gt5000), 2),
+        bound_ms=bound_ms((2 + D) * plane),
+    )
+    k4 = dict(
+        ms=cuda_ms(torch, lambda: ops.bsi_sum(bm, D), 20),
+        plain_ms=cuda_ms(torch, lambda: bsi.bsi_sum_plain(bm, D), 2),
+        bound_ms=bound_ms((2 + D) * plane),
+        library_ms=None,
+    )
+    k4g = dict(
+        ms=cuda_ms(torch, lambda: ops.bsi_sum(bm, D, masks16), 5),
+        plain_ms=cuda_ms(torch, lambda: bsi.bsi_sum_plain(bm, D, masks16), 1),
+        bound_ms=bound_ms((2 + D + 16) * plane),
+    )
+    k5 = dict(
+        ms=cuda_ms(torch, lambda: ops.bsi_min_max(bm, D, None, False), 20),
+        plain_ms=cuda_ms(torch, lambda: bsi.bsi_min_max_plain(bm, D, None, False), 2),
+        bound_ms=bound_ms((2 + D) * plane),
+        library_ms=None,
+    )
+    # the fused GroupBy's last level: 4 masks and the 10 rows that exist
+    # (padding rows read nothing)
+    k6c = dict(
+        ms=cuda_ms(torch, lambda: ops.gb_counts(masks4, pcm, rows16), 20),
+        plain_ms=cuda_ms(torch, lambda: groupby.gb_counts_plain(masks4, pcm, rows16), 2),
+        bound_ms=bound_ms((4 + 10) * plane),
+        library_ms=None,
+    )
+    # the aggregate GroupBy's level: 1 base mask and 10 rows in, 16 masks out
+    k6m = dict(
+        ms=cuda_ms(torch, lambda: ops.gb_masks(ones[None], pcm, zeros16, rows16), 10),
+        plain_ms=cuda_ms(torch, lambda: groupby.gb_masks_plain(ones[None], pcm, zeros16, rows16), 2),
+        bound_ms=bound_ms((1 + 10 + 16) * plane),
+        library_ms=None,
+    )
+    times.update({
+        "tree_eval_cmp_ms": k1c["ms"], "tree_eval_cmp_plain_ms": k1c["plain_ms"],
+        "tree_eval_cmp_bound_ms": k1c["bound_ms"], "tree_eval_taxi_launches": launches["tree_eval"],
+        "bsi_sum_grouped16_ms": k4g["ms"], "bsi_sum_grouped16_plain_ms": k4g["plain_ms"],
+        "bsi_sum_grouped16_bound_ms": k4g["bound_ms"],
+    })
+    log("taxi times:", json.dumps(times))
+    results = {"bsi_sum": k4, "bsi_minmax": k5, "gb_counts": k6c, "gb_masks": k6m}
+    return {name: (errs[name], t) for name, t in results.items()}, launches
+
+
+def main(device: str = "cuda", n_shards: int = N_SHARDS, taxi_shards: int = T_SHARDS) -> int:
+    """``device="cpu"`` with small ``n_shards`` and ``taxi_shards``
+    rehearses the same steps on the plain versions, without the card
+    lines or the ok line."""
     import torch
 
     on_card = device == "cuda"
@@ -118,285 +473,288 @@ def main(device: str = "cuda", n_shards: int = N_SHARDS) -> int:
         log("card:", card_line())
         log("torch", torch.__version__, "cuda", torch.version.cuda, "device", torch.cuda.get_device_name(0))
         t0 = time.perf_counter()
-        build_s = _cuda.build(list(_cuda.KERNELS), force=True)
+        build_s = _cuda.build(_cuda.SOURCES, force=True)
         log(f"kernel build: {time.perf_counter() - t0:.3f} s wall, per source {json.dumps(build_s)}")
 
     def sync():
         if on_card:
             torch.cuda.synchronize()
 
-    # ------------------------------------------------------------ data
-    rng = np.random.default_rng(7)
-    blocks = []
-    for _ in range(G):
-        blk = rng.integers(0, 2**32, (R_PAD, W), dtype=np.uint32)
-        blk &= rng.integers(0, 2**32, (R_PAD, W), dtype=np.uint32)
-        blk &= rng.integers(0, 2**32, (R_PAD, W), dtype=np.uint32)
-        blocks.append(blk)
-    exists = []
-    for blk in blocks:
-        ex = np.zeros((R_PAD, W), dtype=np.uint32)
-        ex[0] = np.bitwise_or.reduce(blk, axis=0)
-        exists.append(ex)
-    h = Holder(None)
-    idx = h.create_index("bench")
-    f = idx.create_field("f")
-    view = f.create_view_if_not_exists("standard")
-    ex_view = idx.existence_field().create_view_if_not_exists("standard")
-    # the main path's write lands in the last shard: its fragments hold
-    # the block in their roaring storage, so a Set repacks a true row
-    write_shard = N_SHARDS - 1
-    for s in range(N_SHARDS):
-        for v, src in ((view, blocks), (ex_view, exists)):
-            frag = v.create_fragment_if_not_exists(s)
-            if s == write_shard:
-                bits = np.unpackbits(src[s % G].view(np.uint8), axis=1, bitorder="little")
-                r, c = np.nonzero(bits)
-                frag.union_positions(r.astype(np.uint64) * SHARD_WIDTH + c.astype(np.uint64))
-                continue
-            # packed-matrix injection, as bench.py does it: the loading
-            # path is not what this run measures
-            frag._np_matrix = src[s % G]
-            frag._all_dirty = False
-    shards = list(range(N_SHARDS))
+    def main_path() -> list:
+        """The 10,240-shard main path, the write phase, and K1-K3 against
+        their plain versions; returns their kernel entries. Its tensors
+        are freed on return, before the taxi path."""
+        # ------------------------------------------------------------ data
+        rng = np.random.default_rng(7)
+        blocks = []
+        for _ in range(G):
+            blk = rng.integers(0, 2**32, (R_PAD, W), dtype=np.uint32)
+            blk &= rng.integers(0, 2**32, (R_PAD, W), dtype=np.uint32)
+            blk &= rng.integers(0, 2**32, (R_PAD, W), dtype=np.uint32)
+            blocks.append(blk)
+        exists = []
+        for blk in blocks:
+            ex = np.zeros((R_PAD, W), dtype=np.uint32)
+            ex[0] = np.bitwise_or.reduce(blk, axis=0)
+            exists.append(ex)
+        h = Holder(None)
+        idx = h.create_index("bench")
+        f = idx.create_field("f")
+        view = f.create_view_if_not_exists("standard")
+        ex_view = idx.existence_field().create_view_if_not_exists("standard")
+        # the main path's write lands in the last shard: its fragments hold
+        # the block in their roaring storage, so a Set repacks a true row
+        write_shard = N_SHARDS - 1
+        for s in range(N_SHARDS):
+            for v, src in ((view, blocks), (ex_view, exists)):
+                frag = v.create_fragment_if_not_exists(s)
+                if s == write_shard:
+                    bits = np.unpackbits(src[s % G].view(np.uint8), axis=1, bitorder="little")
+                    r, c = np.nonzero(bits)
+                    frag.union_positions(r.astype(np.uint64) * SHARD_WIDTH + c.astype(np.uint64))
+                    continue
+                # packed-matrix injection, as bench.py does it: the loading
+                # path is not what this run measures
+                frag._np_matrix = src[s % G]
+                frag._all_dirty = False
+        shards = list(range(N_SHARDS))
 
-    def expect_count(fn, shard_list=shards) -> int:
-        per_block = [int(np.bitwise_count(fn(blocks[g], exists[g][0])).sum()) for g in range(G)]
-        return sum(per_block[s % G] for s in shard_list)
+        def expect_count(fn, shard_list=shards) -> int:
+            per_block = [int(np.bitwise_count(fn(blocks[g], exists[g][0])).sum()) for g in range(G)]
+            return sum(per_block[s % G] for s in shard_list)
 
-    def expect_topn(filt_row, n) -> list:
-        counts = []
-        for r in range(R_PAD):
-            c = expect_count(
-                lambda b, e, r=r: b[r] if filt_row is None else b[r] & b[filt_row]
+        def expect_topn(filt_row, n) -> list:
+            counts = []
+            for r in range(R_PAD):
+                c = expect_count(
+                    lambda b, e, r=r: b[r] if filt_row is None else b[r] & b[filt_row]
+                )
+                if c:
+                    counts.append((r, c))
+            counts.sort(key=lambda rc: (-rc[1], rc[0]))
+            return [{"id": r, "count": c} for r, c in counts[:n]]
+
+        api = API(h, device=device, route_mode="device")
+        sub = list(range(0, N_SHARDS, 97))
+        checks = [
+            ("Count(Intersect(Row(f=1), Row(f=2)))", expect_count(lambda b, e: b[1] & b[2])),
+            ("Count(Union(Row(f=1), Row(f=2)))", expect_count(lambda b, e: b[1] | b[2])),
+            ("Count(Difference(Row(f=3), Row(f=4)))", expect_count(lambda b, e: b[3] & ~b[4])),
+            ("Count(Xor(Row(f=5), Row(f=6)))", expect_count(lambda b, e: b[5] ^ b[6])),
+            ("Count(Not(Row(f=1)))", expect_count(lambda b, e: e & ~b[1])),
+            ("TopN(f, n=5)", expect_topn(None, 5)),
+            ("TopN(f, Row(f=1), n=5)", expect_topn(1, 5)),
+            (
+                f"Options(Count(Intersect(Row(f=1), Row(f=7))), shards=[{', '.join(map(str, sub))}])",
+                expect_count(lambda b, e: b[1] & b[7], sub),
+            ),
+        ]
+
+        # ------------------------------------------------------- main path
+        for k in _cuda.KERNELS.values():
+            k.reset()
+        times = {}
+        t0 = time.perf_counter()
+        api.executor.compiler.stacks.matrix(idx, f, "standard", shards)
+        sync()
+        times["stack_upload_s"] = time.perf_counter() - t0
+        headline = checks[0][0]
+        t0 = time.perf_counter()
+        first = api.query("bench", headline)["results"][0]
+        times["first_query_s"] = time.perf_counter() - t0
+        if first != checks[0][1]:
+            raise AssertionError(f"{headline}: {first} != numpy {checks[0][1]}")
+        for pql, want in checks:
+            got = api.query("bench", pql)["results"][0]
+            if got != want:
+                raise AssertionError(f"{pql}: {got} != numpy {want}")
+            log(f"ok  {pql[:60]}  -> {json.dumps(got)[:80]}")
+        lat = []
+        for _ in range(30):
+            t0 = time.perf_counter()
+            api.query("bench", headline)
+            lat.append(time.perf_counter() - t0)
+        times["sync_count_p50_ms"] = float(np.median(lat)) * 1e3
+        n_pipe = 64
+        t0 = time.perf_counter()
+        pend = [p for _ in range(n_pipe) for p in api.executor.dispatch("bench", headline)]
+        api.executor.settle(pend)
+        times["pipelined_count_qps"] = n_pipe / (time.perf_counter() - t0)
+        if any(p.value != checks[0][1] for p in pend):
+            raise AssertionError("pipelined Count disagrees with numpy")
+        lat = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            api.query("bench", "TopN(f, n=5)")
+            lat.append(time.perf_counter() - t0)
+        times["topn_p50_ms"] = float(np.median(lat)) * 1e3
+        # a point write: one Set into the write shard, at a column that is in
+        # no row of its block, so Row(f=1) gains one bit and Not(Row(f=1))
+        # keeps its count (the column joins the existence row too)
+        g_w = write_shard % G
+        free_bits = np.flatnonzero(np.unpackbits(exists[g_w][0].view(np.uint8), bitorder="little") == 0)
+        col = write_shard * SHARD_WIDTH + int(free_bits[0])
+        stacks_ = api.executor.compiler.stacks
+        restacks, deltas = stacks_.full_restacks, stacks_.delta_updates
+        after_write = [
+            ("Count(Row(f=1))", expect_count(lambda b, e: b[1]) + 1),
+            ("Count(Not(Row(f=1)))", expect_count(lambda b, e: e & ~b[1])),
+        ]
+        api.query("bench", f"Set({col}, f=1)")
+        t0 = time.perf_counter()
+        for pql, want in after_write:
+            got = api.query("bench", pql)["results"][0]
+            if got != want:
+                raise AssertionError(f"after Set({col}, f=1): {pql}: {got} != numpy {want}")
+            log(f"ok  after Set: {pql}  -> {got}")
+        times["write_then_counts_s"] = time.perf_counter() - t0
+        if stacks_.full_restacks != restacks or stacks_.delta_updates != deltas + 2:
+            raise AssertionError(f"the main path's write did not take the delta path: {stacks_.stats_snapshot()}")
+        sync()
+        launches = {name: k.launches for name, k in _cuda.KERNELS.items()}
+        log("launches on the main path:", json.dumps(launches))
+        log("launches on the main path by mode:", json.dumps({n: k.modes for n, k in _cuda.KERNELS.items() if k.modes}))
+        if on_card and any(launches[n] <= 0 for n in ("tree_eval", "row_counts", "stack_delta")):
+            raise AssertionError(f"a kernel of the main path never launched: {launches}")
+        router = api.executor.router
+        log("router calibration after the main path:", json.dumps(
+            {"dispatch_s": router.dispatch_s.value, "readback_s": router.readback_s.value}))
+
+        # write phase: a small holder loaded through the import entry points
+        for k in _cuda.KERNELS.values():
+            k.reset()
+        wh = Holder(None)
+        wapi = API(wh, device=device, route_mode="device")
+        wapi.create_index("w")
+        wapi.create_field("w", "f")
+        wrng = np.random.default_rng(11)
+        positions = np.unique(wrng.integers(0, 4 * SHARD_WIDTH, 50_000)).astype(np.uint64)
+        bm = Bitmap()
+        bm.add_many(positions)
+        wapi.import_roaring("w", "f", 0, serialize(bm))
+        cols = np.unique(wrng.integers(SHARD_WIDTH, 3 * SHARD_WIDTH, 20_000))
+        for lo in range(0, cols.size, 5000):  # max_writes per request
+            part = cols[lo : lo + 5000].tolist()
+            wapi.import_bits("w", "f", {"rowIDs": [1] * len(part), "columnIDs": part})
+        row1 = set((positions[(positions >= SHARD_WIDTH) & (positions < 2 * SHARD_WIDTH)] - SHARD_WIDTH).tolist())
+        row1 |= set(cols.tolist())
+        before = wapi.query("w", "Count(Row(f=1))")["results"][0]
+        if before != len(row1):
+            raise AssertionError(f"write phase: Count {before} != {len(row1)}")
+        wstacks = wapi.executor.compiler.stacks
+        restacks, deltas = wstacks.full_restacks, wstacks.delta_updates
+        free = next(c for c in range(3 * SHARD_WIDTH) if c not in row1)
+        wapi.query("w", f"Set({free}, f=1)")
+        after = wapi.query("w", "Count(Row(f=1))")["results"][0]
+        if after != before + 1:
+            raise AssertionError(f"write phase: Count {after} after Set, want {before + 1}")
+        if wstacks.full_restacks != restacks or wstacks.delta_updates <= deltas:
+            raise AssertionError(f"write phase did not take the delta path: {wstacks.stats_snapshot()}")
+        sync()
+        write_launches = {name: k.launches for name, k in _cuda.KERNELS.items()}
+        log("launches on the write phase (4-shard holder):", json.dumps(write_launches))
+        if on_card and (write_launches["stack_delta"] <= 0 or write_launches["tree_eval"] <= 0):
+            raise AssertionError(f"the write phase did not run through its kernels: {write_launches}")
+
+        # ------------------------------------------- kernels vs plain versions
+        dev = api.executor.device
+        fm = api.executor.compiler.stacks.matrix(idx, f, "standard", shards)[0]
+        em = api.executor.compiler.stacks.matrix(idx, idx.existence_field(), "standard", shards)[0]
+        edge = torch.empty((2, N_SHARDS, W), dtype=torch.int32, device=dev)
+        edge[0].fill_(-1)  # all-ones words
+        edge[1].fill_(-(2**31))  # only bit 31 set
+        L, Z = bitwise.OP_LOAD, bitwise.OP_ZERO
+        A, O, X, N = bitwise.OP_AND, bitwise.OP_OR, bitwise.OP_XOR, bitwise.OP_ANDNOT
+        tree_cases = [
+            # (stacks, leaves, program)
+            ([fm], [(0, 1), (0, 2)], [(L, 0), (L, 1), (A, 0)]),  # the headline
+            ([fm, em], [(1, 0), (0, 1)], [(L, 0), (L, 1), (N, 0)]),  # Not
+            ([fm], [(0, -1), (0, R_PAD), (0, 3)], [(L, 0), (L, 1), (O, 0), (L, 2), (X, 0)]),
+            ([fm], [], [(Z, 0)]),  # empty Union()
+            ([edge, fm], [(0, 0), (0, 1), (1, 5)], [(L, 0), (L, 1), (A, 0), (L, 0), (L, 2), (N, 0), (X, 0)]),
+        ]
+        errs = {"tree_eval": 0, "row_counts": 0, "stack_delta": 0}
+        for stacks_, leaves, prog in tree_cases:
+            for count in (True, False):
+                got = ops.tree_eval(stacks_, leaves, prog, N_SHARDS, count=count, device=dev)
+                want = bitwise.tree_eval_plain(stacks_, leaves, prog, N_SHARDS, count, dev)
+                errs["tree_eval"] = max(errs["tree_eval"], max_abs_err(torch, got, want))
+                del got, want
+        filt = ops.tree_eval([fm], [(0, 1)], [(L, 0)], N_SHARDS, count=False, device=dev)
+        ids = torch.tensor([-1, 0, 3, 7, R_PAD, 2**30], dtype=torch.int32, device=dev)
+        for m, fl, ii in ((fm, None, None), (fm, filt, None), (fm, filt, ids), (edge, None, None), (edge, edge[1].contiguous(), ids)):
+            got = ops.row_counts(m, fl, ii)
+            want = topn.row_counts_plain(m, fl, ii)
+            errs["row_counts"] = max(errs["row_counts"], max_abs_err(torch, got, want))
+        widx = wh.index("w")
+        wm = wstacks.matrix(widx, widx.field("f"), "standard", sorted(widx.available_shards()))[0]
+        oob = stack.OOB
+        delta_cases = []
+        for m in (wm, fm):
+            r_n, s_n = m.shape[0], m.shape[1]
+            didx = torch.tensor(
+                # the last entry repeats the first: the later one wins
+                [[1, 0], [oob, oob], [r_n - 1, s_n - 1], [2, oob], [-1, 1], [0, s_n // 2], [1, 0]],
+                dtype=torch.int32, device=dev,
             )
-            if c:
-                counts.append((r, c))
-        counts.sort(key=lambda rc: (-rc[1], rc[0]))
-        return [{"id": r, "count": c} for r, c in counts[:n]]
-
-    api = API(h, device=device, route_mode="device")
-    sub = list(range(0, N_SHARDS, 97))
-    checks = [
-        ("Count(Intersect(Row(f=1), Row(f=2)))", expect_count(lambda b, e: b[1] & b[2])),
-        ("Count(Union(Row(f=1), Row(f=2)))", expect_count(lambda b, e: b[1] | b[2])),
-        ("Count(Difference(Row(f=3), Row(f=4)))", expect_count(lambda b, e: b[3] & ~b[4])),
-        ("Count(Xor(Row(f=5), Row(f=6)))", expect_count(lambda b, e: b[5] ^ b[6])),
-        ("Count(Not(Row(f=1)))", expect_count(lambda b, e: e & ~b[1])),
-        ("TopN(f, n=5)", expect_topn(None, 5)),
-        ("TopN(f, Row(f=1), n=5)", expect_topn(1, 5)),
-        (
-            f"Options(Count(Intersect(Row(f=1), Row(f=7))), shards=[{', '.join(map(str, sub))}])",
-            expect_count(lambda b, e: b[1] & b[7], sub),
-        ),
-    ]
-
-    # ------------------------------------------------------- main path
-    for k in _cuda.KERNELS.values():
-        k.launches = 0
-    times = {}
-    t0 = time.perf_counter()
-    api.executor.compiler.stacks.matrix(idx, f, "standard", shards)
-    sync()
-    times["stack_upload_s"] = time.perf_counter() - t0
-    headline = checks[0][0]
-    t0 = time.perf_counter()
-    first = api.query("bench", headline)["results"][0]
-    times["first_query_s"] = time.perf_counter() - t0
-    if first != checks[0][1]:
-        raise AssertionError(f"{headline}: {first} != numpy {checks[0][1]}")
-    for pql, want in checks:
-        got = api.query("bench", pql)["results"][0]
-        if got != want:
-            raise AssertionError(f"{pql}: {got} != numpy {want}")
-        log(f"ok  {pql[:60]}  -> {json.dumps(got)[:80]}")
-    lat = []
-    for _ in range(30):
-        t0 = time.perf_counter()
-        api.query("bench", headline)
-        lat.append(time.perf_counter() - t0)
-    times["sync_count_p50_ms"] = float(np.median(lat)) * 1e3
-    n_pipe = 64
-    t0 = time.perf_counter()
-    pend = [p for _ in range(n_pipe) for p in api.executor.dispatch("bench", headline)]
-    api.executor.settle(pend)
-    times["pipelined_count_qps"] = n_pipe / (time.perf_counter() - t0)
-    if any(p.value != checks[0][1] for p in pend):
-        raise AssertionError("pipelined Count disagrees with numpy")
-    lat = []
-    for _ in range(20):
-        t0 = time.perf_counter()
-        api.query("bench", "TopN(f, n=5)")
-        lat.append(time.perf_counter() - t0)
-    times["topn_p50_ms"] = float(np.median(lat)) * 1e3
-    # a point write: one Set into the write shard, at a column that is in
-    # no row of its block, so Row(f=1) gains one bit and Not(Row(f=1))
-    # keeps its count (the column joins the existence row too)
-    g_w = write_shard % G
-    free_bits = np.flatnonzero(np.unpackbits(exists[g_w][0].view(np.uint8), bitorder="little") == 0)
-    col = write_shard * SHARD_WIDTH + int(free_bits[0])
-    stacks_ = api.executor.compiler.stacks
-    restacks, deltas = stacks_.full_restacks, stacks_.delta_updates
-    after_write = [
-        ("Count(Row(f=1))", expect_count(lambda b, e: b[1]) + 1),
-        ("Count(Not(Row(f=1)))", expect_count(lambda b, e: e & ~b[1])),
-    ]
-    api.query("bench", f"Set({col}, f=1)")
-    t0 = time.perf_counter()
-    for pql, want in after_write:
-        got = api.query("bench", pql)["results"][0]
-        if got != want:
-            raise AssertionError(f"after Set({col}, f=1): {pql}: {got} != numpy {want}")
-        log(f"ok  after Set: {pql}  -> {got}")
-    times["write_then_counts_s"] = time.perf_counter() - t0
-    if stacks_.full_restacks != restacks or stacks_.delta_updates != deltas + 2:
-        raise AssertionError(f"the main path's write did not take the delta path: {stacks_.stats_snapshot()}")
-    sync()
-    launches = {name: k.launches for name, k in _cuda.KERNELS.items()}
-    log("launches on the main path:", json.dumps(launches))
-    if on_card and any(n <= 0 for n in launches.values()):
-        raise AssertionError(f"a kernel of the main path never launched: {launches}")
-    router = api.executor.router
-    log("router calibration after the main path:", json.dumps(
-        {"dispatch_s": router.dispatch_s.value, "readback_s": router.readback_s.value}))
-
-    # write phase: a small holder loaded through the import entry points
-    for k in _cuda.KERNELS.values():
-        k.launches = 0
-    wh = Holder(None)
-    wapi = API(wh, device=device, route_mode="device")
-    wapi.create_index("w")
-    wapi.create_field("w", "f")
-    wrng = np.random.default_rng(11)
-    positions = np.unique(wrng.integers(0, 4 * SHARD_WIDTH, 50_000)).astype(np.uint64)
-    bm = Bitmap()
-    bm.add_many(positions)
-    wapi.import_roaring("w", "f", 0, serialize(bm))
-    cols = np.unique(wrng.integers(SHARD_WIDTH, 3 * SHARD_WIDTH, 20_000))
-    for lo in range(0, cols.size, 5000):  # max_writes per request
-        part = cols[lo : lo + 5000].tolist()
-        wapi.import_bits("w", "f", {"rowIDs": [1] * len(part), "columnIDs": part})
-    row1 = set((positions[(positions >= SHARD_WIDTH) & (positions < 2 * SHARD_WIDTH)] - SHARD_WIDTH).tolist())
-    row1 |= set(cols.tolist())
-    before = wapi.query("w", "Count(Row(f=1))")["results"][0]
-    if before != len(row1):
-        raise AssertionError(f"write phase: Count {before} != {len(row1)}")
-    wstacks = wapi.executor.compiler.stacks
-    restacks, deltas = wstacks.full_restacks, wstacks.delta_updates
-    free = next(c for c in range(3 * SHARD_WIDTH) if c not in row1)
-    wapi.query("w", f"Set({free}, f=1)")
-    after = wapi.query("w", "Count(Row(f=1))")["results"][0]
-    if after != before + 1:
-        raise AssertionError(f"write phase: Count {after} after Set, want {before + 1}")
-    if wstacks.full_restacks != restacks or wstacks.delta_updates <= deltas:
-        raise AssertionError(f"write phase did not take the delta path: {wstacks.stats_snapshot()}")
-    sync()
-    write_launches = {name: k.launches for name, k in _cuda.KERNELS.items()}
-    log("launches on the write phase (4-shard holder):", json.dumps(write_launches))
-    if on_card and (write_launches["stack_delta"] <= 0 or write_launches["tree_eval"] <= 0):
-        raise AssertionError(f"the write phase did not run through its kernels: {write_launches}")
-
-    # ------------------------------------------- kernels vs plain versions
-    dev = api.executor.device
-    fm = api.executor.compiler.stacks.matrix(idx, f, "standard", shards)[0]
-    em = api.executor.compiler.stacks.matrix(idx, idx.existence_field(), "standard", shards)[0]
-    edge = torch.empty((2, N_SHARDS, W), dtype=torch.int32, device=dev)
-    edge[0].fill_(-1)  # all-ones words
-    edge[1].fill_(-(2**31))  # only bit 31 set
-    L, Z = bitwise.OP_LOAD, bitwise.OP_ZERO
-    A, O, X, N = bitwise.OP_AND, bitwise.OP_OR, bitwise.OP_XOR, bitwise.OP_ANDNOT
-    tree_cases = [
-        # (stacks, leaves, program)
-        ([fm], [(0, 1), (0, 2)], [(L, 0), (L, 1), (A, 0)]),  # the headline
-        ([fm, em], [(1, 0), (0, 1)], [(L, 0), (L, 1), (N, 0)]),  # Not
-        ([fm], [(0, -1), (0, R_PAD), (0, 3)], [(L, 0), (L, 1), (O, 0), (L, 2), (X, 0)]),
-        ([fm], [], [(Z, 0)]),  # empty Union()
-        ([edge, fm], [(0, 0), (0, 1), (1, 5)], [(L, 0), (L, 1), (A, 0), (L, 0), (L, 2), (N, 0), (X, 0)]),
-    ]
-    errs = {"tree_eval": 0, "row_counts": 0, "stack_delta": 0}
-    for stacks_, leaves, prog in tree_cases:
-        for count in (True, False):
-            got = ops.tree_eval(stacks_, leaves, prog, N_SHARDS, count=count, device=dev)
-            want = bitwise.tree_eval_plain(stacks_, leaves, prog, N_SHARDS, count, dev)
-            errs["tree_eval"] = max(errs["tree_eval"], max_abs_err(torch, got, want))
+            drows = torch.randint(-(2**31), 2**31 - 1, (didx.shape[0], W), dtype=torch.int32, device=dev)
+            delta_cases.append((m, didx, drows))
+            got = ops.apply_stack_delta(m, didx, drows)
+            want = stack.apply_stack_delta_plain(m, didx, drows)
+            errs["stack_delta"] = max(errs["stack_delta"], max_abs_err(torch, got, want))
             del got, want
-    filt = ops.tree_eval([fm], [(0, 1)], [(L, 0)], N_SHARDS, count=False, device=dev)
-    ids = torch.tensor([-1, 0, 3, 7, R_PAD, 2**30], dtype=torch.int32, device=dev)
-    for m, fl, ii in ((fm, None, None), (fm, filt, None), (fm, filt, ids), (edge, None, None), (edge, edge[1].contiguous(), ids)):
-        got = ops.row_counts(m, fl, ii)
-        want = topn.row_counts_plain(m, fl, ii)
-        errs["row_counts"] = max(errs["row_counts"], max_abs_err(torch, got, want))
-    widx = wh.index("w")
-    wm = wstacks.matrix(widx, widx.field("f"), "standard", sorted(widx.available_shards()))[0]
-    oob = stack.OOB
-    delta_cases = []
-    for m in (wm, fm):
-        r_n, s_n = m.shape[0], m.shape[1]
-        didx = torch.tensor(
-            # the last entry repeats the first: the later one wins
-            [[1, 0], [oob, oob], [r_n - 1, s_n - 1], [2, oob], [-1, 1], [0, s_n // 2], [1, 0]],
-            dtype=torch.int32, device=dev,
-        )
-        drows = torch.randint(-(2**31), 2**31 - 1, (didx.shape[0], W), dtype=torch.int32, device=dev)
-        delta_cases.append((m, didx, drows))
-        got = ops.apply_stack_delta(m, didx, drows)
-        want = stack.apply_stack_delta_plain(m, didx, drows)
-        errs["stack_delta"] = max(errs["stack_delta"], max_abs_err(torch, got, want))
-        del got, want
-        torch.cuda.empty_cache()
-    log("max |kernel - plain|:", json.dumps(errs))
-    if any(errs.values()):
-        raise AssertionError(f"a kernel disagrees with its plain version: {errs}")
-    del delta_cases[0]
+            torch.cuda.empty_cache()
+        log("max |kernel - plain|:", json.dumps(errs))
+        if any(errs.values()):
+            raise AssertionError(f"a kernel disagrees with its plain version: {errs}")
+        del delta_cases[0]
 
-    # --------------------------------------------------------- timings
-    plane = N_SHARDS * W * 4
-    head_stacks, head_leaves, head_prog = tree_cases[0]
-    # each distinct in-range leaf plane is read once; nothing else moves
-    head_planes = {(si, r) for si, r in head_leaves if 0 <= r < head_stacks[si].shape[0]}
-    k1 = dict(
-        ms=cuda_ms(torch, lambda: ops.tree_eval(head_stacks, head_leaves, head_prog, N_SHARDS, count=True, device=dev), 20),
-        plain_ms=cuda_ms(torch, lambda: bitwise.tree_eval_plain(head_stacks, head_leaves, head_prog, N_SHARDS, True, dev), 2),
-        bound_ms=bound_ms(len(head_planes) * plane),
-        library_ms=None,
-    )
-    words_ms = cuda_ms(torch, lambda: ops.tree_eval([fm], [(0, 1)], [(L, 0)], N_SHARDS, count=False, device=dev), 20)
-    k2 = dict(
-        ms=cuda_ms(torch, lambda: ops.row_counts(fm), 10),
-        plain_ms=cuda_ms(torch, lambda: topn.row_counts_plain(fm), 1),
-        bound_ms=bound_ms(fm.shape[0] * plane),
-        library_ms=None,
-    )
-    k2_filtered_ms = cuda_ms(torch, lambda: ops.row_counts(fm, filt), 10)
-    dm, didx, drows = delta_cases[0]
-    keep = ((didx[:, 0] >= 0) & (didx[:, 0] < dm.shape[0]) & (didx[:, 1] >= 0) & (didx[:, 1] < dm.shape[1]))
-    r_ok, s_ok, rows_ok = didx[keep, 0].long(), didx[keep, 1].long(), drows[keep]
-    k3 = dict(
-        ms=cuda_ms(torch, lambda: ops.apply_stack_delta(dm, didx, drows), 5),
-        plain_ms=cuda_ms(torch, lambda: stack.apply_stack_delta_plain(dm, didx, drows), 2),
-        # the stack read once and written once, each kept row and the
-        # (row, shard) pairs read once
-        bound_ms=bound_ms(2 * dm.numel() * 4 + int(keep.sum()) * W * 4 + didx.numel() * 4),
-        library_ms=cuda_ms(torch, lambda: torch.index_put(dm, (r_ok, s_ok), rows_ok), 5),
-    )
-    log("times:", json.dumps({**times, "tree_eval_words_ms": words_ms, "row_counts_filtered_ms": k2_filtered_ms,
-                              "row_counts_filtered_bound_ms": bound_ms((R_PAD + 1) * plane)}))
-    kernels = []
-    for name, t in (("tree_eval", k1), ("row_counts", k2), ("stack_delta", k3)):
-        k = _cuda.KERNELS[name]
-        kernels.append({
-            "name": name,
-            "route": "cuda",
-            "source": k.source,
-            "replaces": k.replaces,
-            "launches": launches[name],
-            "max_abs_err": errs[name],
-            "ms": t["ms"],
-            "plain_ms": t["plain_ms"],
-            "bound_ms": t["bound_ms"],
-            "bound_by": "bytes",
-            "library_ms": t["library_ms"],
-        })
+        # --------------------------------------------------------- timings
+        plane = N_SHARDS * W * 4
+        head_stacks, head_leaves, head_prog = tree_cases[0]
+        # each distinct in-range leaf plane is read once; nothing else moves
+        head_planes = {(si, r) for si, r in head_leaves if 0 <= r < head_stacks[si].shape[0]}
+        k1 = dict(
+            ms=cuda_ms(torch, lambda: ops.tree_eval(head_stacks, head_leaves, head_prog, N_SHARDS, count=True, device=dev), 20),
+            plain_ms=cuda_ms(torch, lambda: bitwise.tree_eval_plain(head_stacks, head_leaves, head_prog, N_SHARDS, True, dev), 2),
+            bound_ms=bound_ms(len(head_planes) * plane),
+            library_ms=None,
+        )
+        words_ms = cuda_ms(torch, lambda: ops.tree_eval([fm], [(0, 1)], [(L, 0)], N_SHARDS, count=False, device=dev), 20)
+        k2 = dict(
+            ms=cuda_ms(torch, lambda: ops.row_counts(fm), 10),
+            plain_ms=cuda_ms(torch, lambda: topn.row_counts_plain(fm), 1),
+            bound_ms=bound_ms(fm.shape[0] * plane),
+            library_ms=None,
+        )
+        k2_filtered_ms = cuda_ms(torch, lambda: ops.row_counts(fm, filt), 10)
+        dm, didx, drows = delta_cases[0]
+        keep = ((didx[:, 0] >= 0) & (didx[:, 0] < dm.shape[0]) & (didx[:, 1] >= 0) & (didx[:, 1] < dm.shape[1]))
+        r_ok, s_ok, rows_ok = didx[keep, 0].long(), didx[keep, 1].long(), drows[keep]
+        k3 = dict(
+            ms=cuda_ms(torch, lambda: ops.apply_stack_delta(dm, didx, drows), 5),
+            plain_ms=cuda_ms(torch, lambda: stack.apply_stack_delta_plain(dm, didx, drows), 2),
+            # the stack read once and written once, each kept row and the
+            # (row, shard) pairs read once
+            bound_ms=bound_ms(2 * dm.numel() * 4 + int(keep.sum()) * W * 4 + didx.numel() * 4),
+            library_ms=cuda_ms(torch, lambda: torch.index_put(dm, (r_ok, s_ok), rows_ok), 5),
+        )
+        log("times:", json.dumps({**times, "tree_eval_words_ms": words_ms, "row_counts_filtered_ms": k2_filtered_ms,
+                                  "row_counts_filtered_bound_ms": bound_ms((R_PAD + 1) * plane)}))
+        results = {"tree_eval": k1, "row_counts": k2, "stack_delta": k3}
+        return {name: (errs[name], t) for name, t in results.items()}, launches
+    main_results, main_launches = main_path()
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    taxi_results, taxi_launches = taxi_path(torch, device, taxi_shards)
+    kernels = [
+        kernel_entry(
+            _cuda.KERNELS[name], {"main": main_launches[name], "taxi": taxi_launches[name]}, err, t, path
+        )
+        for path, results in (("main", main_results), ("taxi", taxi_results))
+        for name, (err, t) in results.items()
+    ]
     for t in kernels:
         log(f"{t['name']}: {t['ms']:.4f} ms (bound {t['bound_ms']:.4f} ms at 3.35 TB/s, plain {t['plain_ms']:.4f} ms)")
     print(json.dumps({"kernels": kernels}))

@@ -1,0 +1,151 @@
+// K4: the BSI Sum counts, plain and grouped.
+//
+// Replaces the Sum programs of pilosa_tpu: ops.bsi.sum_counts
+// (pilosa_tpu/ops/bsi.py:113) vmapped over the shards by the executor's
+// _sum_fn (pilosa_tpu/executor/executor.py:1073), and its group-vmapped
+// form _grouped_sum_program (:1088) that GroupBy's aggregate=Sum runs.
+//
+// For each mask g (a filter or a group's columns; none means one mask of
+// all ones) and each magnitude plane k of a row-major BSI stack
+// [P, S, W] (plane 0 existence, 1 sign, 2 + k magnitude bit k):
+//   pos[g, k] = popcount(mag_k & exists & ~sign & mask_g)
+//   neg[g, k] = popcount(mag_k & exists &  sign & mask_g)
+//   n[g]      = popcount(exists & mask_g)
+// all summed over the shards into int64 (a per-bit count passes 2^31 at
+// 2,048 shards). The exact sum, sum_k 2^k (pos - neg), is taken on the
+// host (weigh_sum). A plane at or past P reads as zero.
+//
+// Bound on the H100: bytes, the 2 + D stack planes and the G masks read
+// once. Design: G x D counters do not fit in registers, and a block per
+// mask would read the stack G times. So each thread holds its 16 B
+// vector of up to 24 magnitude planes (and exists, sign) in registers
+// and loops over the masks, reading each mask vector once (the next one
+// is in flight while a mask's counts run); every (mask, plane) count is
+// reduced across the warp at once (REDUX) into per-warp shared
+// counters, and each block adds one 64-bit atomic per counter at the
+// end. So the stack crosses from device memory once per pass and the
+// masks once; a deeper field, or more than 16 masks, takes further
+// passes. The work is G * D popcounts per word: three words of a vector
+// go through a carry-save adder first (popc(a) + popc(b) + popc(c) =
+// popc(a ^ b ^ c) + 2 popc(maj(a, b, c))), which saves a quarter of
+// them. One mask (Sum) takes the same kernel: on the card it ran faster
+// than a variant keeping per-thread counters over many vectors.
+#include "common.cuh"
+
+#define BS_KCH 24  // magnitude planes held in registers per pass
+#define BS_GCH 16  // masks per pass (per-warp shared counters)
+#define BS_NC (2 * BS_KCH + 1)
+
+// popcount of a 16 B vector with three of its words through a full adder
+__device__ __forceinline__ unsigned bs_popc4(uint4 v) {
+  const unsigned s = v.x ^ v.y ^ v.z;
+  const unsigned c = (v.x & v.y) | (v.z & (v.x ^ v.y));
+  return __popc(s) + __popc(v.w) + 2u * __popc(c);
+}
+
+__global__ void __launch_bounds__(PT_BLOCK)
+    bsi_sum_kernel(const uint4* __restrict__ stack, long long n_vec,
+                   int present, int depth, const uint4* __restrict__ masks,
+                   int n_groups, int k0, int g0,
+                   unsigned long long* __restrict__ pos_out,
+                   unsigned long long* __restrict__ neg_out,
+                   unsigned long long* __restrict__ n_out) {
+  __shared__ unsigned s_cnt[PT_BLOCK / 32][BS_GCH][BS_NC];
+  const int kn = depth - k0 < BS_KCH ? depth - k0 : BS_KCH;
+  const int gn = n_groups - g0 < BS_GCH ? n_groups - g0 : BS_GCH;
+  for (int c = threadIdx.x; c < (PT_BLOCK / 32) * BS_GCH * BS_NC; c += PT_BLOCK) {
+    (&s_cnt[0][0][0])[c] = 0u;
+  }
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long step = (long long)gridDim.x * PT_BLOCK;
+  // warp-uniform trip count: every lane takes part in each REDUX
+  for (long long b = (long long)blockIdx.x * PT_BLOCK + warp * 32; b < n_vec; b += step) {
+    const long long i = b + lane;
+    const bool ok = i < n_vec;
+    const uint4 ex = ok ? pt_plane(stack, n_vec, present, 0, i) : pt_zero4();
+    const uint4 sg = ok ? pt_plane(stack, n_vec, present, 1, i) : pt_zero4();
+    uint4 mag[BS_KCH];
+#pragma unroll
+    for (int j = 0; j < BS_KCH; ++j) {
+      mag[j] = ok && j < kn ? pt_plane(stack, n_vec, present, 2 + k0 + j, i) : pt_zero4();
+    }
+    // the next mask's vector is loaded while this one's counts run; no
+    // masks means one mask of all ones
+    uint4 m_next = !ok ? pt_zero4() : masks != nullptr ? masks[(long long)g0 * n_vec + i] : pt_ones4();
+    for (int g = 0; g < gn; ++g) {
+      const uint4 m = m_next;
+      if (ok && masks != nullptr && g + 1 < gn) m_next = masks[(long long)(g0 + g + 1) * n_vec + i];
+      const uint4 e = pt_and4(ex, m);
+      const uint4 p = pt_andn4(e, sg);
+      const uint4 q = pt_and4(e, sg);
+      unsigned* cnt = s_cnt[warp][g];
+#pragma unroll
+      for (int j = 0; j < BS_KCH; ++j) {
+        if (j < kn) {
+          const unsigned a = __reduce_add_sync(0xffffffffu, bs_popc4(pt_and4(mag[j], p)));
+          const unsigned z = __reduce_add_sync(0xffffffffu, bs_popc4(pt_and4(mag[j], q)));
+          if (lane == 0) {
+            cnt[2 * j] += a;
+            cnt[2 * j + 1] += z;
+          }
+        }
+      }
+      if (k0 == 0) {
+        const unsigned c = __reduce_add_sync(0xffffffffu, bs_popc4(e));
+        if (lane == 0) cnt[2 * BS_KCH] += c;
+      }
+    }
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < gn * BS_NC; c += PT_BLOCK) {
+    const int g = c / BS_NC;
+    const int r = c % BS_NC;
+    if (r >= 2 * kn && r != 2 * BS_KCH) continue;
+    if (r == 2 * BS_KCH && k0 != 0) continue;
+    unsigned long long t = 0;
+#pragma unroll
+    for (int w = 0; w < PT_BLOCK / 32; ++w) t += s_cnt[w][g][r];
+    if (t == 0) continue;
+    if (r == 2 * BS_KCH) {
+      atomicAdd(&n_out[g0 + g], t);
+    } else {
+      const long long o = (long long)(g0 + g) * depth + k0 + r / 2;
+      atomicAdd((r & 1) ? &neg_out[o] : &pos_out[o], t);
+    }
+  }
+}
+
+// stack: int32[present, S, W] with n_vec = S * W / 4; masks: int32[G, S, W]
+// or null (then n_groups == 1 and the mask is all ones); pos, neg: zeroed
+// int64[G, depth]; n: zeroed int64[G]. Returns cudaGetLastError().
+PT_EXPORT int bsi_sum(const void* stack, long long n_vec, int present,
+                      int depth, const void* masks, int n_groups, void* pos,
+                      void* neg, void* n, void* stream) {
+  if (stack == nullptr || n_vec <= 0 || present < 1 || depth < 0 ||
+      depth > 63 || n_groups < 1 || (masks == nullptr && n_groups != 1)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const long long most = (n_vec + PT_BLOCK - 1) / PT_BLOCK;
+  const long long grid = pt_resident_blocks() < most ? pt_resident_blocks() : most;
+  // a warp's 32-bit shared counters hold at most 32 * 128 bits per
+  // vector step it takes
+  if ((n_vec + grid * PT_BLOCK - 1) / (grid * PT_BLOCK) > (1ll << 19)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t s = (cudaStream_t)stream;
+  for (int g0 = 0; g0 < n_groups; g0 += BS_GCH) {
+    int k0 = 0;
+    do {
+      bsi_sum_kernel<<<(unsigned)grid, PT_BLOCK, 0, s>>>(
+          (const uint4*)stack, n_vec, present, depth, (const uint4*)masks,
+          n_groups, k0, g0, (unsigned long long*)pos,
+          (unsigned long long*)neg, (unsigned long long*)n);
+      const int err = (int)cudaGetLastError();
+      if (err != 0) return err;
+      k0 += BS_KCH;
+    } while (k0 < depth);
+  }
+  return 0;
+}

@@ -16,6 +16,38 @@ __device__ __forceinline__ unsigned pt_popc4(uint4 v) {
   return __popc(v.x) + __popc(v.y) + __popc(v.z) + __popc(v.w);
 }
 
+__device__ __forceinline__ uint4 pt_zero4() { return make_uint4(0u, 0u, 0u, 0u); }
+
+__device__ __forceinline__ uint4 pt_ones4() {
+  return make_uint4(~0u, ~0u, ~0u, ~0u);
+}
+
+__device__ __forceinline__ uint4 pt_and4(uint4 a, uint4 b) {
+  return make_uint4(a.x & b.x, a.y & b.y, a.z & b.z, a.w & b.w);
+}
+
+__device__ __forceinline__ uint4 pt_or4(uint4 a, uint4 b) {
+  return make_uint4(a.x | b.x, a.y | b.y, a.z | b.z, a.w | b.w);
+}
+
+// a & ~b
+__device__ __forceinline__ uint4 pt_andn4(uint4 a, uint4 b) {
+  return make_uint4(a.x & ~b.x, a.y & ~b.y, a.z & ~b.z, a.w & ~b.w);
+}
+
+__device__ __forceinline__ unsigned pt_any4(uint4 v) {
+  return v.x | v.y | v.z | v.w;
+}
+
+// Vector i of plane p of a row-major BSI stack [present, S, W] whose
+// planes are `stride` vectors apart; a plane at or past `present` reads
+// as zero words (the reference pads the stack with zero planes instead).
+__device__ __forceinline__ uint4 pt_plane(const uint4* __restrict__ base,
+                                          long long stride, int present,
+                                          int p, long long i) {
+  return p < present ? base[(long long)p * stride + i] : pt_zero4();
+}
+
 // Sum of one value per thread over a PT_BLOCK-thread block; the result is
 // valid in thread 0. Integer addition, so the order does not matter.
 __device__ __forceinline__ unsigned long long pt_block_sum(

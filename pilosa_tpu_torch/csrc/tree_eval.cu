@@ -1,35 +1,48 @@
 // K1: the fused call-tree kernel.
 //
 // Replaces the XLA program that pilosa_tpu builds for every bitmap call
-// tree: the _Planner.plan closures, _plan_row and _existence
-// (pilosa_tpu/executor/compile.py:1334, :1387, :1282), run by
-// QueryCompiler.count_async (:1656, with ops.popcount_rows) and
-// QueryCompiler.bitmap_device (:1640). The planner here compiles the tree
-// to a postfix program once per tree shape (row ids are inputs, so one
-// program serves every row id) and this kernel interprets it word by word.
+// tree: the _Planner.plan closures, _plan_row, _plan_condition and
+// _existence (pilosa_tpu/executor/compile.py:1334, :1387, :1444, :1282),
+// run by QueryCompiler.count_async (:1656, with ops.popcount_rows) and
+// QueryCompiler.bitmap_device (:1640), and the BSI compare/between of
+// pilosa_tpu/ops/bsi.py:38-110 that those programs vmap over the shards.
+// The planner here compiles the tree to a postfix program once per tree
+// shape (row ids are inputs, so one program serves every row id) and
+// this kernel interprets it word by word.
 //
-// The program and its leaf table are one __grid_constant__ kernel
-// parameter (about 3 KB), so a query uploads nothing before its launch and
-// the dynamic indexing below reads the constant bank, not a per-thread
-// copy. A leaf is the base of one [S, W] plane: row `row` of an
-// int32[R, S, W] stack. The wrapper resolves (stack, row, R) to that base
-// and passes null for a row < 0 or >= R, which reads as zero words.
+// The program, its leaf table and its condition table are one
+// __grid_constant__ kernel parameter (about 3.5 KB, under the 4 KB that
+// every toolkit accepts), so a query uploads nothing before its launch
+// and the dynamic indexing below reads the constant bank, not a
+// per-thread copy. A leaf is the base of one [S, W] plane: row `row` of
+// an int32[R, S, W] stack. The wrapper resolves (stack, row, R) to that
+// base and passes null for a row < 0 or >= R, which reads as zero words.
 //
 // Program: LOAD leaf pushes the leaf's plane, ZERO pushes zero words, AND / OR / XOR / ANDNOT pop b and a and push
 // a op b (ANDNOT is a & ~b; PQL Not(x) is LOAD existence, x, ANDNOT).
+// CMP cond pushes the columns whose BSI value compares true against the
+// condition's constant (a BSI condition such as Row(v > 5)): the
+// MSB->LSB eq/lt/gt chain of bsi.py:38 over the stack's magnitude planes,
+// then the sign select of bsi.py:80-106. A plane at or past the stack's
+// height reads as zero, where the reference pads the stack with zero
+// planes. between(lo, hi) is CMP(>= lo) CMP(<= hi) AND, as bsi.py:110.
 //
 // Bound on the H100: bytes. Each leaf plane is read once, 16 B per thread
 // per load, neighbouring threads on neighbouring addresses, and nothing
 // else touches device memory: in count mode the popcount stays in
 // registers and each block adds one int64 with one atomic, so the least
-// time is leaves * S * W * 4 bytes over 3.35 TB/s. The operand stack is a
-// small per-thread array (at most TE_MAX_STACK vectors); it lives in
-// local memory, which L1 absorbs for the shallow trees PQL produces.
+// time is leaves * S * W * 4 bytes over 3.35 TB/s, where a condition
+// counts its 2 + D planes. The operand stack is a small per-thread array
+// (at most TE_MAX_STACK vectors); it lives in local memory, which L1
+// absorbs for the shallow trees PQL produces. A condition's plane loads
+// are independent of one another, so the chain is unrolled by four to
+// keep several of them in flight.
 #include "common.cuh"
 
 #define TE_MAX_LEAVES 256
 #define TE_MAX_OPS 512
 #define TE_MAX_STACK 32
+#define TE_MAX_CONDS 16
 
 enum TreeOp {
   TE_LOAD = 0,
@@ -38,15 +51,89 @@ enum TreeOp {
   TE_OR = 3,
   TE_XOR = 4,
   TE_ANDNOT = 5,
+  TE_CMP = 6,
+};
+
+// the six BSI comparisons, in ops/bsi.py's CMP_OPS order
+enum CmpOp {
+  CMP_EQ = 0,
+  CMP_NE = 1,
+  CMP_LT = 2,
+  CMP_LE = 3,
+  CMP_GT = 4,
+  CMP_GE = 5,
+};
+
+struct TreeCond {
+  const uint4* base;         // plane 0 (existence) of the BSI stack
+  long long stride;          // vectors from one plane to the next
+  unsigned long long c_abs;  // |c|
+  int present;               // planes in the stack; the rest read zero
+  unsigned char depth;       // D, the magnitude planes compared
+  unsigned char op;          // a CmpOp
+  unsigned char neg;         // c < 0
+  unsigned char big;         // |c| >= 2^D: no stored magnitude reaches it
 };
 
 struct TreeArgs {
   const uint4* leaf[TE_MAX_LEAVES];  // plane base per leaf, null = zeros
+  TreeCond cond[TE_MAX_CONDS];
   int n_leaves;
   int n_ops;
+  int n_conds;
   unsigned char op[TE_MAX_OPS];
-  unsigned char arg[TE_MAX_OPS];  // leaf index of a LOAD
+  unsigned char arg[TE_MAX_OPS];  // leaf index of a LOAD, condition of a CMP
 };
+
+static_assert(sizeof(TreeCond) == 32, "TreeCond layout is mirrored in ops/bitwise.py");
+static_assert(sizeof(TreeArgs) <= 4096, "TreeArgs must stay a 4 KB kernel parameter");
+
+// Columns of vector i whose value compares true against the constant.
+__device__ __forceinline__ uint4 te_compare(const TreeCond& c, long long i) {
+  const uint4 ex = pt_plane(c.base, c.stride, c.present, 0, i);
+  const uint4 sg = pt_plane(c.base, c.stride, c.present, 1, i);
+  const uint4 pos = pt_andn4(ex, sg);
+  const uint4 neg = pt_and4(ex, sg);
+  uint4 eq, lt, gt;
+  if (c.big) {
+    eq = pt_zero4();
+    lt = pt_ones4();
+    gt = pt_zero4();
+  } else {
+    eq = pt_ones4();
+    lt = pt_zero4();
+    gt = pt_zero4();
+#pragma unroll 4
+    for (int k = (int)c.depth - 1; k >= 0; --k) {
+      const uint4 bit = pt_plane(c.base, c.stride, c.present, 2 + k, i);
+      if ((c.c_abs >> k) & 1ull) {
+        lt = pt_or4(lt, pt_andn4(eq, bit));
+        eq = pt_and4(eq, bit);
+      } else {
+        gt = pt_or4(gt, pt_and4(eq, bit));
+        eq = pt_andn4(eq, bit);
+      }
+    }
+  }
+  uint4 e, l, g;
+  if (!c.neg) {
+    e = pt_and4(pos, eq);
+    l = pt_or4(neg, pt_and4(pos, lt));  // every negative, smaller positives
+    g = pt_and4(pos, gt);
+  } else {
+    e = pt_and4(neg, eq);
+    l = pt_and4(neg, gt);  // negatives of larger magnitude
+    g = pt_or4(pos, pt_and4(neg, lt));
+  }
+  switch (c.op) {
+    case CMP_EQ: return e;
+    case CMP_NE: return pt_andn4(ex, e);
+    case CMP_LT: return l;
+    case CMP_LE: return pt_or4(l, e);
+    case CMP_GT: return g;
+    default: return pt_or4(g, e);
+  }
+}
 
 template <bool COUNT>
 __global__ void __launch_bounds__(PT_BLOCK)
@@ -63,20 +150,22 @@ __global__ void __launch_bounds__(PT_BLOCK)
       const int op = a.op[k];
       if (op == TE_LOAD) {
         const uint4* plane = a.leaf[a.arg[k]];
-        st[sp++] = plane != nullptr ? plane[i] : make_uint4(0u, 0u, 0u, 0u);
+        st[sp++] = plane != nullptr ? plane[i] : pt_zero4();
       } else if (op == TE_ZERO) {
-        st[sp++] = make_uint4(0u, 0u, 0u, 0u);
+        st[sp++] = pt_zero4();
+      } else if (op == TE_CMP) {
+        st[sp++] = te_compare(a.cond[a.arg[k]], i);
       } else {
         const uint4 b = st[--sp];
         uint4 x = st[sp - 1];
         if (op == TE_AND) {
-          x.x &= b.x; x.y &= b.y; x.z &= b.z; x.w &= b.w;
+          x = pt_and4(x, b);
         } else if (op == TE_OR) {
-          x.x |= b.x; x.y |= b.y; x.z |= b.z; x.w |= b.w;
+          x = pt_or4(x, b);
         } else if (op == TE_XOR) {
           x.x ^= b.x; x.y ^= b.y; x.z ^= b.z; x.w ^= b.w;
         } else {
-          x.x &= ~b.x; x.y &= ~b.y; x.z &= ~b.z; x.w &= ~b.w;
+          x = pt_andn4(x, b);
         }
         st[sp - 1] = x;
       }
@@ -94,15 +183,25 @@ __global__ void __launch_bounds__(PT_BLOCK)
 }
 
 // Checks the program on the host before any launch: every index in
-// range, no stack underflow or overflow, exactly one value left.
-static bool tree_program_ok(const TreeArgs* a) {
+// range, every condition well formed, no stack underflow or overflow,
+// exactly one value left.
+static bool tree_program_ok(const TreeArgs* a, long long n_vec) {
   if (a->n_leaves < 0 || a->n_leaves > TE_MAX_LEAVES) return false;
+  if (a->n_conds < 0 || a->n_conds > TE_MAX_CONDS) return false;
   if (a->n_ops < 1 || a->n_ops > TE_MAX_OPS) return false;
+  for (int c = 0; c < a->n_conds; ++c) {
+    const TreeCond& t = a->cond[c];
+    if (t.base == nullptr || t.stride != n_vec || t.present < 1 ||
+        t.depth > 63 || t.op > CMP_GE) {
+      return false;
+    }
+  }
   int sp = 0;
   for (int k = 0; k < a->n_ops; ++k) {
     const int op = a->op[k];
-    if (op == TE_LOAD || op == TE_ZERO) {
+    if (op == TE_LOAD || op == TE_ZERO || op == TE_CMP) {
       if (op == TE_LOAD && a->arg[k] >= a->n_leaves) return false;
+      if (op == TE_CMP && a->arg[k] >= a->n_conds) return false;
       if (++sp > TE_MAX_STACK) return false;
     } else if (op >= TE_AND && op <= TE_ANDNOT) {
       if (sp < 2) return false;
@@ -118,7 +217,7 @@ static bool tree_program_ok(const TreeArgs* a) {
 // (a zeroed int64 scalar) is non-null. Returns cudaGetLastError().
 PT_EXPORT int tree_eval(const TreeArgs* args, long long n_vec,
                         void* out_words, void* out_count, void* stream) {
-  if (!tree_program_ok(args) || n_vec <= 0 ||
+  if (n_vec <= 0 || !tree_program_ok(args, n_vec) ||
       (out_words == nullptr) == (out_count == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }

@@ -3,8 +3,9 @@
 Reference: pilosa_tpu/executor/compile.py, which turns a call tree into
 one jitted XLA program. Here the same planner emits a small postfix
 program instead — leaf loads plus AND, OR, XOR and ANDNOT (PQL Not is
-existence ANDNOT x) — that the fused call-tree kernel
-(``ops.tree_eval``, csrc/tree_eval.cu) interprets word by word:
+existence ANDNOT x), and CMP for a BSI condition — that the fused
+call-tree kernel (``ops.tree_eval``, csrc/tree_eval.cu) interprets word
+by word:
 
 - each (field, view) keeps a device-resident stacked matrix
   ``int32[R, S, W]`` (row-major, so a row is one contiguous [S, W]
@@ -18,9 +19,15 @@ existence ANDNOT x) — that the fused call-tree kernel
 - a count reduces inside the same launch to one int64, so a Count query
   is one launch and one scalar readback.
 
+- a BSI condition (``Row(v > 5)``, ``-10 < v < 300``, ``v == null``)
+  is evaluated inside the same launch as the rest of the tree, as the
+  reference vmaps ``compare``/``between`` into its program: CMP reads
+  the field's BSI stack through a small condition table.
+
 Not ported yet (each raises): the hot-row, tiered and over-budget
-residency paths (``StackOverBudget`` → ExecutionError, as the reference
-surfaces it), ``Shift`` and BSI conditions (``PlanError``).
+residency paths (``StackOverBudget`` → ExecutionError, ROADMAP.md A11,
+as the reference's slots mode surfaces it) and ``Shift`` (``PlanError``,
+A6).
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ from pilosa_tpu_torch.core import (
     EXISTENCE_FIELD,
     FIELD_INT,
     FIELD_TIME,
+    VIEW_BSI,
     VIEW_STANDARD,
     Field,
     Index,
@@ -44,16 +52,18 @@ from pilosa_tpu_torch.core.timequantum import views_by_time_range
 from pilosa_tpu_torch.ops.bitwise import (
     OP_AND,
     OP_ANDNOT,
+    OP_CMP,
     OP_LOAD,
     OP_OR,
     OP_XOR,
     OP_ZERO,
+    TREE_MAX_CONDS,
     TREE_MAX_LEAVES,
     TREE_MAX_OPS,
     TREE_MAX_STACK,
     program_depth,
 )
-from pilosa_tpu_torch.pql import Call, coerce_timestamp
+from pilosa_tpu_torch.pql import Call, Condition, coerce_timestamp
 from pilosa_tpu_torch.shardwidth import WORDS_PER_SHARD
 from pilosa_tpu_torch.utils import saturation
 
@@ -77,12 +87,12 @@ class StackOverBudget(Exception):
             f"field {field!r}: dense stack of {rows} rows needs "
             f"{bytes_needed / 2**20:.0f} MiB on device (budget "
             f"{budget / 2**20:.0f} MiB); over-budget residency is not yet "
-            "ported to the CUDA path"
+            "ported to the CUDA path (ROADMAP.md A11)"
         )
 
 
-def _not_ported(what: str) -> PlanError:
-    return PlanError(f"{what} is not yet ported to the CUDA path (see ROADMAP.md)")
+def _not_ported(what: str, item: str) -> PlanError:
+    return PlanError(f"{what} is not yet ported to the CUDA path (ROADMAP.md {item})")
 
 
 # --------------------------------------------------------------- stacking
@@ -377,6 +387,8 @@ class _Planner:
         self._builders: list = []  # device-stack thunks
         self._array_keys: dict[tuple, int] = {}
         self.leaves: list[tuple[int, int]] = []  # (stack index, row id)
+        # (stack index, depth, op, constant) per CMP
+        self.conds: list[tuple[int, int, str, int]] = []
 
     def _add_array(self, key: tuple, build) -> int:
         i = self._array_keys.get(key)
@@ -446,18 +458,48 @@ class _Planner:
         if name == "All":
             return self._existence()
         if name == "Shift":
-            raise _not_ported("Shift()")
+            raise _not_ported("Shift()", "A6")
         raise PlanError(f"{name!r} is not a bitmap call")
+
+    def _bsi(self, field: Field) -> int:
+        """Index of the field's BSI stack among the planner's stacks (slots
+        mode only: an over-budget stack raises StackOverBudget here)."""
+        self.stacks.matrix(self.idx, field, VIEW_BSI, self.shards)
+        return self._add_array(
+            ("m", field.name, VIEW_BSI),
+            lambda: self.stacks.matrix(self.idx, field, VIEW_BSI, self.shards)[0],
+        )
+
+    def _cmp(self, si: int, field: Field, op: str, value: int):
+        self.conds.append((si, field.bit_depth, op, value))
+        return [(OP_CMP, len(self.conds) - 1)]
+
+    def _plan_condition(self, cond: tuple[str, Condition]):
+        fname, condition = cond
+        field = self.idx.field(fname)
+        if field is None:
+            raise PlanError(f"field {fname!r} not found")
+        if field.options.field_type != FIELD_INT:
+            raise PlanError(f"field {fname!r} is not an int field")
+        value, op = condition.value, condition.op
+        if value is None:
+            if op == "!=":
+                # columns with a value: the BSI existence plane
+                return self._matrix_leaf(field, VIEW_BSI, 0)
+            if op == "==":
+                ex = self._existence()
+                return ex + self._matrix_leaf(field, VIEW_BSI, 0) + [(OP_ANDNOT, 0)]
+            raise PlanError(f"null only supports ==/!= comparisons, got {op!r}")
+        si = self._bsi(field)
+        if op == "between":
+            lo, hi = int(value[0]), int(value[1])
+            return self._cmp(si, field, ">=", lo) + self._cmp(si, field, "<=", hi) + [(OP_AND, 0)]
+        return self._cmp(si, field, op, int(value))
 
     def _plan_row(self, call: Call):
         cond = call.condition()
         if cond is not None:
-            field = self.idx.field(cond[0])
-            if field is None:
-                raise PlanError(f"field {cond[0]!r} not found")
-            if field.options.field_type != FIELD_INT:
-                raise PlanError(f"field {cond[0]!r} is not an int field")
-            raise _not_ported("a BSI condition")
+            return self._plan_condition(cond)
         fa = call.field_arg()
         if fa is None:
             raise PlanError(f"Row() needs a field argument: {call!r}")
@@ -512,13 +554,14 @@ class _Planner:
         raise PlanError(f"bad row value {row!r}")
 
 
-def check_program(ops_list: list, n_leaves: int) -> None:
+def check_program(ops_list: list, n_leaves: int, n_conds: int = 0) -> None:
     """PlanError when a program exceeds csrc/tree_eval.cu's fixed limits."""
     depth = program_depth(ops_list)
     for what, n, most in (
         ("operand stack depth", depth, TREE_MAX_STACK),
         ("program length", len(ops_list), TREE_MAX_OPS),
         ("leaf count", n_leaves, TREE_MAX_LEAVES),
+        ("BSI condition count", n_conds, TREE_MAX_CONDS),
     ):
         if n > most:
             raise PlanError(
@@ -536,6 +579,7 @@ class QueryCompiler:
         self.device = ops.resolve_device(device)
         self.stacks = StackCache(self.device, stats=stats)
         self._scalar_arrays: dict[tuple, torch.Tensor] = {}
+        self._ones: dict[int, torch.Tensor] = {}
         # the HOST compilation layer: numpy plans over host-resident
         # stacks (executor/hostpath.py); the executor's router picks
         # which engine a call runs on
@@ -556,18 +600,31 @@ class QueryCompiler:
             self._scalar_arrays[key] = cached
         return cached
 
+    def ones(self, n_shards: int) -> torch.Tensor:
+        """All-ones int32[S, W] on the device (an absent filter, as the
+        reference's ``compiler.ones``), cached per shard count."""
+        plane = self._ones.get(n_shards)
+        if plane is None:
+            self._ones.clear()
+            plane = torch.full(
+                (n_shards, WORDS_PER_SHARD), -1, dtype=torch.int32, device=self.device
+            )
+            self._ones[n_shards] = plane
+        return plane
+
     def _plan(self, idx: Index, call: Call, shards: list[int]):
-        """(stacks, leaves, program) for one call tree, checked against
-        the kernel's limits."""
+        """(stacks, leaves, program, conditions) for one call tree,
+        checked against the kernel's limits."""
         planner = _Planner(idx, shards, self.stacks)
         ops_list = planner.plan(call)
-        check_program(ops_list, len(planner.leaves))
-        return planner.materialize(), planner.leaves, ops_list
+        check_program(ops_list, len(planner.leaves), len(planner.conds))
+        return planner.materialize(), planner.leaves, ops_list, planner.conds
 
     def _run(self, idx: Index, call: Call, shards: list[int], count: bool):
-        stacks, leaves, prog = self._plan(idx, call, shards)
+        stacks, leaves, prog, conds = self._plan(idx, call, shards)
         return ops.tree_eval(
-            stacks, leaves, prog, len(shards), count=count, device=self.device
+            stacks, leaves, prog, len(shards), count=count, device=self.device,
+            conds=conds,
         )
 
     def bitmap_device(self, idx: Index, call: Call, shards: list[int]) -> torch.Tensor:

@@ -1,20 +1,26 @@
 """Query executor: PQL AST → kernel launches over sharded fragments.
 
 Reference: pilosa_tpu/executor/executor.py (itself a redesign of the Go
-executor.go). Every device-routed read call is one launch — or two, for a
-filtered TopN — of the hand-written kernels over stacked ``int32[R, S, W]``
-field arrays, and only scalars (or a [rows] count vector for TopN) cross
-back to the host, all of a query's results in one readback wave.
+executor.go). Every device-routed read call is one launch of the
+hand-written kernels over stacked ``int32[R, S, W]`` field arrays — or
+two where a filter child runs first as K1's words (a filtered TopN, Sum,
+Min, Max or GroupBy; the reference fuses the filter into one program,
+ROADMAP.md A8) — and only scalars or small count vectors cross back to
+the host, all of a query's results in one readback wave.
 
 Ported here: Count, the bitmap calls (Row, Range, Union, Intersect,
-Difference, Xor, Not, All), TopN (with and without a filter, and the ids=
-form), Rows, IncludesColumn, Options and the write calls. Sum, Min, Max
-and GroupBy run on the host engine; routed to the device they raise
-ExecutionError until their kernels land (ROADMAP.md A7, A9).
+Difference, Xor, Not, All, and BSI conditions), TopN (with and without a
+filter, and the ids= form), Sum, Min, Max, GroupBy (fused and
+level-synchronous, with filter=, limit= and aggregate=Sum), Rows,
+IncludesColumn, Options and the write calls. Not ported: Shift (it
+raises ExecutionError on the device route, ROADMAP.md A6, and the auto
+router serves it host-side), the mesh paths (A13) and the over-budget
+residency levels (A11).
 """
 
 from __future__ import annotations
 
+import os
 import threading
 import time
 from collections import OrderedDict
@@ -25,14 +31,14 @@ import numpy as np
 import torch
 
 from pilosa_tpu_torch import ops
-from pilosa_tpu_torch.core import FIELD_INT, VIEW_STANDARD, Field, Holder, Index
+from pilosa_tpu_torch.core import FIELD_INT, VIEW_BSI, VIEW_STANDARD, Field, Holder, Index
 from pilosa_tpu_torch.executor.compile import PlanError, QueryCompiler, StackOverBudget
 from pilosa_tpu_torch.executor.hostpath import HostPlanError
 from pilosa_tpu_torch.executor.router import QueryRouter, estimate_words
 from pilosa_tpu_torch.executor.row import RowResult
 from pilosa_tpu_torch.pql import Call, coerce_timestamp, parse
 from pilosa_tpu_torch.roaring import unpack_words
-from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+from pilosa_tpu_torch.shardwidth import SHARD_WIDTH, WORDS_PER_SHARD
 from pilosa_tpu_torch.utils import tracing
 from pilosa_tpu_torch.utils.tracing import GLOBAL_TRACER
 
@@ -79,11 +85,6 @@ WRITE_CALLS = {
     "SetRowAttrs",
     "SetColumnAttrs",
 }
-# calls whose device programs are not ported yet, and the ROADMAP item
-# that ports them; the auto router serves them host-side
-_HOST_ONLY = {"Sum": "A7", "Min": "A7", "Max": "A7", "GroupBy": "A9"}
-
-
 def unwrap_options(call: Call) -> Call:
     """Innermost call of an Options() wrapper chain — THE write/read
     classification rule."""
@@ -93,10 +94,9 @@ def unwrap_options(call: Call) -> Call:
 
 
 def _device_ported(call: Call) -> bool:
-    """Whether every node of the tree has a CUDA path in this port."""
-    if call.name in _HOST_ONLY or call.name == "Shift":
-        return False
-    if call.name in ("Row", "Range") and call.condition() is not None:
+    """Whether every node of the tree has a CUDA path in this port (all
+    but Shift, ROADMAP.md A6)."""
+    if call.name == "Shift":
         return False
     sub = [call.arg("filter"), call.arg("aggregate")]
     return all(
@@ -156,7 +156,36 @@ class SumCount(dict):
         super().__init__(value=int(value), count=int(count))
 
 
+def _pow2(n: int) -> int:
+    return 1 << max(0, (n - 1)).bit_length()
+
+
+def _pad_row_ids(rows: list[int], k_pad: int) -> list[int]:
+    """Row ids padded to k_pad with -1: K6 reads a -1 row as zeros, so
+    padded slots count 0 and prune."""
+    return list(rows) + [-1] * (k_pad - len(rows))
+
+
 class Executor:
+    # device-memory cap for GroupBy's [G, S, W] group-mask tensor; levels
+    # surviving more groups than fit are processed in chunks (see
+    # _execute_group_by). None ⇒ resolved lazily in _gb_budget(); tests
+    # pin an int (class or instance) to force paths.
+    GROUPBY_MASK_BUDGET = None
+
+    def _gb_budget(self) -> int:
+        """GroupBy transient-mask budget: a pinned GROUPBY_MASK_BUDGET
+        wins; else PILOSA_TPU_GROUPBY_BUDGET; else 1/8 of the stack
+        budget (70 % of the card's memory), floored at 256 MiB — sized so
+        a realistic two-level GroupBy folds through the fused
+        one-readback path."""
+        if self.GROUPBY_MASK_BUDGET is not None:
+            return self.GROUPBY_MASK_BUDGET
+        env = os.environ.get("PILOSA_TPU_GROUPBY_BUDGET")
+        if env:
+            return int(env)
+        return max(256 << 20, self.compiler.stacks.STACK_BYTES_BUDGET // 8)
+
     def __init__(
         self,
         holder: Holder,
@@ -382,11 +411,6 @@ class Executor:
             return self._execute_write(idx, call)
         shard_list = self._shards(idx, shards)
         host = route == "host"
-        if not host and name in _HOST_ONLY:
-            raise ExecutionError(
-                f"{name}() is not yet ported to the CUDA path (ROADMAP.md "
-                f"{_HOST_ONLY[name]}); route it to the host engine"
-            )
         try:
             if name in BITMAP_CALLS:
                 if host:
@@ -412,21 +436,19 @@ class Executor:
                 )
                 return pend if lazy else pend.resolve_now()
             if name == "Sum":
-                field = self._agg_field(idx, call)
-                value, n = self.compiler.host.sum(idx, field, call, shard_list)
-                return SumCount(value, n)
+                return self._execute_sum(idx, call, shard_list, lazy=lazy, host=host)
             if name in ("Min", "Max"):
-                field = self._agg_field(idx, call)
-                value, n = self.compiler.host.min_max(
-                    idx, field, call, shard_list, name == "Max"
+                return self._execute_min_max(
+                    idx, call, shard_list, name == "Max", lazy=lazy, host=host
                 )
-                return SumCount(value, n)
             if name == "TopN":
                 return self._execute_topn(idx, call, shard_list, lazy=lazy, host=host)
             if name == "Rows":
                 return self._execute_rows(idx, call, shard_list)
             if name == "GroupBy":
-                return self._execute_group_by(idx, call, shard_list)
+                return self._execute_group_by(
+                    idx, call, shard_list, lazy=lazy, host=host
+                )
             if name == "IncludesColumn":
                 return self._execute_includes_column(idx, call, shard_list, host=host)
         except (PlanError, StackOverBudget, HostPlanError) as e:
@@ -508,7 +530,71 @@ class Executor:
             raise ExecutionError(f"field {field.name!r} is not an int field")
         return field
 
+    def _filter_device(self, idx: Index, call: Call, shards: list[int]):
+        """The child-call filter as device int32[S, W] (K1's words mode),
+        or None without one (the kernels read None as all ones). The
+        aggregate then reads it back: two launches where the reference
+        fuses the filter into the aggregate's program (``_filter_plan``,
+        executor.py:1019; ROADMAP.md A8)."""
+        if not call.children:
+            return None
+        return self.compiler.bitmap_device(idx, call.children[0], shards)
+
+    def _bsi_stacked(self, idx: Index, field: Field, shards: list[int]):
+        """(int32[P, S, W] BSI stack on the device, depth D). The kernels
+        read a plane at or past P as zeros, so the stack is never padded
+        to 2 + D; an over-budget stack raises StackOverBudget (A11)."""
+        m, _rows = self.compiler.stacks.matrix(idx, field, VIEW_BSI, shards)
+        return m, field.bit_depth
+
     # ------------------------------------------------------- aggregates
+    def _execute_sum(
+        self, idx: Index, call: Call, shards: list[int], lazy: bool = False,
+        host: bool = False,
+    ):
+        field = self._agg_field(idx, call)
+        if host:
+            value, n = self.compiler.host.sum(idx, field, call, shards)
+            return SumCount(value, n)
+        stack, depth = self._bsi_stacked(idx, field, shards)
+        filt = self._filter_device(idx, call, shards)
+        pos, neg, n = ops.bsi_sum(stack, depth, None if filt is None else filt[None])
+        pend = _Pending(
+            [pos, neg, n],
+            lambda a: SumCount(ops.bsi.weigh_sum(a[0][0], a[1][0]), int(a[2][0])),
+        )
+        return pend if lazy else pend.resolve_now()
+
+    def _execute_min_max(
+        self, idx: Index, call: Call, shards: list[int], want_max: bool,
+        lazy: bool = False, host: bool = False,
+    ):
+        field = self._agg_field(idx, call)
+        if host:
+            value, n = self.compiler.host.min_max(
+                idx, field, call, shards, want_max
+            )
+            return SumCount(value, n)
+        stack, depth = self._bsi_stacked(idx, field, shards)
+        filt = self._filter_device(idx, call, shards)
+        values, counts = ops.bsi_min_max(stack, depth, filt, want_max)
+
+        def finish(a):
+            # per-shard extremes merge exactly: min/max with its count is
+            # associative over disjoint shards
+            best, best_count = None, 0
+            for v, n in zip(a[0].tolist(), a[1].tolist()):
+                if n == 0:
+                    continue
+                if best is None or (v > best if want_max else v < best):
+                    best, best_count = v, n
+                elif v == best:
+                    best_count += n
+            return SumCount(best if best is not None else 0, best_count)
+
+        pend = _Pending([values, counts], finish)
+        return pend if lazy else pend.resolve_now()
+
     def _execute_topn(
         self, idx: Index, call: Call, shards: list[int], lazy: bool = False,
         host: bool = False,
@@ -629,9 +715,15 @@ class Executor:
             }
         return {"rows": rows}
 
-    def _execute_group_by(self, idx: Index, call: Call, shards: list[int]):
-        """GroupBy on the host engine (its device programs are ROADMAP
-        A9): the same row universes and emission order as the reference."""
+    def _execute_group_by(
+        self, idx: Index, call: Call, shards: list[int], lazy: bool = False,
+        host: bool = False,
+    ):
+        """GroupBy with the reference's row universes and emission order
+        on either engine. On the device: the fused path (one deferred
+        [G, K] readback) when no aggregate is asked for and the folded
+        masks fit ``_gb_budget``, else the level-synchronous path, two
+        K6 launches per level and K4 for aggregate=Sum."""
         if not call.children or any(ch.name != "Rows" for ch in call.children):
             raise ExecutionError("GroupBy() takes Rows() calls")
         limit = call.arg("limit")
@@ -662,9 +754,150 @@ class Executor:
             if rlimit is not None:
                 rows = rows[:rlimit]
             row_lists.append(rows)
-        return self.compiler.host.group_by(
-            idx, fields, row_lists, filter_call, agg_field, limit, shards
+        if host:
+            return self.compiler.host.group_by(
+                idx, fields, row_lists, filter_call, agg_field, limit, shards
+            )
+
+        agg = self._bsi_stacked(idx, agg_field, shards) if agg_field is not None else None
+        # an over-budget level raises StackOverBudget: the reference's
+        # streamed levels (_pack_rows) are ROADMAP.md A11
+        matrices = [
+            self.compiler.stacks.matrix(idx, f, VIEW_STANDARD, shards)[0] for f in fields
+        ]
+        n_shards = len(shards)
+        if filter_call is not None:
+            base_mask = self.compiler.bitmap_device(idx, filter_call, shards)
+        else:
+            base_mask = self.compiler.ones(n_shards)
+        if aggregate is None and all(row_lists):
+            fused = self._groupby_fused(
+                fields, row_lists, matrices, base_mask, limit, n_shards
+            )
+            if fused is not None:
+                return fused if lazy else fused.resolve_now()
+
+        # Level-synchronous: a nesting level is two launches, (1) the
+        # counts of every (surviving group × candidate row) pair, (2) the
+        # surviving groups' masks, chunked to the mask budget depth-first
+        # so that the emission order — and `limit` — is the reference's.
+        chunk_cap = max(1, self._gb_budget() // (n_shards * WORDS_PER_SHARD * 4))
+        chunk_cap = 1 << (chunk_cap.bit_length() - 1)
+        dev_ids = self.compiler.device_scalars
+        results: list[dict] = []
+
+        def emit(groups: list[tuple], counts: np.ndarray, masks) -> None:
+            start = len(results)
+            for grp, c in zip(groups, counts.tolist()):
+                results.append(
+                    {
+                        "group": [{"field": f.name, "rowID": rid} for f, rid in grp],
+                        "count": int(c),
+                    }
+                )
+            if agg is not None:
+                pos, neg, _n = (
+                    x.cpu().numpy() for x in ops.bsi_sum(agg[0], agg[1], masks[: len(groups)])
+                )
+                for i in range(len(groups)):
+                    results[start + i]["sum"] = ops.bsi.weigh_sum(pos[i], neg[i])
+
+        def level_counts(level: int, masks, n_groups: int) -> np.ndarray:
+            rows_l = row_lists[level]
+            rows_arr = dev_ids(_pad_row_ids(rows_l, _pow2(len(rows_l))))
+            counts = ops.gb_counts(masks, matrices[level], rows_arr)
+            return counts.cpu().numpy()[:n_groups, : len(rows_l)]
+
+        def pair_masks(level: int, masks, chunk: np.ndarray):
+            # p_pad-padded: padding pairs (group 0, row -1) are zero masks
+            rows_l = row_lists[level]
+            p_pad = _pow2(chunk.shape[0])
+            g_idx = chunk[:, 0].tolist() + [0] * (p_pad - chunk.shape[0])
+            row_sel = _pad_row_ids([rows_l[k] for k in chunk[:, 1].tolist()], p_pad)
+            return ops.gb_masks(masks, matrices[level], dev_ids(g_idx), dev_ids(row_sel))
+
+        def expand(level: int, masks, groups: list[tuple]) -> None:
+            if limit is not None and len(results) >= limit:
+                return
+            rows_l = row_lists[level]
+            cnp = level_counts(level, masks, len(groups))
+            pairs = np.argwhere(cnp > 0)  # (g-major, k-minor) = lexicographic
+            last = level == len(fields) - 1
+            if last and limit is not None:
+                pairs = pairs[: limit - len(results)]
+            for lo in range(0, pairs.shape[0], chunk_cap):
+                chunk = pairs[lo : lo + chunk_cap]
+                sub_groups = [
+                    groups[g] + ((fields[level], rows_l[k]),) for g, k in chunk.tolist()
+                ]
+                if last and agg is None:
+                    # counts suffice: no final masks
+                    emit(sub_groups, cnp[chunk[:, 0], chunk[:, 1]], None)
+                else:
+                    sub_masks = pair_masks(level, masks, chunk)
+                    if last:
+                        emit(sub_groups, cnp[chunk[:, 0], chunk[:, 1]], sub_masks)
+                    else:
+                        expand(level + 1, sub_masks, sub_groups)
+                if limit is not None and len(results) >= limit:
+                    return
+
+        if all(row_lists):
+            expand(0, base_mask[None], [()])
+        return results
+
+    def _groupby_fused(self, fields, row_lists, matrices, base_mask, limit, n_shards):
+        """All-pairs GroupBy: fold every level but the last into one
+        [G, S, W] pair-mask tensor (K6 gb_masks) with no readback, count
+        the last level's rows against it (K6 gb_counts) and read the
+        [G, K] counts back once, deferred. A padding row (-1) or an empty
+        parent gives an all-zero mask, so every empty combination counts 0
+        and the finish drops it; argwhere's row-major order is the nested
+        ascending row order, so ``limit`` cuts as the level path does.
+        None when the folded masks would exceed ``_gb_budget``."""
+        kp = [_pow2(len(r)) for r in row_lists]
+        dev_ids = self.compiler.device_scalars
+        n_groups = 1
+        masks = base_mask[None]
+        for lvl in range(len(fields) - 1):
+            g_new = n_groups * kp[lvl]
+            if g_new * n_shards * WORDS_PER_SHARD * 4 > self._gb_budget():
+                return None
+            rows_arr = _pad_row_ids(row_lists[lvl], kp[lvl])
+            g_idx = [g for g in range(n_groups) for _ in range(kp[lvl])]
+            masks = ops.gb_masks(
+                masks, matrices[lvl], dev_ids(g_idx), dev_ids(rows_arr * n_groups)
+            )
+            n_groups = g_new
+        last = len(fields) - 1
+        counts = ops.gb_counts(
+            masks, matrices[last], dev_ids(_pad_row_ids(row_lists[last], kp[last]))
         )
+
+        def finish(a):
+            cnt = a[0]  # [G, kp[last]]
+            results: list[dict] = []
+            for flat, k in np.argwhere(cnt > 0).tolist():
+                if limit is not None and len(results) >= limit:
+                    break
+                idxs = [k]
+                rem = flat
+                for lvl in range(last - 1, -1, -1):
+                    idxs.append(rem % kp[lvl])
+                    rem //= kp[lvl]
+                idxs.reverse()
+                results.append(
+                    {
+                        "group": [
+                            {"field": fields[lvl].name, "rowID": row_lists[lvl][j]}
+                            for lvl, j in enumerate(idxs)
+                        ],
+                        "count": int(cnt[flat, k]),
+                    }
+                )
+            return results
+
+        return _Pending([counts], finish)
 
     def _execute_includes_column(
         self, idx: Index, call: Call, shards: list[int], host: bool = False

@@ -117,13 +117,17 @@ def build(names: list[str], force: bool = False) -> dict[str, float]:
 
 class Kernel:
     """One hand-written kernel: its source, its C entry and its count of
-    launches (raised only where the kernel is launched)."""
+    launches (raised only where the kernel is launched), also kept per
+    mode of the launch (``modes``). ``stem`` names the source when one
+    file holds several entries (K6)."""
 
-    def __init__(self, name: str, argtypes: list, replaces: str):
+    def __init__(self, name: str, argtypes: list, replaces: str, stem: str | None = None):
         self.name = name
-        self.source = f"pilosa_tpu_torch/csrc/{name}.cu"
+        self.stem = stem or name
+        self.source = f"pilosa_tpu_torch/csrc/{self.stem}.cu"
         self.replaces = replaces
         self.launches = 0
+        self.modes: dict[str, int] = {}
         self._argtypes = argtypes
         self._fn = None
         self._errstr = None
@@ -132,8 +136,8 @@ class Kernel:
     def _bind(self):
         with self._lock:
             if self._fn is None:
-                build([self.name])
-                lib = ctypes.CDLL(_lib_path(self.name))
+                build([self.stem])
+                lib = ctypes.CDLL(_lib_path(self.stem))
                 fn = getattr(lib, self.name)
                 fn.argtypes = self._argtypes
                 fn.restype = ctypes.c_int
@@ -144,9 +148,15 @@ class Kernel:
                 self._fn = fn
         return self._fn
 
-    def launch(self, device: torch.device, *args) -> None:
+    def reset(self) -> None:
+        with self._lock:
+            self.launches = 0
+            self.modes = {}
+
+    def launch(self, device: torch.device, *args, mode: str = "") -> None:
         """Call the C entry on ``device``'s current stream; raise on a
-        non-zero cudaGetLastError()."""
+        non-zero cudaGetLastError(). ``mode`` names what the launch
+        computes (K1's words or count, a filtered TopN) for the counts."""
         fn = self._bind()
         stream = torch.cuda.current_stream(device).cuda_stream
         with torch.cuda.device(device):
@@ -156,9 +166,11 @@ class Kernel:
             raise KernelLaunchError(f"{self.name}: CUDA error {err}: {msg}")
         with self._lock:
             self.launches += 1
+            if mode:
+                self.modes[mode] = self.modes.get(mode, 0) + 1
 
 
-_VP, _LL = ctypes.c_void_p, ctypes.c_longlong
+_VP, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 
 TREE_EVAL = Kernel(
     "tree_eval",
@@ -177,4 +189,33 @@ STACK_DELTA = Kernel(
     [_VP, _VP, _LL, _LL, _LL, _VP, _VP, _LL, _VP, _VP],
     "pilosa_tpu/executor/compile.py:194",  # _apply_stack_delta
 )
-KERNELS = {k.name: k for k in (TREE_EVAL, ROW_COUNTS, STACK_DELTA)}
+BSI_SUM = Kernel(
+    "bsi_sum",
+    [_VP, _LL, _I, _I, _VP, _I, _VP, _VP, _VP, _VP],
+    # sum_counts, vmapped by _sum_fn (executor.py:1073) and grouped by
+    # _grouped_sum_program (:1088)
+    "pilosa_tpu/ops/bsi.py:113",
+)
+BSI_MINMAX = Kernel(
+    "bsi_minmax",
+    [_VP, _LL, _I, _I, _I, _VP, _I, _VP, _VP, _VP],
+    "pilosa_tpu/ops/bsi.py:152",  # min_max, vmapped at executor.py:1194
+)
+GB_COUNTS = Kernel(
+    "gb_counts",
+    [_VP, _LL, _VP, _LL, _LL, _VP, _LL, _VP, _VP],
+    "pilosa_tpu/executor/executor.py:177",  # _gb_counts
+    stem="groupby",
+)
+GB_MASKS = Kernel(
+    "gb_masks",
+    [_VP, _VP, _LL, _VP, _LL, _LL, _VP, _VP, _LL, _VP],
+    "pilosa_tpu/executor/executor.py:192",  # _gb_masks
+    stem="groupby",
+)
+KERNELS = {
+    k.name: k
+    for k in (TREE_EVAL, ROW_COUNTS, STACK_DELTA, BSI_SUM, BSI_MINMAX, GB_COUNTS, GB_MASKS)
+}
+# the sources, one nvcc process each
+SOURCES = sorted({k.stem for k in KERNELS.values()})

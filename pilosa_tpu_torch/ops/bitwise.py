@@ -11,7 +11,9 @@ int32 sum over the trailing word axis (a shard row holds at most 2^20
 bits) and an int64 total across rows.
 
 ``tree_eval`` is the wrapper of ``csrc/tree_eval.cu``: a CPU tensor takes
-the plain interpreter, a CUDA tensor launches the kernel or raises.
+the plain interpreter, a CUDA tensor launches the kernel or raises. Its
+CMP opcode evaluates a BSI condition in the same launch; the plain
+interpreter runs ``ops.bsi.compare`` for it.
 """
 
 from __future__ import annotations
@@ -82,18 +84,36 @@ def column_mask(width: int, n_words: int, device="cpu") -> torch.Tensor:
 # ------------------------------------------------------------ tree programs
 # Opcodes of the postfix call-tree program, and the kernel's fixed limits
 # (the #defines of csrc/tree_eval.cu; the planner raises PlanError above
-# them).
-OP_LOAD, OP_ZERO, OP_AND, OP_OR, OP_XOR, OP_ANDNOT = range(6)
+# them). CMP's argument indexes the condition table: (stack index, depth
+# D, op in bsi.CMP_OPS, constant) per BSI condition.
+OP_LOAD, OP_ZERO, OP_AND, OP_OR, OP_XOR, OP_ANDNOT, OP_CMP = range(7)
 TREE_MAX_LEAVES = 256
 TREE_MAX_OPS = 512
 TREE_MAX_STACK = 32
+TREE_MAX_CONDS = 16
+_PUSHES = (OP_LOAD, OP_ZERO, OP_CMP)
+
+
+class _TreeCond(ctypes.Structure):
+    _fields_ = [
+        ("base", ctypes.c_void_p),
+        ("stride", ctypes.c_longlong),
+        ("c_abs", ctypes.c_ulonglong),
+        ("present", ctypes.c_int),
+        ("depth", ctypes.c_ubyte),
+        ("op", ctypes.c_ubyte),
+        ("neg", ctypes.c_ubyte),
+        ("big", ctypes.c_ubyte),
+    ]
 
 
 class _TreeArgs(ctypes.Structure):
     _fields_ = [
         ("leaf", ctypes.c_void_p * TREE_MAX_LEAVES),
+        ("cond", _TreeCond * TREE_MAX_CONDS),
         ("n_leaves", ctypes.c_int),
         ("n_ops", ctypes.c_int),
+        ("n_conds", ctypes.c_int),
         ("op", ctypes.c_ubyte * TREE_MAX_OPS),
         ("arg", ctypes.c_ubyte * TREE_MAX_OPS),
     ]
@@ -103,7 +123,7 @@ def program_depth(ops: list[tuple[int, int]]) -> int:
     """Deepest operand stack a postfix program reaches."""
     depth = most = 0
     for op, _arg in ops:
-        depth += 1 if op in (OP_LOAD, OP_ZERO) else -1
+        depth += 1 if op in _PUSHES else -1
         most = max(most, depth)
     return most
 
@@ -127,10 +147,14 @@ def tree_eval_plain(
     n_shards: int,
     count: bool,
     device="cpu",
+    conds: list[tuple[int, int, str, int]] = (),
 ) -> torch.Tensor:
     """Plain interpreter of a postfix program. ``stacks`` are int32
     [R_i, S, W]; ``leaves`` are (stack index, row id) with out-of-range
-    rows reading zero words. → int64 scalar (``count``) or int32[S, W]."""
+    rows reading zero words; ``conds`` are the BSI conditions of the CMP
+    ops. → int64 scalar (``count``) or int32[S, W]."""
+    from pilosa_tpu_torch.ops import bsi
+
     zeros = lambda: torch.zeros(  # noqa: E731
         (n_shards, WORDS_PER_SHARD), dtype=torch.int32, device=device
     )
@@ -142,6 +166,9 @@ def tree_eval_plain(
             st.append(m[row] if 0 <= row < m.shape[0] else zeros())
         elif op == OP_ZERO:
             st.append(zeros())
+        elif op == OP_CMP:
+            si, depth, cmp_op, value = conds[arg]
+            st.append(bsi.compare(bsi.bsi_planes(stacks[si], depth), cmp_op, value))
         else:
             b = st.pop()
             st.append(_apply(op, st.pop(), b))
@@ -159,11 +186,14 @@ def tree_eval(
     n_shards: int,
     count: bool,
     device="cpu",
+    conds: list[tuple[int, int, str, int]] = (),
 ) -> torch.Tensor:
     """Evaluate a postfix call-tree program over [S, W] planes (K1).
 
     The stacks' device decides the route; ``device`` names it only for a
     program with no stack (an empty Union(), say)."""
+    from pilosa_tpu_torch.ops.bsi import CMP_OPS
+
     dev = stacks[0].device if stacks else torch.device(device)
     for m in stacks:
         if m.device != dev:
@@ -172,29 +202,41 @@ def tree_eval(
             raise ValueError("stacks must be contiguous int32[R, S, W]")
         if m.shape[1] != n_shards or m.shape[2] != WORDS_PER_SHARD:
             raise ValueError(f"stack shape {tuple(m.shape)} is not [R, {n_shards}, {WORDS_PER_SHARD}]")
+    for _si, depth, cmp_op, _value in conds:
+        if cmp_op not in CMP_OPS or not 0 <= depth <= 63:
+            raise ValueError(f"bad BSI condition {cmp_op!r} at depth {depth}")
     if dev.type == "cpu":
-        return tree_eval_plain(stacks, leaves, ops, n_shards, count, dev)
+        return tree_eval_plain(stacks, leaves, ops, n_shards, count, dev, conds)
     if (
         len(leaves) > TREE_MAX_LEAVES
         or len(ops) > TREE_MAX_OPS
+        or len(conds) > TREE_MAX_CONDS
         or program_depth(ops) > TREE_MAX_STACK
     ):
         raise ValueError("tree program exceeds the kernel's limits")
     plane_bytes = n_shards * WORDS_PER_SHARD * 4
+    n_vec = n_shards * WORDS_PER_SHARD // 4
     a = _TreeArgs()
     for i, (si, row) in enumerate(leaves):
         m = stacks[si]
         # a row outside the stack reads zero words: the kernel's null leaf
         a.leaf[i] = m.data_ptr() + row * plane_bytes if 0 <= row < m.shape[0] else None
+    for i, (si, depth, cmp_op, value) in enumerate(conds):
+        c = a.cond[i]
+        c.base, c.stride, c.present = stacks[si].data_ptr(), n_vec, stacks[si].shape[0]
+        c.depth, c.op, c.neg = depth, CMP_OPS.index(cmp_op), value < 0
+        # |c| >= 2^D compares as past every stored magnitude (bsi.py:71)
+        c.big = abs(value) >= 1 << depth
+        c.c_abs = 0 if c.big else abs(value)
     for i, (op, arg) in enumerate(ops):
         a.op[i] = op
         a.arg[i] = arg
-    a.n_leaves, a.n_ops = len(leaves), len(ops)
-    n_vec = n_shards * WORDS_PER_SHARD // 4
+    a.n_leaves, a.n_ops, a.n_conds = len(leaves), len(ops), len(conds)
+    mode = ("count" if count else "words") + ("+cmp" if conds else "")
     if count:
         out = torch.zeros((), dtype=torch.int64, device=dev)
-        _cuda.TREE_EVAL.launch(dev, ctypes.byref(a), n_vec, None, out.data_ptr())
+        _cuda.TREE_EVAL.launch(dev, ctypes.byref(a), n_vec, None, out.data_ptr(), mode=mode)
     else:
         out = torch.empty((n_shards, WORDS_PER_SHARD), dtype=torch.int32, device=dev)
-        _cuda.TREE_EVAL.launch(dev, ctypes.byref(a), n_vec, out.data_ptr(), None)
+        _cuda.TREE_EVAL.launch(dev, ctypes.byref(a), n_vec, out.data_ptr(), None, mode=mode)
     return out

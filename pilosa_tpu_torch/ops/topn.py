@@ -78,5 +78,6 @@ def row_counts(
             None if ids is None else ids.data_ptr(),
             n_out,
             out.data_ptr(),
+            mode=("filtered" if filt is not None else "rows") + (" ids" if ids is not None else ""),
         )
     return out

@@ -80,7 +80,7 @@ def test_one_program_serves_every_row_id(pair):
     _ref_idx, pt_idx, _ref_c, pt_c = pair
     progs, row_ids = set(), []
     for r in range(4):
-        _stacks, leaves, prog = pt_c._plan(
+        _stacks, leaves, prog, _conds = pt_c._plan(
             pt_idx, parse(f"Intersect(Row(f={r}), Row(g=1))")[0], SHARDS
         )
         progs.add(tuple(prog))
@@ -103,7 +103,12 @@ def test_stack_depth_over_the_kernel_limit_is_a_plan_error(pair):
 
 
 @pytest.mark.parametrize(
-    "pql", ["Count(Shift(Row(f=1), n=3))", "Count(Row(v > 10))", "Sum(field=v)"]
+    "pql",
+    [
+        "Count(Shift(Row(f=1), n=3))",
+        "Count(Intersect(Row(v > 10), Shift(Row(f=2))))",
+        "Sum(Shift(Row(g=1), n=2), field=v)",
+    ],
 )
 def test_unported_device_programs_raise(pql):
     h = pt_core.Holder(None)

@@ -63,6 +63,31 @@ READS = [
     "Count(Row(f=1)) TopN(g, n=2) Row(g=1)",
 ]
 
+# BSI conditions, Sum, Min, Max and GroupBy: K1's CMP, K4, K5 and K6
+AGGREGATES = [
+    "Row(v > 0)",
+    "Row(v == null)",
+    "Row(v != null)",
+    "Row(-10 < v < 300)",
+    "Row(v >< [-5, 5])",
+    "Count(Intersect(Row(f=1), Row(v >= -250)))",
+    "Count(Row(v == 2000))",
+    "Count(Row(v < -1000))",
+    "Sum(Row(f=2), field=v)",
+    "Sum(Row(v < 0), field=v)",
+    "Min(Row(g=1), field=v)",
+    "Max(field=v)",
+    "Min(Row(v > 100), field=v)",
+    "GroupBy(Rows(f), Rows(g), filter=Row(v > 0))",
+    "GroupBy(Rows(f), Rows(g), limit=5)",
+    "GroupBy(Rows(f), Rows(g), aggregate=Sum(field=v))",
+    "GroupBy(Rows(f), Rows(g), Rows(t))",
+    "GroupBy(Rows(g), Rows(f), filter=Row(v < 500), aggregate=Sum(field=v), limit=9)",
+    "Count(Row(v > 0)) Sum(field=v) GroupBy(Rows(g)) Min(field=v)",
+]
+
+# the calls that ran only on the host engine before their device
+# programs were ported; the case names stay as they were
 HOST_ONLY = [
     "Sum(field=v)",
     "Min(field=v)",
@@ -90,22 +115,86 @@ def test_query_matches_reference(apis, pql):
     assert port.query("i", pql) == ref.query("i", pql)
 
 
+@pytest.mark.parametrize("pql", AGGREGATES)
+def test_bsi_and_groupby_queries_match_reference(apis, pql):
+    ref, port = apis
+    assert port.query("i", pql) == ref.query("i", pql)
+
+
 @pytest.mark.parametrize("pql", HOST_ONLY)
 def test_host_engine_calls_match_reference(pql):
+    """Host, auto and device routes all give the reference's answer, and
+    auto no longer counts them as unported."""
     ref_h, pt_h = ref_core.Holder(None), pt_core.Holder(None)
     fill(ref_core, ref_h)
     fill(pt_core, pt_h)
     want = _ref_api(ref_h, "host").query("i", pql)
+    assert _ref_api(ref_h, "device").query("i", pql) == want
     assert API(pt_h, device="cpu", route_mode="host").query("i", pql) == want
-    # under auto the router serves them host-side, and counts each such
-    # decision apart; pinned to the device they name the ROADMAP item
-    # that ports them
     auto = API(pt_h, device="cpu", route_mode="auto")
     assert auto.query("i", pql) == want
+    assert auto.executor.router.decisions.get("host_unported", 0) == 0
+    assert API(pt_h, device="cpu", route_mode="device").query("i", pql) == want
+
+
+def test_shift_is_the_one_unported_call():
+    """Shift raises on the device route naming its ROADMAP item; under
+    auto the router serves it host-side and counts it apart."""
+    ref_h, pt_h = ref_core.Holder(None), pt_core.Holder(None)
+    fill(ref_core, ref_h)
+    fill(pt_core, pt_h)
+    pql = "Count(Shift(Row(f=1), n=3))"
+    with pytest.raises(ExecutionError, match="ROADMAP.md A6"):
+        API(pt_h, device="cpu", route_mode="device").query("i", pql)
+    auto = API(pt_h, device="cpu", route_mode="auto")
+    assert auto.query("i", pql) == _ref_api(ref_h, "host").query("i", pql)
     decisions = auto.executor.router.decisions
     assert decisions["host_unported"] == 1 and decisions["host"] >= 1
-    with pytest.raises(ExecutionError, match="ROADMAP.md A[79]"):
-        API(pt_h, device="cpu", route_mode="device").query("i", pql)
+
+
+def test_groupby_level_path_matches_reference(monkeypatch):
+    """A mask budget of one plane turns the fused GroupBy off and cuts
+    the level-synchronous path into one-pair chunks, on both packages."""
+    from pilosa_tpu.executor.executor import Executor as RefExecutor
+
+    ref_h, pt_h = ref_core.Holder(None), pt_core.Holder(None)
+    fill(ref_core, ref_h)
+    fill(pt_core, pt_h)
+    plane = 3 * 65536 // 8
+    monkeypatch.setattr(RefExecutor, "GROUPBY_MASK_BUDGET", plane)
+    monkeypatch.setattr(Executor, "GROUPBY_MASK_BUDGET", plane)
+    ref, port = _ref_api(ref_h), API(pt_h, device="cpu", route_mode="device")
+    for pql in (
+        "GroupBy(Rows(f), Rows(g))",
+        "GroupBy(Rows(f), Rows(g), Rows(t), limit=11)",
+        "GroupBy(Rows(g), Rows(f), filter=Row(v != null), aggregate=Sum(field=v))",
+    ):
+        assert port.query("i", pql) == ref.query("i", pql), pql
+
+
+def test_groupby_padding_rows_count_nothing():
+    """A field whose highest row is its stack's last padded row, with a
+    row missing below it (rows 0-5 and 7 of 8): the port's padding row
+    id -1 reads zeros, so the fused GroupBy equals the host engines.
+    (The reference's device route wraps -1 to the last row there;
+    ROADMAP.md §C.)"""
+    def holder(core):
+        h = core.Holder(None)
+        idx = h.create_index("j")
+        rng = np.random.default_rng(3)
+        cols = rng.integers(0, 2 * 65536, 3000).astype(np.uint64)
+        for name in ("a", "b"):
+            idx.create_field(name).import_bulk(
+                rng.choice([0, 1, 2, 3, 4, 5, 7], 3000).astype(np.uint64), cols
+            )
+        idx.mark_columns_exist(cols)
+        return h
+
+    pql = "GroupBy(Rows(a), Rows(b))"
+    want = _ref_api(holder(ref_core), "host").query("j", pql)
+    pt_h = holder(pt_core)
+    assert API(pt_h, device="cpu", route_mode="device").query("j", pql) == want
+    assert API(pt_h, device="cpu", route_mode="host").query("j", pql) == want
 
 
 def test_set_then_count_takes_the_delta_path():
