@@ -6,17 +6,17 @@ Run from the root of a checkout. In order:
 
 1. build the kernels from ``pilosa_tpu_torch/csrc`` with nvcc for
    sm_90a, one nvcc process per source, all started together;
-2. three paths, each with every kernel's launch count set to 0 just
+2. four paths, each with every kernel's launch count set to 0 just
    before it and read just after, and printed on a line of its own:
    - the main path: ``API(holder, device="cuda", route_mode="device")``
      over 10,240 shards × 8 rows (10.7 B columns; bench.py's default
      scale and data recipe: 64 distinct random blocks cycled over the
      shards, a 10 GiB int32 stack per field) serves Count/Intersect,
-     Union, Difference, Xor, Not, TopN with and without a filter and an
-     Options shard subset through ``API.query``, each answer checked
-     against numpy over the same blocks; then a Set into one shard and
-     Counts that must move by the write and ride the delta scatter on the
-     10 GiB stacks. K1, K2 and K3 must launch here;
+     Union, Difference, Xor, Not, Shift, TopN with and without a filter
+     and an Options shard subset through ``API.query``, each answer
+     checked against numpy over the same blocks; then a Set into one
+     shard and Counts that must move by the write and ride the delta
+     scatter on the 10 GiB stacks. K1, K2, K3 and K7 must launch here;
    - the write phase, on a small holder built with ``API.import_roaring``
      and ``API.import_bits``: Set, then Count, which must move and ride
      the delta scatter;
@@ -26,12 +26,24 @@ Run from the root of a checkout. In order:
      the shards): BSI conditions, Sum, Min, Max and GroupBy (fused, with
      filter= and limit=, and aggregate=Sum) through ``API.query``, each
      answer checked against numpy. K1, K4, K5 and K6 must launch here;
+   - the residency path, on the same holder: two fields over the card's
+     own stack budget (70 % of its memory), ``pickup_day`` (one row per
+     day over six years, each a run of rides) and ``dropoff_cell`` (a
+     4,096-cell grid with Zipf rows), served through tiered residency —
+     each query cold, then promoted, then resident, in dense, sparse and
+     run container stores — with direct container counts, a Sum with a
+     tiered filter, the streamed TopN ids= and GroupBy level, a Set that
+     drops a resident row, and one Count in the legacy slots mode, each
+     answer checked against numpy. K1 (container leaves), K2, K3 (row
+     and hot modes), K4, K6 and K8 must launch here;
 3. each kernel against its plain torch version on the card at its
    path's shapes (all-ones and bit-31 words, rows -1 and >= R, _OOB
    delta entries, an empty Union(); BSI constants 0, negative and
    |c| >= 2^D, lo > hi, a stack with fewer planes than 2 + D, a shard
-   with no value; group padding), exact equality, and its time beside
-   its bound and the plain version's;
+   with no value; group padding; shifts by 1, 31, 32, 33 and 32 W - 1;
+   container payloads at a plane's edges, slots -1 and past the store),
+   exact equality, and its time beside its bound and the plain
+   version's;
 4. print the card (nvidia-smi name and power limit), the launch counts,
    the router's calibration after the main path, the times, the kernel
    JSON line, and last
@@ -59,6 +71,10 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM memory rate (NVIDIA data sheet)
 T_SHARDS = 1024
 T_G = 16  # distinct shard blocks cycled over the shards
 T_MIN, T_MAX = -100_000, 1_000_000  # total_amount in cents: depth 20
+# the residency path's over-budget fields on the taxi holder
+R_DAYS = 2190  # pickup_day: one row per day over six years
+R_CELLS = 4096  # dropoff_cell: a location grid
+ZIPF_S = 2.0  # dropoff_cell's row skew: p(cell k) ∝ (k + 1)^-2
 
 
 def log(*a):
@@ -113,7 +129,7 @@ def kernel_entry(k, launches: dict, err: int, t: dict, path: str) -> dict:
         "name": k.name,
         "route": "cuda",
         "source": k.source,
-        "replaces": k.replaces,
+        "replaces": t.get("replaces", k.replaces),
         "launches": launches[path],
         "max_abs_err": err,
         "ms": t["ms"],
@@ -124,6 +140,16 @@ def kernel_entry(k, launches: dict, err: int, t: dict, path: str) -> dict:
         "path": path,
         "launches_by_path": launches,
     }
+
+
+def np_shift(words: np.ndarray, n: int) -> np.ndarray:
+    """PQL Shift of uint32[..., W] words by numpy, one shard per last
+    axis: bit p moves to p + n and bits past the end drop."""
+    bits = np.unpackbits(words.view(np.uint8), axis=-1, bitorder="little")
+    out = np.zeros_like(bits)
+    if n < bits.shape[-1]:
+        out[..., n:] = bits[..., : bits.shape[-1] - n]
+    return np.packbits(out, axis=-1, bitorder="little").view(np.uint32)
 
 
 def pack(bits: np.ndarray) -> np.ndarray:
@@ -159,8 +185,8 @@ def taxi_path(torch, device: str, n_shards: int) -> list:
     Min, Max and GroupBy through ``API.query``, each answer held against
     numpy over the blocks; then K1's CMP, K4, K5 and K6 against their
     plain versions at this path's shapes. Returns the kernel entries of
-    K4-K6 as {name: (max |kernel - plain|, times)}, and the path's
-    launch counts."""
+    K4-K6 as {name: (max |kernel - plain|, times)}, the path's launch
+    counts, and the holder with its API for the residency path."""
     from pilosa_tpu_torch import ops
     from pilosa_tpu_torch.core import VIEW_BSI, FieldOptions, Holder
     from pilosa_tpu_torch.executor.executor import _Pending
@@ -443,13 +469,348 @@ def taxi_path(torch, device: str, n_shards: int) -> list:
     })
     log("taxi times:", json.dumps(times))
     results = {"bsi_sum": k4, "bsi_minmax": k5, "gb_counts": k6c, "gb_masks": k6m}
+    taxi = {"holder": h, "index": idx, "api": api, "blocks": blocks, "mult": mult}
+    return {name: (errs[name], t) for name, t in results.items()}, launches, taxi
+
+
+def bitmap_of_runs(ranges):
+    """A roaring bitmap of [start, stop) position ranges, one run
+    container per 2^16 key; no two ranges may share a key."""
+    from pilosa_tpu_torch.roaring import Bitmap
+    from pilosa_tpu_torch.roaring import containers as ct
+
+    bm = Bitmap()
+    for a, b in ranges:
+        for key in range(a >> 16, ((b - 1) >> 16) + 1):
+            lo, hi = max(a, key << 16) - (key << 16), min(b, (key + 1) << 16) - 1 - (key << 16)
+            bm._containers[key] = ct.run_container(np.array([[lo, hi]], dtype=np.uint16))
+    return bm
+
+
+def residency_path(torch, device: str, taxi: dict, budget: "int | None" = None) -> tuple:
+    """Over-budget fields on the taxi holder, served through tiered
+    residency on the card's own budget: ``pickup_day`` (one row per day
+    over six years; rides in time order, so each row is one run of
+    ~490 k columns) and ``dropoff_cell`` (a location grid of R_CELLS
+    cells with Zipf rows: dense head rows, sparse tail rows; its shard
+    blocks cycle as the taxi recipe's do). Each query runs cold, then
+    promotes, then resident, against numpy; a Set drops a resident row;
+    one Count runs in the legacy slots mode. Then K1's container leaves,
+    K8 and K3's row mode against their plain versions. Returns the
+    kernel entries and the path's launch counts. ``budget`` lowers the
+    stack budget for a rehearsal on the CPU; on the card the fields are
+    over the card's own budget (70 % of its memory)."""
+    from pilosa_tpu_torch import ops
+    from pilosa_tpu_torch.executor.compile import StackCache
+    from pilosa_tpu_torch.executor.residency import RUN_MAX_INTERVALS, SPARSE_MAX_IDS
+    from pilosa_tpu_torch.ops import _cuda, bitwise, containers, stack
+    from pilosa_tpu_torch.pql import parse
+    from pilosa_tpu_torch.roaring import Bitmap
+    from pilosa_tpu_torch.server import API
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH, WORDS_PER_SHARD
+
+    on_card = device == "cuda"
+    W, SW = WORDS_PER_SHARD, SHARD_WIDTH  # noqa: N806
+    h, idx, api, blocks, mult = (taxi[k] for k in ("holder", "index", "api", "blocks", "mult"))
+    n_shards = len(idx.available_shards())
+    shards = list(range(n_shards))
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    # ------------------------------------------------------------ data
+    t0 = time.perf_counter()
+    rpd = -(-(n_shards * SW) // R_DAYS)  # rides per day
+    day_f = idx.create_field("pickup_day")
+    view = day_f.create_view_if_not_exists("standard")
+    for s in shards:
+        c0, c1 = s * SW, (s + 1) * SW
+        ranges = []
+        for d in range(c0 // rpd, (c1 - 1) // rpd + 1):
+            a, b = max(d * rpd, c0), min((d + 1) * rpd, c1)
+            ranges.append((d * SW + a - c0, d * SW + b - c0))
+        frag = view.create_fragment_if_not_exists(s)
+        frag.bitmap = bitmap_of_runs(ranges)
+        frag._mark_all_dirty()
+    rng = np.random.default_rng(29)
+    p = np.arange(1, R_CELLS + 1, dtype=np.float64) ** -ZIPF_S
+    cells = [rng.choice(R_CELLS, SW, p=p / p.sum()) for _ in range(T_G)]
+    cell_f = idx.create_field("dropoff_cell")
+    cview = cell_f.create_view_if_not_exists("standard")
+    shared = []
+    for g in range(T_G):
+        bm = Bitmap()
+        bm.add_many(cells[g].astype(np.uint64) * np.uint64(SW) + np.arange(SW, dtype=np.uint64))
+        shared.append(bm)
+    for s in shards:
+        # read-only blocks, shared by the shards that cycle over them
+        frag = cview.create_fragment_if_not_exists(s)
+        frag.bitmap = shared[s % T_G]
+        frag._mark_all_dirty()
+    times = {"residency_data_s": time.perf_counter() - t0}
+
+    # ------------------------------------------------- numpy answers
+    per_block = np.stack([np.bincount(c, minlength=R_CELLS) for c in cells])  # [T_G, R_CELLS]
+    totals = (mult[:, None] * per_block).sum(axis=0)
+    head = 9  # dense: ~1 % of the rides
+    tail = int(np.flatnonzero((totals > 0) & (totals <= SPARSE_MAX_IDS))[np.argmax(
+        totals[(totals > 0) & (totals <= SPARSE_MAX_IDS)])])  # sparse: the fullest row that fits
+    day = R_DAYS // 2
+
+    def day_slices(d: int):
+        """(shard, local column slice) of each shard day ``d`` covers."""
+        a, b = d * rpd, min((d + 1) * rpd, n_shards * SW)
+        for s in range(a // SW, (b - 1) // SW + 1):
+            yield s, slice(max(a, s * SW) - s * SW, min(b, (s + 1) * SW) - s * SW)
+
+    def on_day(fn) -> int:
+        return sum(int(fn(s, sl)) for s, sl in day_slices(day))
+
+    ht = [(c == head) | (c == tail) for c in cells]
+    union_want = int(sum(mult[g] * ht[g].sum() for g in range(T_G))) + on_day(
+        lambda s, sl: (~ht[s % T_G][sl]).sum())
+    ids = list(range(32, 96))
+    topn_want = sorted(((i, int(totals[i])) for i in ids if totals[i]), key=lambda rc: (-rc[1], rc[0]))[:5]
+    gb_days = 16
+    gb = np.zeros(3 * gb_days, dtype=np.int64)
+    for s in range(-(-(gb_days * rpd) // SW)):
+        cols = np.arange(SW, dtype=np.int64)[: max(0, min(SW, gb_days * rpd - s * SW))]
+        dd = (s * SW + cols) // rpd
+        gb += np.bincount(blocks[s % T_G]["cab"][: cols.size] * gb_days + dd, minlength=3 * gb_days)
+    gb_want = [
+        {"group": [{"field": "cab_type", "rowID": k // gb_days}, {"field": "pickup_day", "rowID": k % gb_days}],
+         "count": int(gb[k])}
+        for k in np.flatnonzero(gb).tolist()
+    ]
+    queries = [  # (name, PQL, numpy's answer)
+        ("count_cab_day", f"Count(Intersect(Row(cab_type=1), Row(pickup_day={day})))",
+         on_day(lambda s, sl: (blocks[s % T_G]["cab"][sl] == 1).sum())),
+        ("count_day", f"Count(Row(pickup_day={day}))", on_day(lambda s, sl: sl.stop - sl.start)),
+        ("count_tail", f"Count(Row(dropoff_cell={tail}))", int(totals[tail])),
+        ("count_union3", f"Count(Union(Row(dropoff_cell={head}), Row(dropoff_cell={tail}), Row(pickup_day={day})))",
+         union_want),
+        ("sum_day", f"Sum(Row(pickup_day={day}), field=total_amount)", {
+            "value": on_day(lambda s, sl: blocks[s % T_G]["amt"][sl][blocks[s % T_G]["has"][sl]].sum()),
+            "count": on_day(lambda s, sl: blocks[s % T_G]["has"][sl].sum())}),
+        ("topn_ids", f"TopN(dropoff_cell, n=5, ids=[{', '.join(map(str, ids))}])",
+         [{"id": r, "count": c} for r, c in topn_want]),
+        ("groupby_day", f"GroupBy(Rows(cab_type), Rows(pickup_day, limit={gb_days}))", gb_want),
+    ]
+    times["residency_expect_s"] = time.perf_counter() - t0 - times["residency_data_s"]
+
+    # -------------------------------------------------- residency path
+    for k in _cuda.KERNELS.values():
+        k.reset()
+    stacks_ = api.executor.compiler.stacks
+    if budget is not None:
+        stacks_._budget = budget
+    for f in (day_f, cell_f):
+        r_pad = stacks_._projected_rows(f.view("standard"), shards)
+        need = n_shards * r_pad * W * 4
+        log(f"{f.name}: dense stack of {r_pad} padded rows would need {need / 2**30:.1f} GiB, "
+            f"budget {stacks_.STACK_BYTES_BUDGET / 2**30:.1f} GiB")
+        if not stacks_.is_over_budget(idx, f, "standard", shards):
+            raise AssertionError(f"{f.name} is not over the stack budget")
+    # cold, promote, then resident; the streamed TopN and GroupBy have no
+    # resident phase of their own, so they run three times
+    for key, pql, want in queries:
+        streamed = pql.startswith(("TopN", "GroupBy"))
+        lat = []
+        for _ in range(3 if streamed else 7):
+            t1 = time.perf_counter()
+            got = api.query("taxi", pql)["results"][0]
+            lat.append(time.perf_counter() - t1)
+            if got != want:
+                raise AssertionError(f"{pql}: {json.dumps(got)[:300]} != numpy {json.dumps(want)[:300]}")
+        times[f"{key}_cold_ms"] = lat[0] * 1e3
+        times[f"{key}_promote_ms"] = lat[1] * 1e3
+        times[f"{key}_resident_p50_ms"] = float(np.median(lat[2:])) * 1e3
+        log(f"ok  {pql[:70]}  -> {json.dumps(got)[:80]}  (cold {lat[0] * 1e3:.3f} ms, promote "
+            f"{lat[1] * 1e3:.3f} ms, resident p50 {float(np.median(lat[2:])) * 1e3:.3f} ms)")
+    snap = stacks_.residency_snapshot()
+    kinds = {k for t in snap["tiers"] for k, n in t["rows"].items() if n}
+    log("residency after the queries:", json.dumps({k: snap[k] for k in ("rowsPromoted", "rowsDemoted", "coldUploads",
+                                                                         "residentRows", "bytesByContainer", "tiers")}))
+    if kinds != {"dense", "sparse", "run"} or snap["rowsPromoted"] <= 0 or snap["coldUploads"] <= 0:
+        raise AssertionError(f"residency did not hold rows in all three stores: {snap}")
+    # a write into the resident run row drops it; the next touches re-promote
+    _key, count_q, count_want = queries[1]
+    free_col = (day + 1) * rpd + 5
+    api.query("taxi", f"Set({free_col}, pickup_day={day})")
+    for _ in range(2):
+        got = api.query("taxi", count_q)["results"][0]
+        if got != count_want + 1:
+            raise AssertionError(f"after Set: {count_q}: {got} != numpy {count_want + 1}")
+    after = stacks_.residency_snapshot()
+    log(f"ok  after Set({free_col}, pickup_day={day}): {count_q} -> {got}  (rowsDemoted {snap['rowsDemoted']} -> "
+        f"{after['rowsDemoted']}, rowsPromoted {snap['rowsPromoted']} -> {after['rowsPromoted']})")
+    if after["rowsDemoted"] <= snap["rowsDemoted"] or after["rowsPromoted"] <= snap["rowsPromoted"]:
+        raise AssertionError(f"the write did not drop and re-promote the row: {after}")
+    if on_card:
+        # each promotion scattered into a new store: the generations it
+        # replaced must be freed once no plan holds them
+        sync()
+        alloc, ledger = torch.cuda.memory_allocated(api.executor.device), stacks_.resident_bytes
+        log(f"device memory after the promotions: {alloc / 2**30:.3f} GiB allocated, "
+            f"{ledger / 2**30:.3f} GiB in the stack budget's ledger")
+        if alloc > ledger + (1 << 30):  # the smallest store, the run store, is 2 GiB
+            raise AssertionError(f"old store generations stayed live: {alloc} B allocated > {ledger} B + 1 GiB")
+    # the kernels' inputs, taken before the executor lets go of them
+    entry = stacks_._tiered[("tier", "taxi", "dropoff_cell", "standard", tuple(shards))]
+    dense_store, sparse_store = entry.stores["dense"]["dev"], entry.stores["sparse"]["dev"]
+    tail_slot = entry.stores["sparse"]["slots"][tail]
+    run_entry = stacks_._tiered[("tier", "taxi", "pickup_day", "standard", tuple(shards))]
+    run_store, day_slot = run_entry.stores["run"]["dev"], run_entry.stores["run"]["slots"][day]
+    union_plan = api.executor.compiler._plan(idx, parse(queries[3][1])[0].children[0], shards)
+    router = api.executor.router
+    log("router decisions on the residency path:", json.dumps(router.decisions))
+    if router.decisions["host_unported"] != 0:
+        raise AssertionError(f"a residency call ran host-side for want of a port: {router.decisions}")
+    taxi.clear()
+    del api, stacks_, entry, run_entry
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    # the legacy slots mode: one Count through hot_batch (K3, hot mode)
+    slots_q, slots_want = f"Count(Row(dropoff_cell={head}))", int(totals[head])
+    StackCache.RESIDENCY_MODE = "slots"
+    try:
+        slots_api = API(h, device=device, route_mode="device")
+        if budget is not None:
+            slots_api.executor.compiler.stacks._budget = budget
+        got = slots_api.query("taxi", slots_q)["results"][0]
+        hot_uploads = slots_api.executor.compiler.stacks.stats_snapshot()["hotRowUploads"]
+        del slots_api
+    finally:
+        StackCache.RESIDENCY_MODE = "tiered"
+    if hot_uploads != 1:
+        raise AssertionError(f"slots mode did not promote the row into the hot slot stack: {hot_uploads}")
+    if got != slots_want:
+        raise AssertionError(f"slots mode: {slots_q}: {got} != numpy {slots_want}")
+    log(f"ok  slots mode: {slots_q}  -> {got}")
+    gc.collect()
+    sync()
+    launches = {name: k.launches for name, k in _cuda.KERNELS.items()}
+    modes = {n: k.modes for n, k in _cuda.KERNELS.items() if k.modes}
+    log("launches on the residency path:", json.dumps(launches))
+    log("launches on the residency path by mode:", json.dumps(modes))
+    if on_card and (
+        any(launches[n] <= 0 for n in ("tree_eval", "container_count", "stack_delta", "row_counts", "gb_counts", "bsi_sum"))
+        or not any("containers" in m for m in modes["tree_eval"])
+        or modes["stack_delta"].get("rows", 0) <= 0 or modes["stack_delta"].get("hot", 0) <= 0
+    ):
+        raise AssertionError(f"a kernel of the residency path never launched: {modes}")
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # ------------------------------------------- kernels vs plain versions
+    dev = dense_store.device
+    total_bits = n_shards * W * 32
+    i32 = lambda v: torch.tensor(v, dtype=torch.int32, device=dev)  # noqa: E731
+    # edge payloads: ids at bit 0, bit 31, a shard's last bit and the
+    # plane's last bit; runs across a shard boundary, inside one word,
+    # over whole words, to the plane's end
+    edge_sparse = torch.full((3, SPARSE_MAX_IDS), -1, dtype=torch.int32, device=dev)
+    ids_edge = sorted({0, 31, 32, SW - 1, SW, 5 * SW + 77, total_bits - 1} | set(range(1000, 1000 + 64 * 31, 31)))
+    edge_sparse[1, : len(ids_edge)] = i32(ids_edge)
+    edge_sparse[2] = torch.arange(SPARSE_MAX_IDS, dtype=torch.int32, device=dev) * 3
+    edge_run = torch.zeros((3, RUN_MAX_INTERVALS, 2), dtype=torch.int32, device=dev)
+    runs_edge = [(3, 5), (40, 200), (SW - 100, SW + 100), (2 * SW, 2 * SW + 32 * 7), (3 * SW + 1, 3 * SW + 31),
+                 (total_bits - 65, total_bits)]
+    edge_run[1, : len(runs_edge)] = i32(runs_edge)
+    starts = torch.arange(RUN_MAX_INTERVALS, dtype=torch.int32, device=dev) * 999
+    edge_run[2] = torch.stack([starts, starts + 500], dim=1)
+    L, LS, LR = bitwise.OP_LOAD, bitwise.OP_LOAD_SPARSE, bitwise.OP_LOAD_RUN
+    A, O, X = bitwise.OP_AND, bitwise.OP_OR, bitwise.OP_XOR
+    errs = {"tree_eval": 0, "container_count": 0, "stack_delta": 0}
+    tree_cases = [
+        union_plan[:3],
+        ([edge_sparse, edge_run], [(0, 1), (1, 1)], [(LS, 0), (LR, 1), (X, 0)]),
+        ([edge_sparse, edge_run], [(0, 2), (1, 2), (0, -1), (1, 3)], [(LS, 0), (LR, 1), (A, 0), (LS, 2), (O, 0), (LR, 3), (O, 0)]),
+        ([dense_store, sparse_store, run_store], [(0, 0), (1, tail_slot), (2, day_slot)], [(L, 0), (LS, 1), (O, 0), (LR, 2), (X, 0)]),
+    ]
+    for stacks_in, leaves, prog in tree_cases:
+        for count in (True, False):
+            got = ops.tree_eval(stacks_in, leaves, prog, n_shards, count=count, device=dev)
+            want = bitwise.tree_eval_plain(stacks_in, leaves, prog, n_shards, count, dev)
+            errs["tree_eval"] = max(errs["tree_eval"], max_abs_err(torch, got, want))
+            del got, want
+    for store, slot in ((sparse_store, tail_slot), (run_store, day_slot), (edge_sparse, 1), (edge_sparse, 2),
+                        (edge_run, 1), (edge_run, 2), (edge_sparse, 0), (edge_run, -1)):
+        got = ops.container_count(store, slot)
+        payload = store[slot] if 0 <= slot < store.shape[0] else None
+        want = (torch.zeros((), dtype=torch.int64, device=dev) if payload is None
+                else containers.run_count(payload) if store.dim() == 3 else containers.sparse_count(payload))
+        errs["container_count"] = max(errs["container_count"], max_abs_err(torch, got.reshape(1), want.reshape(1)))
+    oob = stack.OOB
+    for store in (edge_sparse, edge_run, dense_store[:8].contiguous(), sparse_store):
+        h_ = store.shape[0]
+        sidx = i32([1, oob, h_ - 1, -1, 1])  # the repeated slot: the later entry wins
+        rows = torch.randint(-(2**31), 2**31 - 1, (5,) + tuple(store.shape[1:]), dtype=torch.int32, device=dev)
+        got = ops.scatter_rows(store, sidx, rows)
+        want = stack.scatter_rows_plain(store, sidx, rows)
+        errs["stack_delta"] = max(errs["stack_delta"], max_abs_err(torch, got, want))
+        del got, want, rows
+    log("max |kernel - plain| on the residency path's shapes:", json.dumps(errs))
+    if any(errs.values()):
+        raise AssertionError(f"a kernel disagrees with its plain version: {errs}")
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # --------------------------------------------------------- timings
+    u_stacks, u_leaves, u_prog = union_plan[:3]
+    k1 = dict(
+        replaces="pilosa_tpu/ops/containers.py:35",  # sparse_plane and run_plane (:53) inside the program
+        ms=cuda_ms(torch, lambda: ops.tree_eval(u_stacks, u_leaves, u_prog, n_shards, count=True, device=dev), 20),
+        plain_ms=cuda_ms(torch, lambda: bitwise.tree_eval_plain(u_stacks, u_leaves, u_prog, n_shards, True, dev), 2),
+        # the dense plane, the sparse and the run payload, each read once
+        bound_ms=bound_ms(n_shards * W * 4 + SPARSE_MAX_IDS * 4 + RUN_MAX_INTERVALS * 8),
+        library_ms=None,
+    )
+    tail_ids, day_runs = sparse_store[tail_slot], run_store[day_slot]
+    k8 = dict(
+        ms=cuda_ms(torch, lambda: ops.container_count(sparse_store, tail_slot), 50),
+        plain_ms=cuda_ms(torch, lambda: containers.sparse_count(tail_ids), 50),
+        bound_ms=bound_ms(SPARSE_MAX_IDS * 4 + 8),
+        library_ms=cuda_ms(torch, lambda: (tail_ids >= 0).sum(), 50),
+    )
+    times["container_count_run_ms"] = cuda_ms(torch, lambda: ops.container_count(run_store, day_slot), 50)
+    times["container_count_run_library_ms"] = cuda_ms(torch, lambda: (day_runs[:, 1] - day_runs[:, 0]).sum(), 50)
+    # a promotion into the sparse store: one row scattered into a copy
+    one = i32([tail_slot])
+    row = sparse_store[tail_slot : tail_slot + 1].clone()
+    k3 = dict(
+        replaces="pilosa_tpu/executor/compile.py:185",  # _scatter_rows
+        ms=cuda_ms(torch, lambda: ops.scatter_rows(sparse_store, one, row), 5),
+        plain_ms=cuda_ms(torch, lambda: stack.scatter_rows_plain(sparse_store, one, row), 2),
+        # the store read once and written once, the row and its index read
+        bound_ms=bound_ms(2 * sparse_store.numel() * 4 + row.numel() * 4 + 4),
+        library_ms=cuda_ms(torch, lambda: torch.index_copy(sparse_store, 0, one.long(), row), 5),
+    )
+    # the same promotion into the dense and run stores
+    for name, store, slot in (("dense", dense_store, 0), ("run", run_store, day_slot)):
+        row = store[slot : slot + 1].clone()
+        sl = i32([slot])
+        times[f"scatter_rows_{name}_store_ms"] = cuda_ms(torch, lambda: ops.scatter_rows(store, sl, row), 3)
+        times[f"scatter_rows_{name}_store_bound_ms"] = bound_ms(2 * store.numel() * 4 + row.numel() * 4)
+        times[f"scatter_rows_{name}_store_library_ms"] = cuda_ms(
+            torch, lambda: torch.index_copy(store, 0, sl.long(), row), 3)
+        times[f"{name}_store_gib"] = store.numel() * 4 / 2**30
+        del row
+    times["sparse_store_gib"] = sparse_store.numel() * 4 / 2**30
+    log("residency times:", json.dumps(times))
+    results = {"tree_eval": k1, "container_count": k8, "stack_delta": k3}
     return {name: (errs[name], t) for name, t in results.items()}, launches
 
 
-def main(device: str = "cuda", n_shards: int = N_SHARDS, taxi_shards: int = T_SHARDS) -> int:
-    """``device="cpu"`` with small ``n_shards`` and ``taxi_shards``
-    rehearses the same steps on the plain versions, without the card
-    lines or the ok line."""
+def main(
+    device: str = "cuda", n_shards: int = N_SHARDS, taxi_shards: int = T_SHARDS, budget: "int | None" = None
+) -> int:
+    """``device="cpu"`` with small ``n_shards`` and ``taxi_shards``, and a
+    ``budget`` that puts the residency path's fields over it, rehearses
+    the same steps on the plain versions, without the card lines or the
+    ok line."""
     import torch
 
     on_card = device == "cuda"
@@ -569,6 +930,34 @@ def main(device: str = "cuda", n_shards: int = N_SHARDS, taxi_shards: int = T_SH
             if got != want:
                 raise AssertionError(f"{pql}: {got} != numpy {want}")
             log(f"ok  {pql[:60]}  -> {json.dumps(got)[:80]}")
+        # PQL Shift: K1 evaluates the shifted subtree into a plane (words),
+        # K7 shifts it, and K1 counts the outer program
+        shift_checks = [
+            ("Count(Shift(Row(f=1), n=1))", expect_count(lambda b, e: np_shift(b[1], 1))),
+            ("Count(Intersect(Shift(Row(f=1), n=33), Row(f=2)))",
+             expect_count(lambda b, e: np_shift(b[1], 33) & b[2])),
+        ]
+        k1 = _cuda.TREE_EVAL
+        before = (dict(k1.modes), _cuda.SHIFT_WORDS.launches)
+        for pql, want in shift_checks:
+            got = api.query("bench", pql)["results"][0]
+            if got != want:
+                raise AssertionError(f"{pql}: {got} != numpy {want}")
+            log(f"ok  {pql[:60]}  -> {json.dumps(got)[:80]}")
+        sync()
+        shift_launches = {
+            "tree_eval " + m: k1.modes.get(m, 0) - before[0].get(m, 0) for m in ("words", "count")
+        }
+        shift_launches["shift_words"] = _cuda.SHIFT_WORDS.launches - before[1]
+        log("launches of the two Shift queries:", json.dumps(shift_launches))
+        if on_card and shift_launches != {"tree_eval words": 2, "tree_eval count": 2, "shift_words": 2}:
+            raise AssertionError(f"Shift did not run as K1 words, K7, K1 count: {shift_launches}")
+        lat = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            api.query("bench", shift_checks[0][0])
+            lat.append(time.perf_counter() - t0)
+        times["sync_shift_count_p50_ms"] = float(np.median(lat)) * 1e3
         lat = []
         for _ in range(30):
             t0 = time.perf_counter()
@@ -614,11 +1003,14 @@ def main(device: str = "cuda", n_shards: int = N_SHARDS, taxi_shards: int = T_SH
         launches = {name: k.launches for name, k in _cuda.KERNELS.items()}
         log("launches on the main path:", json.dumps(launches))
         log("launches on the main path by mode:", json.dumps({n: k.modes for n, k in _cuda.KERNELS.items() if k.modes}))
-        if on_card and any(launches[n] <= 0 for n in ("tree_eval", "row_counts", "stack_delta")):
+        if on_card and any(launches[n] <= 0 for n in ("tree_eval", "row_counts", "stack_delta", "shift_words")):
             raise AssertionError(f"a kernel of the main path never launched: {launches}")
         router = api.executor.router
         log("router calibration after the main path:", json.dumps(
             {"dispatch_s": router.dispatch_s.value, "readback_s": router.readback_s.value}))
+        log("router decisions on the main path:", json.dumps(router.decisions))
+        if router.decisions["host_unported"] != 0:
+            raise AssertionError(f"a main-path call ran host-side for want of a port: {router.decisions}")
 
         # write phase: a small holder loaded through the import entry points
         for k in _cuda.KERNELS.values():
@@ -673,7 +1065,7 @@ def main(device: str = "cuda", n_shards: int = N_SHARDS, taxi_shards: int = T_SH
             ([fm], [], [(Z, 0)]),  # empty Union()
             ([edge, fm], [(0, 0), (0, 1), (1, 5)], [(L, 0), (L, 1), (A, 0), (L, 0), (L, 2), (N, 0), (X, 0)]),
         ]
-        errs = {"tree_eval": 0, "row_counts": 0, "stack_delta": 0}
+        errs = {"tree_eval": 0, "row_counts": 0, "stack_delta": 0, "shift_words": 0}
         for stacks_, leaves, prog in tree_cases:
             for count in (True, False):
                 got = ops.tree_eval(stacks_, leaves, prog, N_SHARDS, count=count, device=dev)
@@ -704,6 +1096,17 @@ def main(device: str = "cuda", n_shards: int = N_SHARDS, taxi_shards: int = T_SH
             errs["stack_delta"] = max(errs["stack_delta"], max_abs_err(torch, got, want))
             del got, want
             torch.cuda.empty_cache()
+        # K7 on the main path's words: the carry at 31/33, whole-word
+        # rolls, and a shift leaving one bit per shard
+        for n in (1, 31, 32, 33, 32 * W - 1):
+            got = ops.shift_words(filt, n)
+            want = bitwise.shift_words_plain(filt, n)
+            errs["shift_words"] = max(errs["shift_words"], max_abs_err(torch, got, want))
+            del got, want
+        got = ops.shift_words(edge[1].contiguous(), 1)  # every bit 31 carries
+        errs["shift_words"] = max(errs["shift_words"], max_abs_err(
+            torch, got, bitwise.shift_words_plain(edge[1].contiguous(), 1)))
+        del got
         log("max |kernel - plain|:", json.dumps(errs))
         if any(errs.values()):
             raise AssertionError(f"a kernel disagrees with its plain version: {errs}")
@@ -739,20 +1142,34 @@ def main(device: str = "cuda", n_shards: int = N_SHARDS, taxi_shards: int = T_SH
             bound_ms=bound_ms(2 * dm.numel() * 4 + int(keep.sum()) * W * 4 + didx.numel() * 4),
             library_ms=cuda_ms(torch, lambda: torch.index_put(dm, (r_ok, s_ok), rows_ok), 5),
         )
+        k7 = dict(
+            ms=cuda_ms(torch, lambda: ops.shift_words(filt, 33), 20),
+            plain_ms=cuda_ms(torch, lambda: bitwise.shift_words_plain(filt, 33), 2),
+            # the plane read once and written once
+            bound_ms=bound_ms(2 * plane),
+            library_ms=None,  # no one PyTorch call shifts per shard with a carry
+        )
         log("times:", json.dumps({**times, "tree_eval_words_ms": words_ms, "row_counts_filtered_ms": k2_filtered_ms,
                                   "row_counts_filtered_bound_ms": bound_ms((R_PAD + 1) * plane)}))
-        results = {"tree_eval": k1, "row_counts": k2, "stack_delta": k3}
+        results = {"tree_eval": k1, "row_counts": k2, "stack_delta": k3, "shift_words": k7}
         return {name: (errs[name], t) for name, t in results.items()}, launches
     main_results, main_launches = main_path()
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
-    taxi_results, taxi_launches = taxi_path(torch, device, taxi_shards)
+    taxi_results, taxi_launches, taxi = taxi_path(torch, device, taxi_shards)
+    res_results, res_launches = residency_path(torch, device, taxi, budget)
+    del taxi
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
     kernels = [
         kernel_entry(
-            _cuda.KERNELS[name], {"main": main_launches[name], "taxi": taxi_launches[name]}, err, t, path
+            _cuda.KERNELS[name],
+            {"main": main_launches[name], "taxi": taxi_launches[name], "residency": res_launches[name]},
+            err, t, path,
         )
-        for path, results in (("main", main_results), ("taxi", taxi_results))
+        for path, results in (("main", main_results), ("taxi", taxi_results), ("residency", res_results))
         for name, (err, t) in results.items()
     ]
     for t in kernels:

@@ -19,6 +19,13 @@
 // delta row. So the scatter costs no second pass over the written
 // planes, and the copy is the kernel's own: 16 B per load, four loads in
 // flight per thread before the stores.
+//
+// Row mode (ops/stack.py scatter_rows) runs this same kernel for
+// _scatter_rows (pilosa_tpu/executor/compile.py:185), the functional row
+// scatter into the tiered residency stores: a store [H, ...] is viewed as
+// [H, P, L] stack planes, a dense [H, S, W] store as itself (P = S, so
+// the copy keeps one plane per block) and a sparse [H, 2048] or run
+// [H, 128, 2] store as [H, 1, L]. A row's K entries become (slot, p) pairs.
 #include "common.cuh"
 
 #define PT_DELTA_UNROLL 4

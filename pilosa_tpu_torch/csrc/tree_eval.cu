@@ -11,7 +11,7 @@
 // this kernel interprets it word by word.
 //
 // The program, its leaf table and its condition table are one
-// __grid_constant__ kernel parameter (about 3.5 KB, under the 4 KB that
+// __grid_constant__ kernel parameter (3,608 B, under the 4 KB that
 // every toolkit accepts), so a query uploads nothing before its launch
 // and the dynamic indexing below reads the constant bank, not a
 // per-thread copy. A leaf is the base of one [S, W] plane: row `row` of
@@ -26,6 +26,22 @@
 // then the sign select of bsi.py:80-106. A plane at or past the stack's
 // height reads as zero, where the reference pads the stack with zero
 // planes. between(lo, hi) is CMP(>= lo) CMP(<= hi) AND, as bsi.py:110.
+//
+// LOAD_SPARSE and LOAD_RUN push a row that lives compressed in a tiered
+// residency store (compile.py:1185 _tiered_leaf, decoded there by
+// ops/containers.py:35 sparse_plane and :53 run_plane): the leaf is the
+// base of the row's payload, and the [S, W] plane is never built. Both
+// payloads hold GLOBAL bit positions of the flattened plane (shard-major,
+// bit-minor), so vector i covers bits [128 i, 128 i + 128).
+// - sparse: sparse_cap int32 ids, sorted; the -1 padding is 0xffffffff
+//   read as uint32 and sorts after every id, so one lower-bound search
+//   finds the first id of the vector and a short walk sets its bits;
+// - run: run_cap [start, end) int32 pairs, sorted and disjoint, with
+//   (0, 0) padding at the tail. A binary search on end > start finds the
+//   valid length, a second one the first run ending past the vector; the
+//   walk ORs each run's overlap with each of the 4 words, the partial
+//   words at a run's two ends included.
+// The payloads are 8 KB and 1 KB, so the searches run out of L1.
 //
 // Bound on the H100: bytes. Each leaf plane is read once, 16 B per thread
 // per load, neighbouring threads on neighbouring addresses, and nothing
@@ -52,6 +68,8 @@ enum TreeOp {
   TE_XOR = 4,
   TE_ANDNOT = 5,
   TE_CMP = 6,
+  TE_LOAD_SPARSE = 7,
+  TE_LOAD_RUN = 8,
 };
 
 // the six BSI comparisons, in ops/bsi.py's CMP_OPS order
@@ -81,8 +99,10 @@ struct TreeArgs {
   int n_leaves;
   int n_ops;
   int n_conds;
+  int sparse_cap;  // ids per sparse payload
+  int run_cap;     // intervals per run payload
   unsigned char op[TE_MAX_OPS];
-  unsigned char arg[TE_MAX_OPS];  // leaf index of a LOAD, condition of a CMP
+  unsigned char arg[TE_MAX_OPS];  // leaf index of a LOAD*, condition of a CMP
 };
 
 static_assert(sizeof(TreeCond) == 32, "TreeCond layout is mirrored in ops/bitwise.py");
@@ -135,6 +155,80 @@ __device__ __forceinline__ uint4 te_compare(const TreeCond& c, long long i) {
   }
 }
 
+// The 4 words of vector i of a sparse payload (see the header).
+__device__ __forceinline__ uint4 te_sparse(const int* __restrict__ ids, int cap,
+                                           long long i) {
+  const unsigned b0 = (unsigned)(i * 128);
+  int lo = 0, hi = cap;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if ((unsigned)__ldg(ids + mid) < b0) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  unsigned w0 = 0u, w1 = 0u, w2 = 0u, w3 = 0u;
+  for (int k = lo; k < cap; ++k) {
+    const unsigned off = (unsigned)__ldg(ids + k) - b0;
+    if (off >= 128u) break;  // past the vector, or the -1 padding
+    const unsigned bit = 1u << (off & 31u);
+    const unsigned q = off >> 5;
+    w0 |= q == 0 ? bit : 0u;
+    w1 |= q == 1 ? bit : 0u;
+    w2 |= q == 2 ? bit : 0u;
+    w3 |= q == 3 ? bit : 0u;
+  }
+  return make_uint4(w0, w1, w2, w3);
+}
+
+// Bits [a, b) of one word, 0 <= a <= b <= 32.
+__device__ __forceinline__ unsigned te_span(long long a, long long b) {
+  if (b <= a) return 0u;
+  const unsigned n = (unsigned)(b - a);
+  return (n == 32u ? ~0u : ((1u << n) - 1u)) << (unsigned)a;
+}
+
+// The 4 words of vector i of a run payload (see the header).
+__device__ __forceinline__ uint4 te_run(const int2* __restrict__ runs, int cap,
+                                        long long i) {
+  int lo = 0, hi = cap;
+  while (lo < hi) {  // valid runs are a prefix: end > start
+    const int mid = (lo + hi) >> 1;
+    const int2 iv = __ldg(runs + mid);
+    if (iv.y > iv.x) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  const int n = lo;
+  const long long b0 = i * 128;
+  lo = 0;
+  hi = n;
+  while (lo < hi) {  // first run that ends past b0
+    const int mid = (lo + hi) >> 1;
+    if ((long long)__ldg(runs + mid).y <= b0) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  unsigned w[4] = {0u, 0u, 0u, 0u};
+  for (int k = lo; k < n; ++k) {
+    const int2 iv = __ldg(runs + k);
+    if ((long long)iv.x >= b0 + 128) break;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const long long ws = b0 + 32 * u;
+      const long long a = (long long)iv.x > ws ? (long long)iv.x - ws : 0;
+      const long long e = (long long)iv.y - ws;
+      w[u] |= te_span(a, e < 32 ? (e > 0 ? e : 0) : 32);
+    }
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
 template <bool COUNT>
 __global__ void __launch_bounds__(PT_BLOCK)
     tree_eval_kernel(const __grid_constant__ TreeArgs a, long long n_vec,
@@ -153,6 +247,12 @@ __global__ void __launch_bounds__(PT_BLOCK)
         st[sp++] = plane != nullptr ? plane[i] : pt_zero4();
       } else if (op == TE_ZERO) {
         st[sp++] = pt_zero4();
+      } else if (op == TE_LOAD_SPARSE) {
+        const int* ids = (const int*)a.leaf[a.arg[k]];
+        st[sp++] = ids != nullptr ? te_sparse(ids, a.sparse_cap, i) : pt_zero4();
+      } else if (op == TE_LOAD_RUN) {
+        const int2* runs = (const int2*)a.leaf[a.arg[k]];
+        st[sp++] = runs != nullptr ? te_run(runs, a.run_cap, i) : pt_zero4();
       } else if (op == TE_CMP) {
         st[sp++] = te_compare(a.cond[a.arg[k]], i);
       } else {
@@ -189,6 +289,7 @@ static bool tree_program_ok(const TreeArgs* a, long long n_vec) {
   if (a->n_leaves < 0 || a->n_leaves > TE_MAX_LEAVES) return false;
   if (a->n_conds < 0 || a->n_conds > TE_MAX_CONDS) return false;
   if (a->n_ops < 1 || a->n_ops > TE_MAX_OPS) return false;
+  if (a->sparse_cap < 0 || a->run_cap < 0) return false;
   for (int c = 0; c < a->n_conds; ++c) {
     const TreeCond& t = a->cond[c];
     if (t.base == nullptr || t.stride != n_vec || t.present < 1 ||
@@ -199,8 +300,11 @@ static bool tree_program_ok(const TreeArgs* a, long long n_vec) {
   int sp = 0;
   for (int k = 0; k < a->n_ops; ++k) {
     const int op = a->op[k];
-    if (op == TE_LOAD || op == TE_ZERO || op == TE_CMP) {
-      if (op == TE_LOAD && a->arg[k] >= a->n_leaves) return false;
+    const bool load = op == TE_LOAD || op == TE_LOAD_SPARSE || op == TE_LOAD_RUN;
+    if (load || op == TE_ZERO || op == TE_CMP) {
+      if (load && a->arg[k] >= a->n_leaves) return false;
+      if (op == TE_LOAD_SPARSE && a->sparse_cap < 1) return false;
+      if (op == TE_LOAD_RUN && a->run_cap < 1) return false;
       if (op == TE_CMP && a->arg[k] >= a->n_conds) return false;
       if (++sp > TE_MAX_STACK) return false;
     } else if (op >= TE_AND && op <= TE_ANDNOT) {

@@ -23,11 +23,16 @@ by word:
   is evaluated inside the same launch as the rest of the tree, as the
   reference vmaps ``compare``/``between`` into its program: CMP reads
   the field's BSI stack through a small condition table.
+- ``Shift(x, n)`` splits the program: K1 evaluates x into a temporary
+  [S, W] plane, K7 shifts it, and the shifted plane enters the outer
+  program as a leaf (the reference fuses all three into one program).
 
-Not ported yet (each raises): the hot-row, tiered and over-budget
-residency paths (``StackOverBudget`` → ExecutionError, ROADMAP.md A11,
-as the reference's slots mode surfaces it) and ``Shift`` (``PlanError``,
-A6).
+A field whose dense stack exceeds the budget serves through residency
+(docs/device-residency.md), as the reference's: in the default
+``tiered`` mode each row is a cold one-shot plane upload until its
+touches promote it into a dense, sparse or run container store (K3 in
+row mode), and K1 decodes sparse and run payloads in place; the legacy
+``slots`` mode keeps an LRU [H, S, W] slot stack of hot rows.
 """
 
 from __future__ import annotations
@@ -40,6 +45,7 @@ import torch
 
 from pilosa_tpu_torch import ops
 from pilosa_tpu_torch.core import (
+    BSI_OFFSET,
     EXISTENCE_FIELD,
     FIELD_INT,
     FIELD_TIME,
@@ -49,11 +55,15 @@ from pilosa_tpu_torch.core import (
     Index,
 )
 from pilosa_tpu_torch.core.timequantum import views_by_time_range
+from pilosa_tpu_torch.executor import residency
+from pilosa_tpu_torch.executor.residency import RUN_MAX_INTERVALS, SPARSE_MAX_IDS, TieredEntry
 from pilosa_tpu_torch.ops.bitwise import (
     OP_AND,
     OP_ANDNOT,
     OP_CMP,
     OP_LOAD,
+    OP_LOAD_RUN,
+    OP_LOAD_SPARSE,
     OP_OR,
     OP_XOR,
     OP_ZERO,
@@ -73,12 +83,12 @@ class PlanError(ValueError):
 
 
 class StackOverBudget(Exception):
-    """A field's dense [R, S, W] stack would exceed the device budget.
-
-    Raised EXPLICITLY instead of letting the allocation fail. The
-    reference serves such fields through hot-row and tiered residency;
-    the port does not have those yet, so the executor surfaces this as
-    an ExecutionError."""
+    """A field's dense [R, S, W] stack, or one query's batch of resident
+    rows, would exceed the device budget. Raised EXPLICITLY instead of
+    letting the allocation fail: ``matrix`` raises it and the planner
+    then serves the field through residency; ``hot_batch``,
+    ``tiered_batch`` and ``_pack_payload`` raise it when one query needs
+    more rows than a store holds."""
 
     def __init__(self, field: str, rows: int, bytes_needed: int, budget: int):
         self.field, self.rows = field, rows
@@ -86,13 +96,8 @@ class StackOverBudget(Exception):
         super().__init__(
             f"field {field!r}: dense stack of {rows} rows needs "
             f"{bytes_needed / 2**20:.0f} MiB on device (budget "
-            f"{budget / 2**20:.0f} MiB); over-budget residency is not yet "
-            "ported to the CUDA path (ROADMAP.md A11)"
+            f"{budget / 2**20:.0f} MiB)"
         )
-
-
-def _not_ported(what: str, item: str) -> PlanError:
-    return PlanError(f"{what} is not yet ported to the CUDA path (ROADMAP.md {item})")
 
 
 # --------------------------------------------------------------- stacking
@@ -204,11 +209,20 @@ class StackCache:
         # concurrent builds of one key each hold a claim
         self._reserved: dict[object, int] = {}
         self.resident_bytes = 0
+        # over-budget fields: legacy hot-row slot stacks, and tiered
+        # compressed residency entries (executor/residency.py)
+        self._hot: "OrderedDict[tuple, dict]" = OrderedDict()
+        self._tiered: "OrderedDict[tuple, TieredEntry]" = OrderedDict()
         # observability: tests assert the write path stays incremental
         self.full_restacks = 0
         self.delta_updates = 0
         self.delta_rows_uploaded = 0
-        self.evictions = 0
+        self.hot_row_uploads = 0
+        self.rows_promoted = 0
+        self.rows_demoted = 0
+        self.cold_uploads = 0
+        self.evictions = {"dense": 0, "hot": 0, "tiered": 0}
+        self._container_bytes = {"dense": 0, "sparse": 0, "run": 0}
 
     # ----------------------------------------------------- byte ledger
     # callers hold self._lock
@@ -220,20 +234,36 @@ class StackCache:
         self.resident_bytes -= self._bytes.pop(key, 0)
 
     def _evict_for(self, need: int, keep: tuple | None = None) -> None:
-        """Evict LRU stacks until ``need`` more bytes fit under the
-        budget. The entry being (re)built is exempt; if nothing
+        """Evict LRU entries (dense stacks first, then hot slot stacks,
+        then tiered container entries) until ``need`` more bytes fit
+        under the budget. The entry being (re)built is exempt; if nothing
         evictable remains the admit proceeds — the per-stack check
         already bounds any single entry."""
         budget = self.STACK_BYTES_BUDGET
         while self.resident_bytes + sum(self._reserved.values()) + need > budget:
             victim = next((k for k in self._cache if k != keep), None)
+            if victim is not None:
+                del self._cache[victim]
+                self._forget(victim)
+                self._note_eviction("dense")
+                continue
+            victim = next((k for k in self._hot if k != keep), None)
+            if victim is not None:
+                del self._hot[victim]
+                self._forget(victim)
+                self._note_eviction("hot")
+                continue
+            victim = next((k for k in self._tiered if k != keep), None)
             if victim is None:
                 break
-            del self._cache[victim]
-            self._forget(victim)
-            self.evictions += 1
-            if self.stats is not None:
-                self.stats.count("stack_evictions_total", tags={"tier": "dense"})
+            self._forget_tiered(victim, self._tiered.pop(victim))
+            self._note_eviction("tiered")
+
+    def _note_eviction(self, tier: str) -> None:
+        # caller holds self._lock
+        self.evictions[tier] += 1
+        if self.stats is not None:
+            self.stats.count("stack_evictions_total", tags={"tier": tier})
 
     @staticmethod
     def _projected_rows(view, shards: list[int]) -> int:
@@ -369,26 +399,448 @@ class StackCache:
                 "fullRestacks": self.full_restacks,
                 "deltaUpdates": self.delta_updates,
                 "deltaRowsUploaded": self.delta_rows_uploaded,
+                "hotRowUploads": self.hot_row_uploads,
                 "entries": len(self._cache),
-                "evictions": self.evictions,
+                "hotEntries": len(self._hot),
+                "tieredEntries": len(self._tiered),
+                "evictions": sum(self.evictions.values()),
                 "residentBytes": self.resident_bytes,
                 "budgetBytes": self.STACK_BYTES_BUDGET,
             }
 
+    # ----------------------------------------------------- hot-row stacks
+    # The legacy "slots" mode: an over-budget field keeps only an LRU
+    # working set of rows on the device, an [H, S, W] slot stack plus a
+    # row → slot map. Cold rows live in the host roaring bitmaps and are
+    # promoted on first touch (K3, one batched scatter per query).
+
+    def hot_capacity(self, n_shards: int) -> int:
+        # HALF the aggregate budget: a full-budget slot stack would evict
+        # every dense stack a hybrid query also needs, on every request
+        h = (self.STACK_BYTES_BUDGET // 2) // max(1, n_shards * WORDS_PER_SHARD * 4)
+        return max(8, 1 << (int(h).bit_length() - 1)) if h >= 8 else 8
+
+    MAX_HOT_ENTRIES = 4  # count cap; the byte ledger is the real bound
+
+    def _hot_entry(self, idx: Index, field: Field, view_name: str, shards):
+        """(entry, view), resident rows reconciled with fragment writes.
+        Caller holds _lock."""
+        view = field.view(view_name)
+        key = ("hot", idx.name, field.name, view_name, tuple(shards))
+        # the O(1) whole-view fast path of matrix(): stamp read before tokens
+        view_ver = view.version if view is not None else None
+        entry = self._hot.get(key)
+        h = self.hot_capacity(len(shards))
+        if entry is not None and entry["h"] == h and view_ver is not None and entry["view_ver"] == view_ver:
+            self._hot.move_to_end(key)
+            return entry, view
+        versions = tuple(self._frag_token(view, s) for s in shards)
+        if entry is None or entry["h"] != h:
+            nbytes = h * len(shards) * WORDS_PER_SHARD * 4
+            self._evict_for(nbytes - self._bytes.get(key, 0), keep=key)
+            dev = torch.zeros((h, len(shards), WORDS_PER_SHARD), dtype=torch.int32, device=self.device)
+            entry = {"versions": versions, "dev": dev, "slots": OrderedDict(), "h": h, "view_ver": view_ver}
+            self._hot[key] = entry
+            self._account(key, nbytes)
+            self._hot.move_to_end(key)
+            while len(self._hot) > self.MAX_HOT_ENTRIES:
+                victim, _ = self._hot.popitem(last=False)
+                self._forget(victim)
+            return entry, view
+        self._hot.move_to_end(key)
+        if entry["versions"] != versions:
+            stale = self._stale_rows(view, shards, entry["versions"], versions)
+            if stale is None:
+                entry["slots"].clear()
+            else:
+                self._upload_hot_rows(
+                    entry, view, shards,
+                    [(r, entry["slots"][r]) for r in stale & set(entry["slots"])],
+                )
+            entry["versions"] = versions
+        entry["view_ver"] = view_ver
+        return entry, view
+
+    @staticmethod
+    def _stale_rows(view, shards, old_versions, versions) -> "set[int] | None":
+        """Rows written between two token tuples, or None when unknowable
+        (a fragment created or replaced, or its history trimmed)."""
+        stale: set[int] = set()
+        for i, s in enumerate(shards):
+            old_uid, old_ver = old_versions[i]
+            new_uid, _new_ver = versions[i]
+            if (old_uid, old_ver) == versions[i]:
+                continue
+            frag = view.fragment(s) if view else None
+            if frag is None or old_uid != new_uid:
+                return None
+            dirty = frag.dirty_rows_since(old_ver)
+            if dirty is None:
+                return None
+            stale |= dirty
+        return stale
+
+    def _upload_hot_rows(self, entry, view, shards, pairs: list[tuple[int, int]]) -> None:
+        """One K3 scatter for every (row_id, slot) pair — the slot stack
+        is copied per scatter, so k rows must cost one copy, not k.
+        Caller holds _lock."""
+        if not pairs:
+            return
+        n_s = len(shards)
+        data = np.zeros((len(pairs) * n_s, WORDS_PER_SHARD), dtype=np.uint32)
+        idx_arr = np.empty((len(pairs) * n_s, 2), dtype=np.int32)
+        for j, (row_id, slot) in enumerate(pairs):
+            for i, s in enumerate(shards):
+                frag = view.fragment(s) if view else None
+                if frag is not None:
+                    data[j * n_s + i] = frag.row_packed(row_id)
+                idx_arr[j * n_s + i] = (slot, i)
+        entry["dev"] = ops.apply_stack_delta(
+            entry["dev"],
+            torch.from_numpy(idx_arr).to(self.device),
+            torch.from_numpy(data.view(np.int32)).to(self.device),
+            mode="hot",
+        )
+        self.hot_row_uploads += len(pairs)
+
+    def hot_batch(self, idx: Index, field: Field, view_name: str, shards: list[int], row_ids: list[int]):
+        """Atomically ensure EVERY row in ``row_ids`` is resident and
+        return ``(dev [H, S, W], {row_id: slot})`` captured in one
+        critical section. The returned tensor is never written again —
+        a later promotion scatters into a NEW tensor — so a program
+        planned against this pair can never read a reassigned slot."""
+        with self._lock:
+            entry, view = self._hot_entry(idx, field, view_name, shards)
+            slots = entry["slots"]
+            need = [r for r in dict.fromkeys(row_ids) if r >= 0]
+            if len(need) > entry["h"]:
+                raise StackOverBudget(
+                    field.name, len(need), len(need) * len(shards) * WORDS_PER_SHARD * 4,
+                    self.STACK_BYTES_BUDGET,
+                )
+            # bump every needed resident row first so the LRU never
+            # evicts one member of this batch to admit another
+            for r in need:
+                if r in slots:
+                    slots.move_to_end(r)
+            uploads: list[tuple[int, int]] = []
+            for r in need:
+                if r in slots:
+                    continue
+                if len(slots) < entry["h"]:
+                    slot = len(slots)
+                else:
+                    _evicted, slot = slots.popitem(last=False)
+                slots[r] = slot
+                uploads.append((r, slot))
+            self._upload_hot_rows(entry, view, shards, uploads)
+            return entry["dev"], {r: slots[r] for r in need}
+
+    # ------------------------------------------- tiered compressed residency
+    # The default mode: an over-budget field keeps a hot working set of
+    # rows resident in per-row containers — dense words, sparse ids or
+    # run intervals (residency.choose_container). A cold row serves
+    # through a one-shot host-packed plane upload; repeated touches
+    # promote it; LRU slot reuse demotes the coldest resident row.
+
+    RESIDENCY_MODE = "tiered"  # or "slots": the hot-row slot stacks above
+    MAX_TIERED_ENTRIES = 4  # count cap; the byte ledger is the real bound
+
+    def residency_mode(self) -> str:
+        return self.RESIDENCY_MODE
+
+    def is_over_budget(self, idx: Index, field: Field, view_name: str, shards: list[int]) -> bool:
+        """Would this field's dense stack exceed the budget? O(S)
+        metadata, no allocation — the router's residency probe."""
+        r_pad = self._projected_rows(field.view(view_name), shards)
+        return len(shards) * r_pad * WORDS_PER_SHARD * 4 > self.STACK_BYTES_BUDGET
+
+    @staticmethod
+    def _pack_plane(view, shards: list[int], row_id) -> np.ndarray:
+        """Host-packed uint32 [S, W] plane of one row, from the fragments."""
+        out = np.zeros((len(shards), WORDS_PER_SHARD), dtype=np.uint32)
+        if view is None or row_id is None or row_id < 0:
+            return out
+        for i, s in enumerate(shards):
+            frag = view.fragment(s)
+            if frag is not None:
+                out[i] = frag.row_packed(row_id)
+        return out
+
+    def _tiered_entry(self, idx: Index, field: Field, view_name: str, shards):
+        """(key, entry, view), versions reconciled. Caller holds _lock.
+        Stale resident rows are DROPPED, not re-uploaded: a write may
+        change a row's container kind, so the next touch re-chooses and
+        re-packs; touch counts survive, so a hot row re-promotes on its
+        next query."""
+        view = field.view(view_name)
+        key = ("tier", idx.name, field.name, view_name, tuple(shards))
+        view_ver = view.version if view is not None else None
+        entry = self._tiered.get(key)
+        if entry is None:
+            entry = TieredEntry(len(shards), self.STACK_BYTES_BUDGET)
+            self._tiered[key] = entry
+            while len(self._tiered) > self.MAX_TIERED_ENTRIES:
+                victim = next(k for k in self._tiered if k != key)
+                self._forget_tiered(victim, self._tiered.pop(victim))
+                self._note_eviction("tiered")
+        # new stores size from the live budget
+        entry.budget = self.STACK_BYTES_BUDGET
+        self._tiered.move_to_end(key)
+        if view_ver is not None and entry.view_ver == view_ver:
+            return key, entry, view
+        versions = tuple(self._frag_token(view, s) for s in shards)
+        if entry.versions != versions:
+            stale = (
+                None if entry.versions is None
+                else self._stale_rows(view, shards, entry.versions, versions)
+            )
+            if stale is None:
+                entry.clear()
+            else:
+                self.rows_demoted += sum(
+                    1 for r in stale if any(r in st["slots"] for st in entry.stores.values())
+                )
+                entry.drop_rows(stale)
+            entry.versions = versions
+        entry.view_ver = view_ver
+        return key, entry, view
+
+    def _tiered_store(self, entry, kind: str, key: tuple) -> dict:
+        """Get-or-create one kind's fixed-capacity device store. Caller
+        holds _lock; creation charges the byte ledger (evicting LRU
+        entries first) and the per-container gauges."""
+        st = entry.stores.get(kind)
+        if st is not None:
+            return st
+        h, _k = entry.capacity(kind, entry.n_shards * WORDS_PER_SHARD)
+        if kind == "dense":
+            shape, fill = (h, entry.n_shards, WORDS_PER_SHARD), 0
+        elif kind == "sparse":
+            shape, fill = (h, SPARSE_MAX_IDS), -1
+        elif kind == "run":
+            shape, fill = (h, RUN_MAX_INTERVALS, 2), 0
+        else:
+            raise ValueError(f"unknown container kind {kind!r}")
+        nbytes = int(np.prod(shape)) * 4
+        self._evict_for(nbytes, keep=key)
+        dev = torch.full(shape, fill, dtype=torch.int32, device=self.device)
+        st = {"dev": dev, "slots": OrderedDict(), "free": [], "alloc": 0, "h": h, "nbytes": nbytes}
+        entry.stores[kind] = st
+        self._account(key, self._bytes.get(key, 0) + nbytes)
+        self._container_bytes[kind] += nbytes
+        self._push_residency_gauges()
+        return st
+
+    def _forget_tiered(self, key: tuple, entry) -> None:
+        # caller holds self._lock
+        for kind, st in entry.stores.items():
+            self._container_bytes[kind] -= st["nbytes"]
+        self._forget(key)
+        self._push_residency_gauges()
+
+    def _push_residency_gauges(self) -> None:
+        if self.stats is None:
+            return
+        for kind, v in self._container_bytes.items():
+            self.stats.gauge("residency_bytes", v, tags={"container": kind})
+
+    def tiered_plan(self, idx: Index, field: Field, view_name: str, shards: list[int], row_id: int) -> tuple[str, str]:
+        """Plan-time residency decision for one row leaf →
+        ``(container kind, action)``, action one of "resident" (on the
+        device already), "promote" (its touches reached the threshold:
+        the batch packs and uploads it) or "cold" (a one-shot
+        host-packed plane upload). The chooser memoizes per row; a miss
+        costs one host row pack and an O(words) scan."""
+        with self._lock:
+            key, entry, view = self._tiered_entry(idx, field, view_name, shards)
+            if row_id is None or row_id < 0:
+                return "sparse", "cold"  # unknown key: an all-zero plane
+            kind = entry.kinds.get(row_id)
+            if kind is not None:
+                # LRU, not FIFO: a constantly queried resident row's memo
+                # must not age out behind one-shot cold rows
+                entry.kinds.move_to_end(row_id)
+            else:
+                plane = self._pack_plane(view, shards, row_id)
+                nbits, nruns = residency.analyze_plane(plane)
+                kind = residency.choose_container(nbits, nruns, len(shards) * WORDS_PER_SHARD)
+                entry.kinds[row_id] = kind
+                while len(entry.kinds) > residency.MAX_TOUCH_ROWS:
+                    entry.kinds.popitem(last=False)
+            touches = entry.note_touch(row_id)
+            if entry.resident(row_id, kind):
+                return kind, "resident"
+            if touches >= residency.PROMOTE_TOUCHES:
+                return kind, "promote"
+            return kind, "cold"
+
+    def cold_plane(self, idx: Index, field: Field, view_name: str, shards, row_id: int) -> torch.Tensor:
+        """One-shot device upload of a host-packed row plane, as a
+        one-row int32 [1, S, W] stack — the pre-promotion cold service."""
+        plane = self._pack_plane(field.view(view_name), shards, row_id)
+        with self._lock:
+            self.cold_uploads += 1
+        return torch.from_numpy(plane.view(np.int32)[None]).to(self.device)
+
+    def tiered_batch(self, idx: Index, field: Field, view_name: str, shards: list[int], needs: "list[tuple[int, str]]"):
+        """Atomically ensure every (row, kind) pair is resident and
+        return ``({kind: store}, {row: slot})`` captured in one critical
+        section — hot_batch's immutable-snapshot contract: a promotion
+        scatters into a NEW store tensor (K3's copy), so a planned query
+        never reads a reassigned slot."""
+        with self._lock:
+            key, entry, view = self._tiered_entry(idx, field, view_name, shards)
+            uniq = list(dict.fromkeys((r, k) for r, k in needs if r >= 0))
+            by_kind: dict[str, list[int]] = {}
+            for r, k in uniq:
+                by_kind.setdefault(k, []).append(r)
+            stores = {k: self._tiered_store(entry, k, key) for k in by_kind}
+            for k, rows in by_kind.items():
+                if len(rows) > stores[k]["h"]:
+                    # a query needing more rows of one kind than its store
+                    # holds fails EXPLICITLY, never with an evicted slot
+                    raise StackOverBudget(
+                        f"{field.name} ({k} container store, {stores[k]['h']} slots)",
+                        len(rows), len(rows) * len(shards) * WORDS_PER_SHARD * 4,
+                        self.STACK_BYTES_BUDGET,
+                    )
+            # bump resident batch members first so LRU reuse never
+            # demotes one member of this batch to admit another
+            for k, rows in by_kind.items():
+                slots = stores[k]["slots"]
+                for r in rows:
+                    if r in slots:
+                        slots.move_to_end(r)
+            slot_map: dict[int, int] = {}
+            for k, rows in by_kind.items():
+                st = stores[k]
+                missing = [r for r in rows if r not in st["slots"]]
+                for r in rows:
+                    if r in st["slots"]:
+                        slot_map[r] = st["slots"][r]
+                # pack and validate BEFORE any slot moves: a payload that
+                # no longer fits its planned kind must fail with the slot
+                # maps untouched
+                payloads = {r: self._pack_payload(k, st, view, shards, r) for r in missing}
+                uploads: list[tuple[int, int]] = []
+                for r in missing:
+                    if st["free"]:
+                        slot = st["free"].pop()
+                    elif st["alloc"] < st["h"]:
+                        slot = st["alloc"]
+                        st["alloc"] += 1
+                    else:
+                        demoted, slot = st["slots"].popitem(last=False)
+                        entry.kinds.pop(demoted, None)
+                        self.rows_demoted += 1
+                        if self.stats is not None:
+                            self.stats.count("rows_demoted")
+                    st["slots"][r] = slot
+                    slot_map[r] = slot
+                    uploads.append((r, slot))
+                if uploads:
+                    self._upload_tiered_rows(st, k, payloads, uploads)
+                    self.rows_promoted += len(uploads)
+                    self.hot_row_uploads += len(uploads)
+                    if self.stats is not None:
+                        self.stats.count("rows_promoted", len(uploads))
+            return {k: st["dev"] for k, st in stores.items()}, slot_map
+
+    def _pack_payload(self, kind: str, st: dict, view, shards, row_id: int) -> np.ndarray:
+        """Pack one row for its planned store, validating the fit
+        (caller holds _lock and has not yet assigned a slot)."""
+        payload = residency.pack_container(kind, self._pack_plane(view, shards, row_id))
+        if kind != "dense" and payload.shape[0] > st["dev"].shape[1]:
+            raise StackOverBudget(
+                f"row {row_id} no longer fits its planned {kind!r} container (changed class mid-plan)",
+                1, int(payload.nbytes), self.STACK_BYTES_BUDGET,
+            )
+        return payload
+
+    def _upload_tiered_rows(self, st: dict, kind: str, payloads: dict, uploads) -> None:
+        """Scatter pre-packed, pre-validated payloads into one kind's
+        store: one K3 row scatter per batch, into a new store tensor.
+        Caller holds _lock."""
+        rows = np.full((len(uploads),) + tuple(st["dev"].shape[1:]), -1 if kind == "sparse" else 0, np.int32)
+        for j, (row_id, _slot) in enumerate(uploads):
+            payload = payloads[row_id]
+            if kind == "dense":
+                rows[j] = payload.view(np.int32)
+            else:
+                rows[j, : payload.shape[0]] = payload
+        idx_arr = np.array([slot for _r, slot in uploads], dtype=np.int32)
+        st["dev"] = ops.scatter_rows(
+            st["dev"], torch.from_numpy(idx_arr).to(self.device), torch.from_numpy(rows).to(self.device)
+        )
+
+    def tiered_resident(self, idx: Index, field: Field, view_name: str, shards, row_id: int) -> bool:
+        """Cheap residency probe (the router's cost model): never
+        creates entries, packs planes or bumps touch counts."""
+        key = ("tier", idx.name, field.name, view_name, tuple(shards))
+        with self._lock:
+            entry = self._tiered.get(key)
+            if entry is None:
+                return False
+            kind = entry.kinds.get(row_id)
+            return kind is not None and entry.resident(row_id, kind)
+
+    def residency_snapshot(self) -> dict:
+        """The ``?profile=true`` residency block (owns the field names,
+        like stats_snapshot)."""
+        with self._lock:
+            return {
+                "mode": self.RESIDENCY_MODE,
+                "entries": len(self._tiered),
+                "residentRows": sum(e.resident_rows() for e in self._tiered.values()),
+                "rowsPromoted": self.rows_promoted,
+                "rowsDemoted": self.rows_demoted,
+                "coldUploads": self.cold_uploads,
+                "evictions": dict(self.evictions),
+                "bytesByContainer": dict(self._container_bytes),
+                "budgetBytes": self.STACK_BYTES_BUDGET,
+                "tiers": [
+                    {
+                        "field": key[2],
+                        "view": key[3],
+                        "shards": len(key[4]),
+                        "rows": {k: len(st["slots"]) for k, st in entry.stores.items()},
+                    }
+                    for key, entry in self._tiered.items()
+                ],
+            }
+
 # ------------------------------------------------------------------ plans
 class _Planner:
-    """Builds the postfix ops of one call tree, plus the stacks and
-    (stack, row id) leaves the program reads."""
+    """Builds the postfix ops of one call tree, plus the arrays (stacks,
+    residency stores, one-shot planes) and the (array, row) leaves the
+    program reads.
+
+    Over-budget fields resolve at ``materialize`` time as ONE atomic
+    hot_batch / tiered_batch per field, so a leaf's slot is a thunk until
+    then: plan-time slot binding could go stale if a concurrent query
+    evicted a row between planning and the launch.
+
+    The array builders and slot thunks take the planner as their
+    argument and close over no planner: a closure over ``self`` would
+    make a reference cycle that keeps a finished plan — and the store
+    generation it read — alive until the cyclic collector runs."""
 
     def __init__(self, idx: Index, shards: list[int], stacks: StackCache):
         self.idx = idx
         self.shards = shards
         self.stacks = stacks
-        self._builders: list = []  # device-stack thunks
+        self._builders: list = []  # device-array builders, called with the planner
         self._array_keys: dict[tuple, int] = {}
-        self.leaves: list[tuple[int, int]] = []  # (stack index, row id)
+        self.arrays: list[torch.Tensor] = []
+        # (array index, row id or slot thunk called with the planner)
+        self.leaves: list[tuple[int, object]] = []
         # (stack index, depth, op, constant) per CMP
         self.conds: list[tuple[int, int, str, int]] = []
+        self._hot_needs: dict[tuple, tuple[Field, str, list[int]]] = {}
+        self._hot_resolved: dict[tuple, tuple] = {}
+        self._tiered_needs: dict[tuple, tuple[Field, str, list]] = {}
+        self._tiered_resolved: dict[tuple, tuple] = {}
 
     def _add_array(self, key: tuple, build) -> int:
         i = self._array_keys.get(key)
@@ -399,19 +851,67 @@ class _Planner:
         return i
 
     def materialize(self) -> list[torch.Tensor]:
-        """Resolve the stacks AFTER planning finishes."""
-        return [b() for b in self._builders]
+        """Resolve the residency batches, then the arrays, in planning
+        order (a later builder may read an earlier array)."""
+        for fkey, (field, view_name, rows) in self._hot_needs.items():
+            self._hot_resolved[fkey] = self.stacks.hot_batch(self.idx, field, view_name, self.shards, rows)
+        for fkey, (field, view_name, needs) in self._tiered_needs.items():
+            self._tiered_resolved[fkey] = self.stacks.tiered_batch(self.idx, field, view_name, self.shards, needs)
+        self.arrays = []
+        for b in self._builders:
+            self.arrays.append(b(self))
+        return self.arrays
+
+    def resolved_leaves(self) -> list[tuple[int, int]]:
+        """(array index, row) per leaf; call after materialize()."""
+        return [(ai, row(self) if callable(row) else row) for ai, row in self.leaves]
 
     def _matrix_leaf(self, field: Field, view_name: str, row_id: int):
-        # probing the budget up front raises StackOverBudget at plan time;
-        # the check allocates nothing when the stack is cached
-        self.stacks.matrix(self.idx, field, view_name, self.shards)
+        op, ai, row = self._leaf(field, view_name, row_id)
+        self.leaves.append((ai, row))
+        return [(op, len(self.leaves) - 1)]
+
+    def _leaf(self, field: Field, view_name: str, row_id: int):
+        """(opcode, array index, row) of one stored row: a row of the
+        dense stack; or, over budget, a slot of the hot slot stack
+        ("slots" mode) or a tiered residency leaf."""
+        try:
+            # probing the budget up front raises StackOverBudget at plan
+            # time; the check allocates nothing when the stack is cached
+            self.stacks.matrix(self.idx, field, view_name, self.shards)
+        except StackOverBudget:
+            if self.stacks.residency_mode() != "slots":
+                return self._tiered_leaf(field, view_name, row_id)
+            fkey = (field.name, view_name)
+            need = self._hot_needs.setdefault(fkey, (field, view_name, []))
+            if row_id >= 0:
+                need[2].append(row_id)
+            ai = self._add_array(("hot",) + fkey, lambda p: p._hot_resolved[fkey][0])
+            return OP_LOAD, ai, lambda p: p._hot_resolved[fkey][1].get(row_id, -1)
         ai = self._add_array(
             ("m", field.name, view_name),
-            lambda: self.stacks.matrix(self.idx, field, view_name, self.shards)[0],
+            lambda p: p.stacks.matrix(p.idx, field, view_name, p.shards)[0],
         )
-        self.leaves.append((ai, row_id))
-        return [(OP_LOAD, len(self.leaves) - 1)]
+        return OP_LOAD, ai, row_id
+
+    def _tiered_leaf(self, field: Field, view_name: str, row_id: int):
+        """A row of an over-budget field in tiered mode: a cold row is a
+        one-shot [1, S, W] plane (a plain LOAD); a resident one is a slot
+        of its kind's store — LOAD of a dense [H, S, W] slot, or K1's
+        LOAD_SPARSE / LOAD_RUN of a payload it decodes in place."""
+        kind, action = self.stacks.tiered_plan(self.idx, field, view_name, self.shards, row_id)
+        if action == "cold":
+            ai = self._add_array(
+                ("cold", field.name, view_name, row_id),
+                lambda p: p.stacks.cold_plane(p.idx, field, view_name, p.shards, row_id),
+            )
+            return OP_LOAD, ai, 0
+        fkey = (field.name, view_name)
+        need = self._tiered_needs.setdefault(fkey, (field, view_name, []))
+        need[2].append((row_id, kind))
+        ai = self._add_array(("tier", kind) + fkey, lambda p: p._tiered_resolved[fkey][0][kind])
+        op = {"dense": OP_LOAD, "sparse": OP_LOAD_SPARSE, "run": OP_LOAD_RUN}[kind]
+        return op, ai, lambda p: p._tiered_resolved[fkey][1].get(row_id, -1)
 
     @staticmethod
     def _zero():
@@ -427,6 +927,27 @@ class _Planner:
         if ef is None:
             return self._zero()
         return self._matrix_leaf(ef, VIEW_STANDARD, 0)
+
+    def _shift(self, child: Call, n: int):
+        """Shift(child, n) as a leaf: a sub-program evaluates the child
+        into a temporary [S, W] plane (K1 words), K7 shifts it, and the
+        result enters this program as a one-row [1, S, W] stack."""
+        sub = _Planner(self.idx, self.shards, self.stacks)
+        prog = sub.plan(child)
+        check_program(prog, len(sub.leaves), len(sub.conds))
+
+        def build(p: "_Planner") -> torch.Tensor:
+            arrays = sub.materialize()
+            words = ops.tree_eval(
+                arrays, sub.resolved_leaves(), prog, len(p.shards), count=False,
+                device=p.stacks.device, conds=sub.conds,
+            )
+            return ops.shift_words(words, n)[None]
+
+        # a fresh key per Shift node: two shifts of one subtree are two planes
+        ai = self._add_array(("shift", len(self._builders)), build)
+        self.leaves.append((ai, 0))
+        return [(OP_LOAD, len(self.leaves) - 1)]
 
     # ---------------------------------------------------------- call tree
     def plan(self, call: Call):
@@ -458,17 +979,44 @@ class _Planner:
         if name == "All":
             return self._existence()
         if name == "Shift":
-            raise _not_ported("Shift()", "A6")
+            if len(call.children) != 1:
+                raise PlanError("Shift() takes exactly one call")
+            n = call.arg("n", 1)
+            if not isinstance(n, int) or n < 0:
+                raise PlanError(f"Shift() n must be a non-negative integer, got {n!r}")
+            if n == 0:
+                return self.plan(call.children[0])
+            return self._shift(call.children[0], n)
         raise PlanError(f"{name!r} is not a bitmap call")
 
     def _bsi(self, field: Field) -> int:
-        """Index of the field's BSI stack among the planner's stacks (slots
-        mode only: an over-budget stack raises StackOverBudget here)."""
-        self.stacks.matrix(self.idx, field, VIEW_BSI, self.shards)
+        """Index of the field's [P, S, W] BSI stack among the planner's
+        arrays. Over budget, in tiered mode, each of its 2 + D slice rows
+        is a residency leaf and the block is a [2 + D, S, W] tensor that
+        K1 fills slice by slice in words mode (the reference stacks the
+        decoded slices inside its program); slots mode raises
+        StackOverBudget here, as the reference's does."""
+        try:
+            self.stacks.matrix(self.idx, field, VIEW_BSI, self.shards)
+        except StackOverBudget:
+            if self.stacks.residency_mode() == "slots":
+                raise
+            slices = [self._leaf(field, VIEW_BSI, d) for d in range(BSI_OFFSET + field.bit_depth)]
+            return self._add_array(("bsitier", field.name), lambda p: p._bsi_block(slices))
         return self._add_array(
             ("m", field.name, VIEW_BSI),
-            lambda: self.stacks.matrix(self.idx, field, VIEW_BSI, self.shards)[0],
+            lambda p: p.stacks.matrix(p.idx, field, VIEW_BSI, p.shards)[0],
         )
+
+    def _bsi_block(self, slices) -> torch.Tensor:
+        """[2 + D, S, W] from the slice leaves: one K1 words launch per
+        slice, each writing its plane of the block."""
+        n_s = len(self.shards)
+        block = torch.empty((len(slices), n_s, WORDS_PER_SHARD), dtype=torch.int32, device=self.stacks.device)
+        for d, (op, ai, row) in enumerate(slices):
+            leaf = (0, row(self) if callable(row) else row)
+            ops.tree_eval([self.arrays[ai]], [leaf], [(op, 0)], n_s, count=False, out=block[d])
+        return block
 
     def _cmp(self, si: int, field: Field, op: str, value: int):
         self.conds.append((si, field.bit_depth, op, value))
@@ -613,29 +1161,44 @@ class QueryCompiler:
         return plane
 
     def _plan(self, idx: Index, call: Call, shards: list[int]):
-        """(stacks, leaves, program, conditions) for one call tree,
+        """(arrays, leaves, program, conditions) for one call tree,
         checked against the kernel's limits."""
         planner = _Planner(idx, shards, self.stacks)
         ops_list = planner.plan(call)
         check_program(ops_list, len(planner.leaves), len(planner.conds))
-        return planner.materialize(), planner.leaves, ops_list, planner.conds
-
-    def _run(self, idx: Index, call: Call, shards: list[int], count: bool):
-        stacks, leaves, prog, conds = self._plan(idx, call, shards)
-        return ops.tree_eval(
-            stacks, leaves, prog, len(shards), count=count, device=self.device,
-            conds=conds,
-        )
+        arrays = planner.materialize()
+        return arrays, planner.resolved_leaves(), ops_list, planner.conds
 
     def bitmap_device(self, idx: Index, call: Call, shards: list[int]) -> torch.Tensor:
         """Evaluate a bitmap call for all shards in one launch → device
         int32[S, W]."""
-        return self._run(idx, call, shards, count=False)
+        arrays, leaves, prog, conds = self._plan(idx, call, shards)
+        return ops.tree_eval(
+            arrays, leaves, prog, len(shards), count=False, device=self.device, conds=conds,
+        )
 
     def bitmap_words(self, idx: Index, call: Call, shards: list[int]) -> np.ndarray:
         return self.bitmap_device(idx, call, shards).cpu().numpy().view(np.uint32)
 
     def count_async(self, idx: Index, call: Call, shards: list[int]) -> torch.Tensor:
         """Device int64 scalar (not synced) — callers pipeline many
-        queries before paying the device→host readback."""
-        return self._run(idx, call, shards, count=True)
+        queries before paying the device→host readback.
+
+        When the whole tree is ONE sparse or run container leaf, K8
+        counts the payload directly: no [S, W] plane, even in
+        registers."""
+        arrays, leaves, prog, conds = self._plan(idx, call, shards)
+        if len(prog) == 1 and prog[0][0] in (OP_LOAD_SPARSE, OP_LOAD_RUN):
+            si, slot = leaves[prog[0][1]]
+            return ops.container_count(arrays[si], slot)
+        return ops.tree_eval(
+            arrays, leaves, prog, len(shards), count=True, device=self.device, conds=conds,
+        )
+
+    def tiered_bsi_block(self, idx: Index, field: Field, shards: list[int]) -> torch.Tensor:
+        """The [P, S, W] BSI block of an int field for the aggregates
+        (Sum, Min, Max, GroupBy's Sum): assembled from tiered slice rows
+        when the dense stack is over budget (``_Planner._bsi``)."""
+        planner = _Planner(idx, shards, self.stacks)
+        si = planner._bsi(field)
+        return planner.materialize()[si]

@@ -9,13 +9,14 @@ ROADMAP.md A8) — and only scalars or small count vectors cross back to
 the host, all of a query's results in one readback wave.
 
 Ported here: Count, the bitmap calls (Row, Range, Union, Intersect,
-Difference, Xor, Not, All, and BSI conditions), TopN (with and without a
-filter, and the ids= form), Sum, Min, Max, GroupBy (fused and
+Difference, Xor, Not, All, Shift, and BSI conditions), TopN (with and
+without a filter, and the ids= form), Sum, Min, Max, GroupBy (fused and
 level-synchronous, with filter=, limit= and aggregate=Sum), Rows,
-IncludesColumn, Options and the write calls. Not ported: Shift (it
-raises ExecutionError on the device route, ROADMAP.md A6, and the auto
-router serves it host-side), the mesh paths (A13) and the over-budget
-residency levels (A11).
+IncludesColumn, Options and the write calls. A field over the device
+budget serves through residency (compile.StackCache): its rows as tiered
+or hot-slot leaves, its BSI block assembled from tiered slices, and its
+TopN and GroupBy levels streamed in host-packed chunks through K2 and
+K6. Not ported: the mesh paths (ROADMAP.md A13).
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ import numpy as np
 import torch
 
 from pilosa_tpu_torch import ops
-from pilosa_tpu_torch.core import FIELD_INT, VIEW_BSI, VIEW_STANDARD, Field, Holder, Index
+from pilosa_tpu_torch.core import BSI_OFFSET, FIELD_INT, VIEW_BSI, VIEW_STANDARD, Field, Holder, Index
 from pilosa_tpu_torch.executor.compile import PlanError, QueryCompiler, StackOverBudget
 from pilosa_tpu_torch.executor.hostpath import HostPlanError
 from pilosa_tpu_torch.executor.router import QueryRouter, estimate_words
@@ -91,17 +92,6 @@ def unwrap_options(call: Call) -> Call:
     while call.name == "Options" and len(call.children) == 1:
         call = call.children[0]
     return call
-
-
-def _device_ported(call: Call) -> bool:
-    """Whether every node of the tree has a CUDA path in this port (all
-    but Shift, ROADMAP.md A6)."""
-    if call.name == "Shift":
-        return False
-    sub = [call.arg("filter"), call.arg("aggregate")]
-    return all(
-        _device_ported(c) for c in list(call.children) + sub if isinstance(c, Call)
-    )
 
 
 class ExecutionError(ValueError):
@@ -164,6 +154,26 @@ def _pad_row_ids(rows: list[int], k_pad: int) -> list[int]:
     """Row ids padded to k_pad with -1: K6 reads a -1 row as zeros, so
     padded slots count 0 and prune."""
     return list(rows) + [-1] * (k_pad - len(rows))
+
+
+class _PackCache:
+    """LRU of host-packed [S, W] rows keyed by (level, row), bounded in
+    rows (GroupBy's streamed levels)."""
+
+    def __init__(self, cap: int):
+        self.cap = cap
+        self._rows: "OrderedDict[tuple[int, int], np.ndarray]" = OrderedDict()
+
+    def get(self, key: tuple[int, int]) -> "np.ndarray | None":
+        got = self._rows.get(key)
+        if got is not None:
+            self._rows.move_to_end(key)
+        return got
+
+    def put(self, key: tuple[int, int], plane: np.ndarray) -> None:
+        self._rows[key] = plane
+        while len(self._rows) > self.cap:
+            self._rows.popitem(last=False)
 
 
 class Executor:
@@ -292,14 +302,10 @@ class Executor:
             elapsed = time.perf_counter() - t0
             if route in ("host", "device"):
                 self.router.record(route)
-                if route == "host" and self.router.mode == "auto" and not _device_ported(c):
-                    # auto routing had no choice: the call has no CUDA
-                    # path yet, so its host decision is counted apart
-                    self.router.record("host_unported")
                 if work > 0:
                     self.router.observe(route, work, elapsed)
                 if work > 0 and self.router.audit.enabled:
-                    est = self._candidate_costs(work)
+                    est = self._candidate_costs(work, routes[i][2])
                     res = results[-1]
                     if isinstance(res, _Pending):
                         res.audit = {
@@ -319,6 +325,10 @@ class Executor:
                 if prof_shards is None:
                     prof_shards = self._shards(idx, shards)
                 prof.add_call(c.name, elapsed, prof_shards, route=route)
+        if prof is not None and self.compiler.stacks._tiered:
+            # which container tiers served this query's over-budget
+            # fields, and the promotion counters when it ran
+            prof.residency = self.compiler.stacks.residency_snapshot()
         return results
 
     def fetch(self, pending: "list[_Pending]") -> float:
@@ -361,29 +371,162 @@ class Executor:
 
     # ------------------------------------------------------------ routing
     def _route(self, idx: Index, call: Call, shards: list[int] | None):
-        """(route, estimated_work_words) for one top-level call. Writes
-        route None; Rows is metadata-only and serves host-side, and so
-        do calls without a CUDA path yet under ``auto``."""
+        """(route, estimated_work_words, cold_upload_words) for one
+        top-level call. Writes route None; Rows is metadata-only and
+        serves host-side. Under ``auto`` the router charges the device
+        route the upload of every cold row of a tiered field."""
         c, sh = call, shards
         while c.name == "Options" and len(c.children) == 1:
             sh = c.arg("shards", sh)
             c = c.children[0]
         if c.name in WRITE_CALLS:
-            return None, 0
+            return None, 0, 0
         if c.name == "Rows":
-            return "host", 0
+            return "host", 0, 0
         n = len(sh) if sh is not None else max(1, len(idx.available_shards()))
         work = estimate_words(idx, c, n)
         if self.router.mode != "auto":
-            return self.router.mode, work
-        if not _device_ported(c):
-            return "host", work
-        return self.router.decide((idx.name, n, repr(c)), work), work
+            # pinned modes skip the residency walk on their hot path
+            return self.router.mode, work, 0
+        _tiered, cold_words = self._residency_info(idx, c, sh)
+        route = self.router.decide((idx.name, n, repr(c)), work, device_extra_words=cold_words)
+        return route, work, cold_words
 
-    def _candidate_costs(self, work: int) -> dict:
-        """Modeled cost in seconds of each candidate path of one call."""
+    def _candidate_costs(self, work: int, cold_words: int) -> dict:
+        """Modeled cost in seconds of each candidate path of one call;
+        the device path also pays its cold-row uploads at host speed."""
         r = self.router
-        return {"host": r.host_cost(work), "device": r.device_cost(work)}
+        extra_s = cold_words / r._host_wps() if cold_words else 0.0
+        return {"host": r.host_cost(work), "device": r.device_cost(work) + extra_s}
+
+    def _residency_info(
+        self, idx: Index, call: Call, shards: list[int] | None, detail: list | None = None,
+    ) -> tuple[bool, int]:
+        """(touches_tiered_field, cold_upload_words) for one call tree.
+
+        Every COLD row of a tiered (over-budget) field costs the device
+        path about one host-packed [S, W] plane upload. The probe never
+        creates residency entries or bumps touch counts; ``detail``
+        collects a classification per touched row range (explain)."""
+        stacks = self.compiler.stacks
+        if stacks.residency_mode() == "slots":
+            return False, 0
+        shard_list = self._shards(idx, shards)
+        unit = len(shard_list) * WORDS_PER_SHARD
+        over_budget: dict[tuple, bool] = {}
+
+        def over(field: Field, view_name: str) -> bool:
+            k = (field.name, view_name)
+            got = over_budget.get(k)
+            if got is None:
+                got = stacks.is_over_budget(idx, field, view_name, shard_list)
+                over_budget[k] = got
+            return got
+
+        tiered = False
+        cold = 0
+
+        def leaf(field: Field, view_name: str, row_id) -> None:
+            nonlocal tiered, cold
+            if not over(field, view_name):
+                if detail is not None:
+                    detail.append({"field": field.name, "view": view_name, "row": row_id, "class": "in-budget"})
+                return
+            tiered = True
+            resident = stacks.tiered_resident(idx, field, view_name, shard_list, row_id)
+            if not resident:
+                cold += unit
+            if detail is not None:
+                detail.append({
+                    "field": field.name, "view": view_name, "row": row_id,
+                    "class": "resident" if resident else "cold",
+                })
+
+        def bsi_block(f: Field) -> None:
+            nonlocal tiered, cold
+            tiered = True
+            need = BSI_OFFSET + f.bit_depth
+            cold_slices = 0
+            for d in range(need):
+                if not stacks.tiered_resident(idx, f, VIEW_BSI, shard_list, d):
+                    cold += unit
+                    cold_slices += 1
+            if detail is not None:
+                detail.append({
+                    "field": f.name, "view": VIEW_BSI, "slices": need, "coldSlices": cold_slices,
+                    "class": "cold" if cold_slices else "resident",
+                })
+
+        def walk(c: Call) -> None:
+            if c.name in ("Row", "Range"):
+                cond = c.condition()
+                if cond is not None:
+                    f = idx.field(cond[0])
+                    if f is not None and over(f, VIEW_BSI):
+                        bsi_block(f)
+                    return
+                fa = c.field_arg()
+                if fa is not None:
+                    f = idx.field(fa[0])
+                    if f is not None:
+                        row = fa[1]
+                        if isinstance(row, bool):
+                            row = int(row)
+                        if isinstance(row, int):
+                            leaf(f, VIEW_STANDARD, row)
+                return
+            if c.name in ("Sum", "Min", "Max"):
+                # the aggregate's own BSI block is read too
+                fname = c.arg("field") or (c.pos_args[0] if c.pos_args else None)
+                f = idx.field(fname) if isinstance(fname, str) else None
+                if f is not None and f.options.field_type == FIELD_INT and over(f, VIEW_BSI):
+                    bsi_block(f)
+            for ch in c.children:
+                walk(ch)
+            for sub in (c.arg("filter"), c.arg("aggregate")):
+                if isinstance(sub, Call):
+                    walk(sub)
+
+        walk(call)
+        return tiered, cold
+
+    def explain_call(self, idx: Index, call: Call, shards: list[int] | None) -> dict:
+        """The plan of one top-level call, executing nothing: the route
+        the router takes now, each candidate's modeled cost and the
+        residency class of every row range the call touches."""
+        c, sh = call, shards
+        while c.name == "Options" and len(c.children) == 1:
+            sh = c.arg("shards", sh)
+            c = c.children[0]
+        if c.name in WRITE_CALLS:
+            return {"call": c.name, "route": "write"}
+        if c.name == "Rows":
+            return {"call": c.name, "route": "host", "note": "metadata-only call; always served host-side"}
+        n = len(sh) if sh is not None else max(1, len(idx.available_shards()))
+        work = estimate_words(idx, c, n)
+        res_detail: list = []
+        tiered, cold_words = self._residency_info(idx, c, sh, detail=res_detail)
+        if self.router.mode != "auto":
+            route = self.router.mode
+        else:
+            route = self.router.decide((idx.name, n, repr(c)), work, device_extra_words=cold_words)
+        costs = self._candidate_costs(work, cold_words)
+        return {
+            "call": c.name,
+            "route": route,
+            "routeMode": self.router.mode,
+            "estimatedWorkWords": work,
+            "crossoverWords": self.router.crossover_words(),
+            "candidates": {
+                path: {"estimatedSeconds": t, "chosen": path == route} for path, t in sorted(costs.items())
+            },
+            "residency": {
+                "mode": self.compiler.stacks.residency_mode(),
+                "tiered": tiered,
+                "coldUploadWords": cold_words,
+                "rowRanges": res_detail,
+            },
+        }
 
     def _execute_call(
         self,
@@ -543,8 +686,14 @@ class Executor:
     def _bsi_stacked(self, idx: Index, field: Field, shards: list[int]):
         """(int32[P, S, W] BSI stack on the device, depth D). The kernels
         read a plane at or past P as zeros, so the stack is never padded
-        to 2 + D; an over-budget stack raises StackOverBudget (A11)."""
-        m, _rows = self.compiler.stacks.matrix(idx, field, VIEW_BSI, shards)
+        to 2 + D. An over-budget stack assembles from tiered slice rows
+        in tiered mode; slots mode raises, as the reference's does."""
+        try:
+            m, _rows = self.compiler.stacks.matrix(idx, field, VIEW_BSI, shards)
+        except StackOverBudget as e:
+            if self.compiler.stacks.residency_mode() == "slots":
+                raise ExecutionError(str(e)) from e
+            m = self.compiler.tiered_bsi_block(idx, field, shards)
         return m, field.bit_depth
 
     # ------------------------------------------------------- aggregates
@@ -618,14 +767,17 @@ class Executor:
             return self._topn_finish(
                 field, pairs, n, attr_name, attr_values, min_count
             )
-        matrix, _n_rows = self.compiler.stacks.matrix(idx, field, VIEW_STANDARD, shards)
         # the filter is K1's words output, then K2 reads it: two launches
         # where the reference fuses the filter into the TopN program
-        filt = (
-            self.compiler.bitmap_device(idx, call.children[0], shards)
-            if call.children
-            else None
-        )
+        try:
+            matrix, _n_rows = self.compiler.stacks.matrix(idx, field, VIEW_STANDARD, shards)
+        except StackOverBudget:
+            # streamed: chunk readbacks are the streaming discipline, so
+            # this path is synchronous; the filter is built once
+            filt = self._filter_device(idx, call, shards)
+            pairs = self._topn_chunked(field, shards, filt, ids=ids)
+            return self._topn_finish(field, pairs, n, attr_name, attr_values, min_count)
+        filt = self._filter_device(idx, call, shards)
         if ids is not None:
             counts = ops.row_counts(
                 matrix, filt, self.compiler.device_scalars(list(ids))
@@ -675,6 +827,46 @@ class Executor:
                 entry["key"] = field.row_keys.translate_id(rid) or str(rid)
             out.append(entry)
         return out
+
+    def _topn_chunked(self, field: Field, shards: list[int], filt, ids=None) -> list:
+        """TopN over an over-budget field: row chunks of ``hot_capacity``
+        packed on the host, uploaded, counted by K2 and dropped — device
+        memory stays within the hot budget and every row is counted
+        exactly."""
+        rows = list(ids) if ids is not None else self._rows_of_field(field, shards)
+        if not rows:
+            return []
+        view = field.view(VIEW_STANDARD)
+        frags = [view.fragment(s) if view else None for s in shards]
+        chunk = self.compiler.stacks.hot_capacity(len(shards))
+        pairs: list = []
+        for lo in range(0, len(rows), chunk):
+            sub = rows[lo : lo + chunk]
+            counts = ops.row_counts(self._pack_rows(frags, sub, len(sub)), filt).cpu().numpy()
+            pairs += [(int(r), int(c)) for r, c in zip(sub, counts.tolist()) if c > 0]
+        return pairs
+
+    def _pack_rows(
+        self, frags: list, rows: list[int], k_pad: int,
+        cache: "_PackCache | None" = None, level: int = 0,
+    ) -> torch.Tensor:
+        """Host-packed int32 [k_pad, S, W] of ``rows`` (row-major, like a
+        resident stack) on the device; padding rows and shards without a
+        fragment stay zero. ``cache`` keeps packed rows by (level, row)."""
+        host = np.zeros((k_pad, len(frags), WORDS_PER_SHARD), dtype=np.uint32)
+        for j, r in enumerate(rows):
+            got = cache.get((level, r)) if cache is not None else None
+            if got is None:
+                got = host[j]
+                if r >= 0:
+                    for i, frag in enumerate(frags):
+                        if frag is not None:
+                            got[i] = frag.row_packed(r)
+                if cache is not None:
+                    cache.put((level, r), got.copy())
+            else:
+                host[j] = got
+        return torch.from_numpy(host.view(np.int32)).to(self.device)
 
     def _rows_of_field(self, field: Field, shards: list[int]) -> list[int]:
         rows: set[int] = set()
@@ -760,17 +952,20 @@ class Executor:
             )
 
         agg = self._bsi_stacked(idx, agg_field, shards) if agg_field is not None else None
-        # an over-budget level raises StackOverBudget: the reference's
-        # streamed levels (_pack_rows) are ROADMAP.md A11
-        matrices = [
-            self.compiler.stacks.matrix(idx, f, VIEW_STANDARD, shards)[0] for f in fields
-        ]
+        matrices = []
+        for f in fields:
+            try:
+                matrices.append(self.compiler.stacks.matrix(idx, f, VIEW_STANDARD, shards)[0])
+            except StackOverBudget:
+                # an over-budget level has no resident stack: its counts
+                # and masks stream host-packed row chunks instead
+                matrices.append(None)
         n_shards = len(shards)
         if filter_call is not None:
             base_mask = self.compiler.bitmap_device(idx, filter_call, shards)
         else:
             base_mask = self.compiler.ones(n_shards)
-        if aggregate is None and all(row_lists):
+        if aggregate is None and all(m is not None for m in matrices) and all(row_lists):
             fused = self._groupby_fused(
                 fields, row_lists, matrices, base_mask, limit, n_shards
             )
@@ -802,19 +997,54 @@ class Executor:
                 for i in range(len(groups)):
                     results[start + i]["sum"] = ops.bsi.weigh_sum(pos[i], neg[i])
 
+        # a streamed level's host-packed rows, per execution: the counts
+        # pass and the mask pass both need them, and a row recurs across
+        # pair chunks; bounded to chunk_cap rows like the mask tensor
+        pack_cache = _PackCache(chunk_cap)
+
+        def level_frags(level: int) -> list:
+            view = fields[level].view(VIEW_STANDARD)
+            return [view.fragment(s) if view else None for s in shards]
+
         def level_counts(level: int, masks, n_groups: int) -> np.ndarray:
+            """int64[n_groups, len(rows)]: the resident stack when the
+            level fits the budget, else host-packed chunks of
+            ``hot_capacity`` rows counted by K6 with arange row ids."""
             rows_l = row_lists[level]
-            rows_arr = dev_ids(_pad_row_ids(rows_l, _pow2(len(rows_l))))
-            counts = ops.gb_counts(masks, matrices[level], rows_arr)
-            return counts.cpu().numpy()[:n_groups, : len(rows_l)]
+            m = matrices[level]
+            if m is not None:
+                rows_arr = dev_ids(_pad_row_ids(rows_l, _pow2(len(rows_l))))
+                return ops.gb_counts(masks, m, rows_arr).cpu().numpy()[:n_groups, : len(rows_l)]
+            frags = level_frags(level)
+            hot = self.compiler.stacks.hot_capacity(n_shards)
+            parts = []
+            for lo in range(0, len(rows_l), hot):
+                sub = rows_l[lo : lo + hot]
+                k_pad = _pow2(len(sub))
+                packed = self._pack_rows(frags, sub, k_pad, pack_cache, level)
+                counts = ops.gb_counts(masks, packed, dev_ids(list(range(k_pad))))
+                parts.append(counts.cpu().numpy()[:n_groups, : len(sub)])
+            return np.concatenate(parts, axis=1)
 
         def pair_masks(level: int, masks, chunk: np.ndarray):
             # p_pad-padded: padding pairs (group 0, row -1) are zero masks
             rows_l = row_lists[level]
+            m = matrices[level]
             p_pad = _pow2(chunk.shape[0])
             g_idx = chunk[:, 0].tolist() + [0] * (p_pad - chunk.shape[0])
-            row_sel = _pad_row_ids([rows_l[k] for k in chunk[:, 1].tolist()], p_pad)
-            return ops.gb_masks(masks, matrices[level], dev_ids(g_idx), dev_ids(row_sel))
+            if m is None:
+                # a streamed level packs only the chunk's distinct rows
+                # and selects them by local index
+                uniq_k = np.unique(chunk[:, 1])
+                m = self._pack_rows(
+                    level_frags(level), [rows_l[k] for k in uniq_k.tolist()], _pow2(uniq_k.size),
+                    pack_cache, level,
+                )
+                local = np.searchsorted(uniq_k, chunk[:, 1]).tolist()
+                row_sel = _pad_row_ids(local, p_pad)
+            else:
+                row_sel = _pad_row_ids([rows_l[k] for k in chunk[:, 1].tolist()], p_pad)
+            return ops.gb_masks(masks, m, dev_ids(g_idx), dev_ids(row_sel))
 
         def expand(level: int, masks, groups: list[tuple]) -> None:
             if limit is not None and len(results) >= limit:

@@ -213,9 +213,24 @@ GB_MASKS = Kernel(
     "pilosa_tpu/executor/executor.py:192",  # _gb_masks
     stem="groupby",
 )
+SHIFT_WORDS = Kernel(
+    "shift_words",
+    [_VP, _VP, _LL, _LL, _LL, _VP],
+    "pilosa_tpu/ops/bitwise.py:112",  # shift_words, for PQL Shift (compile.py:1375)
+)
+CONTAINER_COUNT = Kernel(
+    "container_count",
+    [_VP, _I, _LL, _VP, _VP],
+    # sparse_count (:113) and run_count (:119), the direct counts of
+    # count_async (compile.py:1656)
+    "pilosa_tpu/ops/containers.py:113",
+)
 KERNELS = {
     k.name: k
-    for k in (TREE_EVAL, ROW_COUNTS, STACK_DELTA, BSI_SUM, BSI_MINMAX, GB_COUNTS, GB_MASKS)
+    for k in (
+        TREE_EVAL, ROW_COUNTS, STACK_DELTA, BSI_SUM, BSI_MINMAX, GB_COUNTS, GB_MASKS,
+        SHIFT_WORDS, CONTAINER_COUNT,
+    )
 }
 # the sources, one nvcc process each
 SOURCES = sorted({k.stem for k in KERNELS.values()})

@@ -13,7 +13,12 @@ bits) and an int64 total across rows.
 ``tree_eval`` is the wrapper of ``csrc/tree_eval.cu``: a CPU tensor takes
 the plain interpreter, a CUDA tensor launches the kernel or raises. Its
 CMP opcode evaluates a BSI condition in the same launch; the plain
-interpreter runs ``ops.bsi.compare`` for it.
+interpreter runs ``ops.bsi.compare`` for it. LOAD_SPARSE and LOAD_RUN
+read a row that is resident as a compressed container; the plain
+interpreter decodes it with ``ops.containers``.
+
+``shift_words`` (PQL Shift) is the wrapper of ``csrc/shift_words.cu``
+(K7), with the same CPU/CUDA split.
 """
 
 from __future__ import annotations
@@ -81,17 +86,66 @@ def column_mask(width: int, n_words: int, device="cpu") -> torch.Tensor:
     return w.to(torch.int32)
 
 
+def shift_words_plain(words: torch.Tensor, n: int) -> torch.Tensor:
+    """Shift set-bit positions up by ``n`` within each shard (PQL Shift):
+    bit p of ``int32[..., W]`` moves to p + n, bits past the end of the
+    last axis drop. A word roll plus a cross-word carry, as the
+    reference's ``shift_words``; every right shift is masked, so the
+    int32 shifts are logical."""
+    if n < 0:
+        raise ValueError(f"shift amount must be non-negative, got {n}")
+    if n == 0:
+        return words
+    n_words = words.shape[-1]
+    q, r = n // BITS_PER_WORD, n % BITS_PER_WORD
+    w = words
+    if q:
+        w = torch.zeros_like(words)
+        if q < n_words:
+            w[..., q:] = words[..., : n_words - q]
+    if r:
+        carry = torch.zeros_like(w)
+        carry[..., 1:] = (w[..., :-1] >> (BITS_PER_WORD - r)) & ((1 << r) - 1)
+        w = (w << r) | carry
+    return w
+
+
+def shift_words(words: torch.Tensor, n: int) -> torch.Tensor:
+    """PQL Shift over ``int32[S, W]`` words, per shard, into a new plane
+    (K7). ``n`` must be non-negative; ``n == 0`` returns ``words``."""
+    if n < 0:
+        raise ValueError(f"shift amount must be non-negative, got {n}")
+    if words.dtype != torch.int32 or words.dim() != 2 or not words.is_contiguous():
+        raise ValueError("words must be contiguous int32[S, W]")
+    dev = words.device
+    if dev.type == "cpu":
+        return shift_words_plain(words, n)
+    if n == 0:
+        return words
+    n_shards, n_words = words.shape
+    if n_words % 4:
+        raise ValueError(f"W = {n_words} is not a multiple of 4 words")
+    out = torch.empty_like(words)
+    _cuda.SHIFT_WORDS.launch(dev, words.data_ptr(), out.data_ptr(), n_shards, n_words, n)
+    return out
+
+
 # ------------------------------------------------------------ tree programs
 # Opcodes of the postfix call-tree program, and the kernel's fixed limits
 # (the #defines of csrc/tree_eval.cu; the planner raises PlanError above
 # them). CMP's argument indexes the condition table: (stack index, depth
-# D, op in bsi.CMP_OPS, constant) per BSI condition.
-OP_LOAD, OP_ZERO, OP_AND, OP_OR, OP_XOR, OP_ANDNOT, OP_CMP = range(7)
+# D, op in bsi.CMP_OPS, constant) per BSI condition. A LOAD_SPARSE or
+# LOAD_RUN leaf is (store index, slot) into an int32[H, K] sparse or
+# int32[H, K, 2] run store (executor/residency.py).
+OP_LOAD, OP_ZERO, OP_AND, OP_OR, OP_XOR, OP_ANDNOT, OP_CMP, OP_LOAD_SPARSE, OP_LOAD_RUN = range(9)
 TREE_MAX_LEAVES = 256
 TREE_MAX_OPS = 512
 TREE_MAX_STACK = 32
 TREE_MAX_CONDS = 16
-_PUSHES = (OP_LOAD, OP_ZERO, OP_CMP)
+_LOADS = (OP_LOAD, OP_LOAD_SPARSE, OP_LOAD_RUN)
+_PUSHES = _LOADS + (OP_ZERO, OP_CMP)
+# container payloads hold int32 global bit positions of the plane
+_MAX_CONTAINER_PLANE_BITS = 1 << 31
 
 
 class _TreeCond(ctypes.Structure):
@@ -114,6 +168,8 @@ class _TreeArgs(ctypes.Structure):
         ("n_leaves", ctypes.c_int),
         ("n_ops", ctypes.c_int),
         ("n_conds", ctypes.c_int),
+        ("sparse_cap", ctypes.c_int),
+        ("run_cap", ctypes.c_int),
         ("op", ctypes.c_ubyte * TREE_MAX_OPS),
         ("arg", ctypes.c_ubyte * TREE_MAX_OPS),
     ]
@@ -150,20 +206,28 @@ def tree_eval_plain(
     conds: list[tuple[int, int, str, int]] = (),
 ) -> torch.Tensor:
     """Plain interpreter of a postfix program. ``stacks`` are int32
-    [R_i, S, W]; ``leaves`` are (stack index, row id) with out-of-range
-    rows reading zero words; ``conds`` are the BSI conditions of the CMP
-    ops. → int64 scalar (``count``) or int32[S, W]."""
-    from pilosa_tpu_torch.ops import bsi
+    [R_i, S, W] planes or compressed container stores; ``leaves`` are
+    (stack index, row or slot) with out-of-range rows reading zero words;
+    ``conds`` are the BSI conditions of the CMP ops. → int64 scalar
+    (``count``) or int32[S, W]."""
+    from pilosa_tpu_torch.ops import bsi, containers
 
     zeros = lambda: torch.zeros(  # noqa: E731
         (n_shards, WORDS_PER_SHARD), dtype=torch.int32, device=device
     )
     st: list[torch.Tensor] = []
     for op, arg in ops:
-        if op == OP_LOAD:
+        if op in _LOADS:
             si, row = leaves[arg]
             m = stacks[si]
-            st.append(m[row] if 0 <= row < m.shape[0] else zeros())
+            if not 0 <= row < m.shape[0]:
+                st.append(zeros())
+            elif op == OP_LOAD:
+                st.append(m[row])
+            elif op == OP_LOAD_SPARSE:
+                st.append(containers.sparse_plane(m[row], n_shards, WORDS_PER_SHARD))
+            else:
+                st.append(containers.run_plane(m[row], n_shards, WORDS_PER_SHARD))
         elif op == OP_ZERO:
             st.append(zeros())
         elif op == OP_CMP:
@@ -179,6 +243,48 @@ def tree_eval_plain(
     return out.clone() if ops[0][0] == OP_LOAD and len(ops) == 1 else out
 
 
+def _check_stacks(
+    stacks: list[torch.Tensor],
+    leaves: list[tuple[int, int]],
+    ops: list[tuple[int, int]],
+    n_shards: int,
+    conds: list[tuple[int, int, str, int]],
+) -> tuple[int, int]:
+    """Raise on a stack the program cannot read; → the sparse and run
+    payload capacities (0 where the program has no such leaf)."""
+    from pilosa_tpu_torch.ops.bsi import CMP_OPS
+
+    for m in stacks:
+        if m.dtype != torch.int32 or m.dim() < 2 or not m.is_contiguous():
+            raise ValueError("stacks must be contiguous int32 tensors")
+    plane = (n_shards, WORDS_PER_SHARD)
+    caps = {OP_LOAD_SPARSE: set(), OP_LOAD_RUN: set()}
+    for op, arg in ops:
+        if op not in _LOADS:
+            continue
+        m = stacks[leaves[arg][0]]
+        if op == OP_LOAD and (m.dim() != 3 or tuple(m.shape[1:]) != plane):
+            raise ValueError(f"stack shape {tuple(m.shape)} is not [R, {n_shards}, {WORDS_PER_SHARD}]")
+        if op == OP_LOAD_SPARSE and m.dim() != 2:
+            raise ValueError(f"sparse store shape {tuple(m.shape)} is not [H, K]")
+        if op == OP_LOAD_RUN and (m.dim() != 3 or m.shape[2] != 2):
+            raise ValueError(f"run store shape {tuple(m.shape)} is not [H, K, 2]")
+        if op != OP_LOAD:
+            if n_shards * WORDS_PER_SHARD * BITS_PER_WORD > _MAX_CONTAINER_PLANE_BITS:
+                raise ValueError("a container leaf needs a plane of at most 2^31 bits")
+            caps[op].add(m.shape[1])
+    for _si, depth, cmp_op, _value in conds:
+        if cmp_op not in CMP_OPS or not 0 <= depth <= 63:
+            raise ValueError(f"bad BSI condition {cmp_op!r} at depth {depth}")
+    for si, *_ in conds:
+        m = stacks[si]
+        if m.dim() != 3 or tuple(m.shape[1:]) != plane:
+            raise ValueError(f"BSI stack shape {tuple(m.shape)} is not [P, {n_shards}, {WORDS_PER_SHARD}]")
+    if len(caps[OP_LOAD_SPARSE]) > 1 or len(caps[OP_LOAD_RUN]) > 1:
+        raise ValueError(f"container stores of several capacities in one program: {caps}")
+    return max(caps[OP_LOAD_SPARSE], default=0), max(caps[OP_LOAD_RUN], default=0)
+
+
 def tree_eval(
     stacks: list[torch.Tensor],
     leaves: list[tuple[int, int]],
@@ -187,26 +293,33 @@ def tree_eval(
     count: bool,
     device="cpu",
     conds: list[tuple[int, int, str, int]] = (),
+    out: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Evaluate a postfix call-tree program over [S, W] planes (K1).
 
     The stacks' device decides the route; ``device`` names it only for a
-    program with no stack (an empty Union(), say)."""
+    program with no stack (an empty Union(), say). In words mode ``out``
+    (contiguous int32[S, W], a plane of a larger tensor, say) receives
+    the words in place of a new tensor."""
     from pilosa_tpu_torch.ops.bsi import CMP_OPS
 
     dev = stacks[0].device if stacks else torch.device(device)
     for m in stacks:
         if m.device != dev:
             raise ValueError(f"stacks on {m.device} and {dev}")
-        if m.dtype != torch.int32 or m.dim() != 3 or not m.is_contiguous():
-            raise ValueError("stacks must be contiguous int32[R, S, W]")
-        if m.shape[1] != n_shards or m.shape[2] != WORDS_PER_SHARD:
-            raise ValueError(f"stack shape {tuple(m.shape)} is not [R, {n_shards}, {WORDS_PER_SHARD}]")
-    for _si, depth, cmp_op, _value in conds:
-        if cmp_op not in CMP_OPS or not 0 <= depth <= 63:
-            raise ValueError(f"bad BSI condition {cmp_op!r} at depth {depth}")
+    sparse_cap, run_cap = _check_stacks(stacks, leaves, ops, n_shards, conds)
+    plane = (n_shards, WORDS_PER_SHARD)
+    if out is not None and (
+        count or out.device != dev or out.dtype != torch.int32
+        or tuple(out.shape) != plane or not out.is_contiguous()
+    ):
+        raise ValueError(f"out must be a contiguous int32{list(plane)} on {dev}, in words mode")
     if dev.type == "cpu":
-        return tree_eval_plain(stacks, leaves, ops, n_shards, count, dev, conds)
+        got = tree_eval_plain(stacks, leaves, ops, n_shards, count, dev, conds)
+        if out is None:
+            return got
+        out.copy_(got)
+        return out
     if (
         len(leaves) > TREE_MAX_LEAVES
         or len(ops) > TREE_MAX_OPS
@@ -214,13 +327,14 @@ def tree_eval(
         or program_depth(ops) > TREE_MAX_STACK
     ):
         raise ValueError("tree program exceeds the kernel's limits")
-    plane_bytes = n_shards * WORDS_PER_SHARD * 4
     n_vec = n_shards * WORDS_PER_SHARD // 4
     a = _TreeArgs()
     for i, (si, row) in enumerate(leaves):
         m = stacks[si]
-        # a row outside the stack reads zero words: the kernel's null leaf
-        a.leaf[i] = m.data_ptr() + row * plane_bytes if 0 <= row < m.shape[0] else None
+        # a row outside the stack reads zero words: the kernel's null leaf;
+        # a row is one [S, W] plane, or one slot's payload of a store
+        row_bytes = m[0].numel() * 4
+        a.leaf[i] = m.data_ptr() + row * row_bytes if 0 <= row < m.shape[0] else None
     for i, (si, depth, cmp_op, value) in enumerate(conds):
         c = a.cond[i]
         c.base, c.stride, c.present = stacks[si].data_ptr(), n_vec, stacks[si].shape[0]
@@ -232,11 +346,14 @@ def tree_eval(
         a.op[i] = op
         a.arg[i] = arg
     a.n_leaves, a.n_ops, a.n_conds = len(leaves), len(ops), len(conds)
+    a.sparse_cap, a.run_cap = sparse_cap, run_cap
     mode = ("count" if count else "words") + ("+cmp" if conds else "")
+    if sparse_cap or run_cap:
+        mode += "+containers"
     if count:
-        out = torch.zeros((), dtype=torch.int64, device=dev)
-        _cuda.TREE_EVAL.launch(dev, ctypes.byref(a), n_vec, None, out.data_ptr(), mode=mode)
+        res = torch.zeros((), dtype=torch.int64, device=dev)
+        _cuda.TREE_EVAL.launch(dev, ctypes.byref(a), n_vec, None, res.data_ptr(), mode=mode)
     else:
-        out = torch.empty((n_shards, WORDS_PER_SHARD), dtype=torch.int32, device=dev)
-        _cuda.TREE_EVAL.launch(dev, ctypes.byref(a), n_vec, out.data_ptr(), None, mode=mode)
-    return out
+        res = out if out is not None else torch.empty(plane, dtype=torch.int32, device=dev)
+        _cuda.TREE_EVAL.launch(dev, ctypes.byref(a), n_vec, res.data_ptr(), None, mode=mode)
+    return res

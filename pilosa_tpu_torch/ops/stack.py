@@ -1,9 +1,11 @@
-"""The point-write delta scatter into a resident stack (K3).
+"""Scatters into resident stacks and stores (K3).
 
-Reference: ``_apply_stack_delta`` (pilosa_tpu/executor/compile.py:194).
-``apply_stack_delta`` is the wrapper of ``csrc/stack_delta.cu``: a CPU
-tensor takes the plain version, a CUDA tensor launches the kernel or
-raises. Both return a NEW stack: readers in flight keep the old one.
+Reference: ``_apply_stack_delta`` and ``_scatter_rows``
+(pilosa_tpu/executor/compile.py:194, :185). ``apply_stack_delta`` is the
+wrapper of ``csrc/stack_delta.cu``: a CPU tensor takes the plain version,
+a CUDA tensor launches the kernel or raises. ``scatter_rows`` runs K3 in
+row mode, for the tiered residency stores. Both return a NEW tensor:
+readers in flight keep the old one.
 """
 
 from __future__ import annotations
@@ -35,11 +37,13 @@ def apply_stack_delta_plain(
 
 
 def apply_stack_delta(
-    matrix: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor
+    matrix: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor, mode: str = "delta"
 ) -> torch.Tensor:
     """Copy ``int32[R, S, W]`` and write ``rows`` (int32[K, W]) at
     ``idx`` (int32[K, 2], (row, shard) pairs) (K3). On the card one
-    kernel pass does both the copy and the writes."""
+    kernel pass does both the copy and the writes. ``mode`` names the
+    caller in the launch counts: a point-write delta, a hot-slot upload
+    or a row scatter."""
     dev = matrix.device
     if matrix.dtype != torch.int32 or matrix.dim() != 3 or not matrix.is_contiguous():
         raise ValueError("matrix must be contiguous int32[R, S, W]")
@@ -68,5 +72,42 @@ def apply_stack_delta(
         rows.data_ptr(),
         k,
         slot.data_ptr(),
+        mode=mode,
     )
     return out
+
+
+def _row_planes(store: torch.Tensor) -> int:
+    """Planes P of one store row: a dense [H, S, W] store keeps its S
+    shard planes, a sparse [H, K] or run [H, K, 2] row is one plane."""
+    return store.shape[1] if store.dim() == 3 and store.shape[2] % 4 == 0 else 1
+
+
+def _as_planes(store: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor):
+    """(store as [H, P, L], (slot, plane) pairs int32[K * P, 2], rows as
+    int32[K * P, L]) for a row scatter."""
+    if store.dtype != torch.int32 or store.dim() < 2 or not store.is_contiguous():
+        raise ValueError("store must be a contiguous int32 [H, ...]")
+    k = idx.shape[0]
+    if idx.dim() != 1 or tuple(rows.shape) != (k,) + tuple(store.shape[1:]):
+        raise ValueError(f"idx {tuple(idx.shape)} / rows {tuple(rows.shape)} do not match the store {tuple(store.shape)}")
+    h, p = store.shape[0], _row_planes(store)
+    length = store[0].numel() // p
+    planes = torch.arange(p, dtype=torch.int32, device=store.device).repeat(k)
+    pairs = torch.stack([idx.to(torch.int32).repeat_interleave(p), planes], dim=1).contiguous()
+    return store.view(h, p, length), pairs, rows.reshape(k * p, length).contiguous()
+
+
+def scatter_rows_plain(store: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """The plain version of ``scatter_rows``, on any device."""
+    view, pairs, flat = _as_planes(store, idx, rows)
+    return apply_stack_delta_plain(view, pairs, flat).view(store.shape)
+
+
+def scatter_rows(store: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """``store[idx[k]] = rows[k]`` on a copy of an int32 store [H, ...]
+    (idx int32[K], rows int32[K, ...]): K3 in row mode, the store viewed
+    as [H, P, L] stack planes. Entries out of range drop; where two name
+    one slot the later wins."""
+    view, pairs, flat = _as_planes(store, idx, rows)
+    return apply_stack_delta(view, pairs, flat, mode="rows").view(store.shape)

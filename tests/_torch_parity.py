@@ -51,3 +51,33 @@ def fill(core, holder, seed: int = 7):
     v.import_values(vcols, rng.integers(-1000, 1001, 500).astype(np.int64))
     idx.mark_columns_exist(np.concatenate([cols, full, high, gcols, tcols, vcols]))
     return idx
+
+
+MIXED_SHARDS = 2
+
+
+def fill_mixed(core, holder, seed: int = 0, n_rows: int = 200):
+    """Index "res" whose set field ``f`` has rows of every container
+    kind once its stack is over budget (tests/test_residency.py's
+    recipe, fewer rows): rows 0..n_rows-1 one random bit each (sparse),
+    row 10 a run of 3,000 columns across the shard boundary (run), row
+    11 a random half of all columns (dense); and an int field ``v`` of
+    600 values in [-500, 50000)."""
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+
+    rng = np.random.default_rng(seed)
+    n_cols = MIXED_SHARDS * SHARD_WIDTH
+    idx = holder.create_index("res")
+    f = idx.create_field("f")
+    cols = rng.integers(0, n_cols, size=n_rows).astype(np.uint64)
+    f.import_bulk(np.arange(n_rows, dtype=np.uint64), cols)
+    f.import_bulk(
+        np.full(3000, 10, np.uint64), (np.arange(3000) + SHARD_WIDTH - 1500).astype(np.uint64)
+    )
+    dense = rng.choice(n_cols, size=SHARD_WIDTH, replace=False).astype(np.uint64)
+    f.import_bulk(np.full(dense.size, 11, np.uint64), dense)
+    v = idx.create_field("v", core.FieldOptions(field_type="int"))
+    vcols = rng.choice(n_cols, size=600, replace=False).astype(np.uint64)
+    v.import_values(vcols, rng.integers(-500, 50000, size=600).astype(np.int64))
+    idx.mark_columns_exist(np.concatenate([cols, dense, vcols]))
+    return idx

@@ -236,10 +236,16 @@ def test_new_wrappers_take_the_plain_version_on_cpu_tensors(rng, monkeypatch):
     ops.gb_counts(m, m, torch.tensor([0, -1], dtype=torch.int32))
     ops.gb_masks(m, m, torch.tensor([0], dtype=torch.int32), torch.tensor([2], dtype=torch.int32))
     ops.tree_eval([stack], [], [(bitwise.OP_CMP, 0)], 2, True, conds=[(0, 4, ">", 3)])
+    ops.shift_words(m[0], 33)
+    ops.container_count(torch.full((2, 8), -1, dtype=torch.int32), 1)
+    ops.scatter_rows(m, torch.tensor([1], dtype=torch.int32), m[:1])
     assert {k: v.launches for k, v in _cuda.KERNELS.items()} == before
     assert all(k._fn is None for k in _cuda.KERNELS.values())
     assert {k.stem for k in _cuda.KERNELS.values()} == set(_cuda.SOURCES)
-    assert set(_cuda.SOURCES) == {"tree_eval", "row_counts", "stack_delta", "bsi_sum", "bsi_minmax", "groupby"}
+    assert set(_cuda.SOURCES) == {
+        "tree_eval", "row_counts", "stack_delta", "bsi_sum", "bsi_minmax", "groupby",
+        "shift_words", "container_count",
+    }
 
 
 def test_condition_table_layout_is_the_sources():

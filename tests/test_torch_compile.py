@@ -111,20 +111,39 @@ def test_stack_depth_over_the_kernel_limit_is_a_plan_error(pair):
     ],
 )
 def test_unported_device_programs_raise(pql):
-    h = pt_core.Holder(None)
+    """These Shift trees raised before Shift was ported; now the device
+    route answers them as the reference's device route does."""
+    h, ref_h = pt_core.Holder(None), ref_core.Holder(None)
     fill(pt_core, h)
+    fill(ref_core, ref_h)
+    from pilosa_tpu.executor import Executor as RefExecutor
+
     e = Executor(h, device="cpu", route_mode="device")
-    with pytest.raises(ExecutionError, match="not yet ported to the CUDA path"):
-        e.execute("i", pql)
+    assert e.execute("i", pql) == RefExecutor(ref_h, route_mode="device").execute("i", pql)
 
 
 def test_over_budget_stack_raises_execution_error(monkeypatch):
-    h = pt_core.Holder(None)
+    """A 1 KB budget puts every stack over budget: the tiered mode serves
+    set rows and BSI blocks as the reference does; the slots mode serves
+    set rows and raises ExecutionError for a BSI stack, as the
+    reference's slots mode does."""
+    from pilosa_tpu.executor import Executor as RefExecutor
+    from pilosa_tpu.executor.compile import StackCache as RefStackCache
+
+    h, ref_h = pt_core.Holder(None), ref_core.Holder(None)
     fill(pt_core, h)
+    fill(ref_core, ref_h)
     monkeypatch.setattr(StackCache, "STACK_BYTES_BUDGET", 1024)
+    monkeypatch.setattr(RefStackCache, "STACK_BYTES_BUDGET", 1024)
     e = Executor(h, device="cpu", route_mode="device")
-    with pytest.raises(ExecutionError, match="over-budget residency"):
-        e.execute("i", "Count(Row(f=1))")
+    ref = RefExecutor(ref_h, route_mode="device")
+    for pql in ("Count(Row(f=1))", "Sum(Row(f=1), field=v)"):
+        assert e.execute("i", pql) == ref.execute("i", pql)
+    monkeypatch.setattr(StackCache, "RESIDENCY_MODE", "slots")
+    e = Executor(h, device="cpu", route_mode="device")
+    assert e.execute("i", "Count(Row(f=1))") == ref.execute("i", "Count(Row(f=1))")
+    with pytest.raises(ExecutionError, match="dense stack"):
+        e.execute("i", "Sum(field=v)")
 
 
 def test_byte_ledger_evicts_to_the_budget(monkeypatch):

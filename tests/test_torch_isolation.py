@@ -61,22 +61,26 @@ def test_no_source_line_imports_jax_or_pilosa_tpu():
 
 def test_chip_smoke_rehearses_on_the_cpu(capsys):
     """chip_smoke.py's steps on the plain versions at a tiny size: the
-    same data recipes, queries, numpy checks, write phase, taxi path and
-    kernel comparisons, without the card lines or the final ok line."""
+    same data recipes, queries, numpy checks, write phase, taxi path,
+    residency path (over a lowered budget) and kernel comparisons,
+    without the card lines or the final ok line."""
     import json
 
     sys.path.insert(0, REPO)
     import chip_smoke
 
-    assert chip_smoke.main(device="cpu", n_shards=64, taxi_shards=16) == 0
+    assert chip_smoke.main(device="cpu", n_shards=64, taxi_shards=16, budget=32 << 20) == 0
     lines = capsys.readouterr().out.strip().splitlines()
     kernels = json.loads(lines[-2])["kernels"]
-    assert [k["name"] for k in kernels] == [
-        "tree_eval", "row_counts", "stack_delta", "bsi_sum", "bsi_minmax", "gb_counts", "gb_masks",
+    assert [(k["path"], k["name"]) for k in kernels] == [
+        ("main", "tree_eval"), ("main", "row_counts"), ("main", "stack_delta"), ("main", "shift_words"),
+        ("taxi", "bsi_sum"), ("taxi", "bsi_minmax"), ("taxi", "gb_counts"), ("taxi", "gb_masks"),
+        ("residency", "tree_eval"), ("residency", "container_count"), ("residency", "stack_delta"),
     ]
     assert all(k["max_abs_err"] == 0 for k in kernels)
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms"}
     assert all(keys <= set(k) for k in kernels)
-    assert sum(line.startswith("ok  ") for line in lines) == 8 + 2 + 13
+    # main 8 + Shift 2, write 2, taxi 13, residency 7 + the write + slots
+    assert sum(line.startswith("ok  ") for line in lines) == 8 + 2 + 2 + 13 + 7 + 2
     assert not any(line.startswith('{"ok"') for line in lines)

@@ -17,7 +17,7 @@ from pilosa_tpu.executor.router import QueryRouter as RefRouter
 from pilosa_tpu.roaring import Bitmap as RefBitmap
 from pilosa_tpu.roaring import serialize as ref_serialize
 from pilosa_tpu.server.api import API as RefAPI
-from pilosa_tpu_torch.executor import ExecutionError, Executor
+from pilosa_tpu_torch.executor import Executor
 from pilosa_tpu_torch.executor.compile import QueryCompiler, StackCache
 from pilosa_tpu_torch.server import API
 
@@ -138,18 +138,19 @@ def test_host_engine_calls_match_reference(pql):
 
 
 def test_shift_is_the_one_unported_call():
-    """Shift raises on the device route naming its ROADMAP item; under
-    auto the router serves it host-side and counts it apart."""
+    """Shift was the last call without a device path: the device route
+    now answers it as the reference's does, and under auto the router
+    counts no decision as forced host-side by a missing port."""
     ref_h, pt_h = ref_core.Holder(None), pt_core.Holder(None)
     fill(ref_core, ref_h)
     fill(pt_core, pt_h)
     pql = "Count(Shift(Row(f=1), n=3))"
-    with pytest.raises(ExecutionError, match="ROADMAP.md A6"):
-        API(pt_h, device="cpu", route_mode="device").query("i", pql)
+    want = _ref_api(ref_h, "device").query("i", pql)
+    assert API(pt_h, device="cpu", route_mode="device").query("i", pql) == want
     auto = API(pt_h, device="cpu", route_mode="auto")
-    assert auto.query("i", pql) == _ref_api(ref_h, "host").query("i", pql)
+    assert auto.query("i", pql) == want
     decisions = auto.executor.router.decisions
-    assert decisions["host_unported"] == 1 and decisions["host"] >= 1
+    assert decisions["host_unported"] == 0 and decisions["host"] + decisions["device"] == 1
 
 
 def test_groupby_level_path_matches_reference(monkeypatch):
