@@ -6,7 +6,7 @@ Run from the root of a checkout. In order:
 
 1. build the kernels from ``pilosa_tpu_torch/csrc`` with nvcc for
    sm_90a, one nvcc process per source, all started together;
-2. four paths, each with every kernel's launch count set to 0 just
+2. five paths, each with every kernel's launch count set to 0 just
    before it and read just after, and printed on a line of its own:
    - the main path: ``API(holder, device="cuda", route_mode="device")``
      over 10,240 shards × 8 rows (10.7 B columns; bench.py's default
@@ -36,14 +36,26 @@ Run from the root of a checkout. In order:
      drops a resident row, and one Count in the legacy slots mode, each
      answer checked against numpy. K1 (container leaves), K2, K3 (row
      and hot modes), K4, K6 and K8 must launch here;
+   - the similarity path: BASELINE config 5 on one card, 4,882,813
+     fingerprints of 2048 bits (10.0 Gbit, a 1.25 GB matrix; the
+     chemical-similarity demo's recipe), searched through
+     ``ops.similarity.tanimoto_search`` for molecule 17 (k = 10 at
+     threshold 0, k = 1,000 at threshold 0.3, every row of a 1,000-row
+     slice at threshold 0.3), each answer checked against numpy, with the sync p50 of 20
+     searches; the demo's 2048 x 2048 all-pairs block in the three modes
+     and a 16,384 x 16,384 Tanimoto block, each checked against the plain
+     version and 64 rows against numpy. K9, K10 and K11 must launch here;
 3. each kernel against its plain torch version on the card at its
    path's shapes (all-ones and bit-31 words, rows -1 and >= R, _OOB
    delta entries, an empty Union(); BSI constants 0, negative and
    |c| >= 2^D, lo > hi, a stack with fewer planes than 2 + D, a shard
    with no value; group padding; shifts by 1, 31, 32, 33 and 32 W - 1;
-   container payloads at a plane's edges, slots -1 and past the store),
-   exact equality, and its time beside its bound and the plain
-   version's;
+   container payloads at a plane's edges, slots -1 and past the store;
+   fingerprints with all-ones, bit-31, zero and duplicate rows, a zero
+   query, W of 1, 3 and 512 and rows off a 16 B boundary, k of 1, 10,
+   1,000, 4,096, 4,097, 50,000 and R), exact equality, and its time
+   beside its bound (bytes over 3.35 TB/s, or K11's unpacked product at
+   the int8 tensor rate) and the plain version's;
 4. print the card (nvidia-smi name and power limit), the launch counts,
    the router's calibration after the main path, the times, the kernel
    JSON line, and last
@@ -75,6 +87,11 @@ T_MIN, T_MAX = -100_000, 1_000_000  # total_amount in cents: depth 20
 R_DAYS = 2190  # pickup_day: one row per day over six years
 R_CELLS = 4096  # dropoff_cell: a location grid
 ZIPF_S = 2.0  # dropoff_cell's row skew: p(cell k) ∝ (k + 1)^-2
+# the similarity path: BASELINE config 5, "Tanimoto/cosine similarity on
+# 10B-bit sparse feature matrix", as 2048-bit fingerprints on one card
+SIM_ROWS = 4_882_813  # x 2048 bits = 10.0 Gbit, a 1.25 GB matrix
+SIM_BLOCK = 16_384  # the all-pairs clustering block: a 1 GiB f32 output
+INT8_OPS_PER_S = 1.979e15  # H100 SXM dense int8 tensor rate (NVIDIA data sheet)
 
 
 def log(*a):
@@ -122,6 +139,12 @@ def bound_ms(nbytes: int) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
+def ops_ms(n_ops: int) -> float:
+    """The least time for ``n_ops`` operations of an unpacked-bit product
+    at the card's dense int8 tensor rate."""
+    return n_ops / INT8_OPS_PER_S * 1e3
+
+
 def kernel_entry(k, launches: dict, err: int, t: dict, path: str) -> dict:
     """One kernel's entry of the JSON line: its launches on ``path``, the
     path it is measured for, and its counts on every path beside them."""
@@ -135,7 +158,7 @@ def kernel_entry(k, launches: dict, err: int, t: dict, path: str) -> dict:
         "ms": t["ms"],
         "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"],
-        "bound_by": "bytes",
+        "bound_by": t.get("bound_by", "bytes"),
         "library_ms": t["library_ms"],
         "path": path,
         "launches_by_path": launches,
@@ -776,6 +799,7 @@ def residency_path(torch, device: str, taxi: dict, budget: "int | None" = None) 
         library_ms=cuda_ms(torch, lambda: (tail_ids >= 0).sum(), 50),
     )
     times["container_count_run_ms"] = cuda_ms(torch, lambda: ops.container_count(run_store, day_slot), 50)
+    times["container_count_run_plain_ms"] = cuda_ms(torch, lambda: containers.run_count(day_runs), 50)
     times["container_count_run_library_ms"] = cuda_ms(torch, lambda: (day_runs[:, 1] - day_runs[:, 0]).sum(), 50)
     # a promotion into the sparse store: one row scattered into a copy
     one = i32([tail_slot])
@@ -793,6 +817,8 @@ def residency_path(torch, device: str, taxi: dict, budget: "int | None" = None) 
         row = store[slot : slot + 1].clone()
         sl = i32([slot])
         times[f"scatter_rows_{name}_store_ms"] = cuda_ms(torch, lambda: ops.scatter_rows(store, sl, row), 3)
+        times[f"scatter_rows_{name}_store_plain_ms"] = cuda_ms(
+            torch, lambda: stack.scatter_rows_plain(store, sl, row), 2)
         times[f"scatter_rows_{name}_store_bound_ms"] = bound_ms(2 * store.numel() * 4 + row.numel() * 4)
         times[f"scatter_rows_{name}_store_library_ms"] = cuda_ms(
             torch, lambda: torch.index_copy(store, 0, sl.long(), row), 3)
@@ -804,13 +830,284 @@ def residency_path(torch, device: str, taxi: dict, budget: "int | None" = None) 
     return {name: (errs[name], t) for name, t in results.items()}, launches
 
 
+def np_search(inter: np.ndarray, row_pop: np.ndarray, q_pop: int, k: int, threshold: float) -> tuple:
+    """The reference's tanimoto_search by numpy: f32 scores with the
+    threshold compared in f32, then the k largest by (score, -row), so
+    ties go to the lower row."""
+    fi = inter.astype(np.float32)
+    union = (row_pop.astype(np.float32) + np.float32(q_pop)) - fi
+    scores = np.zeros_like(fi)
+    np.divide(fi, union, out=scores, where=union > 0)
+    scores = np.where(scores >= np.float32(threshold), scores, np.float32(0))
+    keys = (scores.view(np.uint32).astype(np.int64) << 32) | (0xFFFFFFFF - np.arange(fi.size, dtype=np.int64))
+    k = min(k, fi.size)
+    top = np.argpartition(keys, fi.size - k)[fi.size - k :]
+    top = top[np.argsort(keys[top])[::-1]]
+    return scores[top], top.astype(np.int32)
+
+
+def np_pairwise(a: np.ndarray, b: np.ndarray, mode: str) -> np.ndarray:
+    """f32[N, M] intersection counts, Tanimoto or cosine by numpy, each
+    step rounded in f32 as the reference's program."""
+    inter = np.bitwise_count(a[:, None, :] & b[None, :, :]).sum(axis=-1, dtype=np.int64).astype(np.float32)
+    if mode == "inter":
+        return inter
+    pa = np.bitwise_count(a).sum(axis=1, dtype=np.int64).astype(np.float32)[:, None]
+    pb = np.bitwise_count(b).sum(axis=1, dtype=np.int64).astype(np.float32)[None, :]
+    den = (pa + pb) - inter if mode == "tanimoto" else np.sqrt(pa * pb)
+    out = np.zeros_like(inter)
+    np.divide(inter, den, out=out, where=den > 0)
+    return out
+
+
+def sim_edge_words(rng, n: int, w: int) -> np.ndarray:
+    """uint32[n, w] random words with edge rows: all ones, bit 31 only,
+    zero, and duplicates of rows 0 and 1."""
+    m = rng.integers(0, 2**32, (n, w), dtype=np.uint32)
+    m &= rng.integers(0, 2**32, (n, w), dtype=np.uint32)
+    m[2] = 0xFFFFFFFF
+    m[3] = 0x80000000
+    m[4] = 0
+    m[5], m[6] = m[0], m[1]
+    m[7] = m[0]
+    return m
+
+
+def similarity_path(torch, device: str, n_rows: int = SIM_ROWS, big: int = SIM_BLOCK) -> tuple:
+    """BASELINE config 5 on one card: ``n_rows`` 2048-bit fingerprints
+    made by the chemical-similarity demo's recipe (10.0 Gbit at the
+    default), searched through ``ops.similarity.tanimoto_search`` (k = 10
+    at threshold 0, k = 1,000 at threshold 0.3, every row of a 1,000-row
+    slice at threshold 0.3) against numpy; the demo's 2048 x 2048 all-pairs block in the
+    three modes and a ``big`` x ``big`` Tanimoto block against the plain
+    version and a numpy sample. Then K9, K10 and K11 against their plain
+    versions at those shapes and at the edges. Returns the kernel entries
+    and the path's launch counts."""
+    from pilosa_tpu_torch.examples.chemical_similarity import FP_WORDS, make_fingerprints
+    from pilosa_tpu_torch.ops import _cuda
+    from pilosa_tpu_torch.ops import similarity as sim
+    from pilosa_tpu_torch.ops.bitwise import matrix_filter_counts, popcount_rows
+
+    on_card = device == "cuda"
+    dev = torch.device(device)
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    # ------------------------------------------------------------ data
+    t0 = time.perf_counter()
+    fps, family = make_fingerprints(n_rows)
+    times = {"similarity_data_s": time.perf_counter() - t0, "similarity_gbit": n_rows * FP_WORDS * 32 / 1e9}
+    t0 = time.perf_counter()
+    q_np = fps[17]
+    row_pop = np.empty(n_rows, dtype=np.int64)
+    inter = np.empty(n_rows, dtype=np.int64)
+    for lo in range(0, n_rows, 1 << 20):
+        part = fps[lo : lo + (1 << 20)]
+        row_pop[lo : lo + part.shape[0]] = np.bitwise_count(part).sum(axis=1, dtype=np.int64)
+        inter[lo : lo + part.shape[0]] = np.bitwise_count(part & q_np).sum(axis=1, dtype=np.int64)
+    q_pop = int(np.bitwise_count(q_np).sum())
+    slice_rows = min(1000, n_rows)
+    searches = [  # (what, rows, k, threshold)
+        ("k10", n_rows, 10, 0.0),
+        ("k1000_t0.3", n_rows, 1000, 0.3),
+        ("slice_kR_t0.3", slice_rows, slice_rows + 30, 0.3),  # a zero-score tail in row order
+    ]
+    want = {name: np_search(inter[:rows], row_pop[:rows], q_pop, k, thr) for name, rows, k, thr in searches}
+    times["similarity_expect_s"] = time.perf_counter() - t0
+
+    # ------------------------------------------------- similarity path
+    for k in _cuda.KERNELS.values():
+        k.reset()
+    t0 = time.perf_counter()
+    matrix = sim.as_words(fps, dev)
+    sync()
+    times["similarity_upload_s"] = time.perf_counter() - t0
+    query = matrix[17]
+    for name, rows, k, thr in searches:
+        scores, ids = sim.tanimoto_search(matrix[:rows], query, k=k, threshold=thr, device=dev)
+        got_s, got_i = scores.cpu().numpy(), ids.cpu().numpy()
+        want_s, want_i = want[name]
+        if not (np.array_equal(got_i, want_i) and np.array_equal(got_s.view(np.uint32), want_s.view(np.uint32))):
+            bad = int(np.flatnonzero((got_i != want_i) | (got_s != want_s))[0]) if got_i.shape == want_i.shape else -1
+            raise AssertionError(f"search {name}: first difference at {bad}: ids {got_i[:12]} != numpy {want_i[:12]}")
+        log(f"ok  tanimoto_search {name} over {rows:,} rows -> ids {got_i[:5].tolist()} "
+            f"scores {[round(float(s), 4) for s in got_s[:3]]}, {int((got_s == 0).sum())} of {got_s.size} zero")
+    if int(family[want["k10"][1][1]]) != int(family[17]):
+        raise AssertionError("molecule 17's nearest other neighbour is not of its family")
+    lat = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        scores, ids = sim.tanimoto_search(matrix, query, k=10, device=dev)
+        scores.cpu(), ids.cpu()
+        lat.append(time.perf_counter() - t0)
+    times["search_sync_p50_ms"] = float(np.median(lat)) * 1e3
+    times["search_gbit_per_s"] = times["similarity_gbit"] / (times["search_sync_p50_ms"] / 1e3)
+    # all pairs: the demo's block in the three modes, then the big block
+    rng = np.random.default_rng(31)
+    blocks = [(min(2048, n_rows), "inter"), (min(2048, n_rows), "tanimoto"), (min(2048, n_rows), "cosine"),
+              (min(big, n_rows), "tanimoto")]
+    entry = {"inter": sim.pairwise_intersections, "tanimoto": sim.tanimoto_matrix, "cosine": sim.cosine_matrix}
+    pair_errs = {}
+    for n_blk, mode in blocks:
+        blk = matrix[:n_blk]
+        sync()
+        t0 = time.perf_counter()
+        got = entry[mode](blk, blk, device=dev)
+        sync()
+        wall = time.perf_counter() - t0
+        rows = np.sort(rng.choice(n_blk, min(64, n_blk), replace=False))
+        sample = np_pairwise(fps[rows], fps[:n_blk], mode)
+        if not np.array_equal(got[torch.from_numpy(rows).to(dev)].cpu().numpy().view(np.uint32), sample.view(np.uint32)):
+            raise AssertionError(f"all-pairs {mode} {n_blk}²: a sampled row differs from numpy")
+        plain = sim.pairwise_plain(blk, blk, mode)
+        pair_errs[f"{mode}_{n_blk}"] = int((got.view(torch.int32).long() - plain.view(torch.int32).long()).abs().max())
+        del got, plain
+        times[f"pairwise_{mode}_{n_blk}_wall_ms"] = wall * 1e3
+        log(f"ok  {mode} all-pairs {n_blk:,} x {n_blk:,} in {wall * 1e3:.2f} ms wall, 64 rows equal numpy")
+    if any(pair_errs.values()):
+        raise AssertionError(f"all-pairs blocks disagree with the plain version: {pair_errs}")
+    times[f"pairwise_tanimoto_{min(big, n_rows)}_pairs_per_s"] = min(big, n_rows) ** 2 / (
+        times[f"pairwise_tanimoto_{min(big, n_rows)}_wall_ms"] / 1e3)
+    sync()
+    launches = {name: k.launches for name, k in _cuda.KERNELS.items()}
+    log("launches on the similarity path:", json.dumps(launches))
+    log("launches on the similarity path by mode:",
+        json.dumps({n: k.modes for n, k in _cuda.KERNELS.items() if k.modes}))
+    if on_card and any(launches[n] <= 0 for n in ("sim_scan", "sim_select", "pairwise")):
+        raise AssertionError(f"a kernel of the similarity path never launched: {launches}")
+    del fps
+
+    # ------------------------------------------- kernels vs plain versions
+    errs = {"sim_scan": 0, "sim_select": 0, "pairwise": 0}
+
+    def scan_err(m, q, thr) -> int:
+        keys, hist = sim.search_keys(m, q, thr)
+        pk, ph = sim.search_keys_plain(m, q, float(np.float32(thr)))
+        return max(max_abs_err(torch, keys, pk), max_abs_err(torch, hist, ph))
+
+    def select_err(keys, hist, k) -> int:
+        got = sim.select_top(keys, hist, k)
+        want_ = sim.select_top_plain(keys, k)
+        return max(max_abs_err(torch, got[0].view(torch.int32), want_[0].view(torch.int32)),
+                   max_abs_err(torch, got[1], want_[1]))
+
+    full_keys = {}
+    for thr in (0.0, 0.3):
+        errs["sim_scan"] = max(errs["sim_scan"], scan_err(matrix, query, thr))
+        full_keys[thr] = sim.search_keys(matrix, query, thr)
+    for thr, ks in ((0.0, (1, 10, 1000, 4096, 4097, 50_000, n_rows)), (0.3, (1, 1000, n_rows - 1))):
+        keys, hist = full_keys[thr]
+        for k in sorted({min(k, n_rows) for k in ks}):
+            errs["sim_select"] = max(errs["sim_select"], select_err(keys, hist, k))
+    # edges: all-ones, bit-31 and zero rows, duplicates, a zero query, a
+    # query equal to a row, W not a multiple of 4, rows that are not 16 B
+    # aligned, a threshold of 1.0
+    for n_e, w in ((300, 64), (300, 512), (77, 3), (50, 1)):
+        m_np = sim_edge_words(rng, n_e, w)
+        m = sim.as_words(m_np, dev)
+        for q_t, thr in ((m[0], 0.0), (m[4], 0.0), (m[2], 0.3), (m[0], 1.0), (m[9], 0.9)):
+            errs["sim_scan"] = max(errs["sim_scan"], scan_err(m, q_t, thr))
+            keys, hist = sim.search_keys(m, q_t, thr)
+            for k in (1, 10, n_e):
+                errs["sim_select"] = max(errs["sim_select"], select_err(keys, hist, k))
+        for mode in sim.PAIRWISE_MODES:
+            a, b = m, sim.as_words(sim_edge_words(rng, 131, w), dev)
+            errs["pairwise"] = max(errs["pairwise"], max_abs_err(
+                torch, sim.pairwise(a, b, mode).view(torch.int32), sim.pairwise_plain(a, b, mode).view(torch.int32)))
+    flat = torch.empty(300 * 64 + 1, dtype=torch.int32, device=dev)
+    flat[1:] = sim.as_words(sim_edge_words(rng, 300, 64), dev).reshape(-1)
+    shifted = flat[1:].view(300, 64)  # 4 B past a 16 B boundary: the word loop
+    errs["sim_scan"] = max(errs["sim_scan"], scan_err(shifted, shifted[0].clone(), 0.0))
+    log("max |kernel - plain| on the similarity path's shapes:", json.dumps(errs))
+    if any(errs.values()):
+        raise AssertionError(f"a kernel disagrees with its plain version: {errs}")
+
+    # --------------------------------------------------------- timings
+    keys, hist = full_keys[0.0]
+    scores_plain = sim._scores_plain(matrix_filter_counts(matrix, query), popcount_rows(matrix), popcount_rows(query), 0.0)
+    w_bytes = matrix.numel() * 4
+    k9 = dict(
+        ms=cuda_ms(torch, lambda: sim.search_keys(matrix, query, 0.0), 20),
+        plain_ms=cuda_ms(torch, lambda: sim.search_keys_plain(matrix, query, 0.0), 2),
+        # the matrix and the query read once, a key per row and the
+        # histogram written once
+        bound_ms=bound_ms(w_bytes + query.numel() * 4 + n_rows * 8 + sim.SELECT_BINS * 4),
+        library_ms=None,  # no PyTorch call computes a masked popcount
+    )
+    k10 = dict(
+        ms=cuda_ms(torch, lambda: sim.select_top(keys, hist, 10), 20),
+        plain_ms=cuda_ms(torch, lambda: sim.select_top_plain(keys, 10), 20),
+        # the keys read once, k scores and ids written once
+        bound_ms=bound_ms(n_rows * 8 + 10 * 8),
+        # torch.topk of the scores: the same k, not the reference's order of ties
+        library_ms=cuda_ms(torch, lambda: torch.topk(scores_plain, 10), 20),
+    )
+    keys3, hist3 = full_keys[0.3]
+    times["select_k1000_t0.3_ms"] = cuda_ms(torch, lambda: sim.select_top(keys3, hist3, 1000), 10)
+    times["select_k1000_t0.3_plain_ms"] = cuda_ms(torch, lambda: sim.select_top_plain(keys3, 1000), 10)
+    times["select_kR_ms"] = cuda_ms(torch, lambda: sim.select_top(keys, hist, n_rows), 2)
+    times["select_kR_plain_ms"] = cuda_ms(torch, lambda: sim.select_top_plain(keys, n_rows), 2)
+    del scores_plain, full_keys, keys3, hist3
+    # the library: the unpacked product as one int8 matrix product, exact
+    # in int32 (the unpack timed apart); bf16 where torch lacks _int_mm
+    shifts = torch.arange(32, dtype=torch.int32, device=dev)
+    int_mm = on_card and hasattr(torch, "_int_mm")
+    times["pairwise_library"] = "torch._int_mm int8" if int_mm else "torch.matmul bf16"
+
+    def unpack8(t):
+        bits = ((t[:, :, None] >> shifts) & 1).reshape(t.shape[0], -1)
+        return bits.to(torch.int8) if int_mm else bits.to(torch.bfloat16)
+
+    def library_ms(blk, reps: int) -> float:
+        bits = unpack8(blk)
+        if int_mm:
+            if not torch.equal(torch._int_mm(bits, bits.t()).to(torch.float32), sim.pairwise(blk, blk, "inter")):
+                raise AssertionError("torch._int_mm of the unpacked bits disagrees with K11's counts")
+            return cuda_ms(torch, lambda: torch._int_mm(bits, bits.t()), reps)
+        return cuda_ms(torch, lambda: torch.matmul(bits, bits.t()), reps)
+
+    for n_blk, mode in blocks[:3]:
+        blk = matrix[:n_blk]
+        times[f"pairwise_{mode}_{n_blk}_ms"] = cuda_ms(torch, lambda: sim.pairwise(blk, blk, mode), 10)
+        times[f"pairwise_{mode}_{n_blk}_plain_ms"] = cuda_ms(torch, lambda: sim.pairwise_plain(blk, blk, mode), 2)
+        times[f"pairwise_{mode}_{n_blk}_bound_ms"] = max(
+            bound_ms(2 * n_blk * FP_WORDS * 4 + n_blk * n_blk * 4), ops_ms(2 * n_blk * n_blk * FP_WORDS * 32))
+    times[f"pairwise_{blocks[0][0]}_library_ms"] = library_ms(matrix[: blocks[0][0]], 10)
+    n_big = min(big, n_rows)
+    blk = matrix[:n_big]
+    out_b = bound_ms(2 * n_big * FP_WORDS * 4 + n_big * n_big * 4)
+    op_b = ops_ms(2 * n_big * n_big * FP_WORDS * 32)
+    k11 = dict(
+        ms=cuda_ms(torch, lambda: sim.pairwise(blk, blk, "tanimoto"), 5),
+        plain_ms=cuda_ms(torch, lambda: sim.pairwise_plain(blk, blk, "tanimoto"), 2),
+        bound_ms=max(out_b, op_b),
+        bound_by="operations" if op_b >= out_b else "bytes",
+        library_ms=library_ms(blk, 5),
+    )
+    times["pairwise_unpack_ms"] = cuda_ms(torch, lambda: unpack8(blk), 5)
+    times["pairwise_tanimoto_big_pairs_per_s_kernel"] = n_big * n_big / (k11["ms"] / 1e3)
+    del blk, matrix
+    if on_card:
+        torch.cuda.empty_cache()
+    log("similarity times:", json.dumps(times))
+    results = {"sim_scan": k9, "sim_select": k10, "pairwise": k11}
+    return {name: (errs[name], t) for name, t in results.items()}, launches
+
+
 def main(
-    device: str = "cuda", n_shards: int = N_SHARDS, taxi_shards: int = T_SHARDS, budget: "int | None" = None
+    device: str = "cuda",
+    n_shards: int = N_SHARDS,
+    taxi_shards: int = T_SHARDS,
+    budget: "int | None" = None,
+    sim_rows: int = SIM_ROWS,
+    sim_block: int = SIM_BLOCK,
 ) -> int:
-    """``device="cpu"`` with small ``n_shards`` and ``taxi_shards``, and a
-    ``budget`` that puts the residency path's fields over it, rehearses
-    the same steps on the plain versions, without the card lines or the
-    ok line."""
+    """``device="cpu"`` with small ``n_shards``, ``taxi_shards``,
+    ``sim_rows`` and ``sim_block``, and a ``budget`` that puts the
+    residency path's fields over it, rehearses the same steps on the
+    plain versions, without the card lines or the ok line."""
     import torch
 
     on_card = device == "cuda"
@@ -1149,8 +1446,15 @@ def main(
             bound_ms=bound_ms(2 * plane),
             library_ms=None,  # no one PyTorch call shifts per shard with a carry
         )
-        log("times:", json.dumps({**times, "tree_eval_words_ms": words_ms, "row_counts_filtered_ms": k2_filtered_ms,
-                                  "row_counts_filtered_bound_ms": bound_ms((R_PAD + 1) * plane)}))
+        times.update({
+            "tree_eval_words_ms": words_ms,
+            "tree_eval_words_plain_ms": cuda_ms(
+                torch, lambda: bitwise.tree_eval_plain([fm], [(0, 1)], [(L, 0)], N_SHARDS, False, dev), 2),
+            "row_counts_filtered_ms": k2_filtered_ms,
+            "row_counts_filtered_plain_ms": cuda_ms(torch, lambda: topn.row_counts_plain(fm, filt), 1),
+            "row_counts_filtered_bound_ms": bound_ms((R_PAD + 1) * plane),
+        })
+        log("times:", json.dumps(times))
         results = {"tree_eval": k1, "row_counts": k2, "stack_delta": k3, "shift_words": k7}
         return {name: (errs[name], t) for name, t in results.items()}, launches
     main_results, main_launches = main_path()
@@ -1163,17 +1467,17 @@ def main(
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
+    sim_results, sim_launches = similarity_path(torch, device, sim_rows, sim_block)
+    paths = (("main", main_results, main_launches), ("taxi", taxi_results, taxi_launches),
+             ("residency", res_results, res_launches), ("similarity", sim_results, sim_launches))
     kernels = [
-        kernel_entry(
-            _cuda.KERNELS[name],
-            {"main": main_launches[name], "taxi": taxi_launches[name], "residency": res_launches[name]},
-            err, t, path,
-        )
-        for path, results in (("main", main_results), ("taxi", taxi_results), ("residency", res_results))
+        kernel_entry(_cuda.KERNELS[name], {p: launches[name] for p, _r, launches in paths}, err, t, path)
+        for path, results, _launches in paths
         for name, (err, t) in results.items()
     ]
     for t in kernels:
-        log(f"{t['name']}: {t['ms']:.4f} ms (bound {t['bound_ms']:.4f} ms at 3.35 TB/s, plain {t['plain_ms']:.4f} ms)")
+        log(f"{t['name']}: {t['ms']:.4f} ms (bound {t['bound_ms']:.4f} ms by {t['bound_by']}, "
+            f"plain {t['plain_ms']:.4f} ms)")
     print(json.dumps({"kernels": kernels}))
     if not on_card:
         log("rehearsal on the CPU: no card, no result")

@@ -1,29 +1,46 @@
 """Kernel library: plain torch versions and the hand-written CUDA kernels.
 
 Reference: pilosa_tpu/ops and the GroupBy programs of
-pilosa_tpu/executor/executor.py. Eight kernels, each with its plain
-version beside it and a launch count on ``_cuda.KERNELS``:
+pilosa_tpu/executor/executor.py. Eleven kernels, each with its plain
+version beside it and a launch count on ``_cuda.KERNELS``; each line
+names the reference function it replaces (paths under pilosa_tpu/):
 
-- K1 ``bitwise.tree_eval`` (csrc/tree_eval.cu): a bitmap call tree as a
-  postfix program, BSI conditions and compressed (sparse, run) row
-  containers included → int32[S, W] words or an int64 count;
-- K2 ``topn.row_counts`` (csrc/row_counts.cu): per-row masked popcount
-  summed over shards → int64[R] (TopN, and its ids= recount);
-- K3 ``stack.apply_stack_delta`` (csrc/stack_delta.cu): the point-write
-  delta scatter into a resident stack, and ``stack.scatter_rows``, the
-  row scatter into a tiered residency store;
-- K4 ``bsi.bsi_sum`` (csrc/bsi_sum.cu): Sum's per-bit counts under G
-  masks → int64 pos[G, D], neg[G, D], n[G];
-- K5 ``bsi.bsi_min_max`` (csrc/bsi_minmax.cu): Min/Max per shard →
-  int64 value[S], count[S];
-- K6 ``groupby.gb_counts`` and ``groupby.gb_masks`` (csrc/groupby.cu):
-  GroupBy's level counts int64[G, K] and its group masks;
-- K7 ``bitwise.shift_words`` (csrc/shift_words.cu): PQL Shift, per shard;
-- K8 ``containers.container_count`` (csrc/container_count.cu): the count
-  of one sparse or run container, read from its payload.
+- K1 ``bitwise.tree_eval`` (csrc/tree_eval.cu) <- executor/compile.py:1334
+  ``_Planner.plan`` (with ops/bsi.py:60 compare, ops/containers.py:35,
+  :53): a bitmap call tree as a postfix program, BSI conditions and
+  compressed (sparse, run) row containers included → int32[S, W] words
+  or an int64 count;
+- K2 ``topn.row_counts`` (csrc/row_counts.cu) <- ops/bitwise.py:102
+  ``matrix_filter_counts`` and ops/topn.py:29 ``candidate_counts``:
+  per-row masked popcount summed over shards → int64[R];
+- K3 ``stack.apply_stack_delta`` (csrc/stack_delta.cu) <-
+  executor/compile.py:194 ``_apply_stack_delta``: the point-write delta
+  scatter into a resident stack, and ``stack.scatter_rows`` <- :185
+  ``_scatter_rows``, the row scatter into a tiered residency store;
+- K4 ``bsi.bsi_sum`` (csrc/bsi_sum.cu) <- ops/bsi.py:113 ``sum_counts``:
+  Sum's per-bit counts under G masks → int64 pos[G, D], neg[G, D], n[G];
+- K5 ``bsi.bsi_min_max`` (csrc/bsi_minmax.cu) <- ops/bsi.py:152
+  ``min_max``: Min/Max per shard → int64 value[S], count[S];
+- K6 ``groupby.gb_counts`` and ``groupby.gb_masks`` (csrc/groupby.cu) <-
+  executor/executor.py:177 ``_gb_counts``, :192 ``_gb_masks``: GroupBy's
+  level counts int64[G, K] and its group masks;
+- K7 ``bitwise.shift_words`` (csrc/shift_words.cu) <- ops/bitwise.py:112
+  ``shift_words``: PQL Shift, per shard;
+- K8 ``containers.container_count`` (csrc/container_count.cu) <-
+  ops/containers.py:113 ``sparse_count``, :119 ``run_count``: the count
+  of one sparse or run container, read from its payload;
+- K9 ``similarity.search_keys`` (csrc/similarity_scan.cu) <-
+  ops/similarity.py:25 ``tanimoto_search``'s scan: one 64-bit score key
+  per row and a histogram of their top digit;
+- K10 ``similarity.select_top`` (csrc/similarity_scan.cu) <- the
+  ``jax.lax.top_k`` of ops/similarity.py:25: the k largest keys in
+  order → f32 scores[k], int32 ids[k];
+- K11 ``similarity.pairwise`` (csrc/pairwise.cu) <- ops/similarity.py:51
+  ``pairwise_intersections`` with the epilogues of :63
+  ``tanimoto_matrix`` and :72 ``cosine_matrix`` → f32[N, M].
 """
 
-from pilosa_tpu_torch.ops import bitwise, bsi, containers, groupby, stack, topn
+from pilosa_tpu_torch.ops import bitwise, bsi, containers, groupby, similarity, stack, topn
 from pilosa_tpu_torch.ops._cuda import KERNELS, resolve_device
 from pilosa_tpu_torch.ops.bitwise import (
     column_mask,
@@ -41,6 +58,12 @@ from pilosa_tpu_torch.ops.bitwise import (
 from pilosa_tpu_torch.ops.bsi import bsi_min_max, bsi_sum
 from pilosa_tpu_torch.ops.groupby import gb_counts, gb_masks
 from pilosa_tpu_torch.ops.containers import container_count
+from pilosa_tpu_torch.ops.similarity import (
+    cosine_matrix,
+    pairwise_intersections,
+    tanimoto_matrix,
+    tanimoto_search,
+)
 from pilosa_tpu_torch.ops.stack import apply_stack_delta, scatter_rows
 from pilosa_tpu_torch.ops.topn import candidate_counts, row_counts
 
@@ -55,6 +78,7 @@ __all__ = [
     "column_mask",
     "container_count",
     "containers",
+    "cosine_matrix",
     "count_and",
     "count_andnot",
     "count_or",
@@ -63,6 +87,7 @@ __all__ = [
     "gb_masks",
     "groupby",
     "matrix_filter_counts",
+    "pairwise_intersections",
     "popcount",
     "popcount_rows",
     "popcount_words",
@@ -70,7 +95,10 @@ __all__ = [
     "row_counts",
     "scatter_rows",
     "shift_words",
+    "similarity",
     "stack",
+    "tanimoto_matrix",
+    "tanimoto_search",
     "topn",
     "tree_eval",
 ]

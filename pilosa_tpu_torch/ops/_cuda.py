@@ -119,7 +119,7 @@ class Kernel:
     """One hand-written kernel: its source, its C entry and its count of
     launches (raised only where the kernel is launched), also kept per
     mode of the launch (``modes``). ``stem`` names the source when one
-    file holds several entries (K6)."""
+    file holds several entries (K6, K9 and K10)."""
 
     def __init__(self, name: str, argtypes: list, replaces: str, stem: str | None = None):
         self.name = name
@@ -170,7 +170,7 @@ class Kernel:
                 self.modes[mode] = self.modes.get(mode, 0) + 1
 
 
-_VP, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+_VP, _LL, _I, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
 
 TREE_EVAL = Kernel(
     "tree_eval",
@@ -225,11 +225,31 @@ CONTAINER_COUNT = Kernel(
     # count_async (compile.py:1656)
     "pilosa_tpu/ops/containers.py:113",
 )
+SIM_SCAN = Kernel(
+    "sim_scan",
+    [_VP, _LL, _LL, _VP, _F, _I, _VP, _VP, _VP],
+    # tanimoto_search's scan: matrix_filter_counts, popcount_rows, the score
+    "pilosa_tpu/ops/similarity.py:25",
+    stem="similarity_scan",
+)
+SIM_SELECT = Kernel(
+    "sim_select",
+    [_VP, _LL, _VP, _VP, _VP, _LL, _VP, _LL, _VP, _VP, _VP],
+    "pilosa_tpu/ops/similarity.py:25",  # tanimoto_search's jax.lax.top_k
+    stem="similarity_scan",
+)
+PAIRWISE = Kernel(
+    "pairwise",
+    [_VP, _LL, _VP, _LL, _LL, _I, _VP, _VP],
+    # pairwise_intersections, with the epilogues of tanimoto_matrix (:63)
+    # and cosine_matrix (:72)
+    "pilosa_tpu/ops/similarity.py:51",
+)
 KERNELS = {
     k.name: k
     for k in (
         TREE_EVAL, ROW_COUNTS, STACK_DELTA, BSI_SUM, BSI_MINMAX, GB_COUNTS, GB_MASKS,
-        SHIFT_WORDS, CONTAINER_COUNT,
+        SHIFT_WORDS, CONTAINER_COUNT, SIM_SCAN, SIM_SELECT, PAIRWISE,
     )
 }
 # the sources, one nvcc process each

@@ -1,0 +1,314 @@
+"""Tanimoto and cosine similarity over packed bit vectors (K9, K10, K11).
+
+Reference: pilosa_tpu/ops/similarity.py (B14), the one-device path of
+the chemical-similarity demo and BASELINE's fifth config. Fingerprints
+are ``int32[.., W]`` views of the reference's ``uint32`` words.
+
+- ``tanimoto_search``: one query against every row. K9 ``search_keys``
+  (csrc/similarity_scan.cu) scans the matrix once and writes one 64-bit
+  key per row; K10 ``select_top`` (same file) picks the k largest keys
+  in order. The key is ``(float bits of the score) << 32 | (2^32 - 1 -
+  row)``: scores are non-negative f32, so their bits order like their
+  values, and among equal scores the lower row has the larger key. The
+  k largest of these distinct keys are exactly ``jax.lax.top_k``'s
+  answer, ties to the lower index, the zero-score tail in index order.
+- ``pairwise_intersections``, ``tanimoto_matrix``, ``cosine_matrix``:
+  all pairs. K11 ``pairwise`` (csrc/pairwise.cu) counts each pair with
+  AND + popcount and applies the mode's epilogue in the same launch.
+
+Each wrapper takes the plain version for tensors on the CPU and launches
+its kernel for CUDA tensors, or raises. The public entry points take
+numpy ``uint32`` arrays or int32 tensors and ``device=`` (default
+``"cuda"``); they move the words there first.
+
+The epilogues round as the reference's f32 program: counts are cast to
+f32, ``union = (|a| + |b|) - inter``, one IEEE division (and square
+root), and the threshold compared in f32. The plain versions take the
+division and the square root in f64 and round to f32, which is the
+correctly rounded f32 result: torch's own f32 sqrt on the CPU can be one
+place off, the reference's and the kernels' are not.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from pilosa_tpu_torch.ops import _cuda
+from pilosa_tpu_torch.ops.bitwise import matrix_filter_counts, popcount_rows
+
+# K10's radix select: 12-bit digits of the key, most significant first;
+# a key is below 2^62 (a score is at most 1.0, bits 0x3F800000)
+SELECT_BITS = 12
+SELECT_BINS = 1 << SELECT_BITS
+SELECT_SHIFTS = (50, 38, 26, 14, 2, 0)
+# K10 sorts up to this many keys in one block's shared memory
+SELECT_TILE = 4096
+# K9 counts a row's bits in 32 bits
+SEARCH_MAX_WORDS = 1 << 26
+_LOW32 = 0xFFFFFFFF
+# K11's modes (csrc/pairwise.cu)
+PAIRWISE_MODES = {"inter": 0, "tanimoto": 1, "cosine": 2}
+# counts stay exact in f32 (below 2^24), as the reference's bf16 product
+PAIRWISE_MAX_WORDS = 1 << 19
+# plain pairwise: rows of ``a`` unpacked per matmul
+_PLAIN_ROWS = 4096
+
+
+def as_words(x, device: "str | torch.device") -> torch.Tensor:
+    """Packed words as a contiguous int32 tensor on ``device``: a numpy
+    ``uint32`` (or int32) array is viewed as int32, the same bytes."""
+    if isinstance(x, np.ndarray):
+        if x.dtype not in (np.uint32, np.int32):
+            raise ValueError(f"packed words must be uint32 or int32, got {x.dtype}")
+        x = torch.from_numpy(np.ascontiguousarray(x).view(np.int32))
+    if not isinstance(x, torch.Tensor) or x.dtype != torch.int32:
+        raise ValueError("packed words must be a uint32 numpy array or an int32 tensor")
+    return x.to(device).contiguous()
+
+
+# --------------------------------------------------------------- search
+
+
+def _div(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """f32 ``x / y`` correctly rounded: taken in f64 and rounded once more
+    to f32, which gives the IEEE f32 quotient (53 >= 2 * 24 + 2 bits)."""
+    return (x.to(torch.float64) / y.to(torch.float64)).to(torch.float32)
+
+
+def _sqrt(x: torch.Tensor) -> torch.Tensor:
+    """f32 square root correctly rounded, as ``_div`` (torch's f32 sqrt
+    on the CPU can be one place off)."""
+    return torch.sqrt(x.to(torch.float64)).to(torch.float32)
+
+
+def _scores_plain(
+    inter: torch.Tensor, row_pop: torch.Tensor, q_pop: torch.Tensor, threshold: float
+) -> torch.Tensor:
+    """f32 Tanimoto scores with the threshold, as the reference rounds them."""
+    inter = inter.to(torch.float32)
+    union = (row_pop.to(torch.float32) + q_pop.to(torch.float32)) - inter
+    scores = torch.where(union > 0, _div(inter, union), 0.0)
+    thr = torch.tensor(threshold, dtype=torch.float32, device=scores.device)
+    return torch.where(scores >= thr, scores, 0.0)
+
+
+def search_keys_plain(
+    matrix: torch.Tensor, query: torch.Tensor, threshold: float
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(int64[R] keys, int32[SELECT_BINS] histogram of the keys' top
+    digit): the plain version of K9, 2^20 rows at a time."""
+    n_rows = matrix.shape[0]
+    q_pop = popcount_rows(query)
+    keys = torch.empty(n_rows, dtype=torch.int64, device=matrix.device)
+    for lo in range(0, n_rows, 1 << 20):
+        part = matrix[lo : lo + (1 << 20)]
+        scores = _scores_plain(matrix_filter_counts(part, query), popcount_rows(part), q_pop, threshold)
+        ids = torch.arange(lo, lo + part.shape[0], dtype=torch.int64, device=matrix.device)
+        keys[lo : lo + part.shape[0]] = (scores.view(torch.int32).to(torch.int64) << 32) | (_LOW32 - ids)
+    hist = torch.bincount(keys >> SELECT_SHIFTS[0], minlength=SELECT_BINS).to(torch.int32)
+    return keys, hist
+
+
+def select_top_plain(keys: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The k largest keys in descending order, decoded → (f32 scores[k],
+    int32 ids[k]); the plain version of K10."""
+    top = torch.topk(keys, k).values
+    scores = (top >> 32).to(torch.int32).view(torch.float32)
+    ids = (_LOW32 - (top & _LOW32)).to(torch.int32)
+    return scores, ids
+
+
+def tanimoto_search_plain(
+    matrix: torch.Tensor, query: torch.Tensor, k: int = 10, threshold: float = 0.0
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-k rows of ``int32[R, W]`` by Tanimoto similarity to ``int32[W]``
+    → (f32 scores[k], int32 ids[k]), k clamped to R."""
+    k = _clamp_k(k, matrix.shape[0])
+    return select_top_plain(search_keys_plain(matrix, query, threshold)[0], k)
+
+
+def _clamp_k(k: int, n_rows: int) -> int:
+    if k < 0:
+        raise ValueError(f"k must be non-negative, got {k}")
+    return min(int(k), n_rows)
+
+
+def _check_search(matrix: torch.Tensor, query: torch.Tensor) -> None:
+    if matrix.dtype != torch.int32 or matrix.dim() != 2 or not matrix.is_contiguous():
+        raise ValueError("matrix must be contiguous int32[R, W]")
+    if query.dtype != torch.int32 or tuple(query.shape) != (matrix.shape[1],) or not query.is_contiguous():
+        raise ValueError(f"query must be contiguous int32[{matrix.shape[1]}]")
+    if query.device != matrix.device:
+        raise ValueError(f"query on {query.device}, matrix on {matrix.device}")
+    if not 1 <= matrix.shape[1] <= SEARCH_MAX_WORDS:
+        raise ValueError(f"fingerprints need 1 to {SEARCH_MAX_WORDS} words")
+
+
+def search_keys(
+    matrix: torch.Tensor, query: torch.Tensor, threshold: float = 0.0
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One scan of ``int32[R, W]`` against ``int32[W]`` → (int64[R] keys,
+    int32[SELECT_BINS] histogram of their top digit) (K9)."""
+    _check_search(matrix, query)
+    dev = matrix.device
+    thr = float(np.float32(threshold))
+    if dev.type == "cpu":
+        return search_keys_plain(matrix, query, thr)
+    n_rows, n_words = matrix.shape
+    keys = torch.empty(n_rows, dtype=torch.int64, device=dev)
+    hist = torch.zeros(SELECT_BINS, dtype=torch.int32, device=dev)
+    if n_rows:
+        vec = n_words % 4 == 0 and matrix.data_ptr() % 16 == 0 and query.data_ptr() % 16 == 0
+        _cuda.SIM_SCAN.launch(
+            dev, matrix.data_ptr(), n_rows, n_words, query.data_ptr(), ctypes.c_float(thr),
+            int(vec), keys.data_ptr(), hist.data_ptr(),
+            mode="vec4" if vec else "words",
+        )
+    return keys, hist
+
+
+def select_top(keys: torch.Tensor, hist: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The k largest of ``int64[R]`` distinct keys in descending order →
+    (f32 scores[k], int32 ids[k]) (K10). ``hist`` is K9's histogram of
+    the keys' top digit."""
+    if keys.dtype != torch.int64 or keys.dim() != 1 or not keys.is_contiguous():
+        raise ValueError("keys must be contiguous int64[R]")
+    if hist.dtype != torch.int32 or tuple(hist.shape) != (SELECT_BINS,) or hist.device != keys.device:
+        raise ValueError(f"hist must be int32[{SELECT_BINS}] on the keys' device")
+    if not 0 <= k <= keys.shape[0]:
+        raise ValueError(f"k = {k} is not in [0, {keys.shape[0]}]")
+    dev = keys.device
+    if dev.type == "cpu":
+        return select_top_plain(keys, k)
+    scores = torch.empty(k, dtype=torch.float32, device=dev)
+    ids = torch.empty(k, dtype=torch.int32, device=dev)
+    if k:
+        n_sort = 1 << (k - 1).bit_length()
+        work = torch.zeros(n_sort, dtype=torch.int64, device=dev)
+        hists = torch.zeros((len(SELECT_SHIFTS) - 1, SELECT_BINS), dtype=torch.int32, device=dev)
+        state = torch.zeros(8, dtype=torch.int64, device=dev)
+        _cuda.SIM_SELECT.launch(
+            dev, keys.data_ptr(), keys.shape[0], hist.data_ptr(), hists.data_ptr(), state.data_ptr(),
+            k, work.data_ptr(), n_sort, scores.data_ptr(), ids.data_ptr(),
+            mode="tile" if n_sort <= SELECT_TILE else "merge",
+        )
+    return scores, ids
+
+
+def tanimoto_search(
+    matrix, query, k: int = 10, threshold: float = 0.0, device: "str | torch.device" = "cuda"
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-k rows of ``matrix`` (uint32[R, W]) by Tanimoto similarity to
+    ``query`` (uint32[W]) → (f32 scores[k], int32 ids[k]) on ``device``,
+    k clamped to R; a score below ``threshold`` (compared in f32) counts
+    as 0.0.
+
+    tanimoto(a, b) = |a∩b| / (|a| + |b| - |a∩b|)
+    """
+    dev = _cuda.resolve_device(device)
+    m, q = as_words(matrix, dev), as_words(query, dev)
+    _check_search(m, q)
+    k = _clamp_k(k, m.shape[0])
+    if k == 0:
+        return torch.empty(0, dtype=torch.float32, device=dev), torch.empty(0, dtype=torch.int32, device=dev)
+    keys, hist = search_keys(m, q, threshold)
+    return select_top(keys, hist, k)
+
+
+# ------------------------------------------------------------ all pairs
+
+
+def unpack_bits(packed: torch.Tensor) -> torch.Tensor:
+    """int32[..., W] → f32[..., W * 32] of {0, 1}, LSB first in a word."""
+    shifts = torch.arange(32, dtype=torch.int32, device=packed.device)
+    bits = (packed[..., :, None] >> shifts) & 1  # masked: the int32 shift is arithmetic
+    return bits.reshape(*packed.shape[:-1], -1).to(torch.float32)
+
+
+def pairwise_intersections_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """f32[N, M] = |a_i ∩ b_j| as a product of the unpacked bits, a few
+    thousand rows of ``a`` at a time. Exact: the operands are 0 and 1 and
+    every partial sum is an integer below 2^24."""
+    b_bits = unpack_bits(b).T
+    out = torch.empty((a.shape[0], b.shape[0]), dtype=torch.float32, device=a.device)
+    for lo in range(0, a.shape[0], _PLAIN_ROWS):
+        torch.matmul(unpack_bits(a[lo : lo + _PLAIN_ROWS]), b_bits, out=out[lo : lo + _PLAIN_ROWS])
+    return out
+
+
+def tanimoto_matrix_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    inter = pairwise_intersections_plain(a, b)
+    a_pop = popcount_rows(a).to(torch.float32)
+    b_pop = popcount_rows(b).to(torch.float32)
+    union = (a_pop[:, None] + b_pop[None, :]) - inter
+    return torch.where(union > 0, _div(inter, union), 0.0)
+
+
+def cosine_matrix_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    inter = pairwise_intersections_plain(a, b)
+    a_pop = popcount_rows(a).to(torch.float32)
+    b_pop = popcount_rows(b).to(torch.float32)
+    denom = _sqrt(a_pop[:, None] * b_pop[None, :])
+    return torch.where(denom > 0, _div(inter, denom), 0.0)
+
+
+_PLAIN = {
+    "inter": pairwise_intersections_plain,
+    "tanimoto": tanimoto_matrix_plain,
+    "cosine": cosine_matrix_plain,
+}
+
+
+def pairwise_plain(a: torch.Tensor, b: torch.Tensor, mode: str) -> torch.Tensor:
+    return _PLAIN[mode](a, b)
+
+
+def pairwise(a: torch.Tensor, b: torch.Tensor, mode: str) -> torch.Tensor:
+    """All pairs of ``int32[N, W]`` × ``int32[M, W]`` → f32[N, M]:
+    intersection counts, Tanimoto or cosine (``mode``) (K11)."""
+    if mode not in PAIRWISE_MODES:
+        raise ValueError(f"mode must be one of {sorted(PAIRWISE_MODES)}, got {mode!r}")
+    for t, what in ((a, "a"), (b, "b")):
+        if t.dtype != torch.int32 or t.dim() != 2 or not t.is_contiguous():
+            raise ValueError(f"{what} must be contiguous int32[N, W]")
+    if a.shape[1] != b.shape[1] or not 1 <= a.shape[1] <= PAIRWISE_MAX_WORDS:
+        raise ValueError(
+            f"a {tuple(a.shape)} and b {tuple(b.shape)} need the same W in [1, {PAIRWISE_MAX_WORDS}]"
+        )
+    if a.device != b.device:
+        raise ValueError(f"a on {a.device}, b on {b.device}")
+    dev = a.device
+    if dev.type == "cpu":
+        return pairwise_plain(a, b, mode)
+    n, m = a.shape[0], b.shape[0]
+    if n > 65535 * 64:
+        raise ValueError(f"N = {n} rows is more than K11's grid takes (4,194,240)")
+    out = torch.empty((n, m), dtype=torch.float32, device=dev)
+    if n and m:
+        _cuda.PAIRWISE.launch(
+            dev, a.data_ptr(), n, b.data_ptr(), m, a.shape[1], PAIRWISE_MODES[mode], out.data_ptr(), mode=mode
+        )
+    return out
+
+
+def pairwise_intersections(a, b, device: "str | torch.device" = "cuda") -> torch.Tensor:
+    """All-pairs intersection counts: uint32[N, W], uint32[M, W] →
+    f32[N, M] = |a_i ∩ b_j|."""
+    dev = _cuda.resolve_device(device)
+    return pairwise(as_words(a, dev), as_words(b, dev), "inter")
+
+
+def tanimoto_matrix(a, b, device: "str | torch.device" = "cuda") -> torch.Tensor:
+    """All-pairs Tanimoto: f32[N, M]."""
+    dev = _cuda.resolve_device(device)
+    return pairwise(as_words(a, dev), as_words(b, dev), "tanimoto")
+
+
+def cosine_matrix(a, b, device: "str | torch.device" = "cuda") -> torch.Tensor:
+    """All-pairs cosine similarity of bit vectors: f32[N, M] =
+    |a∩b| / sqrt(|a|·|b|)."""
+    dev = _cuda.resolve_device(device)
+    return pairwise(as_words(a, dev), as_words(b, dev), "cosine")

@@ -239,12 +239,15 @@ def test_new_wrappers_take_the_plain_version_on_cpu_tensors(rng, monkeypatch):
     ops.shift_words(m[0], 33)
     ops.container_count(torch.full((2, 8), -1, dtype=torch.int32), 1)
     ops.scatter_rows(m, torch.tensor([1], dtype=torch.int32), m[:1])
+    keys, hist = ops.similarity.search_keys(m[0], m[0, 0], 0.3)
+    ops.similarity.select_top(keys, hist, 2)
+    ops.similarity.pairwise(m[0], m[1], "cosine")
     assert {k: v.launches for k, v in _cuda.KERNELS.items()} == before
     assert all(k._fn is None for k in _cuda.KERNELS.values())
     assert {k.stem for k in _cuda.KERNELS.values()} == set(_cuda.SOURCES)
     assert set(_cuda.SOURCES) == {
         "tree_eval", "row_counts", "stack_delta", "bsi_sum", "bsi_minmax", "groupby",
-        "shift_words", "container_count",
+        "shift_words", "container_count", "similarity_scan", "pairwise",
     }
 
 

@@ -56,31 +56,40 @@ def test_no_source_line_imports_jax_or_pilosa_tpu():
                 if _IMPORT.match(line):
                     offenders.append(f"{os.path.relpath(path, REPO)}:{n}: {line.strip()}")
     assert len(sources) > 30
+    scanned = {os.path.relpath(p, REPO) for p in sources}
+    assert {"pilosa_tpu_torch/ops/similarity.py", "pilosa_tpu_torch/examples/chemical_similarity.py"} <= scanned
     assert offenders == []
 
 
 def test_chip_smoke_rehearses_on_the_cpu(capsys):
     """chip_smoke.py's steps on the plain versions at a tiny size: the
     same data recipes, queries, numpy checks, write phase, taxi path,
-    residency path (over a lowered budget) and kernel comparisons,
-    without the card lines or the final ok line."""
+    residency path (over a lowered budget), similarity path and kernel
+    comparisons, without the card lines or the final ok line."""
     import json
 
     sys.path.insert(0, REPO)
     import chip_smoke
 
-    assert chip_smoke.main(device="cpu", n_shards=64, taxi_shards=16, budget=32 << 20) == 0
+    assert chip_smoke.main(
+        device="cpu", n_shards=64, taxi_shards=16, budget=32 << 20, sim_rows=5000, sim_block=300
+    ) == 0
     lines = capsys.readouterr().out.strip().splitlines()
     kernels = json.loads(lines[-2])["kernels"]
     assert [(k["path"], k["name"]) for k in kernels] == [
         ("main", "tree_eval"), ("main", "row_counts"), ("main", "stack_delta"), ("main", "shift_words"),
         ("taxi", "bsi_sum"), ("taxi", "bsi_minmax"), ("taxi", "gb_counts"), ("taxi", "gb_masks"),
         ("residency", "tree_eval"), ("residency", "container_count"), ("residency", "stack_delta"),
+        ("similarity", "sim_scan"), ("similarity", "sim_select"), ("similarity", "pairwise"),
     ]
     assert all(k["max_abs_err"] == 0 for k in kernels)
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms"}
     assert all(keys <= set(k) for k in kernels)
-    # main 8 + Shift 2, write 2, taxi 13, residency 7 + the write + slots
-    assert sum(line.startswith("ok  ") for line in lines) == 8 + 2 + 2 + 13 + 7 + 2
+    assert {k["launches_by_path"].keys() == {"main", "taxi", "residency", "similarity"} for k in kernels} == {True}
+    pairwise = kernels[-1]
+    assert pairwise["bound_by"] == "operations" and pairwise["library_ms"] is not None
+    # main 8 + Shift 2, write 2, taxi 13, residency 7 + the write + slots,
+    # similarity 3 searches + 4 all-pairs blocks
+    assert sum(line.startswith("ok  ") for line in lines) == 8 + 2 + 2 + 13 + 7 + 2 + 3 + 4
     assert not any(line.startswith('{"ok"') for line in lines)
