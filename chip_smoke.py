@@ -6,7 +6,7 @@ Run from the root of a checkout. In order:
 
 1. build the kernels from ``pilosa_tpu_torch/csrc`` with nvcc for
    sm_90a, one nvcc process per source, all started together;
-2. five paths, each with every kernel's launch count set to 0 just
+2. six paths, each with every kernel's launch count set to 0 just
    before it and read just after, and printed on a line of its own:
    - the main path: ``API(holder, device="cuda", route_mode="device")``
      over 10,240 shards × 8 rows (10.7 B columns; bench.py's default
@@ -45,6 +45,20 @@ Run from the root of a checkout. In order:
      searches; the demo's 2048 x 2048 all-pairs block in the three modes
      and a 16,384 x 16,384 Tanimoto block, each checked against the plain
      version and 64 rows against numpy. K9, K10 and K11 must launch here;
+   - the mesh path (B16): the main and taxi holders again, served by
+     ``API(holder, mesh_ctx=MeshContext(make_mesh(devices, words_axis)),
+     route_mode="mesh")`` over 8 positions (``cuda:(i % cards)``, all
+     on the one card here) in the 8x1 and 4x2 layouts, the one-device
+     stacks freed first: the main path's Counts, a blocked readback of
+     a whole row, TopN plain, filtered and ids=, a 3-shard Options
+     subset (words mode), Shift (one counted fallback to the device
+     route), a Set and a Clear riding K3 per block; the taxi path's
+     queries with a level-synchronous GroupBy; the mesh Tanimoto and
+     cosine search of row 1 against the main holder's rows; the 2048²
+     all-pairs block in both modes and the 16,384² Tanimoto block, each
+     answer against numpy and the one-device route, with the sync p50
+     of Count, TopN, Sum and GroupBy beside the one-device p50. K1-K6,
+     K10, K11 and K12 must launch here;
 3. each kernel against its plain torch version on the card at its
    path's shapes (all-ones and bit-31 words, rows -1 and >= R, _OOB
    delta entries, an empty Union(); BSI constants 0, negative and
@@ -53,7 +67,8 @@ Run from the root of a checkout. In order:
    container payloads at a plane's edges, slots -1 and past the store;
    fingerprints with all-ones, bit-31, zero and duplicate rows, a zero
    query, W of 1, 3 and 512 and rows off a 16 B boundary, k of 1, 10,
-   1,000, 4,096, 4,097, 50,000 and R), exact equality, and its time
+   1,000, 4,096, 4,097, 50,000 and R; the mesh path's kernels at its
+   4x2 blocks, W = 16,384), exact equality, and its time
    beside its bound (bytes over 3.35 TB/s, or K11's unpacked product at
    the int8 tensor rate) and the plain version's;
 4. print the card (nvidia-smi name and power limit), the launch counts,
@@ -126,6 +141,54 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def split_ms(ex, index: str, pql: str, reps: int = 10) -> dict:
+    """p50 host ms of one query's dispatch (routing, planning and the
+    launches, which return before the device finishes) and of its
+    settle (the wait for the device and the one readback)."""
+    dispatch, settle = [], []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        pend = [r for r in ex.dispatch(index, pql) if hasattr(r, "arrays")]
+        t1 = time.perf_counter()
+        ex.settle(pend)
+        dispatch.append(t1 - t0)
+        settle.append(time.perf_counter() - t1)
+    return {"dispatch_p50_ms": float(np.median(dispatch)) * 1e3, "settle_p50_ms": float(np.median(settle)) * 1e3}
+
+
+def device_busy(torch, fn, reps: int = 10) -> dict:
+    """Wall ms per call of ``fn`` over ``reps`` synchronised calls under
+    torch.profiler, and the device's busy ms per call: the union of the
+    trace's device intervals (kernels and copies). None where there is
+    no card or the trace holds no device event."""
+    if not torch.cuda.is_available():
+        return {"wall_ms": None, "device_busy_ms": None, "busy_share": None}
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans = sorted(
+        (e.time_range.start, e.time_range.end) for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+    )
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    wall_ms = wall / reps * 1e3
+    if not spans:
+        return {"wall_ms": wall_ms, "device_busy_ms": None, "busy_share": None}
+    busy_ms = busy / 1e3 / reps
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms, "busy_share": busy_ms / wall_ms}
+
+
 def max_abs_err(torch, a, b) -> int:
     """max |a - b| over every element, one leading slice at a time."""
     if a.shape != b.shape:
@@ -173,6 +236,16 @@ def np_shift(words: np.ndarray, n: int) -> np.ndarray:
     if n < bits.shape[-1]:
         out[..., n:] = bits[..., : bits.shape[-1] - n]
     return np.packbits(out, axis=-1, bitorder="little").view(np.uint32)
+
+
+def digest(segments: dict, shards: list) -> str:
+    """A hash of a row's per-shard words, in shard order."""
+    import hashlib
+
+    h = hashlib.blake2b(digest_size=16)
+    for s in shards:
+        h.update(np.ascontiguousarray(segments[s]).data)
+    return h.hexdigest()
 
 
 def pack(bits: np.ndarray) -> np.ndarray:
@@ -338,10 +411,12 @@ def taxi_path(torch, device: str, n_shards: int) -> list:
     comp.stacks.matrix(idx, idx.existence_field(), "standard", shards)
     sync()
     times["taxi_stack_upload_s"] = time.perf_counter() - t0
+    answers = {}
     for pql, want in checks:
         got = api.query("taxi", pql)["results"][0]
         if got != want:
             raise AssertionError(f"{pql}: {json.dumps(got)[:300]} != numpy {json.dumps(want)[:300]}")
+        answers[pql] = got
         log(f"ok  {pql[:70]}  -> {json.dumps(got)[:80]}")
     # the fused GroupBy is one deferred [G, K] readback
     fused = api.executor.dispatch("taxi", gb_q)
@@ -492,7 +567,10 @@ def taxi_path(torch, device: str, n_shards: int) -> list:
     })
     log("taxi times:", json.dumps(times))
     results = {"bsi_sum": k4, "bsi_minmax": k5, "gb_counts": k6c, "gb_masks": k6m}
-    taxi = {"holder": h, "index": idx, "api": api, "blocks": blocks, "mult": mult}
+    taxi = {
+        "holder": h, "index": idx, "api": api, "blocks": blocks, "mult": mult, "checks": checks, "answers": answers,
+        "depth": depth, "p50": {"sum": times["taxi_sum_p50_ms"], "groupby": times["taxi_groupby_fused_p50_ms"]},
+    }
     return {name: (errs[name], t) for name, t in results.items()}, launches, taxi
 
 
@@ -1045,11 +1123,14 @@ def similarity_path(torch, device: str, n_rows: int = SIM_ROWS, big: int = SIM_B
         library_ms=cuda_ms(torch, lambda: torch.topk(scores_plain, 10), 20),
     )
     keys3, hist3 = full_keys[0.3]
+    scores3 = sim._scores_plain(matrix_filter_counts(matrix, query), popcount_rows(matrix), popcount_rows(query), 0.3)
     times["select_k1000_t0.3_ms"] = cuda_ms(torch, lambda: sim.select_top(keys3, hist3, 1000), 10)
     times["select_k1000_t0.3_plain_ms"] = cuda_ms(torch, lambda: sim.select_top_plain(keys3, 1000), 10)
+    times["select_k1000_t0.3_library_ms"] = cuda_ms(torch, lambda: torch.topk(scores3, 1000), 10)
     times["select_kR_ms"] = cuda_ms(torch, lambda: sim.select_top(keys, hist, n_rows), 2)
     times["select_kR_plain_ms"] = cuda_ms(torch, lambda: sim.select_top_plain(keys, n_rows), 2)
-    del scores_plain, full_keys, keys3, hist3
+    times["select_kR_library_ms"] = cuda_ms(torch, lambda: torch.topk(scores_plain, n_rows), 2)
+    del scores_plain, scores3, full_keys, keys3, hist3
     # the library: the unpacked product as one int8 matrix product, exact
     # in int32 (the unpack timed apart); bf16 where torch lacks _int_mm
     shifts = torch.arange(32, dtype=torch.int32, device=dev)
@@ -1094,6 +1175,477 @@ def similarity_path(torch, device: str, n_rows: int = SIM_ROWS, big: int = SIM_B
     log("similarity times:", json.dumps(times))
     results = {"sim_scan": k9, "sim_select": k10, "pairwise": k11}
     return {name: (errs[name], t) for name, t in results.items()}, launches
+
+
+MESH_POSITIONS = 8  # the mesh's positions: cuda:(i % cards), all on cuda:0 with one card
+MESH_SEARCH_K = (5, R_PAD + 2)  # the mesh search's k: a shortlist, and k past R (clamped)
+MESH_LAYOUTS = (("8x1", 1), ("4x2", 2))
+
+
+def mesh_main_queries(n_shards: int) -> list:
+    """The main holder's mesh queries: (PQL, numpy recipe) with the recipe
+    (kind, argument) read by ``mesh_path``."""
+    sub = [0, 5, min(9, n_shards - 1)]
+    sub_s = ", ".join(map(str, sub))
+    return [
+        ("Count(Intersect(Row(f=1), Row(f=2)))", ("count", lambda b, e: b[1] & b[2])),
+        ("Count(Union(Row(f=1), Row(f=2)))", ("count", lambda b, e: b[1] | b[2])),
+        ("Count(Difference(Row(f=3), Row(f=4)))", ("count", lambda b, e: b[3] & ~b[4])),
+        ("Count(Xor(Row(f=5), Row(f=6)))", ("count", lambda b, e: b[5] ^ b[6])),
+        ("Count(Not(Row(f=1)))", ("count", lambda b, e: e & ~b[1])),
+        ("TopN(f, n=5)", ("topn", (None, 5, None))),
+        ("TopN(f, Row(f=1), n=5)", ("topn", (1, 5, None))),
+        ("TopN(f, ids=[7, 2, 0, 9])", ("topn", (None, None, [7, 2, 0, 9]))),
+        # three shards do not divide the shards axis: words mode
+        (f"Options(Count(Intersect(Row(f=1), Row(f=7))), shards=[{sub_s}])", ("count_sub", (lambda b, e: b[1] & b[7], sub))),
+        (f"Options(Row(f=2), shards=[{sub_s}])", ("columns", (2, sub))),
+    ]
+
+
+def mesh_path(torch, device: str, main: dict, taxi: dict, sim_block: int) -> tuple:
+    """The device-mesh engine (B16) on the main and taxi holders, as
+    ``API(holder, mesh_ctx=MeshContext(make_mesh(devices, words_axis)),
+    route_mode="mesh")`` over MESH_POSITIONS positions, in the 8x1 and
+    4x2 layouts: the main holder's Counts, a blocked bitmap readback,
+    TopN plain, filtered and ids=, an Options subset in words mode, Shift
+    (one counted fallback to the device route) and a Set then Count (K3
+    per block, no restack); the taxi holder's BSI condition Count, Sum,
+    Min, Max and GroupBy (fused, level-synchronous, aggregate=Sum); the
+    mesh Tanimoto and cosine search of row 1 of ``f`` against the main
+    holder's rows; the 2048² all-pairs block in both modes and a
+    ``sim_block``² Tanimoto block. Every answer against numpy and the
+    one-device route's; the sync p50 of Count, TopN, Sum and GroupBy
+    beside the one-device p50. Then each kernel the path launches
+    against its plain version at the 4x2 layout's block shapes. Returns
+    the kernel entries and the path's launch counts."""
+    from pilosa_tpu_torch import ops
+    from pilosa_tpu_torch.core import VIEW_BSI
+    from pilosa_tpu_torch.examples.chemical_similarity import make_fingerprints
+    from pilosa_tpu_torch.ops import _cuda, bitwise, bsi, groupby, stack, topn
+    from pilosa_tpu_torch.ops import similarity as sim
+    from pilosa_tpu_torch.parallel import MeshContext, make_mesh
+    from pilosa_tpu_torch.server import API
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH, WORDS_PER_SHARD
+
+    on_card = device == "cuda"
+    W = WORDS_PER_SHARD
+    n_cards = torch.cuda.device_count() if on_card else 1
+    devices = [torch.device("cuda", i % n_cards) if on_card else "cpu" for i in range(MESH_POSITIONS)]
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def free():
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+
+    h, idx, shards = main["holder"], main["index"], main["shards"]
+    n_shards = len(shards)
+    th, tidx = taxi["holder"], taxi["index"]
+    t_shards = sorted(tidx.available_shards())
+    times = {}
+
+    # ------------------------------------------------- numpy over the blocks
+    # per-shard block ids: shard s holds main["blocks"][s % G] unless a
+    # write gave it a copy of its own
+    blk_list, ex_list = list(main["blocks"]), [e[0] for e in main["exists"]]
+    block_of = {s: s % G for s in shards}
+
+    def write(shard: int, col_in_shard: int, row: int) -> None:
+        if block_of[shard] < G:
+            blk_list.append(blk_list[block_of[shard]].copy())
+            ex_list.append(ex_list[block_of[shard]].copy())
+            block_of[shard] = len(blk_list) - 1
+        g = block_of[shard]
+        blk_list[g][row, col_in_shard // 32] |= np.uint32(1) << np.uint32(col_in_shard % 32)
+        ex_list[g][col_in_shard // 32] |= np.uint32(1) << np.uint32(col_in_shard % 32)
+
+    for shard, col in main["writes"]:
+        write(shard, col % SHARD_WIDTH, 1)
+
+    def expect_count(fn, shard_list=shards) -> int:
+        mult = np.bincount([block_of[s] for s in shard_list], minlength=len(blk_list))
+        return sum(int(mult[g]) * int(np.bitwise_count(fn(blk_list[g], ex_list[g])).sum())
+                   for g in range(len(blk_list)) if mult[g])
+
+    def expect(kind, arg):
+        if kind == "count":
+            return expect_count(arg)
+        if kind == "count_sub":
+            return expect_count(arg[0], arg[1])
+        if kind == "columns":
+            row, sub = arg
+            cols = []
+            for s in sub:
+                bits = np.unpackbits(blk_list[block_of[s]][row].view(np.uint8), bitorder="little")
+                cols.append(np.flatnonzero(bits) + s * SHARD_WIDTH)
+            return {"columns": np.concatenate(cols).tolist()}
+        filt_row, n, ids = arg
+        rows = ids if ids is not None else range(R_PAD)
+        pairs = []
+        for r in rows:
+            c = 0 if r >= R_PAD else expect_count(lambda b, e, r=r: b[r] if filt_row is None else b[r] & b[filt_row])
+            if c:
+                pairs.append((r, c))
+        pairs.sort(key=lambda rc: (-rc[1], rc[0]))
+        return [{"id": r, "count": c} for r, c in (pairs[:n] if n else pairs)]
+
+    def np_scores(metric: str, k: int):
+        inter = np.array([expect_count(lambda b, e, r=r: b[r] & b[1]) for r in range(R_PAD)], dtype=np.int64)
+        pop = np.array([expect_count(lambda b, e, r=r: b[r]) for r in range(R_PAD)], dtype=np.int64)
+        fi, fr, fq = inter.astype(np.float32), pop.astype(np.float32), np.float32(pop[1])
+        den = (fr + fq) - fi if metric == "tanimoto" else np.sqrt(fr * fq)
+        scores = np.zeros_like(fi)
+        np.divide(fi, den, out=scores, where=den > 0)
+        order = sorted(range(R_PAD), key=lambda r: (-scores[r], r))[: min(k, R_PAD)]
+        return scores[order], np.array(order, dtype=np.int32)
+
+    # the fingerprints of the all-pairs blocks: the demo's recipe; a
+    # block's rows must divide the shards axis of both layouts
+    n_big = sim_block - sim_block % MESH_POSITIONS
+    n_demo = min(2048, n_big)
+    fps, _family = make_fingerprints(max(n_demo, n_big))
+    fps_dev = sim.as_words(fps, devices[0])
+    one_device = {}
+    for n_blk, mode in ((n_demo, "tanimoto"), (n_demo, "cosine"), (n_big, "tanimoto")):
+        blk = fps_dev[:n_blk]
+        one_device[(n_blk, mode)] = sim.pairwise(blk, blk, mode)
+        sync()
+        t0 = time.perf_counter()
+        sim.pairwise(blk, blk, mode)
+        sync()
+        times[f"pairwise_{mode}_{n_blk}_one_device_wall_ms"] = (time.perf_counter() - t0) * 1e3
+    sample = np.arange(0, n_demo, max(1, n_demo // 16))
+    np_demo = {m: np_pairwise(fps[sample], fps[:n_demo], m) for m in ("tanimoto", "cosine")}
+
+    main_q = mesh_main_queries(n_shards)
+    taxi_q = taxi["checks"]
+    gb_q = "GroupBy(Rows(cab_type), Rows(passenger_count))"
+    sum_q = "Sum(field=total_amount)"
+
+    # ---------------------------------------------------------- mesh path
+    for k in _cuda.KERNELS.values():
+        k.reset()
+    pairwise_out = {}
+    block_inputs = {}
+    for name, words_axis in MESH_LAYOUTS:
+        ctx = MeshContext(make_mesh(devices, words_axis=words_axis))
+        api = API(h, mesh_ctx=ctx, route_mode="mesh")
+        tapi = API(th, mesh_ctx=ctx, route_mode="mesh")
+        ex, eng = api.executor, api.executor.compiler.mesh_engine
+        t0 = time.perf_counter()
+        fm = ex.compiler.stacks.matrix(idx, idx.field("f"), "standard", shards)[0]
+        ex.compiler.stacks.matrix(idx, idx.existence_field(), "standard", shards)
+        for fname in ("cab_type", "passenger_count"):
+            tapi.executor.compiler.stacks.matrix(tidx, tidx.field(fname), "standard", t_shards)
+        tapi.executor.compiler.stacks.matrix(tidx, tidx.field("total_amount"), VIEW_BSI, t_shards)
+        tapi.executor.compiler.stacks.matrix(tidx, tidx.existence_field(), "standard", t_shards)
+        sync()
+        times[f"{name}_stack_upload_s"] = time.perf_counter() - t0
+        if fm.mode != "grid" or len(fm.blocks) != MESH_POSITIONS // words_axis:
+            raise AssertionError(f"{name}: the main stack placed as {fm.mode} over {len(fm.blocks)} rows")
+
+        def run(a, iname, pql, want, one, fallback=False):
+            e = a.executor
+            en = e.compiler.mesh_engine
+            before = (e.router.decisions["mesh"], sum(en.calls.values()), en.fallbacks, e.router.decisions["device"])
+            got = a.query(iname, pql)["results"][0]
+            if got != want:
+                raise AssertionError(f"{name}: {pql}: {json.dumps(got)[:300]} != numpy {json.dumps(want)[:300]}")
+            if got != one:
+                raise AssertionError(f"{name}: {pql}: {json.dumps(got)[:300]} != one-device {json.dumps(one)[:300]}")
+            after = (e.router.decisions["mesh"], sum(en.calls.values()), en.fallbacks, e.router.decisions["device"])
+            if fallback:
+                if after[2] != before[2] + 1 or after[3] != before[3] + 1 or after[0] != before[0]:
+                    raise AssertionError(f"{name}: {pql} did not fall back once to the device route: {before} -> {after}")
+            elif after[0] <= before[0] or after[1] <= before[1] or after[2] != before[2]:
+                raise AssertionError(f"{name}: {pql} did not run on the mesh: {before} -> {after}")
+            log(f"ok  mesh {name}: {pql[:60]}  -> {json.dumps(got)[:70]}")
+
+        for pql, (kind, arg) in main_q:
+            run(api, "bench", pql, expect(kind, arg), main["answers"][pql])
+        # the blocked readback of one whole row, in the placement's order
+        mesh_before = ex.router.decisions["mesh"]
+        segments = ex.execute("bench", "Row(f=1)")[0].segments
+        for s in shards:
+            if not np.array_equal(segments[s], blk_list[block_of[s]][1]):
+                raise AssertionError(f"{name}: Row(f=1) differs from numpy in shard {s}")
+        if digest(segments, shards) != main["row1_digest"] or ex.router.decisions["mesh"] != mesh_before + 1:
+            raise AssertionError(f"{name}: Row(f=1) differs from the one-device route's, or did not run on the mesh")
+        log(f"ok  mesh {name}: Row(f=1) read back blocked, equal to numpy and the device route in every shard")
+        del segments
+        shift_q = "Count(Shift(Row(f=1), n=1))"
+        run(api, "bench", shift_q, expect_count(lambda b, e: np_shift(b[1], 1)), main["answers"][shift_q], fallback=True)
+        # a Set into the last shard (its fragments hold their bits in roaring
+        # storage, as the main path's write) at a column that exists and
+        # is not in row 1, then a Clear of it: K3 on the blocks that hold
+        # the shard, no restack, and the holder as it was for the next layout
+        stacks_ = ex.compiler.stacks
+        w_shard = shards[-1]
+        g_w = block_of[w_shard]
+        cand = np.flatnonzero(np.unpackbits((ex_list[g_w] & ~blk_list[g_w][1]).view(np.uint8), bitorder="little"))
+        col = w_shard * SHARD_WIDTH + int(cand[words_axis])
+        restacks, deltas, k3 = stacks_.full_restacks, stacks_.delta_updates, _cuda.STACK_DELTA.launches
+        row1_want, not_want = expect_count(lambda b, e: b[1]), expect_count(lambda b, e: e & ~b[1])
+        for write_q, step in ((f"Set({col}, f=1)", 1), (f"Clear({col}, f=1)", 0)):
+            api.query("bench", write_q)
+            run(api, "bench", "Count(Row(f=1))", row1_want + step, row1_want + step)
+            run(api, "bench", "Count(Not(Row(f=1)))", not_want - step, not_want - step)
+        sync()
+        k3_launches, n_deltas = _cuda.STACK_DELTA.launches - k3, stacks_.delta_updates - deltas
+        if stacks_.full_restacks != restacks or n_deltas < 2 or (on_card and k3_launches != n_deltas * words_axis):
+            raise AssertionError(f"{name}: the writes did not ride K3 per block: {stacks_.stats_snapshot()}, K3 {k3_launches}")
+        log(f"ok  mesh {name}: Set and Clear({col}, f=1) rode {n_deltas} deltas, K3 on {k3_launches} blocks, no restack")
+        # the taxi holder
+        for pql, want in taxi_q:
+            run(tapi, "taxi", pql, want, taxi["answers"][pql])
+        tapi.executor.GROUPBY_MASK_BUDGET = 2 * len(t_shards) * W * 4  # the fused path's 4 masks do not fit
+        gb_want = next(w for q, w in taxi_q if q == gb_q)
+        run(tapi, "taxi", gb_q, gb_want, taxi["answers"][gb_q])
+        tapi.executor.GROUPBY_MASK_BUDGET = None
+        log(f"ok  mesh {name}: {gb_q} level-synchronous")
+        # sync p50s on the mesh route, beside the one-device route's
+        for key, a, iname, pql in (("count", api, "bench", main_q[0][0]), ("topn", api, "bench", "TopN(f, n=5)"),
+                                   ("sum", tapi, "taxi", sum_q), ("groupby", tapi, "taxi", gb_q)):
+            lat = []
+            for _ in range(10):
+                t0 = time.perf_counter()
+                a.query(iname, pql)
+                lat.append(time.perf_counter() - t0)
+            times[f"{name}_{key}_p50_ms"] = float(np.median(lat)) * 1e3
+        times[f"{name}_count_split"] = split_ms(ex, "bench", main_q[0][0])
+        times[f"{name}_count_profiled"] = device_busy(torch, lambda: api.query("bench", main_q[0][0]))
+        # the mesh search of row 1 against the main holder's rows (the
+        # stack as the Set left it)
+        fm = stacks_.matrix(idx, idx.field("f"), "standard", shards)[0]
+        query = fm.row(1)
+        for metric in ("tanimoto", "cosine"):
+            for k in MESH_SEARCH_K:
+                got_s, got_i = getattr(eng, metric)(fm, query, k)
+                want_s, want_i = np_scores(metric, k)
+                if not (np.array_equal(got_s.cpu().numpy().view(np.uint32), want_s.view(np.uint32))
+                        and np.array_equal(got_i.cpu().numpy(), want_i)):
+                    raise AssertionError(f"{name}: mesh {metric} k={k}: {got_s.tolist()} {got_i.tolist()} != numpy "
+                                         f"{want_s.tolist()} {want_i.tolist()}")
+                one = main["search"][(metric, k)]
+                if not (torch.equal(one[0].view(torch.int32), got_s.cpu().view(torch.int32)) and torch.equal(one[1], got_i.cpu())):
+                    raise AssertionError(f"{name}: mesh {metric} k={k} differs from the one-device route's")
+                log(f"ok  mesh {name}: {metric} search k={k}  -> ids {got_i.tolist()}")
+        sync()
+        lat = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            eng.tanimoto(fm, query, 5)[0].cpu()
+            lat.append(time.perf_counter() - t0)
+        times[f"{name}_search_p50_ms"] = float(np.median(lat)) * 1e3
+        # all pairs: the demo block in both modes, the big Tanimoto block
+        for n_blk, mode in ((n_demo, "tanimoto"), (n_demo, "cosine"), (n_big, "tanimoto")):
+            pa, pb = eng.place_allpairs(fps[:n_blk], fps[:n_blk])
+            sync()
+            t0 = time.perf_counter()
+            out = getattr(eng, "pairwise_" + mode)(pa, pb)
+            sync()
+            times[f"pairwise_{mode}_{n_blk}_{name}_wall_ms"] = (time.perf_counter() - t0) * 1e3
+            got = out.gather()
+            if not torch.equal(got.view(torch.int32), one_device[(n_blk, mode)].view(torch.int32)):
+                raise AssertionError(f"{name}: mesh {mode} {n_blk}² differs from the one-device K11")
+            if n_blk == n_demo and not np.array_equal(got[sample].cpu().numpy().view(np.uint32), np_demo[mode].view(np.uint32)):
+                raise AssertionError(f"{name}: mesh {mode} {n_blk}² differs from numpy")
+            log(f"ok  mesh {name}: pairwise {mode} {n_blk}² equal to the one-device K11 and numpy")
+            if words_axis > 1 and n_blk == n_big:
+                pairwise_out = {"a": pa.blocks[0][0], "b": pb.blocks[0][0]}
+            del got, out, pa, pb
+        snap = ex.compiler.mesh_snapshot()
+        log(f"mesh {name} engine:", json.dumps(snap), "taxi:", json.dumps(tapi.executor.compiler.mesh_snapshot()["calls"]))
+        log(f"router decisions on the mesh {name}:", json.dumps(ex.router.decisions), json.dumps(tapi.executor.router.decisions))
+        if words_axis > 1:
+            # the 4x2 blocks the kernels are held to below
+            tb = tapi.executor.compiler.stacks
+            block_inputs = {
+                "f": fm.blocks[0][1], "ex": stacks_.matrix(idx, idx.existence_field(), "standard", shards)[0].blocks[0][1],
+                "bsi": tb.matrix(tidx, tidx.field("total_amount"), VIEW_BSI, t_shards)[0].blocks[0][1],
+                "cab": tb.matrix(tidx, tidx.field("cab_type"), "standard", t_shards)[0].blocks[0][1],
+                "pc": tb.matrix(tidx, tidx.field("passenger_count"), "standard", t_shards)[0].blocks[0][1],
+            }
+        del api, tapi, ex, eng, fm, query, stacks_, ctx
+        free()
+    sync()
+    launches = {n: k.launches for n, k in _cuda.KERNELS.items()}
+    log("launches on the mesh path:", json.dumps(launches))
+    log("launches on the mesh path by mode:", json.dumps({n: k.modes for n, k in _cuda.KERNELS.items() if k.modes}))
+    path_kernels = ("tree_eval", "row_counts", "stack_delta", "bsi_sum", "bsi_minmax", "gb_counts", "gb_masks",
+                    "sim_select", "pairwise", "mesh_sim_keys", "mesh_pairwise_finish")
+    if on_card and any(launches[n] <= 0 for n in path_kernels):
+        raise AssertionError(f"a kernel of the mesh path never launched: {launches}")
+    if launches["shift_words"] != 2 * on_card:
+        raise AssertionError(f"Shift ran {launches['shift_words']} K7 launches, not one a layout")
+
+    # ----------------------------------- kernels vs plain versions, 4x2 blocks
+    fb, eb, tbm, cab, pc = (block_inputs[k] for k in ("f", "ex", "bsi", "cab", "pc"))
+    dev = fb.device
+    s_l, w_l = fb.shape[1], fb.shape[2]
+    ts_l = tbm.shape[1]
+    D = taxi["depth"]  # noqa: N806
+    L, Z, C = bitwise.OP_LOAD, bitwise.OP_ZERO, bitwise.OP_CMP
+    A, O, X, N = bitwise.OP_AND, bitwise.OP_OR, bitwise.OP_XOR, bitwise.OP_ANDNOT
+    errs = {n: 0 for n in path_kernels}
+    tree_cases = [
+        ([fb], [(0, 1), (0, 2)], [(L, 0), (L, 1), (A, 0)], [], s_l),
+        ([fb, eb], [(1, 0), (0, 1)], [(L, 0), (L, 1), (N, 0)], [], s_l),
+        ([fb], [(0, -1), (0, R_PAD), (0, 3)], [(L, 0), (L, 1), (O, 0), (L, 2), (X, 0)], [], s_l),
+        ([fb], [], [(Z, 0)], [], s_l),
+        ([cab, tbm], [(0, 0)], [(L, 0), (C, 0), (A, 0)], [(1, D, ">=", -500)], ts_l),
+        ([tbm], [], [(C, 0), (C, 1), (A, 0)], [(0, D, ">=", 2000), (0, D, "<=", -500)], ts_l),
+    ]
+    for stacks_in, leaves, prog, conds, sl in tree_cases:
+        for count in (True, False):
+            got = ops.tree_eval(stacks_in, leaves, prog, sl, count=count, device=dev, conds=conds, n_words=w_l)
+            want = bitwise.tree_eval_plain(stacks_in, leaves, prog, sl, count, dev, conds, w_l)
+            errs["tree_eval"] = max(errs["tree_eval"], max_abs_err(torch, got, want))
+            del got, want
+    filt = ops.tree_eval([fb], [(0, 1)], [(L, 0)], s_l, count=False, device=dev, n_words=w_l)
+    ids = torch.tensor([-1, 0, 3, 7, R_PAD, 2**30], dtype=torch.int32, device=dev)
+    for m, fl, ii in ((fb, None, None), (fb, filt, None), (fb, filt, ids)):
+        errs["row_counts"] = max(errs["row_counts"], max_abs_err(torch, ops.row_counts(m, fl, ii), topn.row_counts_plain(m, fl, ii)))
+    didx = torch.tensor([[1, 0], [stack.OOB, stack.OOB], [R_PAD - 1, s_l - 1], [2, stack.OOB], [-1, 1], [1, 0]],
+                        dtype=torch.int32, device=dev)
+    drows = torch.randint(-(2**31), 2**31 - 1, (didx.shape[0], w_l), dtype=torch.int32, device=dev)
+    got = ops.apply_stack_delta(fb, didx, drows)
+    errs["stack_delta"] = max_abs_err(torch, got, stack.apply_stack_delta_plain(fb, didx, drows))
+    del got
+    free()
+    i32 = lambda v: torch.tensor(v, dtype=torch.int32, device=dev)  # noqa: E731
+    rows16 = i32(list(range(10)) + [-1] * 6)
+    ones = torch.full((1, ts_l, w_l), -1, dtype=torch.int32, device=dev)
+    masks4 = ops.gb_masks(ones, cab, i32([0] * 4), i32([0, 1, 2, -1]))
+    masks16 = ops.gb_masks(ones, pc, i32([0] * 16), rows16)
+    for st, m in ((tbm, None), (tbm, masks16), (tbm, masks4)):
+        errs["bsi_sum"] = max([errs["bsi_sum"]] + [max_abs_err(torch, a, b) for a, b in zip(ops.bsi_sum(st, D, m), bsi.bsi_sum_plain(st, D, m))])
+    cab1 = cab[1].contiguous()
+    for f_, want_max in ((None, False), (None, True), (cab1, True)):
+        errs["bsi_minmax"] = max([errs["bsi_minmax"]] + [max_abs_err(torch, a, b) for a, b in zip(
+            ops.bsi_min_max(tbm, D, f_, want_max), bsi.bsi_min_max_plain(tbm, D, f_, want_max))])
+    for m, mat, rows in ((masks4, pc, rows16), (masks16, cab, i32([0, 1, 2, -1, 9, 2**30]))):
+        errs["gb_counts"] = max(errs["gb_counts"], max_abs_err(torch, ops.gb_counts(m, mat, rows), groupby.gb_counts_plain(m, mat, rows)))
+    for m, mat, g_idx, row_sel in ((ones, cab, i32([0] * 4), i32([0, 1, 2, -1])), (masks4, pc, i32([0, 1, 3, 2, 9]), i32([1, -1, 9, 2, 0]))):
+        errs["gb_masks"] = max(errs["gb_masks"], max_abs_err(torch, ops.gb_masks(m, mat, g_idx, row_sel), groupby.gb_masks_plain(m, mat, g_idx, row_sel)))
+    # the search's reduced counts (row 1 against every row), past 2^24
+    inter = ops.row_counts(fb, fb[1].contiguous())
+    row_pop = ops.row_counts(fb)
+    q_pop = row_pop[1:2].contiguous()
+    key_cases = [(inter, row_pop, q_pop), (inter * 2**11 + 3, row_pop * 2**11 + 5, q_pop * 2**11 + 5),
+                 (torch.zeros_like(inter), torch.zeros_like(inter), torch.zeros_like(q_pop))]
+    for metric in ("tanimoto", "cosine"):
+        for c in key_cases:
+            got, want = sim.mesh_sim_keys(*c, metric), sim.mesh_sim_keys_plain(*c, metric)
+            errs["mesh_sim_keys"] = max([errs["mesh_sim_keys"]] + [max_abs_err(torch, a, b) for a, b in zip(got, want)])
+            for k in (1, 5, R_PAD):
+                a_, b_ = sim.select_top(got[0], got[1], k), sim.select_top_plain(want[0], k)
+                errs["sim_select"] = max(errs["sim_select"], max_abs_err(torch, a_[0].view(torch.int32), b_[0].view(torch.int32)),
+                                         max_abs_err(torch, a_[1], b_[1]))
+    # the big block's 4x2 all-pairs block: K11 inter, and K12's finish
+    pa_b, pb_b = pairwise_out["a"], pairwise_out["b"]
+    inter_p = sim.pairwise(pa_b, pb_b, "inter")
+    errs["pairwise"] = max_abs_err(torch, inter_p.view(torch.int32), sim.pairwise_plain(pa_b, pb_b, "inter").view(torch.int32))
+    a_pop = ops.row_counts(pa_b[:, None]).to(torch.float32)
+    b_pop = ops.row_counts(pb_b[:, None]).to(torch.float32)
+    inter2 = inter_p * 2  # a two-block sum's range
+    for metric in ("tanimoto", "cosine"):
+        for c in ((inter_p, a_pop, b_pop), (inter2, a_pop * 2, b_pop * 2)):
+            errs["mesh_pairwise_finish"] = max(errs["mesh_pairwise_finish"], max_abs_err(
+                torch, sim.mesh_pairwise_finish(*c, metric).view(torch.int32), sim.mesh_pairwise_finish_plain(*c, metric).view(torch.int32)))
+    log("max |kernel - plain| on the mesh path's 4x2 blocks:", json.dumps(errs))
+    if any(errs.values()):
+        raise AssertionError(f"a kernel disagrees with its plain version: {errs}")
+
+    # --------------------------------------------------------- timings
+    plane = s_l * w_l * 4
+    tplane = ts_l * w_l * 4
+    keys, hist = sim.mesh_sim_keys(inter, row_pop, q_pop, "tanimoto")
+    scores = sim.mesh_pairwise_finish_plain(inter.to(torch.float32)[None], row_pop.to(torch.float32), q_pop.to(torch.float32), "tanimoto")[0]
+    n_p, m_p, w_p = pa_b.shape[0], pb_b.shape[0], pa_b.shape[1]
+    shifts = torch.arange(32, dtype=torch.int32, device=dev)
+    int_mm = on_card and hasattr(torch, "_int_mm")
+
+    def unpack8(t):
+        bits = ((t[:, :, None] >> shifts) & 1).reshape(t.shape[0], -1)
+        return bits.to(torch.int8) if int_mm else bits.to(torch.bfloat16)
+
+    a8, b8 = unpack8(pa_b), unpack8(pb_b)
+    mm = (lambda: torch._int_mm(a8, b8.t())) if int_mm else (lambda: torch.matmul(a8, b8.t()))
+    keep = (didx[:, 0] >= 0) & (didx[:, 0] < R_PAD) & (didx[:, 1] >= 0) & (didx[:, 1] < s_l)
+    r_ok, s_ok, rows_ok = didx[keep, 0].long(), didx[keep, 1].long(), drows[keep]
+    out_b, op_b = bound_ms((n_p + m_p) * w_p * 4 + n_p * m_p * 4), ops_ms(2 * n_p * m_p * w_p * 32)
+    block = f"4x2 block [{R_PAD}, {s_l}, {w_l}]"
+    results = {
+        "tree_eval": dict(
+            ms=cuda_ms(torch, lambda: ops.tree_eval([fb], [(0, 1), (0, 2)], [(L, 0), (L, 1), (A, 0)], s_l, True, device=dev, n_words=w_l), 20),
+            plain_ms=cuda_ms(torch, lambda: bitwise.tree_eval_plain([fb], [(0, 1), (0, 2)], [(L, 0), (L, 1), (A, 0)], s_l, True, dev, (), w_l), 2),
+            bound_ms=bound_ms(2 * plane), library_ms=None, shape=f"count, Intersect, {block}",
+            replaces="pilosa_tpu/parallel/mesh.py:388"),
+        "row_counts": dict(
+            ms=cuda_ms(torch, lambda: ops.row_counts(fb), 10), plain_ms=cuda_ms(torch, lambda: topn.row_counts_plain(fb), 1),
+            bound_ms=bound_ms(R_PAD * plane), library_ms=None, shape=f"TopN, {block}",
+            replaces="pilosa_tpu/parallel/mesh.py:399"),
+        "stack_delta": dict(
+            ms=cuda_ms(torch, lambda: ops.apply_stack_delta(fb, didx, drows), 5),
+            plain_ms=cuda_ms(torch, lambda: stack.apply_stack_delta_plain(fb, didx, drows), 2),
+            bound_ms=bound_ms(2 * fb.numel() * 4 + int(keep.sum()) * w_l * 4 + didx.numel() * 4),
+            library_ms=cuda_ms(torch, lambda: torch.index_put(fb, (r_ok, s_ok), rows_ok), 5), shape=f"delta, {block}",
+            replaces="pilosa_tpu/executor/compile.py:194"),
+        "bsi_sum": dict(
+            ms=cuda_ms(torch, lambda: ops.bsi_sum(tbm, D), 20), plain_ms=cuda_ms(torch, lambda: bsi.bsi_sum_plain(tbm, D), 2),
+            bound_ms=bound_ms((2 + D) * tplane), library_ms=None, shape=f"Sum, 4x2 block [32, {ts_l}, {w_l}]",
+            replaces="pilosa_tpu/parallel/mesh.py:440"),
+        "bsi_minmax": dict(
+            ms=cuda_ms(torch, lambda: ops.bsi_min_max(tbm, D, None, False), 20),
+            plain_ms=cuda_ms(torch, lambda: bsi.bsi_min_max_plain(tbm, D, None, False), 2),
+            bound_ms=bound_ms((2 + D) * tplane), library_ms=None, shape=f"Min, 4x2 block [32, {ts_l}, {w_l}]",
+            replaces="pilosa_tpu/parallel/mesh.py:486"),
+        "gb_counts": dict(
+            ms=cuda_ms(torch, lambda: ops.gb_counts(masks4, pc, rows16), 20),
+            plain_ms=cuda_ms(torch, lambda: groupby.gb_counts_plain(masks4, pc, rows16), 2),
+            bound_ms=bound_ms((4 + 10) * tplane), library_ms=None, shape="4 masks x 10 rows, 4x2 block",
+            replaces="pilosa_tpu/parallel/mesh.py:527"),
+        "gb_masks": dict(
+            ms=cuda_ms(torch, lambda: ops.gb_masks(ones, pc, i32([0] * 16), rows16), 10),
+            plain_ms=cuda_ms(torch, lambda: groupby.gb_masks_plain(ones, pc, i32([0] * 16), rows16), 2),
+            bound_ms=bound_ms((1 + 10 + 16) * tplane), library_ms=None, shape="1 + 10 -> 16 masks, 4x2 block",
+            replaces="pilosa_tpu/parallel/mesh.py:542"),
+        "sim_select": dict(
+            ms=cuda_ms(torch, lambda: sim.select_top(keys, hist, 5), 20), plain_ms=cuda_ms(torch, lambda: sim.select_top_plain(keys, 5), 20),
+            bound_ms=bound_ms(R_PAD * 8 + 5 * 8), library_ms=cuda_ms(torch, lambda: torch.topk(scores, 5), 20),
+            shape=f"k = 5 of the search's {R_PAD} keys", replaces="pilosa_tpu/parallel/mesh.py:690"),
+        "pairwise": dict(
+            ms=cuda_ms(torch, lambda: sim.pairwise(pa_b, pb_b, "inter"), 10),
+            plain_ms=cuda_ms(torch, lambda: sim.pairwise_plain(pa_b, pb_b, "inter"), 2),
+            bound_ms=max(out_b, op_b), bound_by="operations" if op_b >= out_b else "bytes",
+            library_ms=cuda_ms(torch, mm, 10), shape=f"inter, [{n_p}, {w_p}] x [{m_p}, {w_p}]",
+            replaces="pilosa_tpu/parallel/mesh.py:786"),
+        "mesh_sim_keys": dict(
+            ms=cuda_ms(torch, lambda: sim.mesh_sim_keys(inter, row_pop, q_pop, "tanimoto"), 20),
+            plain_ms=cuda_ms(torch, lambda: sim.mesh_sim_keys_plain(inter, row_pop, q_pop, "tanimoto"), 20),
+            bound_ms=bound_ms(3 * R_PAD * 8 + 8 + sim.SELECT_BINS * 4), library_ms=None,
+            shape=f"{R_PAD} rows"),
+        "mesh_pairwise_finish": dict(
+            ms=cuda_ms(torch, lambda: sim.mesh_pairwise_finish(inter_p, a_pop, b_pop, "tanimoto"), 10),
+            plain_ms=cuda_ms(torch, lambda: sim.mesh_pairwise_finish_plain(inter_p, a_pop, b_pop, "tanimoto"), 2),
+            bound_ms=bound_ms(2 * n_p * m_p * 4 + (n_p + m_p) * 4), library_ms=None, shape=f"Tanimoto, [{n_p}, {m_p}]"),
+    }
+    times["sim_select_k5_library"] = "torch.topk of the f32 scores"
+    times["pairwise_library"] = "torch._int_mm int8" if int_mm else "torch.matmul bf16"
+    one = {"count": main["p50"]["count"], "topn": main["p50"]["topn"], "sum": taxi["p50"]["sum"], "groupby": taxi["p50"]["groupby"]}
+    times["one_device_p50_ms"] = one
+    times["one_device_count_split"], times["one_device_count_profiled"] = main["count_split"], main["count_profiled"]
+    log("mesh times:", json.dumps(times))
+    for key, ms in one.items():
+        log(f"sync p50 {key}: one device {ms:.3f} ms, mesh 8x1 {times['8x1_' + key + '_p50_ms']:.3f} ms, "
+            f"mesh 4x2 {times['4x2_' + key + '_p50_ms']:.3f} ms")
+    del block_inputs, pairwise_out
+    free()
+    return {n: (errs[n], t) for n, t in results.items()}, launches
 
 
 def main(
@@ -1261,6 +1813,8 @@ def main(
             api.query("bench", headline)
             lat.append(time.perf_counter() - t0)
         times["sync_count_p50_ms"] = float(np.median(lat)) * 1e3
+        times["count_split"] = split_ms(api.executor, "bench", headline)
+        times["count_profiled"] = device_busy(torch, lambda: api.query("bench", headline))
         n_pipe = 64
         t0 = time.perf_counter()
         pend = [p for _ in range(n_pipe) for p in api.executor.dispatch("bench", headline)]
@@ -1308,6 +1862,16 @@ def main(
         log("router decisions on the main path:", json.dumps(router.decisions))
         if router.decisions["host_unported"] != 0:
             raise AssertionError(f"a main-path call ran host-side for want of a port: {router.decisions}")
+        # the one-device route's answers to the mesh path's queries, after the write
+        mesh_answers = {pql: api.query("bench", pql)["results"][0] for pql, _r in mesh_main_queries(N_SHARDS)}
+        mesh_answers[shift_checks[0][0]] = api.query("bench", shift_checks[0][0])["results"][0]
+        row1_digest = digest(api.executor.execute("bench", "Row(f=1)")[0].segments, shards)
+        mesh_ctx = {
+            "holder": h, "index": idx, "shards": shards, "blocks": blocks, "exists": exists,
+            "writes": [(write_shard, col)], "answers": mesh_answers, "row1_digest": row1_digest,
+            "p50": {"count": times["sync_count_p50_ms"], "topn": times["topn_p50_ms"]},
+            "count_split": times["count_split"], "count_profiled": times["count_profiled"],
+        }
 
         # write phase: a small holder loaded through the import entry points
         for k in _cuda.KERNELS.values():
@@ -1408,6 +1972,16 @@ def main(
         if any(errs.values()):
             raise AssertionError(f"a kernel disagrees with its plain version: {errs}")
         del delta_cases[0]
+        # the mesh path's search on one device: row 1 against every row of
+        # the whole stack (K2 twice, K12, K10), for the mesh's answers
+        inter1, pop1 = ops.row_counts(fm, fm[1].contiguous()), ops.row_counts(fm)
+        mesh_ctx["search"] = {}
+        for metric in ("tanimoto", "cosine"):
+            keys1, hist1 = ops.similarity.mesh_sim_keys(inter1, pop1, pop1[1:2].contiguous(), metric)
+            for k in MESH_SEARCH_K:
+                top = ops.similarity.select_top(keys1, hist1, min(k, R_PAD))
+                mesh_ctx["search"][(metric, k)] = tuple(t.cpu() for t in top)
+        del inter1, pop1, keys1, hist1
 
         # --------------------------------------------------------- timings
         plane = N_SHARDS * W * 4
@@ -1456,20 +2030,28 @@ def main(
         })
         log("times:", json.dumps(times))
         results = {"tree_eval": k1, "row_counts": k2, "stack_delta": k3, "shift_words": k7}
-        return {name: (errs[name], t) for name, t in results.items()}, launches
-    main_results, main_launches = main_path()
+        return {name: (errs[name], t) for name, t in results.items()}, launches, mesh_ctx
+    main_results, main_launches, main_ctx = main_path()
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
     taxi_results, taxi_launches, taxi = taxi_path(torch, device, taxi_shards)
+    # the mesh path's share of the taxi holder (the residency path drops its API)
+    taxi_ctx = {k: taxi[k] for k in ("holder", "index", "checks", "answers", "depth", "p50")}
     res_results, res_launches = residency_path(torch, device, taxi, budget)
     del taxi
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
     sim_results, sim_launches = similarity_path(torch, device, sim_rows, sim_block)
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    mesh_results, mesh_launches = mesh_path(torch, device, main_ctx, taxi_ctx, sim_block)
+    del main_ctx, taxi_ctx
     paths = (("main", main_results, main_launches), ("taxi", taxi_results, taxi_launches),
-             ("residency", res_results, res_launches), ("similarity", sim_results, sim_launches))
+             ("residency", res_results, res_launches), ("similarity", sim_results, sim_launches),
+             ("mesh", mesh_results, mesh_launches))
     kernels = [
         kernel_entry(_cuda.KERNELS[name], {p: launches[name] for p, _r, launches in paths}, err, t, path)
         for path, results, _launches in paths

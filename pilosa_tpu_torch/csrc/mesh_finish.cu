@@ -1,0 +1,129 @@
+// K12: the elementwise finish of the mesh engine's similarity programs,
+// run on the reduced counts.
+//
+// Replaces the score lines of pilosa_tpu/parallel/mesh.py (B16):
+//
+// - mesh_sim_keys: the Tanimoto (:684-688) and cosine (:726-733) scores
+//   of the one-vs-all search, from the counts the reduction tree summed
+//   over the words and then the shards axis: inter = |a ∩ q| and
+//   row_pop = |a| as int64[R], q_pop = |q| as one int64. Rounded as the
+//   reference's f32 program: each count cast to f32 (round to nearest),
+//     tanimoto: (f32(row_pop) + f32(q_pop)) - f32(inter), then the
+//               division, 0 where the union is not > 0;
+//     cosine:   sqrt(f32(row_pop) * f32(q_pop)), the product rounded to
+//               f32 before the root, then the division, 0 where the
+//               root is not > 0.
+//   Each score becomes K10's sortable key, (score bits) << 32 |
+//   (2^32 - 1 - row), as csrc/similarity_scan.cu's K9 writes it, and the
+//   first-digit histogram K10 starts from counts key >> 50 (clamped to
+//   its last bin, which only counts with inter > min(row_pop, q_pop)
+//   reach). K10 then takes the reference's lax.top_k (:690, :735).
+// - mesh_pairwise_finish: the all-pairs epilogue (:796-800) on the
+//   intersection counts summed over the words axis, inter f32[N, M],
+//   with a_pop f32[N] and b_pop f32[M]: Tanimoto or cosine, rounded as
+//   K11's fused modes (csrc/pairwise.cu).
+//
+// The intrinsics (__fadd_rn, __fmul_rn, __fsqrt_rn, __fdiv_rn) keep
+// nvcc from contracting a product into a sum and give the IEEE results.
+// Bound on the H100: bytes. Both passes read their counts once and write
+// their output once; the search's histogram is one shared-memory
+// atomic per row and one global atomic per non-empty bin and block.
+#include "common.cuh"
+
+#define MF_BINS 4096
+#define MF_FIRST_SHIFT 50
+#define MF_TANIMOTO 0
+#define MF_COSINE 1
+
+typedef unsigned long long u64;
+
+__device__ __forceinline__ float mf_score(float fi, float fa, float fb,
+                                          int metric) {
+  if (metric == MF_TANIMOTO) {
+    const float uni = __fsub_rn(__fadd_rn(fa, fb), fi);
+    return uni > 0.f ? __fdiv_rn(fi, uni) : 0.f;
+  }
+  const float den = __fsqrt_rn(__fmul_rn(fa, fb));
+  return den > 0.f ? __fdiv_rn(fi, den) : 0.f;
+}
+
+__global__ void __launch_bounds__(PT_BLOCK)
+    mesh_sim_keys_kernel(const long long* __restrict__ inter,
+                         const long long* __restrict__ row_pop,
+                         const long long* __restrict__ q_pop, long long n,
+                         int metric, u64* __restrict__ keys,
+                         unsigned* __restrict__ hist) {
+  __shared__ unsigned s_hist[MF_BINS];
+  for (int i = threadIdx.x; i < MF_BINS; i += PT_BLOCK) s_hist[i] = 0u;
+  __syncthreads();
+  const float fq = __ll2float_rn(*q_pop);
+  const long long step = (long long)gridDim.x * PT_BLOCK;
+  for (long long row = (long long)blockIdx.x * PT_BLOCK + threadIdx.x;
+       row < n; row += step) {
+    const float sc = mf_score(__ll2float_rn(inter[row]),
+                              __ll2float_rn(row_pop[row]), fq, metric);
+    const u64 key = ((u64)__float_as_uint(sc) << 32) |
+                    (u64)(0xffffffffu - (unsigned)row);
+    keys[row] = key;
+    // counts with inter <= min(row_pop, q_pop) give scores below 2.0, so
+    // the digit is below MF_BINS; the clamp keeps other input in bounds
+    const u64 digit = key >> MF_FIRST_SHIFT;
+    atomicAdd(&s_hist[digit < MF_BINS ? (unsigned)digit : MF_BINS - 1], 1u);
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < MF_BINS; i += PT_BLOCK) {
+    if (s_hist[i]) atomicAdd(&hist[i], s_hist[i]);
+  }
+}
+
+__global__ void __launch_bounds__(PT_BLOCK)
+    mesh_pairwise_finish_kernel(const float* __restrict__ inter,
+                                const float* __restrict__ a_pop,
+                                const float* __restrict__ b_pop, long long n,
+                                long long m, int metric,
+                                float* __restrict__ out) {
+  const long long total = n * m;
+  const long long step = (long long)gridDim.x * PT_BLOCK;
+  for (long long i = (long long)blockIdx.x * PT_BLOCK + threadIdx.x;
+       i < total; i += step) {
+    const long long r = i / m, c = i - r * m;
+    out[i] = mf_score(inter[i], a_pop[r], b_pop[c], metric);
+  }
+}
+
+static unsigned mf_grid(long long items) {
+  long long blocks = (items + PT_BLOCK - 1) / PT_BLOCK;
+  if (blocks > pt_resident_blocks()) blocks = pt_resident_blocks();
+  return (unsigned)(blocks < 1 ? 1 : blocks);
+}
+
+// inter, row_pop: int64[R]; q_pop: int64[1]; metric 0 Tanimoto, 1 cosine;
+// keys: int64[R]; hist: zeroed int32[4096]. Returns cudaGetLastError().
+PT_EXPORT int mesh_sim_keys(const void* inter, const void* row_pop,
+                            const void* q_pop, long long n, int metric,
+                            void* keys, void* hist, void* stream) {
+  if (n < 0 || n > 0x7fffffffLL || (metric != MF_TANIMOTO && metric != MF_COSINE)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (n == 0) return (int)cudaGetLastError();
+  mesh_sim_keys_kernel<<<mf_grid(n), PT_BLOCK, 0, (cudaStream_t)stream>>>(
+      (const long long*)inter, (const long long*)row_pop,
+      (const long long*)q_pop, n, metric, (u64*)keys, (unsigned*)hist);
+  return (int)cudaGetLastError();
+}
+
+// inter: f32[N, M]; a_pop: f32[N]; b_pop: f32[M]; metric 0 Tanimoto,
+// 1 cosine; out: f32[N, M]. Returns cudaGetLastError().
+PT_EXPORT int mesh_pairwise_finish(const void* inter, const void* a_pop,
+                                   const void* b_pop, long long n, long long m,
+                                   int metric, void* out, void* stream) {
+  if (n < 0 || m < 0 || (metric != MF_TANIMOTO && metric != MF_COSINE)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (n == 0 || m == 0) return (int)cudaGetLastError();
+  mesh_pairwise_finish_kernel<<<mf_grid(n * m), PT_BLOCK, 0,
+                                (cudaStream_t)stream>>>(
+      (const float*)inter, (const float*)a_pop, (const float*)b_pop, n, m,
+      metric, (float*)out);
+  return (int)cudaGetLastError();
+}

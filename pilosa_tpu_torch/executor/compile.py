@@ -142,14 +142,18 @@ def stack_view_matrices(
 _UPLOAD_CHUNK_BYTES = 256 << 20
 
 
-def upload_stack(view, shards: list[int], device: torch.device) -> tuple[torch.Tensor, int]:
-    """(int32[R, S, W] on ``device``, R) for a view's shard list."""
+def upload_stack(view, shards: list[int], device: torch.device, mesh_ctx=None):
+    """(int32[R, S, W] on ``device``, R) for a view's shard list; with a
+    mesh context, a MeshArray placed by its rule (parallel/mesh.py), each
+    block filled from host chunks of shards."""
     heights = [1]
     for s in shards:
         frag = view.fragment(s) if view else None
         if frag is not None:
             heights.append(frag.host_matrix()[0].shape[0])
     rows = max(heights)
+    if mesh_ctx is not None:
+        return _upload_placed(view, shards, rows, mesh_ctx), rows
     if device.type == "cpu":
         stacked, _ = stack_view_matrices(view, shards, rows)
         return torch.from_numpy(stacked.view(np.int32)), rows
@@ -159,6 +163,35 @@ def upload_stack(view, shards: list[int], device: torch.device) -> tuple[torch.T
         chunk, _ = stack_view_matrices(view, shards[lo : lo + step], rows)
         dev[:, lo : lo + chunk.shape[1]].copy_(torch.from_numpy(chunk.view(np.int32)))
     return dev, rows
+
+
+def _upload_placed(view, shards: list[int], rows: int, mesh_ctx):
+    """The [R, S, W] stack as a MeshArray: host chunks of shards, each
+    copied into the blocks whose shard range it meets."""
+    from pilosa_tpu_torch.parallel.mesh import MeshArray, empty_like_placement
+
+    shape = (rows, len(shards), WORDS_PER_SHARD)
+    mode = mesh_ctx.mode_for(len(shards), WORDS_PER_SHARD)
+    if mode == "replicate":
+        dev, _ = upload_stack(view, shards, mesh_ctx.lead)
+        return MeshArray(mesh_ctx.mesh, shape, mode, [[dev]])
+    out = empty_like_placement(mesh_ctx.mesh, shape, mode)
+    step = max(1, _UPLOAD_CHUNK_BYTES // (rows * WORDS_PER_SHARD * 4))
+    for lo in range(0, len(shards), step):
+        chunk, _ = stack_view_matrices(view, shards[lo : lo + step], rows)
+        src = torch.from_numpy(chunk.view(np.int32))
+        hi = lo + chunk.shape[1]
+        for i, j, blk in out.items():
+            s_lo, s_hi, w_lo, w_hi = out.cover(i, j)
+            a, b = max(lo, s_lo), min(hi, s_hi)
+            if a < b:
+                blk[:, a - s_lo : b - s_lo].copy_(src[:, a - lo : b - lo, w_lo:w_hi])
+    return out
+
+
+def _nbytes(stack) -> int:
+    """Device bytes of a stack: a tensor, or a MeshArray's blocks once each."""
+    return stack.nbytes if not isinstance(stack, torch.Tensor) else stack.numel() * stack.element_size()
 
 
 class StackCache:
@@ -174,6 +207,11 @@ class StackCache:
     packed rows cross host→device, and the delta scatter (K3) writes
     them into a copy of the resident stack in place of a full
     O(S·R·W) re-upload.
+
+    With a mesh context (parallel/mesh.py) a dense stack is a MeshArray
+    of blocks over the mesh, and a delta runs K3 once per block it
+    touches; residency stores and slot stacks sit whole on the lead
+    device, ``self.device``.
     """
 
     MAX_ENTRIES = 64
@@ -195,8 +233,9 @@ class StackCache:
                 self._budget = 2 << 30
         return self._budget
 
-    def __init__(self, device: "str | torch.device" = "cuda", stats=None):
+    def __init__(self, device: "str | torch.device" = "cuda", stats=None, mesh_ctx=None):
         self.device = ops.resolve_device(device)
+        self.mesh_ctx = mesh_ctx
         self.stats = stats
         self._budget: int | None = None
         self._cache: "OrderedDict[tuple, tuple]" = OrderedDict()
@@ -319,7 +358,7 @@ class StackCache:
             if cached is not None:
                 entry = self._try_delta(cached, view, shards, versions, view_ver)
             if entry is None:
-                dev, max_rows = upload_stack(view, shards, self.device)
+                dev, max_rows = upload_stack(view, shards, self.device, self.mesh_ctx)
                 with self._lock:
                     self.full_restacks += 1
                 entry = (versions, dev, max_rows, view_ver)
@@ -329,7 +368,7 @@ class StackCache:
             raise
         with self._lock:
             self._reserved.pop(build_token, None)
-            nbytes = entry[1].numel() * entry[1].element_size()
+            nbytes = _nbytes(entry[1])
             self._evict_for(nbytes - self._bytes.get(key, 0), keep=key)
             self._cache[key] = entry
             self._account(key, nbytes)
@@ -376,15 +415,62 @@ class StackCache:
             return (versions, dev, max_rows, view_ver)
         idx_arr = np.array([(r, i) for i, r, _w in updates], dtype=np.int32)
         row_arr = np.stack([w for _i, _r, w in updates]).view(np.int32)
-        new_dev = ops.apply_stack_delta(
-            dev,
-            torch.from_numpy(idx_arr).to(self.device),
-            torch.from_numpy(row_arr).to(self.device),
-        )
+        if isinstance(dev, torch.Tensor):
+            new_dev = ops.apply_stack_delta(
+                dev,
+                torch.from_numpy(idx_arr).to(self.device),
+                torch.from_numpy(row_arr).to(self.device),
+            )
+        else:
+            new_dev = self._delta_blocks(dev, idx_arr, row_arr)
         with self._lock:
             self.delta_updates += 1
             self.delta_rows_uploaded += len(updates)
         return (versions, new_dev, max_rows, view_ver)
+
+    @staticmethod
+    def _delta_blocks(placed, idx_arr: np.ndarray, row_arr: np.ndarray):
+        """A delta on a MeshArray stack: K3 once per block that holds a
+        changed (row, shard), on the block's slice of the changed rows
+        (its shards, its words), into a new block; untouched blocks are
+        shared with the old stack."""
+        from pilosa_tpu_torch.parallel.mesh import MeshArray
+
+        grid = []
+        for i, row in enumerate(placed.blocks):
+            out = []
+            for j, blk in enumerate(row):
+                s_lo, s_hi, w_lo, w_hi = placed.cover(i, j)
+                mine = (idx_arr[:, 1] >= s_lo) & (idx_arr[:, 1] < s_hi)
+                if not mine.any():
+                    out.append(blk)
+                    continue
+                local = idx_arr[mine].copy()
+                local[:, 1] -= s_lo
+                rows = np.ascontiguousarray(row_arr[mine][:, w_lo:w_hi])
+                out.append(ops.apply_stack_delta(
+                    blk, torch.from_numpy(local).to(blk.device), torch.from_numpy(rows).to(blk.device),
+                ))
+            grid.append(out)
+        return MeshArray(placed.mesh, placed.shape, placed.mode, grid)
+
+    def dense(self, idx: Index, field: Field, view_name: str, shards: list[int]):
+        """(int32[R, S, W] on the lead device, n_rows): the dense stack,
+        gathered from its blocks when it is placed on a mesh (the device
+        route under a mesh)."""
+        stack, rows = self.matrix(idx, field, view_name, shards)
+        return (stack if isinstance(stack, torch.Tensor) else stack.gather()), rows
+
+    def gathered_row(self, idx: Index, field: Field, view_name: str, shards: list[int], row_id: int) -> torch.Tensor:
+        """One row of a placed stack as int32[1, S, W] on the lead device
+        (the device route's leaf under a mesh); [0, S, W], which K1 reads
+        as zero words, for a row outside the stack."""
+        stack, _rows = self.matrix(idx, field, view_name, shards)
+        if not 0 <= row_id < stack.shape[0]:
+            return torch.empty((0,) + tuple(stack.shape[1:]), dtype=torch.int32, device=self.device)
+        if isinstance(stack, torch.Tensor):
+            return stack[row_id : row_id + 1]
+        return stack.gather_row(row_id)
 
     @staticmethod
     def _frag_token(view, shard: int) -> tuple:
@@ -550,9 +636,17 @@ class StackCache:
         return self.RESIDENCY_MODE
 
     def is_over_budget(self, idx: Index, field: Field, view_name: str, shards: list[int]) -> bool:
-        """Would this field's dense stack exceed the budget? O(S)
-        metadata, no allocation — the router's residency probe."""
-        r_pad = self._projected_rows(field.view(view_name), shards)
+        """Would this field's dense stack exceed the budget? O(1) for a
+        dense stack already resident and unchanged (``matrix`` serves it
+        from its fast path), else O(S) metadata, no allocation — the
+        router's residency probe."""
+        view = field.view(view_name)
+        if view is not None:
+            with self._lock:
+                cached = self._cache.get((idx.name, field.name, view_name, tuple(shards)))
+            if cached is not None and cached[3] == view.version:
+                return False
+        r_pad = self._projected_rows(view, shards)
         return len(shards) * r_pad * WORDS_PER_SHARD * 4 > self.STACK_BYTES_BUDGET
 
     @staticmethod
@@ -625,6 +719,8 @@ class StackCache:
         nbytes = int(np.prod(shape)) * 4
         self._evict_for(nbytes, keep=key)
         dev = torch.full(shape, fill, dtype=torch.int32, device=self.device)
+        if self.mesh_ctx is not None:
+            dev = self.mesh_ctx.place_block(dev)
         st = {"dev": dev, "slots": OrderedDict(), "free": [], "alloc": 0, "h": h, "nbytes": nbytes}
         entry.stores[kind] = st
         self._account(key, self._bytes.get(key, 0) + nbytes)
@@ -824,12 +920,18 @@ class _Planner:
     The array builders and slot thunks take the planner as their
     argument and close over no planner: a closure over ``self`` would
     make a reference cycle that keeps a finished plan — and the store
-    generation it read — alive until the cyclic collector runs."""
+    generation it read — alive until the cyclic collector runs.
 
-    def __init__(self, idx: Index, shards: list[int], stacks: StackCache):
+    With a mesh attached to the stacks, a ``blocked`` plan reads the
+    placed stacks themselves (MeshArrays, one K1 launch per block); the
+    device route's plan reads each leaf row gathered into a whole plane
+    on the lead device, and a BSI stack gathered whole."""
+
+    def __init__(self, idx: Index, shards: list[int], stacks: StackCache, blocked: bool = False):
         self.idx = idx
         self.shards = shards
         self.stacks = stacks
+        self.blocked = blocked
         self._builders: list = []  # device-array builders, called with the planner
         self._array_keys: dict[tuple, int] = {}
         self.arrays: list[torch.Tensor] = []
@@ -880,6 +982,8 @@ class _Planner:
             # time; the check allocates nothing when the stack is cached
             self.stacks.matrix(self.idx, field, view_name, self.shards)
         except StackOverBudget:
+            if self.blocked:
+                raise  # the router sends trees with tiered leaves to the device route
             if self.stacks.residency_mode() != "slots":
                 return self._tiered_leaf(field, view_name, row_id)
             fkey = (field.name, view_name)
@@ -888,6 +992,12 @@ class _Planner:
                 need[2].append(row_id)
             ai = self._add_array(("hot",) + fkey, lambda p: p._hot_resolved[fkey][0])
             return OP_LOAD, ai, lambda p: p._hot_resolved[fkey][1].get(row_id, -1)
+        if self.stacks.mesh_ctx is not None and not self.blocked:
+            ai = self._add_array(
+                ("g", field.name, view_name, row_id),
+                lambda p: p.stacks.gathered_row(p.idx, field, view_name, p.shards, row_id),
+            )
+            return OP_LOAD, ai, 0
         ai = self._add_array(
             ("m", field.name, view_name),
             lambda p: p.stacks.matrix(p.idx, field, view_name, p.shards)[0],
@@ -986,6 +1096,8 @@ class _Planner:
                 raise PlanError(f"Shift() n must be a non-negative integer, got {n!r}")
             if n == 0:
                 return self.plan(call.children[0])
+            if self.blocked:
+                raise PlanError("Shift has no blocked program (MESH_FALLBACK_CALLS)")
             return self._shift(call.children[0], n)
         raise PlanError(f"{name!r} is not a bitmap call")
 
@@ -999,10 +1111,15 @@ class _Planner:
         try:
             self.stacks.matrix(self.idx, field, VIEW_BSI, self.shards)
         except StackOverBudget:
-            if self.stacks.residency_mode() == "slots":
+            if self.blocked or self.stacks.residency_mode() == "slots":
                 raise
             slices = [self._leaf(field, VIEW_BSI, d) for d in range(BSI_OFFSET + field.bit_depth)]
             return self._add_array(("bsitier", field.name), lambda p: p._bsi_block(slices))
+        if self.stacks.mesh_ctx is not None and not self.blocked:
+            return self._add_array(
+                ("mg", field.name, VIEW_BSI),
+                lambda p: p.stacks.dense(p.idx, field, VIEW_BSI, p.shards)[0],
+            )
         return self._add_array(
             ("m", field.name, VIEW_BSI),
             lambda p: p.stacks.matrix(p.idx, field, VIEW_BSI, p.shards)[0],
@@ -1121,13 +1238,28 @@ def check_program(ops_list: list, n_leaves: int, n_conds: int = 0) -> None:
 # ----------------------------------------------------------- compiled API
 class QueryCompiler:
     """Plans call trees into postfix programs and launches them; one
-    program serves both the count and the words mode."""
+    program serves both the count and the words mode.
 
-    def __init__(self, device: "str | torch.device" = "cuda", stats=None):
+    With a mesh context spanning more than one position, a
+    MeshQueryEngine (parallel/mesh.py) serves the mesh route: the same
+    plans, run per block with a reduction tree. ``device`` is then the
+    mesh's lead device."""
+
+    def __init__(self, device: "str | torch.device" = "cuda", stats=None, mesh_ctx=None):
         self.device = ops.resolve_device(device)
-        self.stacks = StackCache(self.device, stats=stats)
+        self.mesh_ctx = mesh_ctx
+        if mesh_ctx is not None and mesh_ctx.lead != self.device:
+            raise ValueError(f"the mesh's lead device {mesh_ctx.lead} is not the compiler's {self.device}")
+        self.stacks = StackCache(self.device, stats=stats, mesh_ctx=mesh_ctx)
         self._scalar_arrays: dict[tuple, torch.Tensor] = {}
+        self._mesh_scalars: dict[tuple, dict] = {}
         self._ones: dict[int, torch.Tensor] = {}
+        self._mesh_ones: dict[int, object] = {}
+        self.mesh_engine = None
+        if mesh_ctx is not None and mesh_ctx.n_devices > 1:
+            from pilosa_tpu_torch.parallel.mesh import MeshQueryEngine
+
+            self.mesh_engine = MeshQueryEngine(mesh_ctx.mesh)
         # the HOST compilation layer: numpy plans over host-resident
         # stacks (executor/hostpath.py); the executor's router picks
         # which engine a call runs on
@@ -1147,6 +1279,28 @@ class QueryCompiler:
             cached = torch.tensor(key, dtype=torch.int32).to(self.device)
             self._scalar_arrays[key] = cached
         return cached
+
+    def mesh_scalars(self, values: list[int]) -> dict:
+        """``device_scalars`` placed for the mesh: one int32 copy on
+        every device of the mesh, cached by value."""
+        key = tuple(values)
+        cached = self._mesh_scalars.get(key)
+        if cached is None:
+            if len(self._mesh_scalars) >= 4096:
+                self._mesh_scalars.clear()
+            cached = self.mesh_ctx.replicate(torch.tensor(key, dtype=torch.int32))
+            self._mesh_scalars[key] = cached
+        return cached
+
+    def mesh_ones(self, n_shards: int):
+        """``ones`` placed for the mesh (GroupBy's base mask), cached per
+        shard count."""
+        plane = self._mesh_ones.get(n_shards)
+        if plane is None:
+            self._mesh_ones.clear()
+            plane = self.mesh_ctx.place_rows(np.full((n_shards, WORDS_PER_SHARD), -1, dtype=np.int32))
+            self._mesh_ones[n_shards] = plane
+        return plane
 
     def ones(self, n_shards: int) -> torch.Tensor:
         """All-ones int32[S, W] on the device (an absent filter, as the
@@ -1202,3 +1356,62 @@ class QueryCompiler:
         planner = _Planner(idx, shards, self.stacks)
         si = planner._bsi(field)
         return planner.materialize()[si]
+
+    # ------------------------------------------------------ mesh programs
+    # The mesh route: the planner above, run blocked (its arrays are the
+    # placed stacks), and the MeshQueryEngine's builders launching K1 per
+    # block with the reduction tree.
+
+    def mesh_mode(self, n_shards: int) -> str | None:
+        """The placement mode serving this shard count, or None when no
+        mesh engine is attached or the shape only replicates."""
+        if self.mesh_engine is None:
+            return None
+        return self.mesh_engine.spec_mode(n_shards, WORDS_PER_SHARD)
+
+    def mesh_plan(self, idx: Index, call: Call, shards: list[int], mode: str):
+        """(BlockPlan, placed arrays) of a bitmap call tree for the mesh
+        route; every array is placed in ``mode``."""
+        from pilosa_tpu_torch.parallel.mesh import BlockPlan
+
+        planner = _Planner(idx, shards, self.stacks, blocked=True)
+        ops_list = planner.plan(call)
+        check_program(ops_list, len(planner.leaves), len(planner.conds))
+        arrays = planner.materialize()
+        for a in arrays:
+            if getattr(a, "mode", None) != mode:
+                raise PlanError(f"a leaf array is not placed in {mode!r} mode")
+        plan = BlockPlan(ops_list, planner.resolved_leaves(), planner.conds, len(shards), WORDS_PER_SHARD)
+        return plan, arrays
+
+    def mesh_bitmap_device(self, idx: Index, call: Call, shards: list[int]):
+        """A bitmap call tree as K1 words per block → placed int32[S, W]."""
+        mode = self.mesh_mode(len(shards))
+        plan, arrays = self.mesh_plan(idx, call, shards, mode)
+        run = self.mesh_engine.bitmap_tree(plan, mode)
+        return self.mesh_engine.dispatch("bitmap", run, arrays)
+
+    def mesh_bitmap_words(self, idx: Index, call: Call, shards: list[int]) -> np.ndarray:
+        """Synchronous mesh bitmap: each block read back into its place
+        of the host plane (spanned as ``mesh.collective``)."""
+        from pilosa_tpu_torch.utils.tracing import GLOBAL_TRACER
+
+        placed = self.mesh_bitmap_device(idx, call, shards)
+        with GLOBAL_TRACER.span("mesh.collective", program="bitmap", devices=self.mesh_engine.n_devices):
+            return placed.host().view(np.uint32)
+
+    def mesh_count_async(self, idx: Index, call: Call, shards: list[int]) -> torch.Tensor:
+        """Count as K1 counts per block and the reduction tree → int64 on
+        the lead device (not synced); rides the readback wave."""
+        mode = self.mesh_mode(len(shards))
+        plan, arrays = self.mesh_plan(idx, call, shards, mode)
+        run = self.mesh_engine.count_tree(plan, mode)
+        return self.mesh_engine.dispatch("count", run, arrays)
+
+    def mesh_snapshot(self) -> dict:
+        """The mesh engine's counters (``meshExecution``)."""
+        if self.mesh_engine is None:
+            return {"attached": False}
+        out = {"attached": True}
+        out.update(self.mesh_engine.snapshot())
+        return out

@@ -16,7 +16,14 @@ IncludesColumn, Options and the write calls. A field over the device
 budget serves through residency (compile.StackCache): its rows as tiered
 or hot-slot leaves, its BSI block assembled from tiered slices, and its
 TopN and GroupBy levels streamed in host-packed chunks through K2 and
-K6. Not ported: the mesh paths (ROADMAP.md A13).
+K6.
+
+With a mesh context (parallel/mesh.py) the router has a third route,
+``mesh``: the same read calls as blocked programs, one kernel launch per
+block of the placed stacks and a reduction tree onto the lead device
+(B16). Shift, trees that touch a tiered field and shapes that only
+replicate fall back to the device route, which gathers each leaf row's
+blocks into a whole plane on the lead device; each fallback is counted.
 """
 
 from __future__ import annotations
@@ -199,21 +206,28 @@ class Executor:
     def __init__(
         self,
         holder: Holder,
-        device: "str | torch.device" = "cuda",
+        device: "str | torch.device | None" = None,
         stats=None,
         route_mode: str | None = None,
         router: QueryRouter | None = None,
+        mesh_ctx=None,
     ):
+        """``device`` defaults to the card ("cuda"), or to the lead device
+        of ``mesh_ctx`` (a parallel.mesh.MeshContext) when one is given."""
         self.holder = holder
         self.stats = stats
-        self.compiler = QueryCompiler(device, stats=stats)
+        if device is None:
+            device = mesh_ctx.lead if mesh_ctx is not None else "cuda"
+        self.compiler = QueryCompiler(device, stats=stats, mesh_ctx=mesh_ctx)
         self.device = self.compiler.device
         self.router = (
             router if router is not None else QueryRouter(mode=route_mode, stats=stats)
         )
-        if self.router.mode == "mesh":
-            raise ValueError("mesh routing is not ported yet (ROADMAP.md A13)")
-        self.router.mesh_devices = 1
+        # the router's mesh path exists only while a multi-position mesh
+        # is attached; a rebuild without one resets it
+        self.router.mesh_devices = (
+            self.compiler.mesh_engine.n_devices if self.compiler.mesh_engine is not None else 1
+        )
         # per-query-string route cache (see _routes_for)
         self._route_cache: "OrderedDict[tuple, list]" = OrderedDict()
         self._route_cache_lock = threading.Lock()
@@ -228,8 +242,8 @@ class Executor:
         query,
         calls: "list[Call]",
         shards: list[int] | None,
-    ) -> "list[tuple[str | None, int]]":
-        """One ``(route, work)`` spec per call, via a cache that
+    ) -> "list[tuple[str | None, int, bool, int]]":
+        """One ``(route, work, mesh_ok, cold_words)`` spec per call, via a cache that
         revalidates every _ROUTE_CACHE_HITS hits when the query arrived
         as a raw string (the serving hot path)."""
         if not isinstance(query, str):
@@ -260,7 +274,7 @@ class Executor:
         index_name: str,
         query: str | list[Call],
         shards: list[int] | None = None,
-        routes: "list[tuple[str | None, int]] | None" = None,
+        routes: "list[tuple[str | None, int, bool, int]] | None" = None,
     ) -> list[Any]:
         results = self.dispatch(index_name, query, shards, routes=routes)
         pending = [r for r in results if isinstance(r, _Pending)]
@@ -276,7 +290,7 @@ class Executor:
         index_name: str,
         query: str | list[Call],
         shards: list[int] | None = None,
-        routes: "list[tuple[str | None, int]] | None" = None,
+        routes: "list[tuple[str | None, int, bool, int]] | None" = None,
     ) -> list[Any]:
         """Issue every call WITHOUT the readback wave — aggregates come
         back as unresolved ``_Pending``s, launched in program order on
@@ -300,12 +314,12 @@ class Executor:
                     self._execute_call(idx, c, shards, lazy=True, route=route)
                 )
             elapsed = time.perf_counter() - t0
-            if route in ("host", "device"):
+            if route in ("host", "device", "mesh"):
                 self.router.record(route)
                 if work > 0:
                     self.router.observe(route, work, elapsed)
                 if work > 0 and self.router.audit.enabled:
-                    est = self._candidate_costs(work, routes[i][2])
+                    est = self._candidate_costs(route, work, routes[i][2], routes[i][3])
                     res = results[-1]
                     if isinstance(res, _Pending):
                         res.audit = {
@@ -317,6 +331,9 @@ class Executor:
                         self.router.audit.record(route, est, elapsed)
                 if self.stats is not None:
                     self.stats.count("queries_routed", tags={"path": route})
+                if route == "mesh" and prof is not None:
+                    # ?profile=true: the mesh geometry, once per query
+                    prof.mesh = self.compiler.mesh_snapshot()
             if self.stats is not None:
                 self.stats.timing(
                     "executor_call_seconds", elapsed, tags={"call": c.name}
@@ -371,33 +388,62 @@ class Executor:
 
     # ------------------------------------------------------------ routing
     def _route(self, idx: Index, call: Call, shards: list[int] | None):
-        """(route, estimated_work_words, cold_upload_words) for one
-        top-level call. Writes route None; Rows is metadata-only and
+        """(route, estimated_work_words, mesh_ok, cold_upload_words) for
+        one top-level call. Writes route None; Rows is metadata-only and
         serves host-side. Under ``auto`` the router charges the device
-        route the upload of every cold row of a tiered field."""
+        route the upload of every cold row of a tiered field, and picks
+        the mesh route when a mesh engine is attached and the call tree
+        has blocked programs. A pinned ``mesh`` falls back to the device
+        route, counted, where it has none."""
         c, sh = call, shards
         while c.name == "Options" and len(c.children) == 1:
             sh = c.arg("shards", sh)
             c = c.children[0]
         if c.name in WRITE_CALLS:
-            return None, 0, 0
+            return None, 0, False, 0
         if c.name == "Rows":
-            return "host", 0, 0
+            return "host", 0, False, 0
         n = len(sh) if sh is not None else max(1, len(idx.available_shards()))
         work = estimate_words(idx, c, n)
-        if self.router.mode != "auto":
-            # pinned modes skip the residency walk on their hot path
-            return self.router.mode, work, 0
-        _tiered, cold_words = self._residency_info(idx, c, sh)
-        route = self.router.decide((idx.name, n, repr(c)), work, device_extra_words=cold_words)
-        return route, work, cold_words
+        if self.router.mode in ("host", "device"):
+            # pinned modes skip the residency and mesh walks on their hot path
+            return self.router.mode, work, False, 0
+        tiered, cold_words = self._residency_info(idx, c, sh)
+        # container stores hold payloads in global plane positions, which
+        # no block can decode: trees touching a tiered field stay on the
+        # device route
+        mesh_ok = self._mesh_ok(c, n) and not tiered
+        if self.router.mode == "mesh":
+            if mesh_ok:
+                return "mesh", work, True, cold_words
+            if self.compiler.mesh_engine is not None:
+                self.compiler.mesh_engine.note_fallback()
+            return "device", work, False, cold_words
+        route = self.router.decide(
+            (idx.name, n, repr(c)), work, mesh_ok=mesh_ok, device_extra_words=cold_words,
+        )
+        return route, work, mesh_ok, cold_words
 
-    def _candidate_costs(self, work: int, cold_words: int) -> dict:
+    def _mesh_ok(self, call: Call, n_shards: int) -> bool:
+        """Can this call run as blocked mesh programs: a mesh engine is
+        attached, the shard and word shapes place as blocks, and every
+        call of the tree has a blocked program?"""
+        if self.compiler.mesh_mode(n_shards) is None:
+            return False
+        from pilosa_tpu_torch.parallel.mesh import mesh_supported
+
+        return mesh_supported(call)
+
+    def _candidate_costs(self, route: str, work: int, mesh_ok: bool, cold_words: int) -> dict:
         """Modeled cost in seconds of each candidate path of one call;
-        the device path also pays its cold-row uploads at host speed."""
+        the device path also pays its cold-row uploads at host speed.
+        Mesh appears when it was a real candidate or was chosen."""
         r = self.router
         extra_s = cold_words / r._host_wps() if cold_words else 0.0
-        return {"host": r.host_cost(work), "device": r.device_cost(work) + extra_s}
+        costs = {"host": r.host_cost(work), "device": r.device_cost(work) + extra_s}
+        if (mesh_ok and r.mesh_devices > 1) or route == "mesh":
+            costs["mesh"] = r.mesh_cost(work) + extra_s
+        return costs
 
     def _residency_info(
         self, idx: Index, call: Call, shards: list[int] | None, detail: list | None = None,
@@ -506,11 +552,39 @@ class Executor:
         work = estimate_words(idx, c, n)
         res_detail: list = []
         tiered, cold_words = self._residency_info(idx, c, sh, detail=res_detail)
+        # mesh supportability, verdict and reason
+        mesh_attached = self.compiler.mesh_engine is not None
+        geometry_ok = mesh_attached and self.compiler.mesh_mode(n) is not None
+        programs_ok = False
+        if geometry_ok:
+            from pilosa_tpu_torch.parallel.mesh import mesh_supported
+
+            programs_ok = mesh_supported(c)
+        multi_device = self.router.mesh_devices > 1
+        mesh_ok = geometry_ok and programs_ok and not tiered and multi_device
+        if not mesh_attached:
+            mesh_reason = "no mesh engine attached"
+        elif not multi_device:
+            mesh_reason = "single device — mesh path disabled"
+        elif not geometry_ok:
+            mesh_reason = "shard/word geometry does not place onto the mesh"
+        elif not programs_ok:
+            mesh_reason = "call tree contains mesh-fallback calls"
+        elif tiered:
+            mesh_reason = "tiered residency pins to the device route"
+        else:
+            mesh_reason = "supported"
+        # the route taken now, without _route's fallback count (that
+        # counts served fallbacks only)
         if self.router.mode != "auto":
             route = self.router.mode
+            if route == "mesh" and not mesh_ok:
+                route = "device"
         else:
-            route = self.router.decide((idx.name, n, repr(c)), work, device_extra_words=cold_words)
-        costs = self._candidate_costs(work, cold_words)
+            route = self.router.decide(
+                (idx.name, n, repr(c)), work, mesh_ok=mesh_ok, device_extra_words=cold_words,
+            )
+        costs = self._candidate_costs(route, work, mesh_ok, cold_words)
         return {
             "call": c.name,
             "route": route,
@@ -525,6 +599,11 @@ class Executor:
                 "tiered": tiered,
                 "coldUploadWords": cold_words,
                 "rowRanges": res_detail,
+            },
+            "mesh": {
+                "supported": mesh_ok,
+                "reason": mesh_reason,
+                "meshDevices": self.router.mesh_devices,
             },
         }
 
@@ -554,6 +633,8 @@ class Executor:
             return self._execute_write(idx, call)
         shard_list = self._shards(idx, shards)
         host = route == "host"
+        # a direct caller may pass route="mesh" without a mesh engine
+        mesh = route == "mesh" and self.compiler.mesh_engine is not None
         try:
             if name in BITMAP_CALLS:
                 if host:
@@ -562,6 +643,8 @@ class Executor:
                     words = np.array(
                         self.compiler.host.bitmap_words(idx, call, shard_list)
                     )
+                elif mesh:
+                    words = self.compiler.mesh_bitmap_words(idx, call, shard_list)
                 else:
                     words = self.compiler.bitmap_words(idx, call, shard_list)
                 res = RowResult({s: words[i] for i, s in enumerate(shard_list)})
@@ -573,24 +656,31 @@ class Executor:
                     raise ExecutionError("Count() takes exactly one call")
                 if host:
                     return self.compiler.host.count(idx, call.children[0], shard_list)
-                pend = _Pending(
-                    [self.compiler.count_async(idx, call.children[0], shard_list)],
-                    lambda a: int(a[0]),
-                )
+                if mesh:
+                    pend = _Pending(
+                        [self.compiler.mesh_count_async(idx, call.children[0], shard_list)],
+                        lambda a: int(a[0]),
+                        route="mesh",
+                    )
+                else:
+                    pend = _Pending(
+                        [self.compiler.count_async(idx, call.children[0], shard_list)],
+                        lambda a: int(a[0]),
+                    )
                 return pend if lazy else pend.resolve_now()
             if name == "Sum":
-                return self._execute_sum(idx, call, shard_list, lazy=lazy, host=host)
+                return self._execute_sum(idx, call, shard_list, lazy=lazy, host=host, mesh=mesh)
             if name in ("Min", "Max"):
                 return self._execute_min_max(
-                    idx, call, shard_list, name == "Max", lazy=lazy, host=host
+                    idx, call, shard_list, name == "Max", lazy=lazy, host=host, mesh=mesh
                 )
             if name == "TopN":
-                return self._execute_topn(idx, call, shard_list, lazy=lazy, host=host)
+                return self._execute_topn(idx, call, shard_list, lazy=lazy, host=host, mesh=mesh)
             if name == "Rows":
                 return self._execute_rows(idx, call, shard_list)
             if name == "GroupBy":
                 return self._execute_group_by(
-                    idx, call, shard_list, lazy=lazy, host=host
+                    idx, call, shard_list, lazy=lazy, host=host, mesh=mesh
                 )
             if name == "IncludesColumn":
                 return self._execute_includes_column(idx, call, shard_list, host=host)
@@ -683,13 +773,26 @@ class Executor:
             return None
         return self.compiler.bitmap_device(idx, call.children[0], shards)
 
-    def _bsi_stacked(self, idx: Index, field: Field, shards: list[int]):
+    def _filter_plan(self, idx: Index, call: Call, shards: list[int], mode: str):
+        """The child-call filter of a mesh aggregate as (BlockPlan, placed
+        arrays): each block's filter is K1's words of its block, launched
+        before the aggregate's kernel on the same block. None without
+        one."""
+        if not call.children:
+            return None
+        return self.compiler.mesh_plan(idx, call.children[0], shards, mode)
+
+    def _bsi_stacked(self, idx: Index, field: Field, shards: list[int], mesh: bool = False):
         """(int32[P, S, W] BSI stack on the device, depth D). The kernels
         read a plane at or past P as zeros, so the stack is never padded
         to 2 + D. An over-budget stack assembles from tiered slice rows
-        in tiered mode; slots mode raises, as the reference's does."""
+        in tiered mode; slots mode raises, as the reference's does. With
+        ``mesh`` the stack is the placed MeshArray; on the device route
+        under a mesh it is gathered onto the lead device."""
         try:
-            m, _rows = self.compiler.stacks.matrix(idx, field, VIEW_BSI, shards)
+            if mesh:
+                return self.compiler.stacks.matrix(idx, field, VIEW_BSI, shards)[0], field.bit_depth
+            m, _rows = self.compiler.stacks.dense(idx, field, VIEW_BSI, shards)
         except StackOverBudget as e:
             if self.compiler.stacks.residency_mode() == "slots":
                 raise ExecutionError(str(e)) from e
@@ -699,24 +802,31 @@ class Executor:
     # ------------------------------------------------------- aggregates
     def _execute_sum(
         self, idx: Index, call: Call, shards: list[int], lazy: bool = False,
-        host: bool = False,
+        host: bool = False, mesh: bool = False,
     ):
         field = self._agg_field(idx, call)
         if host:
             value, n = self.compiler.host.sum(idx, field, call, shards)
             return SumCount(value, n)
-        stack, depth = self._bsi_stacked(idx, field, shards)
-        filt = self._filter_device(idx, call, shards)
-        pos, neg, n = ops.bsi_sum(stack, depth, None if filt is None else filt[None])
+        stack, depth = self._bsi_stacked(idx, field, shards, mesh=mesh)
+        if mesh:
+            mode = self.compiler.mesh_mode(len(shards))
+            eng = self.compiler.mesh_engine
+            run = eng.sum_tree(mode, fplan=self._filter_plan(idx, call, shards, mode))
+            pos, neg, n = eng.dispatch("sum", run, stack, depth)
+        else:
+            filt = self._filter_device(idx, call, shards)
+            pos, neg, n = ops.bsi_sum(stack, depth, None if filt is None else filt[None])
         pend = _Pending(
             [pos, neg, n],
             lambda a: SumCount(ops.bsi.weigh_sum(a[0][0], a[1][0]), int(a[2][0])),
+            route="mesh" if mesh else "device",
         )
         return pend if lazy else pend.resolve_now()
 
     def _execute_min_max(
         self, idx: Index, call: Call, shards: list[int], want_max: bool,
-        lazy: bool = False, host: bool = False,
+        lazy: bool = False, host: bool = False, mesh: bool = False,
     ):
         field = self._agg_field(idx, call)
         if host:
@@ -724,13 +834,21 @@ class Executor:
                 idx, field, call, shards, want_max
             )
             return SumCount(value, n)
-        stack, depth = self._bsi_stacked(idx, field, shards)
-        filt = self._filter_device(idx, call, shards)
-        values, counts = ops.bsi_min_max(stack, depth, filt, want_max)
+        stack, depth = self._bsi_stacked(idx, field, shards, mesh=mesh)
+        if mesh:
+            # every block's per-shard extremes, gathered: finish merges
+            # them as it merges per-shard partials
+            mode = self.compiler.mesh_mode(len(shards))
+            eng = self.compiler.mesh_engine
+            run = eng.minmax_tree(want_max, mode, fplan=self._filter_plan(idx, call, shards, mode))
+            values, counts = eng.dispatch("minmax", run, stack, depth)
+        else:
+            filt = self._filter_device(idx, call, shards)
+            values, counts = ops.bsi_min_max(stack, depth, filt, want_max)
 
         def finish(a):
-            # per-shard extremes merge exactly: min/max with its count is
-            # associative over disjoint shards
+            # per-shard (or per-block) extremes merge exactly: min/max
+            # with its count is associative over disjoint column blocks
             best, best_count = None, 0
             for v, n in zip(a[0].tolist(), a[1].tolist()):
                 if n == 0:
@@ -741,12 +859,12 @@ class Executor:
                     best_count += n
             return SumCount(best if best is not None else 0, best_count)
 
-        pend = _Pending([values, counts], finish)
+        pend = _Pending([values, counts], finish, route="mesh" if mesh else "device")
         return pend if lazy else pend.resolve_now()
 
     def _execute_topn(
         self, idx: Index, call: Call, shards: list[int], lazy: bool = False,
-        host: bool = False,
+        host: bool = False, mesh: bool = False,
     ):
         field = self._field(idx, self._call_field_name(call))
         n = call.arg("n")
@@ -773,15 +891,27 @@ class Executor:
             matrix, _n_rows = self.compiler.stacks.matrix(idx, field, VIEW_STANDARD, shards)
         except StackOverBudget:
             # streamed: chunk readbacks are the streaming discipline, so
-            # this path is synchronous; the filter is built once
+            # this path is synchronous; the filter is built once (under a
+            # mesh too: the stream is the fallback, counted)
+            if mesh:
+                self.compiler.mesh_engine.note_fallback()
             filt = self._filter_device(idx, call, shards)
             pairs = self._topn_chunked(field, shards, filt, ids=ids)
             return self._topn_finish(field, pairs, n, attr_name, attr_values, min_count)
-        filt = self._filter_device(idx, call, shards)
+        if mesh:
+            mode = self.compiler.mesh_mode(len(shards))
+            eng = self.compiler.mesh_engine
+            fplan = self._filter_plan(idx, call, shards, mode)
+            run = eng.topn_tree(mode, fplan is not None, ids is not None, fplan=fplan)
+            row_ids = self.compiler.mesh_scalars(list(ids)) if ids is not None else None
+            counts = eng.dispatch("topn", run, matrix, row_ids)
+        else:
+            if not isinstance(matrix, torch.Tensor):
+                matrix = matrix.gather()
+            filt = self._filter_device(idx, call, shards)
+            row_ids = self.compiler.device_scalars(list(ids)) if ids is not None else None
+            counts = ops.row_counts(matrix, filt, row_ids)
         if ids is not None:
-            counts = ops.row_counts(
-                matrix, filt, self.compiler.device_scalars(list(ids))
-            )
 
             def finish(a):
                 pairs = [
@@ -792,7 +922,6 @@ class Executor:
                 )
 
         else:
-            counts = ops.row_counts(matrix, filt)
 
             def finish(a):
                 nz = np.flatnonzero(a[0])
@@ -801,7 +930,7 @@ class Executor:
                     field, pairs, n, attr_name, attr_values, min_count
                 )
 
-        pend = _Pending([counts], finish)
+        pend = _Pending([counts], finish, route="mesh" if mesh else "device")
         return pend if lazy else pend.resolve_now()
 
     @staticmethod
@@ -907,15 +1036,35 @@ class Executor:
             }
         return {"rows": rows}
 
+    def _gb_programs(self, mesh_mode: str | None):
+        """(gb_counts, gb_masks, grouped Sum, row-id placement) for one
+        GroupBy execution: the kernels on the device, or the mesh
+        engine's blocked programs with their reduction trees, so the
+        call sites below stay engine-agnostic."""
+        if mesh_mode is None:
+            return ops.gb_counts, ops.gb_masks, ops.bsi_sum, self.compiler.device_scalars
+        eng = self.compiler.mesh_engine
+        counts = eng.groupby_counts_tree(mesh_mode)
+        masks = eng.groupby_masks_tree(mesh_mode)
+        sums = eng.grouped_sum_tree(mesh_mode)
+        return (
+            lambda m, mat, rows: eng.dispatch("groupby", counts, m, mat, rows),
+            lambda m, mat, g_idx, row_sel: eng.dispatch("groupby", masks, m, mat, g_idx, row_sel),
+            lambda st, depth, m: eng.dispatch("groupby", sums, st, depth, m),
+            self.compiler.mesh_scalars,
+        )
+
     def _execute_group_by(
         self, idx: Index, call: Call, shards: list[int], lazy: bool = False,
-        host: bool = False,
+        host: bool = False, mesh: bool = False,
     ):
         """GroupBy with the reference's row universes and emission order
         on either engine. On the device: the fused path (one deferred
         [G, K] readback) when no aggregate is asked for and the folded
         masks fit ``_gb_budget``, else the level-synchronous path, two
-        K6 launches per level and K4 for aggregate=Sum."""
+        K6 launches per level and K4 for aggregate=Sum. On the mesh the
+        same launches run per block; a level over the stack budget falls
+        back to the device route, counted."""
         if not call.children or any(ch.name != "Rows" for ch in call.children):
             raise ExecutionError("GroupBy() takes Rows() calls")
         limit = call.arg("limit")
@@ -951,23 +1100,39 @@ class Executor:
                 idx, fields, row_lists, filter_call, agg_field, limit, shards
             )
 
-        agg = self._bsi_stacked(idx, agg_field, shards) if agg_field is not None else None
+        stacks = self.compiler.stacks
+        if mesh and any(stacks.is_over_budget(idx, f, VIEW_STANDARD, shards) for f in fields):
+            # a streamed level has no placed stack to block
+            self.compiler.mesh_engine.note_fallback()
+            mesh = False
+        agg = self._bsi_stacked(idx, agg_field, shards, mesh=mesh) if agg_field is not None else None
         matrices = []
         for f in fields:
             try:
-                matrices.append(self.compiler.stacks.matrix(idx, f, VIEW_STANDARD, shards)[0])
+                if mesh:
+                    matrices.append(stacks.matrix(idx, f, VIEW_STANDARD, shards)[0])
+                else:
+                    matrices.append(stacks.dense(idx, f, VIEW_STANDARD, shards)[0])
             except StackOverBudget:
                 # an over-budget level has no resident stack: its counts
                 # and masks stream host-packed row chunks instead
                 matrices.append(None)
         n_shards = len(shards)
-        if filter_call is not None:
+        mesh_mode = self.compiler.mesh_mode(n_shards) if mesh else None
+        gb_counts, gb_masks, grouped_sum, dev_ids = self._gb_programs(mesh_mode)
+        if mesh:
+            if filter_call is not None:
+                base_mask = self.compiler.mesh_bitmap_device(idx, filter_call, shards)
+            else:
+                base_mask = self.compiler.mesh_ones(n_shards)
+        elif filter_call is not None:
             base_mask = self.compiler.bitmap_device(idx, filter_call, shards)
         else:
             base_mask = self.compiler.ones(n_shards)
         if aggregate is None and all(m is not None for m in matrices) and all(row_lists):
             fused = self._groupby_fused(
-                fields, row_lists, matrices, base_mask, limit, n_shards
+                fields, row_lists, matrices, base_mask, limit, n_shards,
+                gb_counts, gb_masks, dev_ids, route="mesh" if mesh else "device",
             )
             if fused is not None:
                 return fused if lazy else fused.resolve_now()
@@ -978,7 +1143,6 @@ class Executor:
         # so that the emission order — and `limit` — is the reference's.
         chunk_cap = max(1, self._gb_budget() // (n_shards * WORDS_PER_SHARD * 4))
         chunk_cap = 1 << (chunk_cap.bit_length() - 1)
-        dev_ids = self.compiler.device_scalars
         results: list[dict] = []
 
         def emit(groups: list[tuple], counts: np.ndarray, masks) -> None:
@@ -992,7 +1156,7 @@ class Executor:
                 )
             if agg is not None:
                 pos, neg, _n = (
-                    x.cpu().numpy() for x in ops.bsi_sum(agg[0], agg[1], masks[: len(groups)])
+                    x.cpu().numpy() for x in grouped_sum(agg[0], agg[1], masks[: len(groups)])
                 )
                 for i in range(len(groups)):
                     results[start + i]["sum"] = ops.bsi.weigh_sum(pos[i], neg[i])
@@ -1014,7 +1178,7 @@ class Executor:
             m = matrices[level]
             if m is not None:
                 rows_arr = dev_ids(_pad_row_ids(rows_l, _pow2(len(rows_l))))
-                return ops.gb_counts(masks, m, rows_arr).cpu().numpy()[:n_groups, : len(rows_l)]
+                return gb_counts(masks, m, rows_arr).cpu().numpy()[:n_groups, : len(rows_l)]
             frags = level_frags(level)
             hot = self.compiler.stacks.hot_capacity(n_shards)
             parts = []
@@ -1044,7 +1208,7 @@ class Executor:
                 row_sel = _pad_row_ids(local, p_pad)
             else:
                 row_sel = _pad_row_ids([rows_l[k] for k in chunk[:, 1].tolist()], p_pad)
-            return ops.gb_masks(masks, m, dev_ids(g_idx), dev_ids(row_sel))
+            return gb_masks(masks, m, dev_ids(g_idx), dev_ids(row_sel))
 
         def expand(level: int, masks, groups: list[tuple]) -> None:
             if limit is not None and len(results) >= limit:
@@ -1076,7 +1240,10 @@ class Executor:
             expand(0, base_mask[None], [()])
         return results
 
-    def _groupby_fused(self, fields, row_lists, matrices, base_mask, limit, n_shards):
+    def _groupby_fused(
+        self, fields, row_lists, matrices, base_mask, limit, n_shards,
+        gb_counts, gb_masks, dev_ids, route: str = "device",
+    ):
         """All-pairs GroupBy: fold every level but the last into one
         [G, S, W] pair-mask tensor (K6 gb_masks) with no readback, count
         the last level's rows against it (K6 gb_counts) and read the
@@ -1086,7 +1253,6 @@ class Executor:
         ascending row order, so ``limit`` cuts as the level path does.
         None when the folded masks would exceed ``_gb_budget``."""
         kp = [_pow2(len(r)) for r in row_lists]
-        dev_ids = self.compiler.device_scalars
         n_groups = 1
         masks = base_mask[None]
         for lvl in range(len(fields) - 1):
@@ -1095,12 +1261,12 @@ class Executor:
                 return None
             rows_arr = _pad_row_ids(row_lists[lvl], kp[lvl])
             g_idx = [g for g in range(n_groups) for _ in range(kp[lvl])]
-            masks = ops.gb_masks(
+            masks = gb_masks(
                 masks, matrices[lvl], dev_ids(g_idx), dev_ids(rows_arr * n_groups)
             )
             n_groups = g_new
         last = len(fields) - 1
-        counts = ops.gb_counts(
+        counts = gb_counts(
             masks, matrices[last], dev_ids(_pad_row_ids(row_lists[last], kp[last]))
         )
 
@@ -1127,7 +1293,7 @@ class Executor:
                 )
             return results
 
-        return _Pending([counts], finish)
+        return _Pending([counts], finish, route=route)
 
     def _execute_includes_column(
         self, idx: Index, call: Call, shards: list[int], host: bool = False

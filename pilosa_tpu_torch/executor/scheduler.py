@@ -75,8 +75,12 @@ def fetch_wave(pending: "list[_Pending]") -> None:
     int64, concatenate (``torch.cat``), and cross in ONE ``.cpu()``
     copy.  Host arrays land on ``p.fetched`` (original shapes);
     resolving finish() is the caller's job so per-query error isolation
-    stays possible."""
+    stays possible. Mesh pendings hold what their reduction trees left on
+    the lead device, so every member of a wave lies on one device."""
     flat = [torch.ravel(a).to(torch.int64) for p in pending for a in p.arrays]
+    devices = {a.device for a in flat}
+    if len(devices) > 1:
+        raise RuntimeError(f"a readback wave spans several devices: {sorted(map(str, devices))}")
     joined = (flat[0] if len(flat) == 1 else torch.cat(flat)).cpu().numpy()
     host, off = [], 0
     for a in flat:
@@ -301,7 +305,7 @@ class WaveScheduler:
                 return False, None
             rw = executor._route(idx, c, shards)
             routes.append(rw)
-            if rw[0] == "device":
+            if rw[0] in ("device", "mesh"):
                 any_device = True
         # host-routed calls bypass the window: no readback wave to
         # share, so queueing would only add latency (docs/query-batching.md)

@@ -1,7 +1,7 @@
 """Kernel library: plain torch versions and the hand-written CUDA kernels.
 
 Reference: pilosa_tpu/ops and the GroupBy programs of
-pilosa_tpu/executor/executor.py. Eleven kernels, each with its plain
+pilosa_tpu/executor/executor.py. Twelve kernels, each with its plain
 version beside it and a launch count on ``_cuda.KERNELS``; each line
 names the reference function it replaces (paths under pilosa_tpu/):
 
@@ -37,7 +37,14 @@ names the reference function it replaces (paths under pilosa_tpu/):
   order → f32 scores[k], int32 ids[k];
 - K11 ``similarity.pairwise`` (csrc/pairwise.cu) <- ops/similarity.py:51
   ``pairwise_intersections`` with the epilogues of :63
-  ``tanimoto_matrix`` and :72 ``cosine_matrix`` → f32[N, M].
+  ``tanimoto_matrix`` and :72 ``cosine_matrix`` → f32[N, M];
+- K12 ``similarity.mesh_sim_keys`` and ``similarity.mesh_pairwise_finish``
+  (csrc/mesh_finish.cu) <- parallel/mesh.py:684 and :796, the score
+  lines of the mesh similarity programs: K10's keys from reduced
+  counts, and the all-pairs epilogue on counts summed over the mesh.
+
+K1, K2, K4, K5, K6 and K11 also take a mesh block's slice of the word
+axis (parallel/mesh.py).
 """
 
 from pilosa_tpu_torch.ops import bitwise, bsi, containers, groupby, similarity, stack, topn

@@ -119,7 +119,7 @@ class Kernel:
     """One hand-written kernel: its source, its C entry and its count of
     launches (raised only where the kernel is launched), also kept per
     mode of the launch (``modes``). ``stem`` names the source when one
-    file holds several entries (K6, K9 and K10)."""
+    file holds several entries (K6, K9 and K10, K12)."""
 
     def __init__(self, name: str, argtypes: list, replaces: str, stem: str | None = None):
         self.name = name
@@ -245,11 +245,25 @@ PAIRWISE = Kernel(
     # and cosine_matrix (:72)
     "pilosa_tpu/ops/similarity.py:51",
 )
+MESH_SIM_KEYS = Kernel(
+    "mesh_sim_keys",
+    [_VP, _VP, _VP, _LL, _I, _VP, _VP, _VP],
+    # the score lines of the mesh Tanimoto (:684-688) and cosine (:726-733)
+    "pilosa_tpu/parallel/mesh.py:684",
+    stem="mesh_finish",
+)
+MESH_PAIRWISE_FINISH = Kernel(
+    "mesh_pairwise_finish",
+    [_VP, _VP, _VP, _LL, _LL, _I, _VP, _VP],
+    "pilosa_tpu/parallel/mesh.py:796",  # the all-pairs epilogue over the reduced counts
+    stem="mesh_finish",
+)
 KERNELS = {
     k.name: k
     for k in (
         TREE_EVAL, ROW_COUNTS, STACK_DELTA, BSI_SUM, BSI_MINMAX, GB_COUNTS, GB_MASKS,
         SHIFT_WORDS, CONTAINER_COUNT, SIM_SCAN, SIM_SELECT, PAIRWISE,
+        MESH_SIM_KEYS, MESH_PAIRWISE_FINISH,
     )
 }
 # the sources, one nvcc process each

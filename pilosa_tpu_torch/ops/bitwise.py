@@ -204,6 +204,7 @@ def tree_eval_plain(
     count: bool,
     device="cpu",
     conds: list[tuple[int, int, str, int]] = (),
+    n_words: int = WORDS_PER_SHARD,
 ) -> torch.Tensor:
     """Plain interpreter of a postfix program. ``stacks`` are int32
     [R_i, S, W] planes or compressed container stores; ``leaves`` are
@@ -213,7 +214,7 @@ def tree_eval_plain(
     from pilosa_tpu_torch.ops import bsi, containers
 
     zeros = lambda: torch.zeros(  # noqa: E731
-        (n_shards, WORDS_PER_SHARD), dtype=torch.int32, device=device
+        (n_shards, n_words), dtype=torch.int32, device=device
     )
     st: list[torch.Tensor] = []
     for op, arg in ops:
@@ -249,6 +250,7 @@ def _check_stacks(
     ops: list[tuple[int, int]],
     n_shards: int,
     conds: list[tuple[int, int, str, int]],
+    n_words: int = WORDS_PER_SHARD,
 ) -> tuple[int, int]:
     """Raise on a stack the program cannot read; → the sparse and run
     payload capacities (0 where the program has no such leaf)."""
@@ -257,19 +259,21 @@ def _check_stacks(
     for m in stacks:
         if m.dtype != torch.int32 or m.dim() < 2 or not m.is_contiguous():
             raise ValueError("stacks must be contiguous int32 tensors")
-    plane = (n_shards, WORDS_PER_SHARD)
+    plane = (n_shards, n_words)
     caps = {OP_LOAD_SPARSE: set(), OP_LOAD_RUN: set()}
     for op, arg in ops:
         if op not in _LOADS:
             continue
         m = stacks[leaves[arg][0]]
         if op == OP_LOAD and (m.dim() != 3 or tuple(m.shape[1:]) != plane):
-            raise ValueError(f"stack shape {tuple(m.shape)} is not [R, {n_shards}, {WORDS_PER_SHARD}]")
+            raise ValueError(f"stack shape {tuple(m.shape)} is not [R, {n_shards}, {n_words}]")
         if op == OP_LOAD_SPARSE and m.dim() != 2:
             raise ValueError(f"sparse store shape {tuple(m.shape)} is not [H, K]")
         if op == OP_LOAD_RUN and (m.dim() != 3 or m.shape[2] != 2):
             raise ValueError(f"run store shape {tuple(m.shape)} is not [H, K, 2]")
         if op != OP_LOAD:
+            if n_words != WORDS_PER_SHARD:
+                raise ValueError("a container leaf needs whole shards, not a block of the word axis")
             if n_shards * WORDS_PER_SHARD * BITS_PER_WORD > _MAX_CONTAINER_PLANE_BITS:
                 raise ValueError("a container leaf needs a plane of at most 2^31 bits")
             caps[op].add(m.shape[1])
@@ -279,7 +283,7 @@ def _check_stacks(
     for si, *_ in conds:
         m = stacks[si]
         if m.dim() != 3 or tuple(m.shape[1:]) != plane:
-            raise ValueError(f"BSI stack shape {tuple(m.shape)} is not [P, {n_shards}, {WORDS_PER_SHARD}]")
+            raise ValueError(f"BSI stack shape {tuple(m.shape)} is not [P, {n_shards}, {n_words}]")
     if len(caps[OP_LOAD_SPARSE]) > 1 or len(caps[OP_LOAD_RUN]) > 1:
         raise ValueError(f"container stores of several capacities in one program: {caps}")
     return max(caps[OP_LOAD_SPARSE], default=0), max(caps[OP_LOAD_RUN], default=0)
@@ -294,28 +298,32 @@ def tree_eval(
     device="cpu",
     conds: list[tuple[int, int, str, int]] = (),
     out: torch.Tensor | None = None,
+    n_words: int = WORDS_PER_SHARD,
 ) -> torch.Tensor:
     """Evaluate a postfix call-tree program over [S, W] planes (K1).
 
     The stacks' device decides the route; ``device`` names it only for a
     program with no stack (an empty Union(), say). In words mode ``out``
     (contiguous int32[S, W], a plane of a larger tensor, say) receives
-    the words in place of a new tensor."""
+    the words in place of a new tensor. ``n_words`` is W: a shard's
+    words, or a mesh block's slice of them (parallel/mesh.py)."""
     from pilosa_tpu_torch.ops.bsi import CMP_OPS
 
     dev = stacks[0].device if stacks else torch.device(device)
     for m in stacks:
         if m.device != dev:
             raise ValueError(f"stacks on {m.device} and {dev}")
-    sparse_cap, run_cap = _check_stacks(stacks, leaves, ops, n_shards, conds)
-    plane = (n_shards, WORDS_PER_SHARD)
+    if n_words < 4 or n_words % 4:
+        raise ValueError(f"W = {n_words} is not a positive multiple of 4 words")
+    sparse_cap, run_cap = _check_stacks(stacks, leaves, ops, n_shards, conds, n_words)
+    plane = (n_shards, n_words)
     if out is not None and (
         count or out.device != dev or out.dtype != torch.int32
         or tuple(out.shape) != plane or not out.is_contiguous()
     ):
         raise ValueError(f"out must be a contiguous int32{list(plane)} on {dev}, in words mode")
     if dev.type == "cpu":
-        got = tree_eval_plain(stacks, leaves, ops, n_shards, count, dev, conds)
+        got = tree_eval_plain(stacks, leaves, ops, n_shards, count, dev, conds, n_words)
         if out is None:
             return got
         out.copy_(got)
@@ -327,7 +335,7 @@ def tree_eval(
         or program_depth(ops) > TREE_MAX_STACK
     ):
         raise ValueError("tree program exceeds the kernel's limits")
-    n_vec = n_shards * WORDS_PER_SHARD // 4
+    n_vec = n_shards * n_words // 4
     a = _TreeArgs()
     for i, (si, row) in enumerate(leaves):
         m = stacks[si]

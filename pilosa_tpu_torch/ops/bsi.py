@@ -34,7 +34,10 @@ import torch
 
 from pilosa_tpu_torch.ops import _cuda
 from pilosa_tpu_torch.ops.bitwise import popcount, popcount_rows
-from pilosa_tpu_torch.shardwidth import WORDS_PER_SHARD
+
+# the widest word axis K5 takes: 8,192 vectors per shard, held in one
+# block's registers (csrc/bsi_minmax.cu)
+MINMAX_MAX_WORDS = 1 << 15
 
 EXISTS_ROW = 0
 SIGN_ROW = 1
@@ -200,8 +203,9 @@ def min_max(slices, filt: torch.Tensor, want_max: bool) -> tuple[torch.Tensor, t
 def _check_stack(stack: torch.Tensor, depth: int) -> tuple[int, int]:
     if stack.dtype != torch.int32 or stack.dim() != 3 or not stack.is_contiguous():
         raise ValueError("BSI stack must be contiguous int32[P, S, W]")
-    if stack.shape[2] != WORDS_PER_SHARD:
-        raise ValueError(f"BSI stack word axis {stack.shape[2]} != {WORDS_PER_SHARD}")
+    if stack.shape[2] < 4 or stack.shape[2] % 4:
+        # a shard's words, or a mesh block's slice of them
+        raise ValueError(f"BSI stack word axis {stack.shape[2]} is not a positive multiple of 4")
     if not 0 <= depth <= 63:
         raise ValueError(f"BSI depth {depth} outside [0, 63]")
     return stack.shape[1], stack.shape[2]
@@ -291,6 +295,8 @@ def bsi_min_max(
         _check_plane(filt, (n_shards, n_words), dev, "filter")
     if dev.type == "cpu":
         return bsi_min_max_plain(stack, depth, filt, want_max)
+    if n_words > MINMAX_MAX_WORDS:
+        raise ValueError(f"K5 takes at most {MINMAX_MAX_WORDS} words per shard, got {n_words}")
     value = torch.empty(n_shards, dtype=torch.int64, device=dev)
     count = torch.empty(n_shards, dtype=torch.int64, device=dev)
     _cuda.BSI_MINMAX.launch(

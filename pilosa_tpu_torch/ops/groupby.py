@@ -18,7 +18,6 @@ import torch
 
 from pilosa_tpu_torch.ops import _cuda
 from pilosa_tpu_torch.ops.bitwise import popcount_rows
-from pilosa_tpu_torch.shardwidth import WORDS_PER_SHARD
 
 
 def gb_counts_plain(
@@ -61,10 +60,10 @@ def _check(masks: torch.Tensor, matrix: torch.Tensor, *index: torch.Tensor) -> N
             raise ValueError(f"{what} on {t.device}, masks on {masks.device}")
     if masks.shape[0] < 1 or matrix.shape[0] < 1:
         raise ValueError("masks and matrix need at least one plane each")
-    if matrix.shape[1:] != masks.shape[1:] or masks.shape[2] != WORDS_PER_SHARD:
+    if matrix.shape[1:] != masks.shape[1:] or masks.shape[2] < 4 or masks.shape[2] % 4:
         raise ValueError(
             f"masks {tuple(masks.shape)} and matrix {tuple(matrix.shape)} "
-            f"are not [N, S, {WORDS_PER_SHARD}] over the same shards"
+            "are not [N, S, W] over the same shards and words (W a multiple of 4)"
         )
     for t in index:
         if t.device != masks.device or t.dtype != torch.int32 or t.dim() != 1 or not t.is_contiguous():

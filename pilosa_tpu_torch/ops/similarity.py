@@ -1,4 +1,4 @@
-"""Tanimoto and cosine similarity over packed bit vectors (K9, K10, K11).
+"""Tanimoto and cosine similarity over packed bit vectors (K9-K12).
 
 Reference: pilosa_tpu/ops/similarity.py (B14), the one-device path of
 the chemical-similarity demo and BASELINE's fifth config. Fingerprints
@@ -15,6 +15,11 @@ are ``int32[.., W]`` views of the reference's ``uint32`` words.
 - ``pairwise_intersections``, ``tanimoto_matrix``, ``cosine_matrix``:
   all pairs. K11 ``pairwise`` (csrc/pairwise.cu) counts each pair with
   AND + popcount and applies the mode's epilogue in the same launch.
+
+- ``mesh_sim_keys``, ``mesh_pairwise_finish``: K12 (csrc/mesh_finish.cu),
+  the elementwise finish of the mesh engine's programs
+  (parallel/mesh.py) on counts reduced over the mesh: the search's K10
+  keys, and the all-pairs scores from summed intersection counts.
 
 Each wrapper takes the plain version for tensors on the CPU and launches
 its kernel for CUDA tensors, or raises. The public entry points take
@@ -312,3 +317,100 @@ def cosine_matrix(a, b, device: "str | torch.device" = "cuda") -> torch.Tensor:
     |a∩b| / sqrt(|a|·|b|)."""
     dev = _cuda.resolve_device(device)
     return pairwise(as_words(a, dev), as_words(b, dev), "cosine")
+
+
+# ------------------------------------------------------- the mesh finish
+# K12 (csrc/mesh_finish.cu): the elementwise passes of the mesh engine's
+# similarity programs (parallel/mesh.py), run on counts its reduction
+# tree summed over the mesh.
+
+MESH_METRICS = {"tanimoto": 0, "cosine": 1}
+
+
+def _score_plain(inter: torch.Tensor, a_pop: torch.Tensor, b_pop: torch.Tensor, metric: str) -> torch.Tensor:
+    """f32 Tanimoto or cosine of f32 counts, rounded as the reference:
+    ``(a + b) - inter`` or ``sqrt(f32(a * b))``, then one division."""
+    if metric == "tanimoto":
+        union = (a_pop + b_pop) - inter
+        return torch.where(union > 0, _div(inter, union), 0.0)
+    denom = _sqrt(a_pop * b_pop)
+    return torch.where(denom > 0, _div(inter, denom), 0.0)
+
+
+def mesh_sim_keys_plain(
+    inter: torch.Tensor, row_pop: torch.Tensor, q_pop: torch.Tensor, metric: str
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K12's search entry, plain: int64 counts → (int64[R] K10 keys,
+    int32[SELECT_BINS] histogram of their top digit)."""
+    f32 = torch.float32
+    scores = _score_plain(inter.to(f32), row_pop.to(f32), q_pop.reshape(()).to(f32), metric)
+    ids = torch.arange(inter.shape[0], dtype=torch.int64, device=inter.device)
+    keys = (scores.view(torch.int32).to(torch.int64) << 32) | (_LOW32 - ids)
+    digits = (keys >> SELECT_SHIFTS[0]).clamp(max=SELECT_BINS - 1)
+    hist = torch.bincount(digits, minlength=SELECT_BINS).to(torch.int32)
+    return keys, hist
+
+
+def mesh_sim_keys(
+    inter: torch.Tensor, row_pop: torch.Tensor, q_pop: torch.Tensor, metric: str
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Scores of a one-vs-all search from its reduced counts (K12):
+    ``inter`` = |a ∩ q| and ``row_pop`` = |a| (int64[R]), ``q_pop`` = |q|
+    (an int64 of one element) → (int64[R] keys, int32[SELECT_BINS]
+    histogram) for ``select_top`` (K10). Counts of a set and its
+    intersections (inter <= min(row_pop, q_pop)) score below 2.0, whose
+    keys' first digit fits the histogram; a larger one counts in its
+    last bin."""
+    if metric not in MESH_METRICS:
+        raise ValueError(f"metric must be one of {sorted(MESH_METRICS)}, got {metric!r}")
+    dev = inter.device
+    for t, what in ((inter, "inter"), (row_pop, "row_pop"), (q_pop, "q_pop")):
+        if t.dtype != torch.int64 or t.device != dev or not t.is_contiguous():
+            raise ValueError(f"{what} must be contiguous int64 on {dev}")
+    if inter.dim() != 1 or row_pop.shape != inter.shape or q_pop.numel() != 1:
+        raise ValueError(f"inter {tuple(inter.shape)}, row_pop {tuple(row_pop.shape)} and q_pop must be [R], [R], [1]")
+    if dev.type == "cpu":
+        return mesh_sim_keys_plain(inter, row_pop, q_pop, metric)
+    n = inter.shape[0]
+    keys = torch.empty(n, dtype=torch.int64, device=dev)
+    hist = torch.zeros(SELECT_BINS, dtype=torch.int32, device=dev)
+    if n:
+        _cuda.MESH_SIM_KEYS.launch(
+            dev, inter.data_ptr(), row_pop.data_ptr(), q_pop.data_ptr(), n, MESH_METRICS[metric],
+            keys.data_ptr(), hist.data_ptr(), mode=metric,
+        )
+    return keys, hist
+
+
+def mesh_pairwise_finish_plain(
+    inter: torch.Tensor, a_pop: torch.Tensor, b_pop: torch.Tensor, metric: str
+) -> torch.Tensor:
+    """K12's all-pairs entry, plain: f32[N, M] scores."""
+    return _score_plain(inter, a_pop[:, None], b_pop[None, :], metric)
+
+
+def mesh_pairwise_finish(
+    inter: torch.Tensor, a_pop: torch.Tensor, b_pop: torch.Tensor, metric: str
+) -> torch.Tensor:
+    """All-pairs Tanimoto or cosine from intersection counts summed over
+    the mesh's words axis, ``inter`` f32[N, M], and the row counts
+    ``a_pop`` f32[N], ``b_pop`` f32[M] → f32[N, M] (K12), rounded as
+    K11's fused modes."""
+    if metric not in MESH_METRICS:
+        raise ValueError(f"metric must be one of {sorted(MESH_METRICS)}, got {metric!r}")
+    dev = inter.device
+    for t, what in ((inter, "inter"), (a_pop, "a_pop"), (b_pop, "b_pop")):
+        if t.dtype != torch.float32 or t.device != dev or not t.is_contiguous():
+            raise ValueError(f"{what} must be contiguous f32 on {dev}")
+    if inter.dim() != 2 or tuple(a_pop.shape) != (inter.shape[0],) or tuple(b_pop.shape) != (inter.shape[1],):
+        raise ValueError(f"inter {tuple(inter.shape)}, a_pop {tuple(a_pop.shape)}, b_pop {tuple(b_pop.shape)} do not match")
+    if dev.type == "cpu":
+        return mesh_pairwise_finish_plain(inter, a_pop, b_pop, metric)
+    n, m = inter.shape
+    out = torch.empty((n, m), dtype=torch.float32, device=dev)
+    if n and m:
+        _cuda.MESH_PAIRWISE_FINISH.launch(
+            dev, inter.data_ptr(), a_pop.data_ptr(), b_pop.data_ptr(), n, m, MESH_METRICS[metric],
+            out.data_ptr(), mode=metric,
+        )
+    return out

@@ -12,7 +12,6 @@ import torch
 
 from pilosa_tpu_torch.ops import _cuda
 from pilosa_tpu_torch.ops.bitwise import popcount_rows
-from pilosa_tpu_torch.shardwidth import WORDS_PER_SHARD
 
 
 def candidate_counts(
@@ -55,8 +54,9 @@ def row_counts(
     if matrix.dtype != torch.int32 or matrix.dim() != 3 or not matrix.is_contiguous():
         raise ValueError("matrix must be contiguous int32[R, S, W]")
     n_rows, n_shards, n_words = matrix.shape
-    if n_words != WORDS_PER_SHARD:
-        raise ValueError(f"matrix word axis {n_words} != {WORDS_PER_SHARD}")
+    if n_words < 4 or n_words % 4:
+        # a shard's words, or a mesh block's slice of them
+        raise ValueError(f"matrix word axis {n_words} is not a positive multiple of 4")
     for t in (filt, ids):
         if t is not None and (t.device != dev or t.dtype != torch.int32 or not t.is_contiguous()):
             raise ValueError("filter and ids must be contiguous int32 on the matrix's device")

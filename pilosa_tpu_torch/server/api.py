@@ -3,9 +3,10 @@
 Reference: pilosa_tpu/server/api.py (after api.go: Query, CreateIndex/
 Field, DeleteIndex/Field, Import, ImportValue, ImportRoaring, Schema).
 Serialization of results to JSON lives here so transport layers stay
-thin. Ported so far: schema, query, the bit/value/roaring imports and
-the response builder. Cluster, mesh, EXPLAIN, export and translation
-wait for the slices that port the HTTP front end (ROADMAP.md A5).
+thin. Ported so far: schema, query (on a device mesh too, ``mesh_ctx``),
+the bit/value/roaring imports and the response builder. Cluster,
+EXPLAIN, export and translation wait for the slices that port the HTTP
+front end (ROADMAP.md A5).
 """
 
 from __future__ import annotations
@@ -87,8 +88,9 @@ class API:
     def __init__(
         self,
         holder: Holder,
-        device="cuda",
+        device=None,
         stats=None,
+        mesh_ctx=None,
         max_writes: int = 5000,
         route_mode: str | None = None,
         router=None,
@@ -98,12 +100,21 @@ class API:
     ):
         """``device`` is where queries run: ``"cuda"`` (the default;
         raises without a card) or ``"cpu"`` for the plain torch
-        versions. ``route_mode`` pins the router (auto/host/device)."""
+        versions. ``mesh_ctx`` serves reads over a device mesh
+        (parallel.mesh.MeshContext, or ``"auto"`` for every card when
+        there are two or more); the device is then the mesh's lead.
+        ``route_mode`` pins the router (auto/host/device/mesh)."""
         self.holder = holder
         self.max_writes = max_writes
         self.stats = stats
+        if mesh_ctx == "auto":
+            from pilosa_tpu_torch.parallel.mesh import MeshContext
+
+            mesh_ctx = MeshContext.auto()
+        self.mesh_ctx = mesh_ctx
         self.executor = Executor(
-            holder, device=device, stats=stats, route_mode=route_mode, router=router
+            holder, device=device, stats=stats, route_mode=route_mode, router=router,
+            mesh_ctx=mesh_ctx,
         )
         # cross-query wave scheduler (executor/scheduler.py): sync
         # queries submitted concurrently share dispatch/readback waves

@@ -81,3 +81,32 @@ def fill_mixed(core, holder, seed: int = 0, n_rows: int = 200):
     v.import_values(vcols, rng.integers(-500, 50000, size=600).astype(np.int64))
     idx.mark_columns_exist(np.concatenate([cols, dense, vcols]))
     return idx
+
+
+MESH_SHARDS = 8
+
+
+def fill_mesh(core, holder, seed: int = 42):
+    """Index "eq" of the mesh-vs-host suite (tests/test_mesh_spmd.py's
+    recipe, 8 shards): set fields f (rows 0-7) and g (rows 0-4) over
+    5,000 random columns, int field v in [-500, 500) on the same columns,
+    and time field t (quantum YMD) over the first 400 of them."""
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+
+    rng = np.random.default_rng(seed)
+    idx = holder.create_index("eq")
+    f = idx.create_field("f")
+    g = idx.create_field("g")
+    v = idx.create_field("v", core.FieldOptions(field_type="int", min=-1000, max=1000))
+    t = idx.create_field("t", core.FieldOptions(field_type="time", time_quantum="YMD"))
+    n = 5000
+    cols = rng.choice(MESH_SHARDS * SHARD_WIDTH, n, replace=False).astype(np.uint64)
+    frows = rng.integers(0, 8, n).astype(np.uint64)
+    grows = rng.integers(0, 5, n).astype(np.uint64)
+    f.import_bulk(frows, cols)
+    g.import_bulk(grows, cols)
+    v.import_values(cols, rng.integers(-500, 500, n).astype(np.int64))
+    t.import_bulk(
+        frows[:400], cols[:400], timestamps=[datetime(2024, 1 + int(i % 3), 5) for i in range(400)]
+    )
+    return idx

@@ -22,6 +22,11 @@ api.create_index("i")
 api.create_field("i", "f")
 api.import_bits("i", "f", {"rowIDs": [1, 1, 2], "columnIDs": [3, 70000, 3]})
 assert api.query("i", "Count(Intersect(Row(f=1), Row(f=2)))") == {"results": [1]}
+from pilosa_tpu_torch.parallel import MeshContext, make_mesh
+
+mesh_api = API(api.holder, mesh_ctx=MeshContext(make_mesh(["cpu"] * 4, words_axis=2)), route_mode="mesh")
+assert mesh_api.query("i", "Count(Intersect(Row(f=1), Row(f=2)))") == {"results": [1]}
+assert mesh_api.executor.router.decisions["mesh"] == 1
 bad = sorted(m for m in sys.modules if m in ("jax", "jaxlib", "pilosa_tpu")
              or m.startswith(("jax.", "jaxlib.", "pilosa_tpu.")))
 print("LOADED", bad)
@@ -57,7 +62,10 @@ def test_no_source_line_imports_jax_or_pilosa_tpu():
                     offenders.append(f"{os.path.relpath(path, REPO)}:{n}: {line.strip()}")
     assert len(sources) > 30
     scanned = {os.path.relpath(p, REPO) for p in sources}
-    assert {"pilosa_tpu_torch/ops/similarity.py", "pilosa_tpu_torch/examples/chemical_similarity.py"} <= scanned
+    assert {
+        "pilosa_tpu_torch/ops/similarity.py", "pilosa_tpu_torch/examples/chemical_similarity.py",
+        "pilosa_tpu_torch/parallel/__init__.py", "pilosa_tpu_torch/parallel/mesh.py",
+    } <= scanned
     assert offenders == []
 
 
@@ -65,7 +73,8 @@ def test_chip_smoke_rehearses_on_the_cpu(capsys):
     """chip_smoke.py's steps on the plain versions at a tiny size: the
     same data recipes, queries, numpy checks, write phase, taxi path,
     residency path (over a lowered budget), similarity path and kernel
-    comparisons, without the card lines or the final ok line."""
+    comparisons, and the mesh path on eight CPU positions in both layouts,
+    without the card lines or the final ok line."""
     import json
 
     sys.path.insert(0, REPO)
@@ -81,15 +90,24 @@ def test_chip_smoke_rehearses_on_the_cpu(capsys):
         ("taxi", "bsi_sum"), ("taxi", "bsi_minmax"), ("taxi", "gb_counts"), ("taxi", "gb_masks"),
         ("residency", "tree_eval"), ("residency", "container_count"), ("residency", "stack_delta"),
         ("similarity", "sim_scan"), ("similarity", "sim_select"), ("similarity", "pairwise"),
+        ("mesh", "tree_eval"), ("mesh", "row_counts"), ("mesh", "stack_delta"), ("mesh", "bsi_sum"),
+        ("mesh", "bsi_minmax"), ("mesh", "gb_counts"), ("mesh", "gb_masks"), ("mesh", "sim_select"),
+        ("mesh", "pairwise"), ("mesh", "mesh_sim_keys"), ("mesh", "mesh_pairwise_finish"),
     ]
     assert all(k["max_abs_err"] == 0 for k in kernels)
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms"}
     assert all(keys <= set(k) for k in kernels)
-    assert {k["launches_by_path"].keys() == {"main", "taxi", "residency", "similarity"} for k in kernels} == {True}
-    pairwise = kernels[-1]
+    assert {k["launches_by_path"].keys() == {"main", "taxi", "residency", "similarity", "mesh"} for k in kernels} == {True}
+    pairwise = kernels[13]
     assert pairwise["bound_by"] == "operations" and pairwise["library_ms"] is not None
+    assert {k["replaces"].split(":")[0] for k in kernels if k["path"] == "mesh"} == {
+        "pilosa_tpu/parallel/mesh.py", "pilosa_tpu/executor/compile.py"}
     # main 8 + Shift 2, write 2, taxi 13, residency 7 + the write + slots,
-    # similarity 3 searches + 4 all-pairs blocks
-    assert sum(line.startswith("ok  ") for line in lines) == 8 + 2 + 2 + 13 + 7 + 2 + 3 + 4
+    # similarity 3 searches + 4 all-pairs blocks; per mesh layout: the main
+    # holder's 10 queries, the Row readback, Shift, 4 Counts around the
+    # Set and Clear and their line, the taxi's 13 and the level-synchronous
+    # GroupBy (2 lines), 4 searches, 3 all-pairs blocks
+    mesh_layout = 10 + 1 + 1 + 4 + 1 + 13 + 2 + 4 + 3
+    assert sum(line.startswith("ok  ") for line in lines) == 8 + 2 + 2 + 13 + 7 + 2 + 3 + 4 + 2 * mesh_layout
     assert not any(line.startswith('{"ok"') for line in lines)

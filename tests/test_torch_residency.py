@@ -435,7 +435,7 @@ def test_auto_router_charges_cold_uploads(tight):
     count costs more words on the device than the same count resident."""
     _ref, port = _pair()
     auto = Executor(port.holder, device="cpu", route_mode="auto")
-    route, work, cold = auto._route(auto.holder.index("res"), parse("Count(Row(f=7))")[0], None)
+    route, work, _mesh_ok, cold = auto._route(auto.holder.index("res"), parse("Count(Row(f=7))")[0], None)
     assert cold == PLANE_WORDS and route in ("host", "device")
     for _ in range(2):
         port.execute("res", "Count(Row(f=7))")
