@@ -964,7 +964,7 @@ def similarity_path(torch, device: str, n_rows: int = SIM_ROWS, big: int = SIM_B
     from pilosa_tpu_torch.examples.chemical_similarity import FP_WORDS, make_fingerprints
     from pilosa_tpu_torch.ops import _cuda
     from pilosa_tpu_torch.ops import similarity as sim
-    from pilosa_tpu_torch.ops.bitwise import matrix_filter_counts, popcount_rows
+    from pilosa_tpu_torch.ops.bitwise import matrix_filter_counts_plain, popcount_rows_plain
 
     on_card = device == "cuda"
     dev = torch.device(device)
@@ -1104,7 +1104,7 @@ def similarity_path(torch, device: str, n_rows: int = SIM_ROWS, big: int = SIM_B
 
     # --------------------------------------------------------- timings
     keys, hist = full_keys[0.0]
-    scores_plain = sim._scores_plain(matrix_filter_counts(matrix, query), popcount_rows(matrix), popcount_rows(query), 0.0)
+    scores_plain = sim._scores_plain(matrix_filter_counts_plain(matrix, query), popcount_rows_plain(matrix), popcount_rows_plain(query), 0.0)
     w_bytes = matrix.numel() * 4
     k9 = dict(
         ms=cuda_ms(torch, lambda: sim.search_keys(matrix, query, 0.0), 20),
@@ -1123,7 +1123,7 @@ def similarity_path(torch, device: str, n_rows: int = SIM_ROWS, big: int = SIM_B
         library_ms=cuda_ms(torch, lambda: torch.topk(scores_plain, 10), 20),
     )
     keys3, hist3 = full_keys[0.3]
-    scores3 = sim._scores_plain(matrix_filter_counts(matrix, query), popcount_rows(matrix), popcount_rows(query), 0.3)
+    scores3 = sim._scores_plain(matrix_filter_counts_plain(matrix, query), popcount_rows_plain(matrix), popcount_rows_plain(query), 0.3)
     times["select_k1000_t0.3_ms"] = cuda_ms(torch, lambda: sim.select_top(keys3, hist3, 1000), 10)
     times["select_k1000_t0.3_plain_ms"] = cuda_ms(torch, lambda: sim.select_top_plain(keys3, 1000), 10)
     times["select_k1000_t0.3_library_ms"] = cuda_ms(torch, lambda: torch.topk(scores3, 1000), 10)
@@ -1648,6 +1648,414 @@ def mesh_path(torch, device: str, main: dict, taxi: dict, sim_block: int) -> tup
     return {n: (errs[n], t) for n, t in results.items()}, launches
 
 
+GRAFT_SEED = 6  # the graft step's delta and filter
+GRAFT_K = 4  # entry()'s top_k
+DELTA_SHARE = 100  # one word in DELTA_SHARE of the delta is non-zero
+
+
+def graft_matrix(torch, blocks: list, n_shards: int, device: str):
+    """int32[R_PAD, S, W] on ``device``: the main recipe's blocks, block
+    s % G at shard s (bench.py:118-137, as the main path's stack)."""
+    blk = torch.from_numpy(np.stack(blocks).view(np.int32)).to(device)
+    sel = torch.arange(n_shards, device=device) % len(blocks)
+    return blk.permute(1, 0, 2)[:, sel].contiguous()
+
+
+def graft_delta(torch, shape: tuple, device: str):
+    """(delta int32[R, S, W], filter int32[S, W]) from GRAFT_SEED: one
+    word in DELTA_SHARE set to random bits, all-ones words in row 2 and
+    high-bit (0x80000000) words in row 5; a random filter."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(GRAFT_SEED)
+    delta = torch.zeros(shape, dtype=torch.int32, device=device)
+    pos = torch.randint(0, delta.numel(), (delta.numel() // DELTA_SHARE,), generator=gen, device=device)
+    delta.view(-1)[pos] = torch.randint(-(2**31), 2**31 - 1, (pos.numel(),), dtype=torch.int32, generator=gen, device=device)
+    del pos
+    delta[2, :, ::5] = -1
+    delta[5, :, 3::7] = -(2**31)
+    filt = torch.randint(-(2**31), 2**31 - 1, shape[1:], dtype=torch.int32, generator=gen, device=device)
+    return delta, filt
+
+
+def delta_vectors(torch, delta) -> int:
+    """The 16 B vectors of ``delta`` with a bit set: the vectors K13
+    writes back."""
+    return sum(int((delta[r].view(-1, 4) != 0).any(dim=1).sum()) for r in range(delta.shape[0]))
+
+
+def sync_p50_ms(torch, fn, reps: int = 10) -> float:
+    """p50 host ms of ``fn`` with its readback (``fn`` ends in ``.cpu()``)."""
+    fn()
+    lat = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        lat.append(time.perf_counter() - t0)
+    return float(np.median(lat)) * 1e3
+
+
+def graft_path(torch, device: str, main: dict) -> tuple:
+    """The graft step, __graft_entry__.py's ``entry()`` ``query_step``, on
+    one device at the main cell's size: the main recipe's matrix
+    int32[8, S, W] (10.7 GB at 10,240 shards), a write delta of the same
+    shape and a filter (GRAFT_SEED). K13 ORs the delta in place and counts
+    every row under the filter, with the total; K12's count keys and K10's
+    int mode take the top 4. The counts, the total, the new matrix and the
+    top 4 against the plain version on a copy made before the in-place
+    call, and the top 4 against numpy's stable argsort; then K12's and
+    K10's int modes at R = 8 with ties and at 4,097 keys (K10's tile and
+    merge sizes). Returns the kernel entries, the launch counts and the
+    arrays (the new matrix, the delta, the filter, the answers) for
+    ``mesh_programs_path``."""
+    from pilosa_tpu_torch import ops
+    from pilosa_tpu_torch.ops import _cuda, topn
+    from pilosa_tpu_torch.ops import similarity as sim
+
+    on_card = device == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def free():
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+
+    matrix = graft_matrix(torch, main["blocks"], len(main["shards"]), device)
+    delta, filt = graft_delta(torch, tuple(matrix.shape), device)
+    copy = matrix.clone()
+    sync()
+    times = {}
+    # ------------------------------------------------------------ the step
+    for k in _cuda.KERNELS.values():
+        k.reset()
+    t0 = time.perf_counter()
+    bound = topn.max_row_count(*filt.shape)  # the host's range check of the count keys
+    new_m, counts, total = ops.ingest_counts(matrix, delta, filt)
+    vals, ids = ops.select_top_counts(counts, GRAFT_K, bound)
+    vals, ids = vals.cpu(), ids.cpu()
+    times["first_step_s"] = time.perf_counter() - t0
+    sync()
+    launches = {n: k.launches for n, k in _cuda.KERNELS.items()}
+    log("launches on the graft step:", json.dumps(launches))
+    log("launches on the graft step by mode:", json.dumps({n: k.modes for n, k in _cuda.KERNELS.items() if k.modes}))
+    path_kernels = ("ingest_counts", "count_keys", "sim_select")
+    if on_card and any(launches[n] != 1 for n in path_kernels):
+        raise AssertionError(f"the graft step did not run K13, K12 count_keys and K10 once each: {launches}")
+    if new_m is not matrix:
+        raise AssertionError("ingest_counts did not return the matrix it updated in place")
+    # ---------------------------------------------- against the plain version
+    errs = {n: 0 for n in path_kernels}
+    _m, p_counts, p_total = topn.ingest_counts_plain(copy, delta, filt)
+    errs["ingest_counts"] = max(max_abs_err(torch, matrix, copy), max_abs_err(torch, counts, p_counts),
+                                abs(int(total) - int(p_total)))
+    del copy, _m
+    free()
+    host = counts.cpu().numpy()
+    order = np.argsort(-host, kind="stable")[:GRAFT_K]
+    if ids.tolist() != order.tolist() or vals.tolist() != host[order].tolist() or int(total) != int(host.sum()):
+        raise AssertionError(f"graft step top {GRAFT_K} {vals.tolist()} {ids.tolist()} != numpy {host[order].tolist()} {order.tolist()}")
+    p_vals, p_ids = topn.select_top_counts_plain(p_counts, GRAFT_K)
+    errs["sim_select"] = max(max_abs_err(torch, vals, p_vals.cpu()), max_abs_err(torch, ids, p_ids.cpu()))
+    keys, hist = sim.count_keys(counts, bound)
+    bits = sim.count_key_bits(counts.shape[0])
+    p_keys, p_hist = sim.count_keys_plain(counts)
+    errs["count_keys"] = max(max_abs_err(torch, keys, p_keys), max_abs_err(torch, hist, p_hist))
+    # K12 and K10's int modes: ties at R = 8; 4,097 keys with ties, k up to
+    # K10's shared-memory tile (4,096) and past it (its merge steps)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(GRAFT_SEED + 1)
+    ties = torch.tensor([5, 9, 9, 0, 3, 9, 1 << 40, 0], dtype=torch.int64, device=device)
+    many = torch.randint(0, 64, (4097,), generator=gen, device=device) << 30
+    for c, ks in ((ties, (1, 4, 8)), (many, (5, 4096, 4097))):
+        kk, hh = sim.count_keys(c)
+        pk, ph = sim.count_keys_plain(c)
+        errs["count_keys"] = max(errs["count_keys"], max_abs_err(torch, kk, pk), max_abs_err(torch, hh, ph))
+        b = sim.count_key_bits(c.shape[0])
+        for k in ks:
+            got, want = sim.select_top(kk, hh, k, b), sim.select_top_plain(pk, k, b)
+            errs["sim_select"] = max(errs["sim_select"], max_abs_err(torch, got[0], want[0]), max_abs_err(torch, got[1], want[1]))
+    log("max |kernel - plain| on the graft step:", json.dumps(errs))
+    if any(errs.values()):
+        raise AssertionError(f"a kernel disagrees with its plain version: {errs}")
+    log(f"ok  graft step: K13 in place, total {int(total)}, top {GRAFT_K} {vals.tolist()} at rows {ids.tolist()}")
+
+    # --------------------------------------------------------- timings
+    mbytes, fbytes = matrix.numel() * 4, filt.numel() * 4
+    written = delta_vectors(torch, delta) * 16
+    # the matrix and the delta read once, the filter once, the vectors with a
+    # delta bit written; the whole matrix written is the data-blind bound
+    k13_bound, k13_bound_all = bound_ms(2 * mbytes + fbytes + written), bound_ms(3 * mbytes + fbytes)
+    n = counts.shape[0]
+    results = {
+        "ingest_counts": dict(
+            ms=cuda_ms(torch, lambda: ops.ingest_counts(matrix, delta, filt), 5),
+            plain_ms=cuda_ms(torch, lambda: topn.ingest_counts_plain(matrix, delta, filt), 1),
+            bound_ms=k13_bound, library_ms=None, shape=f"[{n}, {matrix.shape[1]}, {matrix.shape[2]}]",
+            replaces="__graft_entry__.py:65"),
+        "count_keys": dict(
+            ms=cuda_ms(torch, lambda: sim.count_keys(counts, bound), 20), plain_ms=cuda_ms(torch, lambda: sim.count_keys_plain(counts), 20),
+            bound_ms=bound_ms(2 * n * 8 + sim.SELECT_BINS * 4), library_ms=None, shape=f"{n} counts, launch-bound",
+            replaces="__graft_entry__.py:71"),
+        "sim_select": dict(
+            ms=cuda_ms(torch, lambda: sim.select_top(keys, hist, GRAFT_K, bits), 20),
+            plain_ms=cuda_ms(torch, lambda: sim.select_top_plain(keys, GRAFT_K, bits), 20),
+            bound_ms=bound_ms(n * 8 + GRAFT_K * 12), library_ms=cuda_ms(torch, lambda: torch.topk(counts, GRAFT_K), 20),
+            shape=f"int mode, k = {GRAFT_K} of {n} counts, launch-bound", replaces="__graft_entry__.py:71"),
+    }
+    or_ms = cuda_ms(torch, lambda: matrix.bitwise_or_(delta), 5)
+    times.update({
+        "ingest_counts_bound_all_written_ms": k13_bound_all,
+        "delta_bytes_written": written,
+        "bitwise_or_ms (Tensor.bitwise_or_ of the same pair: not the same function)": or_ms,
+        "step_sync_p50_ms": sync_p50_ms(torch, lambda: ops.select_top_counts(ops.ingest_counts(matrix, delta, filt)[1], GRAFT_K, bound)[1].cpu()),
+        "ingest_sync_p50_ms": sync_p50_ms(torch, lambda: ops.ingest_counts(matrix, delta, filt)[2].cpu()),
+    })
+    t = results["ingest_counts"]
+    log(f"K13 ingest_counts {t['shape']}: {t['ms']:.4f} ms, bound {k13_bound:.4f} ms with this delta's writes "
+        f"({100 * k13_bound / t['ms']:.1f} %), {k13_bound_all:.4f} ms with the whole matrix written "
+        f"({100 * k13_bound_all / t['ms']:.1f} %); plain {t['plain_ms']:.4f} ms; "
+        f"Tensor.bitwise_or_ alone (not the same function) {or_ms:.4f} ms")
+    log("graft times:", json.dumps(times))
+    answers = {"counts": counts, "total": int(total), "vals": vals.tolist(), "ids": ids.tolist(), "ingest_p50_ms": times["ingest_sync_p50_ms"]}
+    return {n: (errs[n], t) for n, t in results.items()}, launches, {
+        "matrix": matrix, "delta": delta, "filt": filt, "answers": answers}
+
+
+def mesh_programs_path(torch, device: str, graft: dict, main: dict, taxi: dict) -> tuple:
+    """__graft_entry__.py's ``dryrun_multichip`` sequence (:147-162) over
+    MESH_POSITIONS positions in the 8x1 and 4x2 layouts, at full size, on
+    fresh placed copies: ``ingest_and_aggregate`` of the graft step's
+    arrays (the main recipe's matrix as it was, the delta, the filter),
+    ``topn(new_m, filt, 4)``, ``bsi_sum`` of the taxi holder's
+    total_amount slices under ``cab_type=1``, ``count_and`` of rows 0 and
+    1, ``tanimoto(new_m, filt, 4)``. Every answer equal to the one-device
+    answer (the graft step's, or K2's, K4's and the one-device search's),
+    the Tanimoto scores bit for bit; each program's sync p50 beside the
+    one-device p50 of the same work; ``top_rows`` of one fragment against
+    numpy. The launch counts start after the one-device work and must be
+    the programs' exact counts. Then K13 (on block (0, 0) as it was before
+    the ingest), K2, K4, K1, K12 and K10 at the 4x2 blocks against their
+    plain versions. Returns the kernel entries and the path's launch
+    counts."""
+    from pilosa_tpu_torch import ops
+    from pilosa_tpu_torch.core import VIEW_BSI
+    from pilosa_tpu_torch.ops import _cuda, bitwise, bsi, topn
+    from pilosa_tpu_torch.ops import similarity as sim
+    from pilosa_tpu_torch.parallel import MeshQueryEngine, make_mesh
+    from pilosa_tpu_torch.server import API
+
+    on_card = device == "cuda"
+    n_cards = torch.cuda.device_count() if on_card else 1
+    devices = [torch.device("cuda", i % n_cards) if on_card else "cpu" for i in range(MESH_POSITIONS)]
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def free():
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+
+    matrix, delta, filt, ans = graft.pop("matrix"), graft["delta"], graft["filt"], graft["answers"]
+    th, tidx = taxi["holder"], taxi["index"]
+    t_shards = sorted(tidx.available_shards())
+    times = {}
+    # ------------------------------------------------ the one-device work
+    # the taxi holder's total_amount slices and its cab_type=1 row, copied
+    # out of a one-device stack cache
+    tstacks = API(th, device=device, route_mode="device").executor.compiler.stacks
+    slices = tstacks.matrix(tidx, tidx.field("total_amount"), VIEW_BSI, t_shards)[0].clone()
+    cab1 = tstacks.matrix(tidx, tidx.field("cab_type"), "standard", t_shards)[0][1].clone()
+    del tstacks
+    free()
+    load = [(bitwise.OP_LOAD, 0)]
+    n_s, n_w = filt.shape
+    bound = topn.max_row_count(n_s, n_w)
+
+    def one_search():
+        inter, pop = ops.row_counts(matrix, filt), ops.row_counts(matrix)
+        q_pop = ops.tree_eval([filt[None]], [(0, 0)], load, n_s, count=True, n_words=n_w).reshape(1)
+        return sim.select_top(*sim.mesh_sim_keys(inter, pop, q_pop, "tanimoto"), GRAFT_K)
+
+    one = {
+        "sum": tuple(int(x) for x in ops.sum_device(slices, cab1)),
+        "count_and": int(ops.count_and(matrix[0], matrix[1])),
+        "tanimoto": tuple(x.cpu() for x in one_search()),
+    }
+    sum_want = next(w for q, w in taxi["checks"] if q == "Sum(Row(cab_type=1), field=total_amount)")
+    if one["sum"] != (sum_want["value"], sum_want["count"]):
+        raise AssertionError(f"one-device sum_device {one['sum']} != numpy {sum_want}")
+    # top_rows, the one-fragment twin of topn, on shard 0 against numpy
+    frag, frag_f = matrix[:, 0].cpu().numpy().view(np.uint32), filt[0].cpu().numpy().view(np.uint32)
+    frag_counts = np.bitwise_count(frag & frag_f[None]).sum(axis=1)
+    order = np.argsort(-frag_counts, kind="stable")[:GRAFT_K]
+    f_vals, f_ids = ops.top_rows(matrix[:, 0], filt[0], GRAFT_K)
+    if f_ids.tolist() != order.tolist() or f_vals.tolist() != frag_counts[order].tolist():
+        raise AssertionError(f"top_rows {f_vals.tolist()} {f_ids.tolist()} != numpy {frag_counts[order].tolist()} {order.tolist()}")
+    log(f"ok  top_rows of shard 0 under the filter  -> {f_vals.tolist()} at rows {f_ids.tolist()}, as numpy's")
+    one_p50 = {
+        "ingest_and_aggregate": ans["ingest_p50_ms"],
+        "topn": sync_p50_ms(torch, lambda: ops.select_top_counts(ops.row_counts(matrix, filt), GRAFT_K, bound)[1].cpu()),
+        "bsi_sum": sync_p50_ms(torch, lambda: ops.sum_device(slices, cab1)[0].cpu()),
+        "count_and": sync_p50_ms(torch, lambda: ops.count_and(matrix[0], matrix[1]).cpu()),
+        "tanimoto": sync_p50_ms(torch, lambda: one_search()[1].cpu()),
+    }
+    n_rows, blocks4 = matrix.shape[0], {}
+    del matrix
+    free()
+    # ------------------------------------------------------ the mesh programs
+    # the counts start here: the one-device work above launched K1, K2, K4,
+    # K10 and K12 too
+    sync()
+    for k in _cuda.KERNELS.values():
+        k.reset()
+    for name, words_axis in MESH_LAYOUTS:
+        eng = MeshQueryEngine(make_mesh(devices, words_axis=words_axis))
+        t0 = time.perf_counter()
+        orig = graft_matrix(torch, main["blocks"], len(main["shards"]), devices[0])
+        m_dev = eng.place_matrix(orig)
+        if words_axis > 1:
+            # block (0, 0) as it was before the ingest, for K13's check
+            s_lo, s_hi, w_lo, w_hi = m_dev.cover(0, 0)
+            blocks4["m"] = orig[:, s_lo:s_hi, w_lo:w_hi].contiguous()
+        del orig
+        d_dev, f_dev = eng.place_matrix(delta), eng.place_row(filt)
+        s_dev, c_dev = eng.place_matrix(slices), eng.place_row(cab1)
+        sync()
+        times[f"{name}_place_s"] = time.perf_counter() - t0
+        new_m, counts, total = eng.ingest_and_aggregate(m_dev, d_dev, f_dev)
+        if new_m is not m_dev or not torch.equal(counts.cpu(), ans["counts"].cpu()) or int(total) != ans["total"]:
+            raise AssertionError(f"{name}: ingest_and_aggregate differs from the graft step's: total {int(total)} != {ans['total']}")
+        log(f"ok  mesh programs {name}: ingest_and_aggregate in place, total {int(total)}, counts equal to the one-device K13's")
+        vals, ids = eng.topn(new_m, f_dev, GRAFT_K)
+        if vals.tolist() != ans["vals"] or ids.tolist() != ans["ids"]:
+            raise AssertionError(f"{name}: topn {vals.tolist()} {ids.tolist()} != one device {ans['vals']} {ans['ids']}")
+        log(f"ok  mesh programs {name}: topn  -> {vals.tolist()} at rows {ids.tolist()}")
+        got_sum = tuple(int(x) for x in eng.bsi_sum(s_dev, c_dev))
+        if got_sum != one["sum"]:
+            raise AssertionError(f"{name}: bsi_sum {got_sum} != one-device K4 {one['sum']}")
+        log(f"ok  mesh programs {name}: bsi_sum of total_amount under cab_type=1  -> {got_sum}")
+        pair = int(eng.count_and(new_m.row(0), new_m.row(1)))
+        if pair != one["count_and"]:
+            raise AssertionError(f"{name}: count_and {pair} != one-device K2 {one['count_and']}")
+        log(f"ok  mesh programs {name}: count_and of rows 0 and 1  -> {pair}")
+        ts, ti = eng.tanimoto(new_m, f_dev, GRAFT_K)
+        if not (torch.equal(ts.cpu().view(torch.int32), one["tanimoto"][0].view(torch.int32)) and torch.equal(ti.cpu(), one["tanimoto"][1])):
+            raise AssertionError(f"{name}: tanimoto {ts.tolist()} {ti.tolist()} != one device {one['tanimoto']}")
+        log(f"ok  mesh programs {name}: tanimoto  -> ids {ti.tolist()}, bit for bit with the one-device search")
+        for prog, fn in (
+            ("ingest_and_aggregate", lambda: eng.ingest_and_aggregate(m_dev, d_dev, f_dev)[2].cpu()),
+            ("topn", lambda: eng.topn(new_m, f_dev, GRAFT_K)[1].cpu()),
+            ("bsi_sum", lambda: eng.bsi_sum(s_dev, c_dev)[0].cpu()),
+            ("count_and", lambda: eng.count_and(new_m.row(0), new_m.row(1)).cpu()),
+            ("tanimoto", lambda: eng.tanimoto(new_m, f_dev, GRAFT_K)[1].cpu()),
+        ):
+            times[f"{name}_{prog}_p50_ms"] = sync_p50_ms(torch, fn)
+        log(f"mesh programs {name} engine:", json.dumps(eng.snapshot()))
+        if words_axis > 1:
+            blocks4.update(d=d_dev.blocks[0][0], f=f_dev.blocks[0][0], s=s_dev.blocks[0][0], c=c_dev.blocks[0][0])
+        del eng, new_m, m_dev, d_dev, f_dev, s_dev, c_dev, counts, total
+        free()
+    sync()
+    launches = {n: k.launches for n, k in _cuda.KERNELS.items()}
+    log("launches on the mesh programs path:", json.dumps(launches))
+    log("launches on the mesh programs path by mode:", json.dumps({n: k.modes for n, k in _cuda.KERNELS.items() if k.modes}))
+    path_kernels = ("ingest_counts", "row_counts", "bsi_sum", "tree_eval", "count_keys", "sim_select", "mesh_sim_keys")
+    # each program runs 12 times a layout (the checked call, the p50's
+    # warm-up and ten): K13, K4 and K1 once a block, K2 four times a block
+    # (topn, count_and, and the search's |a ∩ q| and |a|), K12 and K10 on
+    # the lead device once a topn (count_keys, int mode) or search
+    calls = len(MESH_LAYOUTS) * (1 + 1 + 10)
+    per_block = calls * MESH_POSITIONS
+    want_launches = {n: 0 for n in launches}
+    want_launches.update(ingest_counts=per_block, row_counts=4 * per_block, bsi_sum=per_block, tree_eval=per_block,
+                count_keys=calls, mesh_sim_keys=calls, sim_select=2 * calls)
+    want_modes = {"row_counts": {"filtered": 3 * per_block, "rows": per_block},
+                  "sim_select": {"tile int": calls, "tile": calls}}
+    if on_card and (launches != want_launches or any(_cuda.KERNELS[n].modes != m for n, m in want_modes.items())):
+        raise AssertionError(f"the mesh programs did not launch their kernels once a block: {launches} != {want_launches}")
+    for prog, ms in one_p50.items():
+        log(f"sync p50 {prog}: one device {ms:.3f} ms, mesh 8x1 {times['8x1_' + prog + '_p50_ms']:.3f} ms, "
+            f"mesh 4x2 {times['4x2_' + prog + '_p50_ms']:.3f} ms")
+
+    # ----------------------------------- kernels vs plain versions, 4x2 blocks
+    mb, db, fb, sb, cb = (blocks4[k] for k in ("m", "d", "f", "s", "c"))
+    s_l, w_l = fb.shape
+    depth = sb.shape[0] - bsi.OFFSET_ROW
+    if not bool((db & ~mb).any()):
+        raise AssertionError("the 4x2 block's delta adds no bit to it: K13's check would test nothing")
+    m1, m2 = mb, mb.clone()
+    got, want = ops.ingest_counts(m1, db, fb), topn.ingest_counts_plain(m2, db, fb)
+    errs = {n: 0 for n in path_kernels}
+    errs["ingest_counts"] = max(max_abs_err(torch, m1, m2), max_abs_err(torch, got[1], want[1]), abs(int(got[2]) - int(want[2])))
+    errs["row_counts"] = max_abs_err(torch, ops.row_counts(m1, fb), topn.row_counts_plain(m1, fb))
+    errs["bsi_sum"] = max(max_abs_err(torch, a, b) for a, b in zip(ops.bsi_sum(sb, depth, cb[None]), bsi.bsi_sum_plain(sb, depth, cb[None])))
+    q_block = fb[None]
+    errs["tree_eval"] = max_abs_err(torch, ops.tree_eval([q_block], [(0, 0)], load, s_l, count=True, n_words=w_l),
+                                    bitwise.tree_eval_plain([q_block], [(0, 0)], load, s_l, True, fb.device, (), w_l))
+    counts4 = ops.row_counts(m1, fb)
+    pop4 = ops.row_counts(m1)
+    q4 = pop4[1:2].contiguous()
+    keys4, hist4 = sim.count_keys(counts4, topn.max_row_count(s_l, w_l))
+    pk4, ph4 = sim.count_keys_plain(counts4)
+    errs["count_keys"] = max(max_abs_err(torch, keys4, pk4), max_abs_err(torch, hist4, ph4))
+    bits4 = sim.count_key_bits(n_rows)
+    errs["sim_select"] = max(max_abs_err(torch, a, b) for a, b in zip(sim.select_top(keys4, hist4, GRAFT_K, bits4), sim.select_top_plain(pk4, GRAFT_K, bits4)))
+    errs["mesh_sim_keys"] = max(max_abs_err(torch, a, b) for a, b in zip(
+        sim.mesh_sim_keys(counts4, pop4, q4, "tanimoto"), sim.mesh_sim_keys_plain(counts4, pop4, q4, "tanimoto")))
+    log("max |kernel - plain| on the mesh programs' 4x2 blocks:", json.dumps(errs))
+    if any(errs.values()):
+        raise AssertionError(f"a kernel disagrees with its plain version: {errs}")
+
+    # --------------------------------------------------------- timings
+    plane, splane = s_l * w_l * 4, sb.shape[1] * w_l * 4
+    block = f"4x2 block [{n_rows}, {s_l}, {w_l}]"
+    # K13 writes every vector with a delta bit, whether or not the block
+    # holds it already: a repeat on the ingested block moves the first
+    # call's bytes
+    results = {
+        "ingest_counts": dict(
+            ms=cuda_ms(torch, lambda: ops.ingest_counts(m1, db, fb), 10),
+            plain_ms=cuda_ms(torch, lambda: topn.ingest_counts_plain(m2, db, fb), 1),
+            bound_ms=bound_ms(2 * mb.numel() * 4 + plane + delta_vectors(torch, db) * 16), library_ms=None,
+            shape=block, replaces="pilosa_tpu/parallel/mesh.py:873"),
+        "row_counts": dict(
+            ms=cuda_ms(torch, lambda: ops.row_counts(m1, fb), 10), plain_ms=cuda_ms(torch, lambda: topn.row_counts_plain(m1, fb), 1),
+            bound_ms=bound_ms((n_rows + 1) * plane), library_ms=None, shape=f"topn, filtered, {block}",
+            replaces="pilosa_tpu/parallel/mesh.py:642"),
+        "bsi_sum": dict(
+            ms=cuda_ms(torch, lambda: ops.bsi_sum(sb, depth, cb[None]), 10),
+            plain_ms=cuda_ms(torch, lambda: bsi.bsi_sum_plain(sb, depth, cb[None]), 1),
+            bound_ms=bound_ms((sb.shape[0] + 1) * splane), library_ms=None,
+            shape=f"bsi_sum, filtered, 4x2 block [{sb.shape[0]}, {sb.shape[1]}, {w_l}]", replaces="pilosa_tpu/parallel/mesh.py:841"),
+        "tree_eval": dict(
+            ms=cuda_ms(torch, lambda: ops.tree_eval([q_block], [(0, 0)], load, s_l, count=True, n_words=w_l), 20),
+            plain_ms=cuda_ms(torch, lambda: bitwise.tree_eval_plain([q_block], [(0, 0)], load, s_l, True, fb.device, (), w_l), 2),
+            bound_ms=bound_ms(plane), library_ms=None, shape=f"count of the query, 4x2 block [{s_l}, {w_l}]",
+            replaces="pilosa_tpu/parallel/mesh.py:677"),
+        "count_keys": dict(
+            ms=cuda_ms(torch, lambda: sim.count_keys(counts4, topn.max_row_count(s_l, w_l)), 20), plain_ms=cuda_ms(torch, lambda: sim.count_keys_plain(counts4), 20),
+            bound_ms=bound_ms(2 * n_rows * 8 + sim.SELECT_BINS * 4), library_ms=None, shape=f"{n_rows} counts, launch-bound"),
+        "sim_select": dict(
+            ms=cuda_ms(torch, lambda: sim.select_top(keys4, hist4, GRAFT_K, bits4), 20),
+            plain_ms=cuda_ms(torch, lambda: sim.select_top_plain(keys4, GRAFT_K, bits4), 20),
+            bound_ms=bound_ms(n_rows * 8 + GRAFT_K * 12), library_ms=cuda_ms(torch, lambda: torch.topk(counts4, GRAFT_K), 20),
+            shape=f"int mode, k = {GRAFT_K} of {n_rows} counts, launch-bound", replaces="pilosa_tpu/parallel/mesh.py:650"),
+        "mesh_sim_keys": dict(
+            ms=cuda_ms(torch, lambda: sim.mesh_sim_keys(counts4, pop4, q4, "tanimoto"), 20),
+            plain_ms=cuda_ms(torch, lambda: sim.mesh_sim_keys_plain(counts4, pop4, q4, "tanimoto"), 20),
+            bound_ms=bound_ms(3 * n_rows * 8 + 8 + sim.SELECT_BINS * 4), library_ms=None, shape=f"{n_rows} rows"),
+    }
+    times["one_device_p50_ms"] = one_p50
+    log("mesh programs times:", json.dumps(times))
+    del blocks4, mb, db, fb, sb, cb, m1, m2, slices, cab1
+    free()
+    return {n: (errs[n], t) for n, t in results.items()}, launches
+
+
 def main(
     device: str = "cuda",
     n_shards: int = N_SHARDS,
@@ -2048,10 +2456,19 @@ def main(
     if on_card:
         torch.cuda.empty_cache()
     mesh_results, mesh_launches = mesh_path(torch, device, main_ctx, taxi_ctx, sim_block)
-    del main_ctx, taxi_ctx
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    # the graft step needs ~36 GB (the matrix, its delta, the filter and a
+    # copy for the plain version) and its mesh programs ~23 GB of placement
+    # a layout: both run after the mesh path has freed its stacks
+    graft_results, graft_launches, graft = graft_path(torch, device, main_ctx)
+    prog_results, prog_launches = mesh_programs_path(torch, device, graft, main_ctx, taxi_ctx)
+    del main_ctx, taxi_ctx, graft
     paths = (("main", main_results, main_launches), ("taxi", taxi_results, taxi_launches),
              ("residency", res_results, res_launches), ("similarity", sim_results, sim_launches),
-             ("mesh", mesh_results, mesh_launches))
+             ("mesh", mesh_results, mesh_launches), ("graft", graft_results, graft_launches),
+             ("mesh_programs", prog_results, prog_launches))
     kernels = [
         kernel_entry(_cuda.KERNELS[name], {p: launches[name] for p, _r, launches in paths}, err, t, path)
         for path, results, _launches in paths

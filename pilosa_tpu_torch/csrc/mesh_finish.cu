@@ -1,5 +1,5 @@
-// K12: the elementwise finish of the mesh engine's similarity programs,
-// run on the reduced counts.
+// K12: the elementwise finish of the mesh engine's similarity and top-k
+// programs, run on the reduced counts.
 //
 // Replaces the score lines of pilosa_tpu/parallel/mesh.py (B16):
 //
@@ -22,6 +22,17 @@
 //   intersection counts summed over the words axis, inter f32[N, M],
 //   with a_pop f32[N] and b_pop f32[M]: Tanimoto or cosine, rounded as
 //   K11's fused modes (csrc/pairwise.cu).
+//
+// - count_keys: the keys of an integer top-k (the lax.top_k of int64 row
+//   counts at mesh.py:647-652, and of ops/topn.py:24 top_rows): for R
+//   counts and b = max(1, bit length of R - 1) row bits,
+//     key = count << b | (2^b - 1 - row),
+//   distinct, ordered by count and, among equal counts, with the lower
+//   row first, as lax.top_k breaks ties; below 2^62 while every count is
+//   below 2^(62 - b), so K10's six digits cover it. A count at or above
+//   that (or negative) adds one to `over` and writes a zero count's key;
+//   the wrapper raises on it. The first-digit histogram is written as
+//   mesh_sim_keys writes it, for K10's int mode.
 //
 // The intrinsics (__fadd_rn, __fmul_rn, __fsqrt_rn, __fdiv_rn) keep
 // nvcc from contracting a product into a sum and give the IEEE results.
@@ -91,6 +102,34 @@ __global__ void __launch_bounds__(PT_BLOCK)
   }
 }
 
+__global__ void __launch_bounds__(PT_BLOCK)
+    count_keys_kernel(const long long* __restrict__ counts, long long n,
+                      int bits, u64* __restrict__ keys,
+                      unsigned* __restrict__ hist,
+                      unsigned* __restrict__ over) {
+  __shared__ unsigned s_hist[MF_BINS];
+  for (int i = threadIdx.x; i < MF_BINS; i += PT_BLOCK) s_hist[i] = 0u;
+  __syncthreads();
+  const u64 limit = 1ull << (62 - bits);
+  const u64 low = (1ull << bits) - 1ull;
+  const long long step = (long long)gridDim.x * PT_BLOCK;
+  for (long long row = (long long)blockIdx.x * PT_BLOCK + threadIdx.x;
+       row < n; row += step) {
+    u64 c = (u64)counts[row];
+    if (c >= limit) {
+      atomicAdd(over, 1u);
+      c = 0;
+    }
+    const u64 key = (c << bits) | (low - (u64)row);
+    keys[row] = key;
+    atomicAdd(&s_hist[(unsigned)(key >> MF_FIRST_SHIFT)], 1u);
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < MF_BINS; i += PT_BLOCK) {
+    if (s_hist[i]) atomicAdd(&hist[i], s_hist[i]);
+  }
+}
+
 static unsigned mf_grid(long long items) {
   long long blocks = (items + PT_BLOCK - 1) / PT_BLOCK;
   if (blocks > pt_resident_blocks()) blocks = pt_resident_blocks();
@@ -125,5 +164,21 @@ PT_EXPORT int mesh_pairwise_finish(const void* inter, const void* a_pop,
                                 (cudaStream_t)stream>>>(
       (const float*)inter, (const float*)a_pop, (const float*)b_pop, n, m,
       metric, (float*)out);
+  return (int)cudaGetLastError();
+}
+
+// counts: int64[n]; bits: the row bits b, with n <= 2^b; keys: int64[n];
+// hist: zeroed int32[4096]; over: zeroed int32[1], the counts out of
+// range. Returns cudaGetLastError().
+PT_EXPORT int count_keys(const void* counts, long long n, int bits, void* keys,
+                         void* hist, void* over, void* stream) {
+  if (n < 0 || n > 0x7fffffffLL || bits < 1 || bits > 31 ||
+      n > (1ll << bits)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (n == 0) return (int)cudaGetLastError();
+  count_keys_kernel<<<mf_grid(n), PT_BLOCK, 0, (cudaStream_t)stream>>>(
+      (const long long*)counts, n, bits, (u64*)keys, (unsigned*)hist,
+      (unsigned*)over);
   return (int)cudaGetLastError();
 }

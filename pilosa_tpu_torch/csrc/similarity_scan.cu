@@ -7,7 +7,11 @@
 //                       key = float_bits(score) << 32 | (2^32 - 1 - row),
 //                       and a histogram of the keys' top 12-bit digit;
 //   sim_select (K10) <- jax.lax.top_k: the k largest keys, in descending
-//                       order, decoded to (f32 score, int32 row).
+//                       order, decoded to (f32 score, int32 row); in its
+//                       int mode, the count keys of csrc/mesh_finish.cu's
+//                       count_keys decoded to (int64 count, int32 row),
+//                       the lax.top_k of int64 counts (mesh.py:647-652,
+//                       ops/topn.py:24).
 // Scores are non-negative f32 (at most 1.0), so their bits order like
 // their values and every key is below 2^62; the keys are distinct, and
 // among equal scores the lower row has the larger key. So the k largest
@@ -373,27 +377,39 @@ __global__ void __launch_bounds__(PT_BLOCK)
   }
 }
 
+// Decode the first k sorted keys. Score keys (int_bits 0): the f32 score
+// from the high half, the row from the low. Count keys (int_bits b > 0,
+// csrc/mesh_finish.cu's count_keys): the int64 count key >> b, the row
+// 2^b - 1 - (key & (2^b - 1)).
 __global__ void __launch_bounds__(PT_BLOCK)
     sim_emit_kernel(const u64* __restrict__ sorted, long long k,
-                    float* __restrict__ scores, int* __restrict__ ids) {
+                    void* __restrict__ values, int int_bits,
+                    int* __restrict__ ids) {
   for (long long i = (long long)blockIdx.x * PT_BLOCK + threadIdx.x; i < k;
        i += (long long)gridDim.x * PT_BLOCK) {
     const u64 key = sorted[i];
-    scores[i] = __uint_as_float((unsigned)(key >> 32));
-    ids[i] = (int)(0xffffffffu - (unsigned)key);
+    if (int_bits > 0) {
+      const u64 low = (1ull << int_bits) - 1ull;
+      ((long long*)values)[i] = (long long)(key >> int_bits);
+      ids[i] = (int)(low - (key & low));
+    } else {
+      ((float*)values)[i] = __uint_as_float((unsigned)(key >> 32));
+      ids[i] = (int)(0xffffffffu - (unsigned)key);
+    }
   }
 }
 
-// keys: int64[n] from sim_scan and hist0 its histogram; hists: zeroed
-// int32[5, 4096]; state: zeroed int64[8]; work: zeroed int64[n_sort],
-// n_sort the power of two >= k; scores: f32[k]; ids: int32[k].
-// Returns cudaGetLastError().
+// keys: int64[n] from sim_scan (or count_keys) and hist0 its histogram;
+// hists: zeroed int32[5, 4096]; state: zeroed int64[8]; work: zeroed
+// int64[n_sort], n_sort the power of two >= k; int_bits: 0 for score
+// keys, then values is f32[k], or the row bits b of count keys, then
+// values is int64[k]; ids: int32[k]. Returns cudaGetLastError().
 PT_EXPORT int sim_select(const void* keys, long long n, const void* hist0,
                          void* hists, void* state, long long k, void* work,
-                         long long n_sort, void* scores, void* ids,
-                         void* stream) {
+                         long long n_sort, int int_bits, void* values,
+                         void* ids, void* stream) {
   if (n < 1 || n > 0x7fffffffLL || k < 1 || k > n || n_sort < k ||
-      (n_sort & (n_sort - 1))) {
+      (n_sort & (n_sort - 1)) || int_bits < 0 || int_bits > 31) {
     return (int)cudaErrorInvalidValue;
   }
   static const int shifts[SIM_LEVELS] = {SIM_FIRST_SHIFT, 38, 26, 14, 2, 0};
@@ -425,7 +441,7 @@ PT_EXPORT int sim_select(const void* keys, long long n, const void* hist0,
       sim_sort_tile_kernel<<<tiles, SIM_SORT_THREADS, 0, s>>>(a, n_sort, size, size);
     }
   }
-  sim_emit_kernel<<<sim_grid(k, PT_BLOCK), PT_BLOCK, 0, s>>>(a, k, (float*)scores,
+  sim_emit_kernel<<<sim_grid(k, PT_BLOCK), PT_BLOCK, 0, s>>>(a, k, values, int_bits,
                                                             (int*)ids);
   return (int)cudaGetLastError();
 }

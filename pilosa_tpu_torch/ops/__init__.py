@@ -1,7 +1,7 @@
 """Kernel library: plain torch versions and the hand-written CUDA kernels.
 
 Reference: pilosa_tpu/ops and the GroupBy programs of
-pilosa_tpu/executor/executor.py. Twelve kernels, each with its plain
+pilosa_tpu/executor/executor.py. Thirteen kernels, each with its plain
 version beside it and a launch count on ``_cuda.KERNELS``; each line
 names the reference function it replaces (paths under pilosa_tpu/):
 
@@ -41,10 +41,22 @@ names the reference function it replaces (paths under pilosa_tpu/):
 - K12 ``similarity.mesh_sim_keys`` and ``similarity.mesh_pairwise_finish``
   (csrc/mesh_finish.cu) <- parallel/mesh.py:684 and :796, the score
   lines of the mesh similarity programs: K10's keys from reduced
-  counts, and the all-pairs epilogue on counts summed over the mesh.
+  counts, and the all-pairs epilogue on counts summed over the mesh;
+  and ``similarity.count_keys`` <- the ``lax.top_k`` of int64 counts
+  (parallel/mesh.py:647-652, ops/topn.py:24): the keys that K10's int
+  mode decodes, for ``topn.select_top_counts``;
+- K13 ``topn.ingest_counts`` (csrc/ingest_counts.cu) <-
+  parallel/mesh.py:852 ``_ingest_prog`` and __graft_entry__.py:65
+  ``query_step``: ``matrix |= delta`` in place with every row's count
+  under a filter and their total, in one pass.
 
-K1, K2, K4, K5, K6 and K11 also take a mesh block's slice of the word
-axis (parallel/mesh.py).
+The public counts of ``ops.bitwise`` (``popcount``, ``popcount_rows``,
+``count_*``, ``matrix_filter_counts``) launch K1 or K2 on a CUDA tensor;
+``topn.top_rows`` and ``bsi.sum_device`` are the one-device twins of the
+mesh engine's ``topn`` and ``bsi_sum``.
+
+K1, K2, K4, K5, K6, K11 and K13 also take a mesh block's slice of the
+word axis (parallel/mesh.py).
 """
 
 from pilosa_tpu_torch.ops import bitwise, bsi, containers, groupby, similarity, stack, topn
@@ -61,8 +73,13 @@ from pilosa_tpu_torch.ops.bitwise import (
     popcount_words,
     shift_words,
     tree_eval,
+    w_and,
+    w_andnot,
+    w_not,
+    w_or,
+    w_xor,
 )
-from pilosa_tpu_torch.ops.bsi import bsi_min_max, bsi_sum
+from pilosa_tpu_torch.ops.bsi import bsi_min_max, bsi_sum, sum_device
 from pilosa_tpu_torch.ops.groupby import gb_counts, gb_masks
 from pilosa_tpu_torch.ops.containers import container_count
 from pilosa_tpu_torch.ops.similarity import (
@@ -72,7 +89,13 @@ from pilosa_tpu_torch.ops.similarity import (
     tanimoto_search,
 )
 from pilosa_tpu_torch.ops.stack import apply_stack_delta, scatter_rows
-from pilosa_tpu_torch.ops.topn import candidate_counts, row_counts
+from pilosa_tpu_torch.ops.topn import (
+    candidate_counts,
+    ingest_counts,
+    row_counts,
+    select_top_counts,
+    top_rows,
+)
 
 __all__ = [
     "KERNELS",
@@ -93,6 +116,7 @@ __all__ = [
     "gb_counts",
     "gb_masks",
     "groupby",
+    "ingest_counts",
     "matrix_filter_counts",
     "pairwise_intersections",
     "popcount",
@@ -101,11 +125,19 @@ __all__ = [
     "resolve_device",
     "row_counts",
     "scatter_rows",
+    "select_top_counts",
     "shift_words",
     "similarity",
     "stack",
+    "sum_device",
     "tanimoto_matrix",
     "tanimoto_search",
+    "top_rows",
     "topn",
     "tree_eval",
+    "w_and",
+    "w_andnot",
+    "w_not",
+    "w_or",
+    "w_xor",
 ]

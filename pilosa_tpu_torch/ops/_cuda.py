@@ -234,8 +234,10 @@ SIM_SCAN = Kernel(
 )
 SIM_SELECT = Kernel(
     "sim_select",
-    [_VP, _LL, _VP, _VP, _VP, _LL, _VP, _LL, _VP, _VP, _VP],
-    "pilosa_tpu/ops/similarity.py:25",  # tanimoto_search's jax.lax.top_k
+    [_VP, _LL, _VP, _VP, _VP, _LL, _VP, _LL, _I, _VP, _VP, _VP],
+    # tanimoto_search's jax.lax.top_k; its int mode the lax.top_k of int64
+    # counts (mesh.py:647-652, ops/topn.py:24)
+    "pilosa_tpu/ops/similarity.py:25",
     stem="similarity_scan",
 )
 PAIRWISE = Kernel(
@@ -258,12 +260,26 @@ MESH_PAIRWISE_FINISH = Kernel(
     "pilosa_tpu/parallel/mesh.py:796",  # the all-pairs epilogue over the reduced counts
     stem="mesh_finish",
 )
+COUNT_KEYS = Kernel(
+    "count_keys",
+    [_VP, _LL, _I, _VP, _VP, _VP, _VP],
+    # the integer top-k's keys: lax.top_k of the mesh TopN's int64 counts
+    "pilosa_tpu/parallel/mesh.py:650",
+    stem="mesh_finish",
+)
+INGEST_COUNTS = Kernel(
+    "ingest_counts",
+    [_VP, _VP, _LL, _LL, _VP, _VP, _VP, _VP],
+    # _ingest_prog, the donated m | delta with its filtered row counts;
+    # also __graft_entry__.py:65 query_step
+    "pilosa_tpu/parallel/mesh.py:852",
+)
 KERNELS = {
     k.name: k
     for k in (
         TREE_EVAL, ROW_COUNTS, STACK_DELTA, BSI_SUM, BSI_MINMAX, GB_COUNTS, GB_MASKS,
         SHIFT_WORDS, CONTAINER_COUNT, SIM_SCAN, SIM_SELECT, PAIRWISE,
-        MESH_SIM_KEYS, MESH_PAIRWISE_FINISH,
+        MESH_SIM_KEYS, MESH_PAIRWISE_FINISH, COUNT_KEYS, INGEST_COUNTS,
     )
 }
 # the sources, one nvcc process each

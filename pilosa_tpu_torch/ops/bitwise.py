@@ -19,6 +19,12 @@ interpreter decodes it with ``ops.containers``.
 
 ``shift_words`` (PQL Shift) is the wrapper of ``csrc/shift_words.cu``
 (K7), with the same CPU/CUDA split.
+
+The public counts (``popcount``, ``popcount_rows``, ``count_*``,
+``matrix_filter_counts``) take the same split: a CPU tensor runs the
+SWAR, a CUDA tensor launches K1's count mode or K2 (``topn.row_counts``).
+The ``*_plain`` SWAR names are what the plain versions of every kernel
+count with, on either device.
 """
 
 from __future__ import annotations
@@ -44,35 +50,130 @@ def popcount_words(words: torch.Tensor) -> torch.Tensor:
     )
 
 
-def popcount_rows(matrix: torch.Tensor) -> torch.Tensor:
-    """Reduce the trailing word axis: ``int32[..., W] → int32[...]``."""
+def w_and(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.bitwise_and(a, b)
+
+
+def w_or(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.bitwise_or(a, b)
+
+
+def w_xor(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.bitwise_xor(a, b)
+
+
+def w_andnot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.bitwise_and(a, torch.bitwise_not(b))
+
+
+def w_not(a: torch.Tensor) -> torch.Tensor:
+    """Complement. Caller must mask to the valid column range afterwards
+    (Not() in PQL is bounded by the index's existence row)."""
+    return torch.bitwise_not(a)
+
+
+# The public counts below keep the plain SWAR for a CPU tensor; a CUDA
+# tensor goes through K1's count mode (``tree_eval``) or K2
+# (``topn.row_counts``), which raise on what they do not take.
+
+
+def _rows(words: torch.Tensor) -> torch.Tensor:
+    """``int32[..., W]`` as K2's ``[N, 1, W]`` rows (a view where it can)."""
+    if words.dtype != torch.int32 or words.dim() < 1:
+        raise ValueError("words must be int32[..., W]")
+    return words.contiguous().reshape(-1, 1, words.shape[-1])
+
+
+def _flat(*words: torch.Tensor) -> list[torch.Tensor]:
+    """Same-shape int32 operands as one-row stacks ``[1, 1, N]`` of all
+    their words: a total count does not care how the words are laid out."""
+    for t in words:
+        if t.dtype != torch.int32 or t.shape != words[0].shape or t.device != words[0].device:
+            raise ValueError("operands must be int32 tensors of one shape on one device")
+    return [t.contiguous().reshape(1, 1, -1) for t in words]
+
+
+def _k1_count(op: int | None, *words: torch.Tensor) -> torch.Tensor:
+    """K1's count of one leaf, or of ``op`` over two leaves → int64 scalar."""
+    stacks = _flat(*words)
+    leaves = [(i, 0) for i in range(len(stacks))]
+    prog = [(OP_LOAD, i) for i in range(len(stacks))] + ([] if op is None else [(op, 0)])
+    return tree_eval(stacks, leaves, prog, 1, count=True, n_words=stacks[0].shape[-1])
+
+
+def popcount_rows_plain(matrix: torch.Tensor) -> torch.Tensor:
+    """SWAR popcount of the trailing word axis: ``int32[..., W] →
+    int32[...]``, on any device (the plain versions' count)."""
     return torch.sum(popcount_words(matrix), dim=-1, dtype=torch.int32)
 
 
+def popcount_plain(words: torch.Tensor) -> torch.Tensor:
+    return torch.sum(popcount_rows_plain(words).to(torch.int64))
+
+
+def matrix_filter_counts_plain(matrix: torch.Tensor, filt: torch.Tensor) -> torch.Tensor:
+    return popcount_rows_plain(matrix & filt[..., None, :])
+
+
+def popcount_rows(matrix: torch.Tensor) -> torch.Tensor:
+    """Reduce the trailing word axis: ``int32[..., W] → int32[...]``; on
+    CUDA K2 over the rows with no filter (a row of at most 2^26 words
+    counts below 2^31)."""
+    if matrix.device.type == "cpu":
+        return popcount_rows_plain(matrix)
+    from pilosa_tpu_torch.ops.topn import row_counts
+
+    return row_counts(_rows(matrix)).to(torch.int32).reshape(matrix.shape[:-1])
+
+
 def popcount(words: torch.Tensor) -> torch.Tensor:
-    """Total set bits over all axes → int64 scalar."""
-    return torch.sum(popcount_rows(words).to(torch.int64))
+    """Total set bits over all axes → int64 scalar (K1 count on CUDA)."""
+    if words.device.type == "cpu":
+        return popcount_plain(words)
+    return _k1_count(None, words)
 
 
 def count_and(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return popcount(a & b)
+    """popcount(a & b) → int64 scalar; on CUDA K2 of ``a`` as a one-row
+    stack under ``b`` as the filter."""
+    if a.device.type == "cpu":
+        return popcount_plain(a & b)
+    from pilosa_tpu_torch.ops.topn import row_counts
+
+    ma, mb = _flat(a, b)
+    return row_counts(ma, mb[0]).reshape(())
 
 
 def count_or(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return popcount(a | b)
+    if a.device.type == "cpu":
+        return popcount_plain(a | b)
+    return _k1_count(OP_OR, a, b)
 
 
 def count_xor(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return popcount(a ^ b)
+    if a.device.type == "cpu":
+        return popcount_plain(a ^ b)
+    return _k1_count(OP_XOR, a, b)
 
 
 def count_andnot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return popcount(a & ~b)
+    if a.device.type == "cpu":
+        return popcount_plain(a & ~b)
+    return _k1_count(OP_ANDNOT, a, b)
 
 
 def matrix_filter_counts(matrix: torch.Tensor, filt: torch.Tensor) -> torch.Tensor:
-    """Per-row filtered counts: ``int32[R, W] & int32[W] → int32[R]``."""
-    return popcount_rows(matrix & filt[..., None, :])
+    """Per-row filtered counts: ``int32[..., R, W] & int32[..., W] →
+    int32[..., R]``; on CUDA K2 of ``int32[R, W]`` under ``int32[W]``."""
+    if matrix.device.type == "cpu":
+        return matrix_filter_counts_plain(matrix, filt)
+    from pilosa_tpu_torch.ops.topn import row_counts
+
+    if matrix.dim() != 2 or filt.dim() != 1:
+        raise ValueError("on CUDA, matrix_filter_counts takes int32[R, W] and int32[W]")
+    if filt.dtype != torch.int32 or filt.shape[0] != matrix.shape[1]:
+        raise ValueError(f"filter {tuple(filt.shape)} does not match rows of {matrix.shape[1]} words")
+    return row_counts(_rows(matrix), filt.contiguous()[None]).to(torch.int32)
 
 
 def column_mask(width: int, n_words: int, device="cpu") -> torch.Tensor:
@@ -239,7 +340,7 @@ def tree_eval_plain(
             st.append(_apply(op, st.pop(), b))
     (out,) = st
     if count:
-        return popcount(out)
+        return popcount_plain(out)
     # a lone LOAD is a view of the stack: hand back a copy, as the kernel does
     return out.clone() if ops[0][0] == OP_LOAD and len(ops) == 1 else out
 

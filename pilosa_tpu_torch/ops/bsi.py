@@ -33,7 +33,7 @@ from __future__ import annotations
 import torch
 
 from pilosa_tpu_torch.ops import _cuda
-from pilosa_tpu_torch.ops.bitwise import popcount, popcount_rows
+from pilosa_tpu_torch.ops.bitwise import popcount_plain, popcount_rows_plain
 
 # the widest word axis K5 takes: 8,192 vectors per shard, held in one
 # block's registers (csrc/bsi_minmax.cu)
@@ -139,11 +139,11 @@ def sum_counts(slices, filt: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, 
     neg = exists & sign & filt
     shape = (0,) + tuple(exists.shape[:-1])
     if len(mag):
-        pos_counts = torch.stack([popcount_rows(m & pos) for m in mag])
-        neg_counts = torch.stack([popcount_rows(m & neg) for m in mag])
+        pos_counts = torch.stack([popcount_rows_plain(m & pos) for m in mag])
+        neg_counts = torch.stack([popcount_rows_plain(m & neg) for m in mag])
     else:
         pos_counts = neg_counts = torch.zeros(shape, dtype=torch.int32, device=exists.device)
-    return pos_counts, neg_counts, popcount(exists & filt)
+    return pos_counts, neg_counts, popcount_plain(exists & filt)
 
 
 def weigh_sum(pos_counts, neg_counts) -> int:
@@ -168,15 +168,15 @@ def min_max(slices, filt: torch.Tensor, want_max: bool) -> tuple[torch.Tensor, t
     base = exists & filt
     pos_cand = base & ~sign
     neg_cand = base & sign
-    has_pos = popcount_rows(pos_cand) > 0
-    has_neg = popcount_rows(neg_cand) > 0
+    has_pos = popcount_rows_plain(pos_cand) > 0
+    has_neg = popcount_rows_plain(neg_cand) > 0
 
     def walk(cand, prefer_set: bool):
         """MSB→LSB: narrow the candidates toward the extreme magnitude."""
         val = torch.zeros(cand.shape[:-1], dtype=torch.int64, device=cand.device)
         for k in range(depth - 1, -1, -1):
             t = (cand & mag[k]) if prefer_set else (cand & ~mag[k])
-            nonempty = popcount_rows(t) > 0
+            nonempty = popcount_rows_plain(t) > 0
             cand = torch.where(nonempty[..., None], t, cand)
             bit_is_one = nonempty if prefer_set else ~nonempty
             val = val + (bit_is_one.to(torch.int64) << k)
@@ -196,7 +196,7 @@ def min_max(slices, filt: torch.Tensor, want_max: bool) -> tuple[torch.Tensor, t
         pv, pc = walk(pos_cand, prefer_set=False)
         value = torch.where(has_neg, -nv, pv)
         cand = torch.where(has_neg[..., None], nc, pc)
-    return value, popcount_rows(cand).to(torch.int64)
+    return value, popcount_rows_plain(cand).to(torch.int64)
 
 
 # ------------------------------------------------------------------ kernels
@@ -271,6 +271,27 @@ def bsi_sum(
         mode="grouped" if n_groups > 1 else ("filtered" if masks is not None else "all"),
     )
     return pos, neg, n
+
+
+def weigh_device(pos: torch.Tensor, neg: torch.Tensor) -> torch.Tensor:
+    """``Σ_k (pos[k] - neg[k]) · 2^k`` of int64[D] per-bit counts as an
+    int64 on their device, wrapping modulo 2^64 as the reference's int64
+    dot does (D ≤ 63 elements: torch glue, not a kernel)."""
+    depth = pos.shape[-1]
+    weights = torch.tensor([1 << k for k in range(depth)], dtype=torch.int64, device=pos.device)
+    return torch.sum((pos - neg) * weights)
+
+
+def sum_device(slices: torch.Tensor, filt: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """All-device Sum of a BSI stack under a filter → (sum int64, count
+    int64), both on the stack's device: ``int32[2 + D, W]`` under
+    ``int32[W]`` (one fragment), or ``int32[2 + D, S, W]`` under
+    ``int32[S, W]``. K4 filtered, then ``weigh_device``."""
+    if slices.dim() == 2:
+        slices, filt = slices[:, None], filt[None]
+    depth = slices.shape[0] - OFFSET_ROW
+    pos, neg, n = bsi_sum(slices.contiguous(), depth, filt.contiguous()[None])
+    return weigh_device(pos[0], neg[0]), n[0]
 
 
 def bsi_min_max_plain(

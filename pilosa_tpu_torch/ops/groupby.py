@@ -17,7 +17,7 @@ from __future__ import annotations
 import torch
 
 from pilosa_tpu_torch.ops import _cuda
-from pilosa_tpu_torch.ops.bitwise import popcount_rows
+from pilosa_tpu_torch.ops.bitwise import popcount_rows_plain
 
 
 def gb_counts_plain(
@@ -31,7 +31,7 @@ def gb_counts_plain(
         if not 0 <= r < n_rows:
             continue
         for g in range(n_groups):
-            out[g, k] = popcount_rows(masks[g] & matrix[r]).to(torch.int64).sum()
+            out[g, k] = popcount_rows_plain(masks[g] & matrix[r]).to(torch.int64).sum()
     return out
 
 

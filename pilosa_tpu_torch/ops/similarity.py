@@ -20,6 +20,9 @@ are ``int32[.., W]`` views of the reference's ``uint32`` words.
   the elementwise finish of the mesh engine's programs
   (parallel/mesh.py) on counts reduced over the mesh: the search's K10
   keys, and the all-pairs scores from summed intersection counts.
+- ``count_keys`` (K12) and ``select_top``'s int mode (K10): the top-k of
+  int64 counts (``topn.select_top_counts``), keys ``count << b | (2^b -
+  1 - row)`` decoded back to (count, row).
 
 Each wrapper takes the plain version for tensors on the CPU and launches
 its kernel for CUDA tensors, or raises. The public entry points take
@@ -42,7 +45,7 @@ import numpy as np
 import torch
 
 from pilosa_tpu_torch.ops import _cuda
-from pilosa_tpu_torch.ops.bitwise import matrix_filter_counts, popcount_rows
+from pilosa_tpu_torch.ops.bitwise import matrix_filter_counts_plain, popcount_rows_plain
 
 # K10's radix select: 12-bit digits of the key, most significant first;
 # a key is below 2^62 (a score is at most 1.0, bits 0x3F800000)
@@ -106,21 +109,25 @@ def search_keys_plain(
     """(int64[R] keys, int32[SELECT_BINS] histogram of the keys' top
     digit): the plain version of K9, 2^20 rows at a time."""
     n_rows = matrix.shape[0]
-    q_pop = popcount_rows(query)
+    q_pop = popcount_rows_plain(query)
     keys = torch.empty(n_rows, dtype=torch.int64, device=matrix.device)
     for lo in range(0, n_rows, 1 << 20):
         part = matrix[lo : lo + (1 << 20)]
-        scores = _scores_plain(matrix_filter_counts(part, query), popcount_rows(part), q_pop, threshold)
+        scores = _scores_plain(matrix_filter_counts_plain(part, query), popcount_rows_plain(part), q_pop, threshold)
         ids = torch.arange(lo, lo + part.shape[0], dtype=torch.int64, device=matrix.device)
         keys[lo : lo + part.shape[0]] = (scores.view(torch.int32).to(torch.int64) << 32) | (_LOW32 - ids)
     hist = torch.bincount(keys >> SELECT_SHIFTS[0], minlength=SELECT_BINS).to(torch.int32)
     return keys, hist
 
 
-def select_top_plain(keys: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+def select_top_plain(keys: torch.Tensor, k: int, int_bits: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
     """The k largest keys in descending order, decoded → (f32 scores[k],
-    int32 ids[k]); the plain version of K10."""
+    int32 ids[k]), or with ``int_bits`` b > 0 count keys (``count_keys``)
+    → (int64 counts[k], int32 ids[k]); the plain version of K10."""
     top = torch.topk(keys, k).values
+    if int_bits:
+        low = (1 << int_bits) - 1
+        return top >> int_bits, (low - (top & low)).to(torch.int32)
     scores = (top >> 32).to(torch.int32).view(torch.float32)
     ids = (_LOW32 - (top & _LOW32)).to(torch.int32)
     return scores, ids
@@ -175,20 +182,26 @@ def search_keys(
     return keys, hist
 
 
-def select_top(keys: torch.Tensor, hist: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+def select_top(
+    keys: torch.Tensor, hist: torch.Tensor, k: int, int_bits: int = 0
+) -> tuple[torch.Tensor, torch.Tensor]:
     """The k largest of ``int64[R]`` distinct keys in descending order →
     (f32 scores[k], int32 ids[k]) (K10). ``hist`` is K9's histogram of
-    the keys' top digit."""
+    the keys' top digit. With ``int_bits`` b > 0 the keys are
+    ``count_keys``' and decode to (int64 counts[k], int32 ids[k]), K10's
+    int mode."""
     if keys.dtype != torch.int64 or keys.dim() != 1 or not keys.is_contiguous():
         raise ValueError("keys must be contiguous int64[R]")
     if hist.dtype != torch.int32 or tuple(hist.shape) != (SELECT_BINS,) or hist.device != keys.device:
         raise ValueError(f"hist must be int32[{SELECT_BINS}] on the keys' device")
     if not 0 <= k <= keys.shape[0]:
         raise ValueError(f"k = {k} is not in [0, {keys.shape[0]}]")
+    if not 0 <= int_bits <= 31:
+        raise ValueError(f"int_bits = {int_bits} is not in [0, 31]")
     dev = keys.device
     if dev.type == "cpu":
-        return select_top_plain(keys, k)
-    scores = torch.empty(k, dtype=torch.float32, device=dev)
+        return select_top_plain(keys, k, int_bits)
+    scores = torch.empty(k, dtype=torch.int64 if int_bits else torch.float32, device=dev)
     ids = torch.empty(k, dtype=torch.int32, device=dev)
     if k:
         n_sort = 1 << (k - 1).bit_length()
@@ -197,8 +210,8 @@ def select_top(keys: torch.Tensor, hist: torch.Tensor, k: int) -> tuple[torch.Te
         state = torch.zeros(8, dtype=torch.int64, device=dev)
         _cuda.SIM_SELECT.launch(
             dev, keys.data_ptr(), keys.shape[0], hist.data_ptr(), hists.data_ptr(), state.data_ptr(),
-            k, work.data_ptr(), n_sort, scores.data_ptr(), ids.data_ptr(),
-            mode="tile" if n_sort <= SELECT_TILE else "merge",
+            k, work.data_ptr(), n_sort, int_bits, scores.data_ptr(), ids.data_ptr(),
+            mode=("tile" if n_sort <= SELECT_TILE else "merge") + (" int" if int_bits else ""),
         )
     return scores, ids
 
@@ -246,16 +259,16 @@ def pairwise_intersections_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tens
 
 def tanimoto_matrix_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     inter = pairwise_intersections_plain(a, b)
-    a_pop = popcount_rows(a).to(torch.float32)
-    b_pop = popcount_rows(b).to(torch.float32)
+    a_pop = popcount_rows_plain(a).to(torch.float32)
+    b_pop = popcount_rows_plain(b).to(torch.float32)
     union = (a_pop[:, None] + b_pop[None, :]) - inter
     return torch.where(union > 0, _div(inter, union), 0.0)
 
 
 def cosine_matrix_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     inter = pairwise_intersections_plain(a, b)
-    a_pop = popcount_rows(a).to(torch.float32)
-    b_pop = popcount_rows(b).to(torch.float32)
+    a_pop = popcount_rows_plain(a).to(torch.float32)
+    b_pop = popcount_rows_plain(b).to(torch.float32)
     denom = _sqrt(a_pop[:, None] * b_pop[None, :])
     return torch.where(denom > 0, _div(inter, denom), 0.0)
 
@@ -414,3 +427,82 @@ def mesh_pairwise_finish(
             out.data_ptr(), mode=metric,
         )
     return out
+
+
+# ------------------------------------------------------ integer top-k keys
+# K12's count_keys entry: the keys of a top-k of int64 counts for K10's
+# int mode. ``key = count << b | (2^b - 1 - row)`` with b row bits: the
+# keys are distinct, order by count, and among equal counts the lower
+# row's key is the larger, so K10's k largest are ``lax.top_k``'s answer.
+
+
+def count_key_bits(n: int) -> int:
+    """The row bits b of ``n`` count keys: max(1, bit length of n - 1)."""
+    return max(1, (n - 1).bit_length())
+
+
+def count_keys_plain(counts: torch.Tensor, max_count: "int | None" = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """K12's count_keys, plain: int64[R] counts in [0, 2^(62 - b)) →
+    (int64[R] keys, int32[SELECT_BINS] histogram of their top digit);
+    raises ValueError for a count out of range, or for a ``max_count``
+    out of it."""
+    n = counts.shape[0]
+    bits = count_key_bits(n)
+    check_count_range(max_count, n)
+    if n and (int(counts.min()) < 0 or int(counts.max()) >= 1 << (62 - bits)):
+        raise ValueError(f"a count is outside [0, 2^{62 - bits}): its key would pass 2^62")
+    rows = torch.arange(n, dtype=torch.int64, device=counts.device)
+    keys = (counts << bits) | (((1 << bits) - 1) - rows)
+    hist = torch.bincount(keys >> SELECT_SHIFTS[0], minlength=SELECT_BINS).to(torch.int32)
+    return keys, hist
+
+
+def check_count_range(max_count: "int | None", n: int) -> None:
+    """Raise ValueError where ``max_count``, the largest count a caller's
+    shapes allow (S·W·32 for counts from K2 or K13), reaches 2^(62 - b):
+    the host's check, in place of reading K12's overflow flag back."""
+    if max_count is not None and max_count >= 1 << (62 - count_key_bits(n)):
+        raise ValueError(f"counts up to {max_count} can pass 2^{62 - count_key_bits(n)}: their keys would pass 2^62")
+
+
+def count_keys_launch(counts: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, "torch.Tensor | None"]:
+    """``count_keys`` without the range check on CUDA → (keys, hist, the
+    int32[1] count of out-of-range counts on the device, or None on the
+    CPU, whose plain version has raised already)."""
+    if counts.dtype != torch.int64 or counts.dim() != 1 or not counts.is_contiguous():
+        raise ValueError("counts must be contiguous int64[R]")
+    n = counts.shape[0]
+    if n > 1 << 31:
+        raise ValueError(f"{n} counts are more than 2^31 rows")
+    dev = counts.device
+    if dev.type == "cpu":
+        return (*count_keys_plain(counts), None)
+    keys = torch.empty(n, dtype=torch.int64, device=dev)
+    hist = torch.zeros(SELECT_BINS, dtype=torch.int32, device=dev)
+    over = torch.zeros(1, dtype=torch.int32, device=dev)
+    if n:
+        _cuda.COUNT_KEYS.launch(
+            dev, counts.data_ptr(), n, count_key_bits(n), keys.data_ptr(), hist.data_ptr(), over.data_ptr(),
+        )
+    return keys, hist, over
+
+
+def raise_if_over(over: "torch.Tensor | None", n: int) -> None:
+    """Read K12's overflow count back (a sync) and raise if it is not 0."""
+    if over is not None and int(over.item()):
+        raise ValueError(f"a count is outside [0, 2^{62 - count_key_bits(n)}): its key would pass 2^62")
+
+
+def count_keys(counts: torch.Tensor, max_count: "int | None" = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Keys of an integer top-k of ``int64[R]`` non-negative counts (K12)
+    → (int64[R] keys, int32[SELECT_BINS] histogram) for ``select_top``
+    with ``int_bits=count_key_bits(R)``. Raises ValueError for a count at
+    or above 2^(62 - b), or below 0. Given ``max_count``, the largest
+    count the caller's shapes allow, that check is made on the host and
+    nothing waits for the card; without it, a CUDA call reads K12's
+    overflow flag back after the launch."""
+    check_count_range(max_count, counts.shape[0])
+    keys, hist, over = count_keys_launch(counts)
+    if max_count is None:
+        raise_if_over(over, counts.shape[0])
+    return keys, hist

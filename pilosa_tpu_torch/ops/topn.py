@@ -1,17 +1,23 @@
-"""TopN counts: per-row masked popcount summed over shards (K2).
+"""TopN counts: per-row masked popcount summed over shards (K2), the
+fused ingest step (K13) and the integer top-k.
 
-Reference: pilosa_tpu/ops/topn.py and the TopN programs of
-pilosa_tpu/executor/executor.py:1306-1390. ``row_counts`` is the wrapper
-of ``csrc/row_counts.cu``: a CPU tensor takes the plain version, a CUDA
-tensor launches the kernel or raises.
+Reference: pilosa_tpu/ops/topn.py, the TopN programs of
+pilosa_tpu/executor/executor.py:1306-1390, and the ingest step of
+__graft_entry__.py:65 ``query_step`` (pilosa_tpu/parallel/mesh.py:852
+``_ingest_prog`` per device). ``row_counts`` is the wrapper of
+``csrc/row_counts.cu`` and ``ingest_counts`` of ``csrc/ingest_counts.cu``:
+a CPU tensor takes the plain version, a CUDA tensor launches the kernel
+or raises. ``select_top_counts`` is ``lax.top_k`` of int64 counts: K12's
+count keys and K10's int mode (ops/similarity.py); ``top_rows`` is K2
+then that top-k.
 """
 
 from __future__ import annotations
 
 import torch
 
-from pilosa_tpu_torch.ops import _cuda
-from pilosa_tpu_torch.ops.bitwise import popcount_rows
+from pilosa_tpu_torch.ops import _cuda, similarity
+from pilosa_tpu_torch.ops.bitwise import popcount_rows_plain
 
 
 def candidate_counts(
@@ -23,7 +29,7 @@ def candidate_counts(
     n_rows = matrix.shape[0]
     in_range = (row_ids >= 0) & (row_ids < n_rows)
     gathered = matrix[torch.where(in_range, row_ids, 0).long()]
-    counts = popcount_rows(gathered if filt is None else gathered & filt)
+    counts = popcount_rows_plain(gathered if filt is None else gathered & filt)
     mask = in_range.reshape((-1,) + (1,) * (counts.dim() - 1))
     return torch.where(mask, counts, 0)
 
@@ -81,3 +87,103 @@ def row_counts(
             mode=("filtered" if filt is not None else "rows") + (" ids" if ids is not None else ""),
         )
     return out
+
+
+# -------------------------------------------------------- the ingest step
+
+
+def ingest_counts_plain(
+    matrix: torch.Tensor, delta: torch.Tensor, filt: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K13's plain version: ``matrix |= delta`` in place, then the
+    filtered row counts and their sum."""
+    matrix |= delta
+    counts = row_counts_plain(matrix, filt)
+    return matrix, counts, counts.sum()
+
+
+def ingest_counts(
+    matrix: torch.Tensor, delta: torch.Tensor, filt: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Apply a write delta and count every row under a filter, in one
+    pass (K13): ``int32[R, S, W] | int32[R, S, W]``, ``int32[S, W]`` →
+    (matrix, int64[R] counts, int64 total). The OR is in place, as the
+    reference donates the matrix: the ``matrix`` handle now holds the new
+    matrix, and it is what is returned. The total stays on the device."""
+    if matrix.dtype != torch.int32 or matrix.dim() != 3 or not matrix.is_contiguous():
+        raise ValueError("matrix must be contiguous int32[R, S, W]")
+    n_rows, n_shards, n_words = matrix.shape
+    if n_words < 4 or n_words % 4:
+        raise ValueError(f"matrix word axis {n_words} is not a positive multiple of 4")
+    dev = matrix.device
+    for t, shape, what in ((delta, tuple(matrix.shape), "delta"), (filt, (n_shards, n_words), "filter")):
+        if t.device != dev or t.dtype != torch.int32 or not t.is_contiguous() or tuple(t.shape) != shape:
+            raise ValueError(f"{what} must be a contiguous int32{list(shape)} on {dev}")
+    if dev.type == "cpu":
+        return ingest_counts_plain(matrix, delta, filt)
+    counts = torch.zeros(n_rows, dtype=torch.int64, device=dev)
+    total = torch.zeros(1, dtype=torch.int64, device=dev)
+    if n_rows:
+        _cuda.INGEST_COUNTS.launch(
+            dev, matrix.data_ptr(), delta.data_ptr(), n_rows, n_shards * n_words // 4,
+            filt.data_ptr(), counts.data_ptr(), total.data_ptr(),
+        )
+    return matrix, counts, total.reshape(())
+
+
+# ------------------------------------------------------- the integer top-k
+
+
+def select_top_counts_plain(counts: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``select_top_counts``' plain version: torch.topk of the same keys."""
+    k = min(int(k), counts.shape[0])
+    keys, _hist = similarity.count_keys_plain(counts)
+    return similarity.select_top_plain(keys, k, similarity.count_key_bits(counts.shape[0]))
+
+
+def select_top_counts(
+    counts: torch.Tensor, k: int, max_count: "int | None" = None
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The k largest of ``int64[R]`` counts in descending order →
+    (int64 counts[k], int32 ids[k]), k clamped to R, ties to the lower
+    row: ``lax.top_k``'s answer. K12's count keys, then K10's int mode.
+    Raises ValueError for a count at or above 2^(62 - b), b the row bits
+    (``similarity.count_key_bits``), or below 0. ``max_count`` is the
+    largest count the caller's shapes allow (``max_row_count``): given
+    it, the range is checked on the host and the two launches run with
+    no sync; without it, K12's overflow flag is read after K10 is
+    queued."""
+    if k < 0:
+        raise ValueError(f"k must be non-negative, got {k}")
+    if counts.dtype != torch.int64 or counts.dim() != 1:
+        raise ValueError("counts must be int64[R]")
+    counts = counts.contiguous()
+    n = counts.shape[0]
+    k = min(int(k), n)
+    similarity.check_count_range(max_count, n)
+    keys, hist, over = similarity.count_keys_launch(counts)
+    if k == 0:
+        top = counts[:0].clone(), torch.empty(0, dtype=torch.int32, device=counts.device)
+    else:
+        top = similarity.select_top(keys, hist, k, similarity.count_key_bits(n))
+    if max_count is None:
+        similarity.raise_if_over(over, n)
+    return top
+
+
+def max_row_count(n_shards: int, n_words: int) -> int:
+    """The largest count of one row over ``[S, W]`` int32 words: S·W·32,
+    the host's bound for ``select_top_counts`` of K2's or K13's counts."""
+    return n_shards * n_words * 32
+
+
+def top_rows(matrix: torch.Tensor, filt: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(counts int32[k], row_ids int32[k]) of the k largest filtered row
+    counts of one fragment ``int32[R, W]`` under ``int32[W]``, k clamped
+    to R; rows of count 0 appear when k passes the non-zero rows. K2
+    filtered, then ``select_top_counts``."""
+    if matrix.dim() != 2 or filt.dim() != 1:
+        raise ValueError("top_rows takes one fragment int32[R, W] and a filter int32[W]")
+    counts = row_counts(matrix[:, None].contiguous(), filt[None].contiguous())
+    vals, ids = select_top_counts(counts, k, max_row_count(1, matrix.shape[1]))
+    return vals.to(torch.int32), ids

@@ -24,9 +24,14 @@ stream) and summed, words axis first and then shards, as ``_psum_both``
 orders the reference's reduction. K12 (csrc/mesh_finish.cu) finishes the
 similarity programs on the reduced counts and K10 selects their top k.
 
-Not ported yet (ROADMAP.md B16): the fixed demo and bench programs
-(``count_and``, ``topn``, ``bsi_sum``, ``ingest_and_aggregate``,
-``place_matrix``/``place_row``) and multi-process meshes
+The demo and bench programs of the reference (``count_and``, ``topn``,
+``bsi_sum``, ``ingest_and_aggregate``, with ``place_matrix`` and
+``place_row``) run the same way over grid-placed arrays: K2, K4 or K13
+(csrc/ingest_counts.cu, the ingest step, in place) per block, the
+reduction tree, and for ``topn`` the integer top-k (K12's count keys,
+K10's int mode) on the lead device.
+
+Not ported yet (ROADMAP.md B16m): multi-process meshes
 (``parallel/multihost.py``).
 """
 
@@ -40,6 +45,7 @@ import torch
 
 from pilosa_tpu_torch import ops
 from pilosa_tpu_torch.ops import similarity
+from pilosa_tpu_torch.ops.bsi import OFFSET_ROW, weigh_device
 from pilosa_tpu_torch.ops._cuda import resolve_device
 from pilosa_tpu_torch.utils.tracing import GLOBAL_TRACER
 
@@ -680,3 +686,117 @@ class MeshQueryEngine:
     def pairwise_cosine(self, a: MeshArray, b: MeshArray) -> MeshArray:
         self.note_call("pairwise_cosine")
         return self._pairwise("cosine", a, b)
+
+    # ------------------------------------- placement of the demo programs
+    # The reference places [R, S, W] under P(None, shards, words) and
+    # [S, W] under P(shards, words): the grid mode.
+
+    def spec_matrix(self) -> str:
+        return "grid"
+
+    def spec_row(self) -> str:
+        return "grid"
+
+    def _place_grid(self, arr) -> MeshArray:
+        s_n, w_n = arr.shape[-2], arr.shape[-1]
+        ns, nw = self.mesh.shape[AXIS_SHARDS], self.mesh.shape[AXIS_WORDS]
+        if s_n % ns or w_n % nw:
+            raise ValueError(
+                f"[.., {s_n}, {w_n}] does not divide over the (shards={ns}, words={nw}) mesh"
+            )
+        return place(self.mesh, arr, "grid")
+
+    def place_matrix(self, stacked) -> MeshArray:
+        """uint32 (or int32) ``[.., S, W]``, any leading axes (a row matrix
+        [R, S, W], BSI slices [2 + D, S, W]) → placed, sharded (shards,
+        words). A numpy array, or a tensor on any device: each block is a
+        copy of its slice. Raises where S does not divide the shards axis
+        or W the words axis."""
+        if stacked.ndim < 2:
+            raise ValueError("place_matrix takes [.., S, W]")
+        return self._place_grid(stacked)
+
+    def place_row(self, stacked) -> MeshArray:
+        """uint32 (or int32) ``[S, W]`` → placed, sharded (shards, words)."""
+        if stacked.ndim != 2:
+            raise ValueError("place_row takes [S, W]")
+        return self._place_grid(stacked)
+
+    def _check_grid(self, matrix: MeshArray, filt: MeshArray, what: str) -> None:
+        for a in (matrix, filt):
+            if not isinstance(a, MeshArray) or a.mesh is not self.mesh or a.mode != "grid":
+                raise ValueError(f"{what} takes arrays placed with place_matrix/place_row on this mesh")
+        if tuple(filt.shape) != tuple(matrix.shape[-2:]):
+            raise ValueError(f"{what}: [S, W] {filt.shape} does not match {matrix.shape}")
+
+    # ------------------------------------------ demo and bench programs
+    def count_and(self, a: MeshArray, b: MeshArray) -> torch.Tensor:
+        """|a ∩ b| of two placed [S, W] rows → int64 scalar on the lead
+        device: K2 per block (``a``'s block as one row, ``b``'s as the
+        filter), then the reduction tree."""
+        self._check_grid(a, b, "count_and")
+        if len(a.shape) != 2:
+            raise ValueError("count_and takes two [S, W] rows")
+
+        def run(a: MeshArray, b: MeshArray) -> torch.Tensor:
+            return self._psum_both(
+                self._each(lambda i, j: ops.row_counts(a.blocks[i][j][None], b.blocks[i][j]))
+            ).reshape(())
+
+        return self.dispatch("count_and", run, a, b)
+
+    def _filtered_counts(self, matrix: MeshArray, filt: MeshArray) -> torch.Tensor:
+        return self._psum_both(self._each(lambda i, j: ops.row_counts(matrix.blocks[i][j], filt.blocks[i][j])))
+
+    def topn(self, matrix: MeshArray, filt: MeshArray, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """(matrix [R, S, W], filt [S, W]) → (int64 counts[k], int32
+        ids[k]) on the lead device: K2 filtered per block, the reduction
+        tree, then the integer top-k (ties to the lower row, k clamped to
+        R, as ``lax.top_k``)."""
+        self._check_grid(matrix, filt, "topn")
+
+        def run(matrix: MeshArray, filt: MeshArray, k: int):
+            bound = ops.topn.max_row_count(matrix.shape[1], matrix.shape[2])
+            return ops.select_top_counts(self._filtered_counts(matrix, filt), k, bound)
+
+        return self.dispatch("topn", run, matrix, filt, k)
+
+    def bsi_sum(self, slices: MeshArray, filt: MeshArray) -> tuple[torch.Tensor, torch.Tensor]:
+        """(slices [2 + D, S, W], filt [S, W]) → (sum int64, count int64) on
+        the lead device: K4 filtered per block, the per-bit counts and n
+        through the reduction tree, then the weighting. The reference
+        weighs each block's counts and sums the block sums; the port sums
+        the counts and weighs once. Both are the same int64 modulo 2^64."""
+        self._check_grid(slices, filt, "bsi_sum")
+        depth = slices.shape[0] - OFFSET_ROW
+
+        def run(slices: MeshArray, filt: MeshArray):
+            parts = self._each(lambda i, j: ops.bsi_sum(slices.blocks[i][j], depth, filt.blocks[i][j][None]))
+            pos, neg, n = (self._psum_both([[p[k] for p in row] for row in parts]) for k in range(3))
+            return weigh_device(pos[0], neg[0]), n[0]
+
+        return self.dispatch("bsi_sum", run, slices, filt)
+
+    def ingest_and_aggregate(
+        self, matrix: MeshArray, delta: MeshArray, filt: MeshArray
+    ) -> tuple[MeshArray, torch.Tensor, torch.Tensor]:
+        """The step: ``matrix |= delta`` and the filtered row counts →
+        (matrix, int64[R] counts, int64 total), the counts and total on the
+        lead device. K13 per block, in place, then the reduction tree.
+        The reference donates the matrix: here its blocks are updated in
+        place, so the ``matrix`` handle now holds the new matrix, and it is
+        the handle returned. ``delta`` must be placed as ``matrix``."""
+        self._check_grid(matrix, filt, "ingest_and_aggregate")
+        self._check_grid(delta, filt, "ingest_and_aggregate")
+        if tuple(delta.shape) != tuple(matrix.shape):
+            raise ValueError(f"delta {delta.shape} is not placed as the matrix {matrix.shape}")
+
+        def run(matrix: MeshArray, delta: MeshArray, filt: MeshArray):
+            parts = self._each(
+                lambda i, j: ops.ingest_counts(matrix.blocks[i][j], delta.blocks[i][j], filt.blocks[i][j])
+            )
+            counts = self._psum_both([[p[1] for p in row] for row in parts])
+            total = self._psum_both([[p[2] for p in row] for row in parts])
+            return matrix, counts, total
+
+        return self.dispatch("ingest_and_aggregate", run, matrix, delta, filt)

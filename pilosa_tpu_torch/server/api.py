@@ -286,6 +286,29 @@ class API:
         durable.ack_barrier()  # acknowledged ⇒ on disk (docs/durability.md)
         self._invalidate_results(index)
 
+    def import_values(self, index: str, field: str, payload: dict) -> None:
+        """Bulk BSI import (reference: api.ImportValue).
+
+        payload keys: columnIDs|columnKeys, values, clear (optional: the
+        columns' values are cleared and ``values`` is not read).
+        """
+        idx = self._index(index)
+        f = self._field(idx, field)
+        self.check_write_limit(self._payload_size(payload), "import")
+        cols = self._resolve_cols(idx, payload)
+        if payload.get("clear"):
+            f.clear_values(cols)
+            durable.ack_barrier()
+            self._invalidate_results(index)
+            return
+        values = np.asarray(payload.get("values", []), dtype=np.int64)
+        if cols.size != values.size:
+            raise ExecutionError("columnIDs and values length mismatch")
+        f.import_values(cols, values)
+        idx.mark_columns_exist(cols)
+        durable.ack_barrier()  # acknowledged ⇒ on disk (docs/durability.md)
+        self._invalidate_results(index)
+
     def import_roaring(self, index: str, field: str, shard: int, data: bytes, view: str = VIEW_STANDARD) -> int:
         """Direct roaring-bitmap union into a fragment (reference:
         api.ImportRoaring fast path). The wire-speed bulk lane

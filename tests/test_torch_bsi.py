@@ -246,12 +246,15 @@ def test_new_wrappers_take_the_plain_version_on_cpu_tensors(rng, monkeypatch):
     ops.similarity.mesh_sim_keys(counts, counts + 1, counts[2:], "cosine")
     pops = torch.tensor([1.0, 2.0], dtype=torch.float32)
     ops.similarity.mesh_pairwise_finish(pops[:, None] * pops[None, :], pops, pops, "tanimoto")
+    ops.ingest_counts(m.clone(), m, m[0])
+    ops.select_top_counts(counts, 2)
     assert {k: v.launches for k, v in _cuda.KERNELS.items()} == before
     assert all(k._fn is None for k in _cuda.KERNELS.values())
     assert {k.stem for k in _cuda.KERNELS.values()} == set(_cuda.SOURCES)
     assert set(_cuda.SOURCES) == {
         "tree_eval", "row_counts", "stack_delta", "bsi_sum", "bsi_minmax", "groupby",
         "shift_words", "container_count", "similarity_scan", "pairwise", "mesh_finish",
+        "ingest_counts",
     }
 
 

@@ -73,8 +73,9 @@ def test_chip_smoke_rehearses_on_the_cpu(capsys):
     """chip_smoke.py's steps on the plain versions at a tiny size: the
     same data recipes, queries, numpy checks, write phase, taxi path,
     residency path (over a lowered budget), similarity path and kernel
-    comparisons, and the mesh path on eight CPU positions in both layouts,
-    without the card lines or the final ok line."""
+    comparisons, the mesh path on eight CPU positions in both layouts, the
+    graft step and the mesh programs of dryrun_multichip, without the card
+    lines or the final ok line."""
     import json
 
     sys.path.insert(0, REPO)
@@ -93,12 +94,17 @@ def test_chip_smoke_rehearses_on_the_cpu(capsys):
         ("mesh", "tree_eval"), ("mesh", "row_counts"), ("mesh", "stack_delta"), ("mesh", "bsi_sum"),
         ("mesh", "bsi_minmax"), ("mesh", "gb_counts"), ("mesh", "gb_masks"), ("mesh", "sim_select"),
         ("mesh", "pairwise"), ("mesh", "mesh_sim_keys"), ("mesh", "mesh_pairwise_finish"),
+        ("graft", "ingest_counts"), ("graft", "count_keys"), ("graft", "sim_select"),
+        ("mesh_programs", "ingest_counts"), ("mesh_programs", "row_counts"), ("mesh_programs", "bsi_sum"),
+        ("mesh_programs", "tree_eval"), ("mesh_programs", "count_keys"), ("mesh_programs", "sim_select"),
+        ("mesh_programs", "mesh_sim_keys"),
     ]
     assert all(k["max_abs_err"] == 0 for k in kernels)
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms"}
     assert all(keys <= set(k) for k in kernels)
-    assert {k["launches_by_path"].keys() == {"main", "taxi", "residency", "similarity", "mesh"} for k in kernels} == {True}
+    paths = {"main", "taxi", "residency", "similarity", "mesh", "graft", "mesh_programs"}
+    assert {k["launches_by_path"].keys() == paths for k in kernels} == {True}
     pairwise = kernels[13]
     assert pairwise["bound_by"] == "operations" and pairwise["library_ms"] is not None
     assert {k["replaces"].split(":")[0] for k in kernels if k["path"] == "mesh"} == {
@@ -107,7 +113,10 @@ def test_chip_smoke_rehearses_on_the_cpu(capsys):
     # similarity 3 searches + 4 all-pairs blocks; per mesh layout: the main
     # holder's 10 queries, the Row readback, Shift, 4 Counts around the
     # Set and Clear and their line, the taxi's 13 and the level-synchronous
-    # GroupBy (2 lines), 4 searches, 3 all-pairs blocks
+    # GroupBy (2 lines), 4 searches, 3 all-pairs blocks; the graft step;
+    # top_rows of one fragment; per layout, the five mesh programs of
+    # dryrun_multichip
     mesh_layout = 10 + 1 + 1 + 4 + 1 + 13 + 2 + 4 + 3
-    assert sum(line.startswith("ok  ") for line in lines) == 8 + 2 + 2 + 13 + 7 + 2 + 3 + 4 + 2 * mesh_layout
+    assert sum(line.startswith("ok  ") for line in lines) == (
+        8 + 2 + 2 + 13 + 7 + 2 + 3 + 4 + 2 * mesh_layout + 1 + 1 + 2 * 5)
     assert not any(line.startswith('{"ok"') for line in lines)
