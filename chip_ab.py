@@ -1,0 +1,147 @@
+"""Compare checkouts of pilosa_tpu_torch on one CUDA card, in turns.
+
+    python3 chip_ab.py ROOT_A ROOT_B [ROOT_C ...]
+
+Each ROOT is a directory that holds a ``pilosa_tpu_torch/`` package: a
+checkout, or a commit unpacked with ``git archive``. The roots run in
+the order given and then in reverse (A B B A), each in a process of its
+own that builds that root's kernels, and each run prints one JSON line:
+
+- ``host``: the sync p50 in ms (host clock around a query that ends in
+  its readback, 30 queries after 3) of a Count, a TopN and a filtered
+  TopN through ``API.query``, on one device and on 8 positions of the
+  card (8x1 and 4x2), over 2,048 shards of chip_smoke's main recipe;
+- ``kernels``: the device time in ms (CUDA events, 20 launches after
+  one) of K2, K4 and K5 under Row(cab_type=1) at chip_smoke's taxi
+  shapes (1,024 shards, depth 20; random words), fused where the root
+  has the fused modes (``ops.PlannedFilter``) and as two launches (K1
+  words, then the filter-plane mode), with a digest of the fused
+  results.
+
+Compare roots only within one call: the host's load and the card's
+clocks differ from one call to the next.
+"""
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+
+def measure(root: str) -> dict:
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    os.environ["PILOSA_TPU_SHARD_WIDTH_EXP"] = "20"
+    import numpy as np
+    import torch
+
+    from pilosa_tpu_torch import ops
+    from pilosa_tpu_torch.core import Holder
+    from pilosa_tpu_torch.ops import _cuda, bitwise
+    from pilosa_tpu_torch.parallel import MeshContext, make_mesh
+    from pilosa_tpu_torch.server import API
+    from pilosa_tpu_torch.shardwidth import WORDS_PER_SHARD as W
+
+    if not _cuda.__file__.startswith(root):
+        raise RuntimeError(f"imported {_cuda.__file__}, not the package under {root}")
+    _cuda.build(_cuda.SOURCES, force=True)
+    out = {"root": os.path.basename(root.rstrip("/")) or root, "host": {}, "kernels": {}}
+
+    # ---------------------------------------------------------------- host
+    n_shards, rows, g = 2048, 8, 64
+    rng = np.random.default_rng(7)
+    blocks = [rng.integers(0, 2**32, (rows, W), dtype=np.uint32) & rng.integers(0, 2**32, (rows, W), dtype=np.uint32)
+              for _ in range(g)]
+    exists = []
+    for b in blocks:
+        e = np.zeros((rows, W), np.uint32)
+        e[0] = np.bitwise_or.reduce(b, axis=0)
+        exists.append(e)
+    h = Holder(None)
+    idx = h.create_index("bench")
+    view = idx.create_field("f").create_view_if_not_exists("standard")
+    ex_view = idx.existence_field().create_view_if_not_exists("standard")
+    for s in range(n_shards):
+        for v, src in ((view, blocks), (ex_view, exists)):
+            frag = v.create_fragment_if_not_exists(s)
+            frag._np_matrix = src[s % g]  # packed-matrix injection, as chip_smoke's main path
+            frag._all_dirty = False
+    queries = ["Count(Intersect(Row(f=1), Row(f=2)))", "TopN(f, n=5)", "TopN(f, Row(f=1), n=5)"]
+    positions = ["cuda:0"] * 8
+    for name, make in (("one", lambda: API(h, device="cuda", route_mode="device")),
+                       ("8x1", lambda: API(h, mesh_ctx=MeshContext(make_mesh(positions, words_axis=1)), route_mode="mesh")),
+                       ("4x2", lambda: API(h, mesh_ctx=MeshContext(make_mesh(positions, words_axis=2)), route_mode="mesh"))):
+        api = make()
+        for q in queries:
+            for _ in range(3):
+                api.query("bench", q)
+            lat = []
+            for _ in range(30):
+                t0 = time.perf_counter()
+                api.query("bench", q)
+                lat.append(time.perf_counter() - t0)
+            out["host"][f"{name} {q}"] = float(np.median(lat)) * 1e3
+        del api
+        torch.cuda.empty_cache()
+
+    # ------------------------------------------------------------- kernels
+    s, depth, dev = 1024, 20, torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+
+    def words(*shape):
+        return torch.randint(-(2**31), 2**31 - 1, shape, generator=gen, dtype=torch.int32, device=dev)
+
+    stack = words(2 + depth, s, W)
+    stack[1] &= words(s, W)  # fewer negative values
+    cab, pc = words(8, s, W), words(16, s, W)
+    load = [(bitwise.OP_LOAD, 0)]
+
+    def filt():
+        return ops.tree_eval([cab], [(0, 1)], load, s, count=False, device=dev)
+
+    def ms(fn, reps=20):
+        fn()
+        torch.cuda.synchronize()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        return a.elapsed_time(b) / reps
+
+    k = out["kernels"]
+    k["K2 two launches"] = ms(lambda: ops.row_counts(pc, filt()))
+    k["K4 two launches"] = ms(lambda: ops.bsi_sum(stack, depth, filt()[None]))
+    k["K5 max two launches"] = ms(lambda: ops.bsi_min_max(stack, depth, filt(), True))
+    if hasattr(ops, "PlannedFilter"):
+        pf = ops.PlannedFilter([cab], [(0, 1)], load, [], s, W)
+        k["K2 rows+tree"] = ms(lambda: ops.row_counts(pc, pf))
+        k["K4 one+tree"] = ms(lambda: ops.bsi_sum(stack, depth, pf))
+        k["K5 max+tree"] = ms(lambda: ops.bsi_min_max(stack, depth, pf, True))
+        got = [ops.row_counts(pc, pf), *ops.bsi_sum(stack, depth, pf), *ops.bsi_min_max(stack, depth, pf, True)]
+        k["fused digest"] = [int(t.sum()) for t in got]
+    return out
+
+
+def main(roots: list) -> int:
+    if len(roots) < 2:
+        print(__doc__, file=sys.stderr)
+        return 2
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    print(card, flush=True)
+    for root in roots + roots[::-1]:
+        rc = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", root]).returncode
+        if rc:
+            return rc
+    return 0
+
+
+if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--one":
+        print(json.dumps(measure(sys.argv[2])), flush=True)
+        sys.exit(0)
+    sys.exit(main(sys.argv[1:]))

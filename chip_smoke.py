@@ -59,6 +59,14 @@ Run from the root of a checkout. In order:
      answer against numpy and the one-device route, with the sync p50
      of Count, TopN, Sum and GroupBy beside the one-device p50. K1-K6,
      K10, K11 and K12 must launch here;
+   on the main, taxi, residency and mesh paths (8x1 and 4x2), a
+   fused-filter phase: filtered TopN (plain and ids=), Sum, Min and Max
+   under every filter kind (a row, an Intersect, Not, a BSI condition, a
+   between, an empty Union(), a row >= R; container leaves on the
+   residency path, a Shift on one device), each answer against numpy and
+   against the unfused composition (K1 words, then the aggregate's
+   filter-plane mode), with the fused launches counted exactly and no
+   K1 words launch but a Shift's;
 3. each kernel against its plain torch version on the card at its
    path's shapes (all-ones and bit-31 words, rows -1 and >= R, _OOB
    delta entries, an empty Union(); BSI constants 0, negative and
@@ -67,8 +75,10 @@ Run from the root of a checkout. In order:
    container payloads at a plane's edges, slots -1 and past the store;
    fingerprints with all-ones, bit-31, zero and duplicate rows, a zero
    query, W of 1, 3 and 512 and rows off a 16 B boundary, k of 1, 10,
-   1,000, 4,096, 4,097, 50,000 and R; the mesh path's kernels at its
-   4x2 blocks, W = 16,384), exact equality, and its time
+   1,000, 4,096, 4,097, 50,000 and R; the integer top-k at counts of
+   2^(62 - b), 2^62 - 1 and 2^63 - 1, negative, with ties at the k-th;
+   the fused filters' kernels under planned trees; the mesh path's
+   kernels at its 4x2 blocks, W = 16,384), exact equality, and its time
    beside its bound (bytes over 3.35 TB/s, or K11's unpacked product at
    the int8 tensor rate) and the plain version's;
 4. print the card (nvidia-smi name and power limit), the launch counts,
@@ -228,6 +238,140 @@ def kernel_entry(k, launches: dict, err: int, t: dict, path: str) -> dict:
     }
 
 
+def kernel_modes(torch) -> dict:
+    """Every kernel's launches by mode; a launch without a mode under ""."""
+    from pilosa_tpu_torch.ops import _cuda
+
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    out = {}
+    for n, k in _cuda.KERNELS.items():
+        modes = dict(k.modes)
+        rest = k.launches - sum(modes.values())
+        if rest:
+            modes[""] = rest
+        out[n] = modes
+    return out
+
+
+def modes_since(torch, before: dict) -> dict:
+    """The launches by kernel and mode made since ``before``
+    (``kernel_modes``), without the zeros."""
+    out = {}
+    for n, modes in kernel_modes(torch).items():
+        d = {m: c - before[n].get(m, 0) for m, c in modes.items() if c != before[n].get(m, 0)}
+        if d:
+            out[n] = d
+    return out
+
+
+class unfused:  # noqa: N801 — used as a context manager
+    """The executor's filtered TopN, Sum, Min and Max as two launches, the
+    port's form before the filters were fused: K1's words write the [S, W]
+    filter, then the aggregate reads it in its tensor-filter mode (on the
+    mesh, a placed filter plane, K1 words per block)."""
+
+    def __init__(self, ex):
+        self.ex = ex
+
+    def __enter__(self):
+        from pilosa_tpu_torch import ops
+
+        ex = self.ex
+        ex._filter_tree = ex._filter_device
+        ex._filter_plan = lambda idx, call, shards, mode: (
+            ex.compiler.mesh_bitmap_device(idx, call.children[0], shards) if call.children else None)
+        # K4 takes a filter plane as its one mask, [1, S, W]
+        self.bsi_sum = real = ops.bsi_sum
+        ops.bsi_sum = lambda stack, depth, masks=None: real(
+            stack, depth, masks[None] if masks is not None and getattr(masks, "dim", lambda: 3)() == 2 else masks)
+        return ex
+
+    def __exit__(self, *exc):
+        from pilosa_tpu_torch import ops
+
+        ops.bsi_sum = self.bsi_sum
+        del self.ex._filter_tree, self.ex._filter_plan
+
+
+def fused_phase(torch, api, index: str, cases: list, label: str, want_modes: dict) -> dict:
+    """The fused-filter phase of a path: each (PQL, numpy answer) of
+    ``cases`` through ``API.query``, its answer against numpy, then
+    against the unfused composition on the same device (K1 words, then
+    the aggregate's tensor-filter mode), exactly. The launches the fused
+    queries made, by kernel and mode, must be ``want_modes`` on the card:
+    the fused modes at their predicted counts and K1's words only for a
+    Shift's sub-program. Returns those launches."""
+    before = kernel_modes(torch)
+    got = {}
+    for pql, want in cases:
+        got[pql] = api.query(index, pql)["results"][0]
+        if got[pql] != want:
+            raise AssertionError(f"{label}: {pql}: {json.dumps(got[pql])[:300]} != numpy {json.dumps(want)[:300]}")
+    made = modes_since(torch, before)
+    log(f"launches of the {len(cases)} fused {label} queries:", json.dumps(made))
+    if torch.cuda.is_available() and made != want_modes:
+        raise AssertionError(f"{label}: the fused queries launched {made}, not {want_modes}")
+    with unfused(api.executor):
+        for pql, _want in cases:
+            two = api.query(index, pql)["results"][0]
+            if two != got[pql]:
+                raise AssertionError(f"{label}: {pql}: fused {json.dumps(got[pql])[:300]} != unfused {json.dumps(two)[:300]}")
+    log(f"ok  fused {label}: {len(cases)} filtered TopN, Sum, Min and Max equal to numpy and to the unfused composition")
+    return made
+
+
+def fused_modes(blocks: int, topn: int, ids: int, sums: int = 0, mins: int = 0, maxs: int = 0,
+                shift: int = 0) -> dict:
+    """The launches a fused phase must make: per block, one fused launch
+    per query (rows+tree, ids+tree, one+tree, min+tree, max+tree), and a
+    Shift filter's sub-program, K1 words then K7."""
+    want = {}
+    for kernel, mode, n in (("row_counts_tree", "rows+tree", topn), ("row_counts_tree", "ids+tree", ids),
+                            ("bsi_sum_tree", "one+tree", sums), ("bsi_minmax_tree", "min+tree", mins),
+                            ("bsi_minmax_tree", "max+tree", maxs)):
+        if n:
+            want.setdefault(kernel, {})[mode] = n * blocks
+    if shift:
+        want["tree_eval"] = {"words": shift}
+        want["shift_words"] = {"": shift}
+    return want
+
+
+def fused_check(torch, errs: dict, name: str, got, want) -> None:
+    """Fold max |fused kernel - its plain version| of one case into
+    ``errs[name]``; tuples compare element by element."""
+    if not isinstance(got, tuple):
+        got, want = (got,), (want,)
+    errs[name] = max([errs.get(name, 0)] + [max_abs_err(torch, a, b) for a, b in zip(got, want)])
+
+
+def fused_plan_bytes(pf, plane_bytes: int, counted=()) -> int:
+    """The bytes a planned filter reads once beyond the tensors in
+    ``counted`` (the aggregate's own rows or planes, which its bound
+    counts already): each distinct in-range dense leaf plane, each
+    condition's planes (2 + D, at most the stack's height), and each
+    container leaf's payload."""
+    from pilosa_tpu_torch.ops import bitwise
+
+    seen, total = set(), 0
+    for op, arg in pf.ops:
+        if op in (bitwise.OP_LOAD, bitwise.OP_LOAD_SPARSE, bitwise.OP_LOAD_RUN):
+            si, row = pf.leaves[arg]
+            m = pf.arrays[si]
+            if any(m is c for c in counted):
+                continue
+            if 0 <= row < m.shape[0] and (si, row) not in seen:
+                seen.add((si, row))
+                total += m[0].numel() * 4
+        elif op == bitwise.OP_CMP:
+            si, depth, _op, _c = pf.conds[arg]
+            if ("cmp", si) not in seen and not any(pf.arrays[si] is c for c in counted):
+                seen.add(("cmp", si))
+                total += min(2 + depth, pf.arrays[si].shape[0]) * plane_bytes
+    return total
+
+
 def np_shift(words: np.ndarray, n: int) -> np.ndarray:
     """PQL Shift of uint32[..., W] words by numpy, one shard per last
     axis: bit p moves to p + n and bits past the end drop."""
@@ -276,6 +420,64 @@ def taxi_blocks(rng, width: int) -> list[dict]:
     return blocks
 
 
+def np_shift_bits(sel: np.ndarray, n: int) -> np.ndarray:
+    """PQL Shift of one shard's bool column mask by ``n``."""
+    out = np.zeros_like(sel)
+    out[n:] = sel[: sel.size - n]
+    return out
+
+
+def taxi_filters(one_device: bool = True) -> list:
+    """The taxi holder's filter kinds: (PQL, numpy column mask of a block
+    under it, ``sel(block)``): a row, an Intersect of two, Not (every
+    column is a ride), a BSI condition, a between, an empty Union(), a
+    row past the field's rows, and on one device a Shift."""
+    none = lambda b: np.zeros(b["cab"].size, dtype=bool)  # noqa: E731
+    out = [
+        ("Row(cab_type=1)", lambda b: b["cab"] == 1),
+        ("Intersect(Row(cab_type=0), Row(passenger_count=1))", lambda b: (b["cab"] == 0) & (b["pc"] == 1)),
+        ("Not(Row(cab_type=2))", lambda b: b["cab"] != 2),
+        ("Row(total_amount > 5000)", lambda b: (b["amt"] > 5000) & b["has"]),
+        ("Row(-500 <= total_amount <= 2000)", lambda b: (b["amt"] >= -500) & (b["amt"] <= 2000) & b["has"]),
+        ("Union()", none),
+        ("Row(cab_type=9)", none),
+    ]
+    if one_device:
+        out.append(("Shift(Row(cab_type=1), n=1)", lambda b: np_shift_bits(b["cab"] == 1, 1)))
+    return out
+
+
+def taxi_fused_cases(blocks: list, mult: np.ndarray) -> list:
+    """(PQL, numpy answer) of the filtered TopN (plain and ids=, an id
+    past the rows), Sum, Min and Max under every taxi filter kind."""
+
+    def tot(fn) -> int:
+        return sum(int(mult[g]) * int(fn(b)) for g, b in enumerate(blocks) if mult[g])
+
+    cases = []
+    for filt, sel in taxi_filters():
+        masks = [sel(b) if mult[g] else None for g, b in enumerate(blocks)]
+        count = lambda fn: sum(int(mult[g]) * int(fn(b, masks[g])) for g, b in enumerate(blocks) if mult[g])  # noqa: E731
+        pc = {r: count(lambda b, m, r=r: ((b["pc"] == r) & m).sum()) for r in range(10)}
+        for pql, n, ids in ((f"TopN(passenger_count, {filt}, n=3)", 3, None),
+                            (f"TopN(passenger_count, {filt}, ids=[1, 0, 5, 99])", None, [1, 0, 5, 99])):
+            pairs = sorted(((r, pc.get(r, 0)) for r in (ids if ids is not None else range(10)) if pc.get(r, 0)),
+                           key=lambda rc: (-rc[1], rc[0]))
+            cases.append((pql, [{"id": r, "count": c} for r, c in (pairs[:n] if n else pairs)]))
+        cases.append((f"Sum({filt}, field=total_amount)", {
+            "value": count(lambda b, m: b["amt"][m & b["has"]].sum()), "count": count(lambda b, m: (m & b["has"]).sum())}))
+        for name, want_max in (("Min", False), ("Max", True)):
+            vals = [b["amt"][masks[g] & b["has"]] for g, b in enumerate(blocks) if mult[g]]
+            vals = [v for v in vals if v.size]
+            if not vals:
+                want = {"value": 0, "count": 0}
+            else:
+                best = (max if want_max else min)(int(v.max() if want_max else v.min()) for v in vals)
+                want = {"value": best, "count": count(lambda b, m, x=best: ((b["amt"] == x) & m & b["has"]).sum())}
+            cases.append((f"{name}({filt}, field=total_amount)", want))
+    return cases
+
+
 def taxi_path(torch, device: str, n_shards: int) -> list:
     """The NYC-taxi aggregates on their own holder: BSI conditions, Sum,
     Min, Max and GroupBy through ``API.query``, each answer held against
@@ -286,7 +488,7 @@ def taxi_path(torch, device: str, n_shards: int) -> list:
     from pilosa_tpu_torch import ops
     from pilosa_tpu_torch.core import VIEW_BSI, FieldOptions, Holder
     from pilosa_tpu_torch.executor.executor import _Pending
-    from pilosa_tpu_torch.ops import _cuda, bitwise, bsi, groupby
+    from pilosa_tpu_torch.ops import _cuda, bitwise, bsi, groupby, topn
     from pilosa_tpu_torch.server import API
     from pilosa_tpu_torch.shardwidth import SHARD_WIDTH, WORDS_PER_SHARD
 
@@ -438,6 +640,12 @@ def taxi_path(torch, device: str, n_shards: int) -> list:
             api.query("taxi", pql)
             lat.append(time.perf_counter() - t0)
         times[f"taxi_{key}_p50_ms"] = float(np.median(lat)) * 1e3
+    # the fused filters: each filter evaluated inside K2, K4 or K5
+    n_f = len(taxi_filters())
+    fused_cases = taxi_fused_cases(blocks, mult)
+    times["fused_launches"] = fused_phase(
+        torch, api, "taxi", fused_cases, "taxi",
+        fused_modes(1, topn=n_f, ids=n_f, sums=n_f, mins=n_f, maxs=n_f, shift=5))
     sync()
     launches = {name: k.launches for name, k in _cuda.KERNELS.items()}
     log("launches on the taxi path:", json.dumps(launches))
@@ -457,7 +665,8 @@ def taxi_path(torch, device: str, n_shards: int) -> list:
     for p in range(3, 12, 3):
         edge[p].fill_(-(2**31))
     edge[7] = torch.randint(-(2**31), 2**31 - 1, (n_shards, W), dtype=torch.int32, device=dev)
-    errs = {"tree_eval": 0, "bsi_sum": 0, "bsi_minmax": 0, "gb_counts": 0, "gb_masks": 0}
+    errs = {"tree_eval": 0, "bsi_sum": 0, "bsi_minmax": 0, "gb_counts": 0, "gb_masks": 0,
+            "row_counts_tree": 0, "bsi_sum_tree": 0, "bsi_minmax_tree": 0}
     C, L, A = bitwise.OP_CMP, bitwise.OP_LOAD, bitwise.OP_AND
     top = (1 << D) - 1
     cmp_cases = []
@@ -511,10 +720,29 @@ def taxi_path(torch, device: str, n_shards: int) -> list:
         want = groupby.gb_masks_plain(m, mat, g_idx, row_sel)
         errs["gb_masks"] = max(errs["gb_masks"], max_abs_err(torch, got, want))
         del got, want
+    # the fused filters of K2, K4 and K5: a row and a condition, all-ones
+    # (edge plane 2) and bit-31 (plane 3) words, an empty Union(), over
+    # the taxi stacks and the edge stack, each against the filter's plain
+    # words then the aggregate's plain version
+    PF = ops.PlannedFilter  # noqa: N806
+    plane2 = (n_shards, W)
+    pf_cab = PF([cabm], [(0, 1)], [(L, 0)], [], *plane2)
+    pf_cond = PF([cabm, bm], [(0, 0)], [(L, 0), (C, 0), (A, 0)], [(1, D, ">=", -500)], *plane2)
+    pf_edge = PF([edge, cabm], [(0, 2), (0, 3), (1, 1)], [(L, 0), (L, 1), (bitwise.OP_XOR, 0), (L, 2), (bitwise.OP_OR, 0)],
+                 [], *plane2)
+    pf_none = PF([], [], [(bitwise.OP_ZERO, 0)], [], *plane2)
+    ids_t = i32([1, -1, 0, 15, 16, 2**30, 9])
+    for m, pf, ii in ((pcm, pf_cab, None), (pcm, pf_cond, ids_t), (cabm, pf_edge, None), (pcm, pf_none, ids_t)):
+        fused_check(torch, errs, "row_counts_tree", ops.row_counts(m, pf, ii), topn.row_counts_plain(m, pf.plain(dev, plane2), ii))
+    for st, pf in ((bm, pf_cab), (bm, pf_cond), (edge, pf_edge), (edge, pf_cab), (bm, pf_none)):
+        fused_check(torch, errs, "bsi_sum_tree", ops.bsi_sum(st, D, pf), bsi.bsi_sum_plain(st, D, pf.plain(dev, plane2)[None]))
+        for want_max in (False, True):
+            fused_check(torch, errs, "bsi_minmax_tree", ops.bsi_min_max(st, D, pf, want_max),
+                        bsi.bsi_min_max_plain(st, D, pf.plain(dev, plane2), want_max))
     log("max |kernel - plain| on the taxi path's shapes:", json.dumps(errs))
     if any(errs.values()):
         raise AssertionError(f"a kernel disagrees with its plain version: {errs}")
-    del edge, edge2, filt0, masks20
+    del edge, edge2, filt0, masks20, pf_edge
     if on_card:
         torch.cuda.empty_cache()
 
@@ -559,6 +787,37 @@ def taxi_path(torch, device: str, n_shards: int) -> list:
         bound_ms=bound_ms((1 + 10 + 16) * plane),
         library_ms=None,
     )
+    # the fused filters at the taxi queries' shapes: under Row(cab_type=1),
+    # the bound counts the planes and the filter's one leaf plane
+    fused_bytes = fused_plan_bytes(pf_cab, plane)
+    k2t = dict(
+        replaces="pilosa_tpu/executor/executor.py:1019",
+        ms=cuda_ms(torch, lambda: ops.row_counts(pcm, pf_cab), 20),
+        plain_ms=cuda_ms(torch, lambda: topn.row_counts_plain(pcm, pf_cab.plain(dev, plane2)), 1),
+        bound_ms=bound_ms(pcm.shape[0] * plane + fused_bytes), library_ms=None,
+        shape=f"rows+tree, [{pcm.shape[0]}, {n_shards}, {W}] (10 rows set) under Row(cab_type=1)",
+    )
+    k4t = dict(
+        replaces="pilosa_tpu/executor/executor.py:1019",
+        ms=cuda_ms(torch, lambda: ops.bsi_sum(bm, D, pf_cab), 20),
+        plain_ms=cuda_ms(torch, lambda: bsi.bsi_sum_plain(bm, D, pf_cab.plain(dev, plane2)[None]), 2),
+        bound_ms=bound_ms((2 + D) * plane + fused_bytes), library_ms=None,
+        shape=f"one+tree, [{2 + D}, {n_shards}, {W}] under Row(cab_type=1)",
+    )
+    k5t = dict(
+        replaces="pilosa_tpu/executor/executor.py:1019",
+        ms=cuda_ms(torch, lambda: ops.bsi_min_max(bm, D, pf_cab, True), 20),
+        plain_ms=cuda_ms(torch, lambda: bsi.bsi_min_max_plain(bm, D, pf_cab.plain(dev, plane2), True), 2),
+        bound_ms=bound_ms((2 + D) * plane + fused_bytes), library_ms=None,
+        shape=f"max+tree, [{2 + D}, {n_shards}, {W}] under Row(cab_type=1)",
+    )
+    cab1 = lambda: ops.tree_eval([cabm], [(0, 1)], [(L, 0)], n_shards, count=False, device=dev)  # noqa: E731
+    times.update({
+        "row_counts_two_launches_ms (K1 words, then K2 filtered)": cuda_ms(torch, lambda: ops.row_counts(pcm, cab1()), 20),
+        "bsi_sum_two_launches_ms (K1 words, then K4 filtered)": cuda_ms(torch, lambda: ops.bsi_sum(bm, D, cab1()[None]), 20),
+        "bsi_minmax_two_launches_ms (K1 words, then K5 filtered)": cuda_ms(
+            torch, lambda: ops.bsi_min_max(bm, D, cab1(), True), 20),
+    })
     times.update({
         "tree_eval_cmp_ms": k1c["ms"], "tree_eval_cmp_plain_ms": k1c["plain_ms"],
         "tree_eval_cmp_bound_ms": k1c["bound_ms"], "tree_eval_taxi_launches": launches["tree_eval"],
@@ -566,10 +825,12 @@ def taxi_path(torch, device: str, n_shards: int) -> list:
         "bsi_sum_grouped16_bound_ms": k4g["bound_ms"],
     })
     log("taxi times:", json.dumps(times))
-    results = {"bsi_sum": k4, "bsi_minmax": k5, "gb_counts": k6c, "gb_masks": k6m}
+    results = {"bsi_sum": k4, "bsi_minmax": k5, "gb_counts": k6c, "gb_masks": k6m,
+               "row_counts_tree": k2t, "bsi_sum_tree": k4t, "bsi_minmax_tree": k5t}
     taxi = {
         "holder": h, "index": idx, "api": api, "blocks": blocks, "mult": mult, "checks": checks, "answers": answers,
         "depth": depth, "p50": {"sum": times["taxi_sum_p50_ms"], "groupby": times["taxi_groupby_fused_p50_ms"]},
+        "fused": [(pql, want) for pql, want in fused_cases if "Shift" not in pql],
     }
     return {name: (errs[name], t) for name, t in results.items()}, launches, taxi
 
@@ -604,7 +865,7 @@ def residency_path(torch, device: str, taxi: dict, budget: "int | None" = None) 
     from pilosa_tpu_torch import ops
     from pilosa_tpu_torch.executor.compile import StackCache
     from pilosa_tpu_torch.executor.residency import RUN_MAX_INTERVALS, SPARSE_MAX_IDS
-    from pilosa_tpu_torch.ops import _cuda, bitwise, containers, stack
+    from pilosa_tpu_torch.ops import _cuda, bitwise, bsi, containers, stack, topn
     from pilosa_tpu_torch.pql import parse
     from pilosa_tpu_torch.roaring import Bitmap
     from pilosa_tpu_torch.server import API
@@ -698,6 +959,32 @@ def residency_path(torch, device: str, taxi: dict, budget: "int | None" = None) 
          [{"id": r, "count": c} for r, c in topn_want]),
         ("groupby_day", f"GroupBy(Rows(cab_type), Rows(pickup_day, limit={gb_days}))", gb_want),
     ]
+    # the fused filters over container leaves: the day's run row and the
+    # tail's sparse row as the filters of a TopN (plain and ids=), a Min
+    # and a Max; with sum_day above, K2, K4 and K5 evaluate them in place
+    tail_sel = [c == tail for c in cells]
+    cab_day = {r: on_day(lambda s, sl, r=r: (blocks[s % T_G]["cab"][sl] == r).sum()) for r in range(3)}
+    cab_tail = {r: sum(int(mult[g]) * int((tail_sel[g] & (blocks[g]["cab"] == r)).sum()) for g in range(T_G))
+                for r in range(3)}
+    tail_vals = [blocks[g]["amt"][tail_sel[g] & blocks[g]["has"]] for g in range(T_G) if mult[g]]
+    tail_min = min(int(v.min()) for v in tail_vals if v.size)
+    day_max = max(int(blocks[s % T_G]["amt"][sl][blocks[s % T_G]["has"][sl]].max()) for s, sl in day_slices(day))
+
+    def top_pairs(counts: dict, n=None, want_ids=None) -> list:
+        pairs = sorted(((r, counts.get(r, 0)) for r in (want_ids if want_ids is not None else counts)
+                        if counts.get(r, 0)), key=lambda rc: (-rc[1], rc[0]))
+        return [{"id": r, "count": c} for r, c in (pairs[:n] if n else pairs)]
+
+    fused_q = [
+        ("topn_cab_day", f"TopN(cab_type, Row(pickup_day={day}), n=3)", top_pairs(cab_day, 3)),
+        ("topn_ids_cab_tail", f"TopN(cab_type, Row(dropoff_cell={tail}), ids=[2, 0, 9])", top_pairs(cab_tail, None, [2, 0, 9])),
+        ("min_tail", f"Min(Row(dropoff_cell={tail}), field=total_amount)", {
+            "value": tail_min, "count": sum(int(mult[g]) * int((tail_sel[g] & blocks[g]["has"] & (blocks[g]["amt"] == tail_min)).sum())
+                                            for g in range(T_G))}),
+        ("max_day", f"Max(Row(pickup_day={day}), field=total_amount)", {
+            "value": day_max, "count": on_day(lambda s, sl: (blocks[s % T_G]["has"][sl] & (blocks[s % T_G]["amt"][sl] == day_max)).sum())}),
+    ]
+    queries += fused_q
     times["residency_expect_s"] = time.perf_counter() - t0 - times["residency_data_s"]
 
     # -------------------------------------------------- residency path
@@ -729,6 +1016,11 @@ def residency_path(torch, device: str, taxi: dict, budget: "int | None" = None) 
         times[f"{key}_resident_p50_ms"] = float(np.median(lat[2:])) * 1e3
         log(f"ok  {pql[:70]}  -> {json.dumps(got)[:80]}  (cold {lat[0] * 1e3:.3f} ms, promote "
             f"{lat[1] * 1e3:.3f} ms, resident p50 {float(np.median(lat[2:])) * 1e3:.3f} ms)")
+    # resident now: the filtered queries once more, against the unfused
+    # composition, and their launches (one fused launch each, no K1 words)
+    times["fused_launches"] = fused_phase(
+        torch, api, "taxi", [(pql, want) for _k, pql, want in queries[4:5] + fused_q], "residency",
+        fused_modes(1, topn=1, ids=1, sums=1, mins=1, maxs=1))
     snap = stacks_.residency_snapshot()
     kinds = {k for t in snap["tiers"] for k, n in t["rows"].items() if n}
     log("residency after the queries:", json.dumps({k: snap[k] for k in ("rowsPromoted", "rowsDemoted", "coldUploads",
@@ -738,6 +1030,11 @@ def residency_path(torch, device: str, taxi: dict, budget: "int | None" = None) 
     # a write into the resident run row drops it; the next touches re-promote
     _key, count_q, count_want = queries[1]
     free_col = (day + 1) * rpd + 5
+    # the Set marks its column's existence: that shard's existence
+    # fragment first gets its rides as true bits and a matrix of its own
+    # (its injected block is shared by the shards that cycle over it, and
+    # a repack of a dirty row writes into the block in place)
+    idx.existence_field().view("standard").fragment(free_col // SW).union_positions(np.arange(SW, dtype=np.uint64))
     api.query("taxi", f"Set({free_col}, pickup_day={day})")
     for _ in range(2):
         got = api.query("taxi", count_q)["results"][0]
@@ -764,6 +1061,9 @@ def residency_path(torch, device: str, taxi: dict, budget: "int | None" = None) 
     run_entry = stacks_._tiered[("tier", "taxi", "pickup_day", "standard", tuple(shards))]
     run_store, day_slot = run_entry.stores["run"]["dev"], run_entry.stores["run"]["slots"][day]
     union_plan = api.executor.compiler._plan(idx, parse(queries[3][1])[0].children[0], shards)
+    cab_m = stacks_.matrix(idx, idx.field("cab_type"), "standard", shards)[0]
+    bsi_m = stacks_.dense(idx, idx.field("total_amount"), "bsi", shards)[0]
+    depth = idx.field("total_amount").bit_depth
     router = api.executor.router
     log("router decisions on the residency path:", json.dumps(router.decisions))
     if router.decisions["host_unported"] != 0:
@@ -824,7 +1124,8 @@ def residency_path(torch, device: str, taxi: dict, budget: "int | None" = None) 
     edge_run[2] = torch.stack([starts, starts + 500], dim=1)
     L, LS, LR = bitwise.OP_LOAD, bitwise.OP_LOAD_SPARSE, bitwise.OP_LOAD_RUN
     A, O, X = bitwise.OP_AND, bitwise.OP_OR, bitwise.OP_XOR
-    errs = {"tree_eval": 0, "container_count": 0, "stack_delta": 0}
+    errs = {"tree_eval": 0, "container_count": 0, "stack_delta": 0,
+            "row_counts_tree": 0, "bsi_sum_tree": 0, "bsi_minmax_tree": 0}
     tree_cases = [
         union_plan[:3],
         ([edge_sparse, edge_run], [(0, 1), (1, 1)], [(LS, 0), (LR, 1), (X, 0)]),
@@ -853,6 +1154,24 @@ def residency_path(torch, device: str, taxi: dict, budget: "int | None" = None) 
         want = stack.scatter_rows_plain(store, sidx, rows)
         errs["stack_delta"] = max(errs["stack_delta"], max_abs_err(torch, got, want))
         del got, want, rows
+    # the fused filters over container leaves: the day's run row, the
+    # tail's sparse row, the edge payloads, and the Union of all three kinds
+    PF = ops.PlannedFilter  # noqa: N806
+    plane2 = (n_shards, W)
+    pf_run = PF([run_store], [(0, day_slot)], [(LR, 0)], [], *plane2)
+    pf_sparse = PF([sparse_store], [(0, tail_slot)], [(LS, 0)], [], *plane2)
+    pf_edges = PF([edge_sparse, edge_run], [(0, 1), (1, 1)], [(LS, 0), (LR, 1), (X, 0)], [], *plane2)
+    pf_union = PF(*union_plan[:3], [], *plane2)
+    ids_r = i32([2, -1, 0, 9, 1])
+    for pf in (pf_run, pf_sparse, pf_edges, pf_union):
+        for ii in (None, ids_r):
+            fused_check(torch, errs, "row_counts_tree", ops.row_counts(cab_m, pf, ii),
+                        topn.row_counts_plain(cab_m, pf.plain(dev, plane2), ii))
+        fused_check(torch, errs, "bsi_sum_tree", ops.bsi_sum(bsi_m, depth, pf),
+                    bsi.bsi_sum_plain(bsi_m, depth, pf.plain(dev, plane2)[None]))
+        for want_max in (False, True):
+            fused_check(torch, errs, "bsi_minmax_tree", ops.bsi_min_max(bsi_m, depth, pf, want_max),
+                        bsi.bsi_min_max_plain(bsi_m, depth, pf.plain(dev, plane2), want_max))
     log("max |kernel - plain| on the residency path's shapes:", json.dumps(errs))
     if any(errs.values()):
         raise AssertionError(f"a kernel disagrees with its plain version: {errs}")
@@ -903,8 +1222,32 @@ def residency_path(torch, device: str, taxi: dict, budget: "int | None" = None) 
         times[f"{name}_store_gib"] = store.numel() * 4 / 2**30
         del row
     times["sparse_store_gib"] = sparse_store.numel() * 4 / 2**30
+    # the fused filters under one container leaf: K2 and K4 under the day's
+    # run row, K5 under the tail's sparse row; the bound counts the rows or
+    # planes and the leaf's payload, each read once
+    plane = n_shards * W * 4
+    run_bytes, sparse_bytes = RUN_MAX_INTERVALS * 8, SPARSE_MAX_IDS * 4
+    fused = {
+        "row_counts_tree": dict(
+            ms=cuda_ms(torch, lambda: ops.row_counts(cab_m, pf_run), 20),
+            plain_ms=cuda_ms(torch, lambda: topn.row_counts_plain(cab_m, pf_run.plain(dev, plane2)), 2),
+            bound_ms=bound_ms(cab_m.shape[0] * plane + run_bytes),
+            shape=f"rows+tree, [{cab_m.shape[0]}, {n_shards}, {W}] under a run row"),
+        "bsi_sum_tree": dict(
+            ms=cuda_ms(torch, lambda: ops.bsi_sum(bsi_m, depth, pf_run), 20),
+            plain_ms=cuda_ms(torch, lambda: bsi.bsi_sum_plain(bsi_m, depth, pf_run.plain(dev, plane2)[None]), 2),
+            bound_ms=bound_ms(min(bsi_m.shape[0], 2 + depth) * plane + run_bytes),
+            shape=f"one+tree, [{2 + depth}, {n_shards}, {W}] under a run row"),
+        "bsi_minmax_tree": dict(
+            ms=cuda_ms(torch, lambda: ops.bsi_min_max(bsi_m, depth, pf_sparse, False), 20),
+            plain_ms=cuda_ms(torch, lambda: bsi.bsi_min_max_plain(bsi_m, depth, pf_sparse.plain(dev, plane2), False), 2),
+            bound_ms=bound_ms(min(bsi_m.shape[0], 2 + depth) * plane + sparse_bytes),
+            shape=f"min+tree, [{2 + depth}, {n_shards}, {W}] under a sparse row"),
+    }
+    for t in fused.values():
+        t.update(replaces="pilosa_tpu/executor/executor.py:1019", library_ms=None)
     log("residency times:", json.dumps(times))
-    results = {"tree_eval": k1, "container_count": k8, "stack_delta": k3}
+    results = {"tree_eval": k1, "container_count": k8, "stack_delta": k3, **fused}
     return {name: (errs[name], t) for name, t in results.items()}, launches
 
 
@@ -1182,6 +1525,29 @@ MESH_SEARCH_K = (5, R_PAD + 2)  # the mesh search's k: a shortlist, and k past R
 MESH_LAYOUTS = (("8x1", 1), ("4x2", 2))
 
 
+def main_filters(one_device: bool = True) -> list:
+    """The main holder's filter kinds: (PQL, numpy words of a block under
+    it, ``fn(block, exists)``); the Shift only on one device (the mesh
+    hands it to the device route)."""
+    zeros = lambda b, e: np.zeros_like(e)  # noqa: E731
+    out = [
+        ("Row(f=1)", lambda b, e: b[1]),
+        ("Intersect(Row(f=1), Row(f=2))", lambda b, e: b[1] & b[2]),
+        ("Not(Row(f=3))", lambda b, e: e & ~b[3]),
+        ("Union()", zeros),
+        (f"Row(f={R_PAD + 1})", zeros),
+    ]
+    if one_device:
+        out.append(("Shift(Row(f=1), n=1)", lambda b, e: np_shift(b[1], 1)))
+    return out
+
+
+def main_fused_queries(filt: str) -> list:
+    """The main holder's filtered TopN: (PQL, n, ids), plain and ids=
+    with an id past the rows."""
+    return [(f"TopN(f, {filt}, n=5)", 5, None), (f"TopN(f, {filt}, ids=[7, 2, 0, 9])", None, [7, 2, 0, 9])]
+
+
 def mesh_main_queries(n_shards: int) -> list:
     """The main holder's mesh queries: (PQL, numpy recipe) with the recipe
     (kind, argument) read by ``mesh_path``."""
@@ -1321,6 +1687,18 @@ def mesh_path(torch, device: str, main: dict, taxi: dict, sim_block: int) -> tup
     np_demo = {m: np_pairwise(fps[sample], fps[:n_demo], m) for m in ("tanimoto", "cosine")}
 
     main_q = mesh_main_queries(n_shards)
+
+    def expect_topn_words(filt_fn, n, ids=None) -> list:
+        pairs = []
+        for r in ids if ids is not None else range(R_PAD):
+            c = 0 if r >= R_PAD else expect_count(lambda b, e, r=r: b[r] & filt_fn(b, e))
+            if c:
+                pairs.append((r, c))
+        pairs.sort(key=lambda rc: (-rc[1], rc[0]))
+        return [{"id": r, "count": c} for r, c in (pairs[:n] if n else pairs)]
+
+    main_fused = [(pql, expect_topn_words(fn, n, ids))
+                  for filt, fn in main_filters(False) for pql, n, ids in main_fused_queries(filt)]
     taxi_q = taxi["checks"]
     gb_q = "GroupBy(Rows(cab_type), Rows(passenger_count))"
     sum_q = "Sum(field=total_amount)"
@@ -1366,6 +1744,14 @@ def mesh_path(torch, device: str, main: dict, taxi: dict, sim_block: int) -> tup
 
         for pql, (kind, arg) in main_q:
             run(api, "bench", pql, expect(kind, arg), main["answers"][pql])
+        # the fused filters per block: each block's plan inside K2, K4, K5
+        blocks_n = MESH_POSITIONS
+        n_main, n_taxi = len(main_filters(False)), len(taxi_filters(False))
+        times[f"{name}_fused_launches_main"] = fused_phase(
+            torch, api, "bench", main_fused, f"mesh {name} main", fused_modes(blocks_n, topn=n_main, ids=n_main))
+        times[f"{name}_fused_launches_taxi"] = fused_phase(
+            torch, tapi, "taxi", taxi["fused"], f"mesh {name} taxi",
+            fused_modes(blocks_n, topn=n_taxi, ids=n_taxi, sums=n_taxi, mins=n_taxi, maxs=n_taxi))
         # the blocked readback of one whole row, in the placement's order
         mesh_before = ex.router.decisions["mesh"]
         segments = ex.execute("bench", "Row(f=1)")[0].segments
@@ -1490,7 +1876,7 @@ def mesh_path(torch, device: str, main: dict, taxi: dict, sim_block: int) -> tup
     D = taxi["depth"]  # noqa: N806
     L, Z, C = bitwise.OP_LOAD, bitwise.OP_ZERO, bitwise.OP_CMP
     A, O, X, N = bitwise.OP_AND, bitwise.OP_OR, bitwise.OP_XOR, bitwise.OP_ANDNOT
-    errs = {n: 0 for n in path_kernels}
+    errs = {n: 0 for n in path_kernels + ("row_counts_tree", "bsi_sum_tree", "bsi_minmax_tree")}
     tree_cases = [
         ([fb], [(0, 1), (0, 2)], [(L, 0), (L, 1), (A, 0)], [], s_l),
         ([fb, eb], [(1, 0), (0, 1)], [(L, 0), (L, 1), (N, 0)], [], s_l),
@@ -1556,6 +1942,34 @@ def mesh_path(torch, device: str, main: dict, taxi: dict, sim_block: int) -> tup
         for c in ((inter_p, a_pop, b_pop), (inter2, a_pop * 2, b_pop * 2)):
             errs["mesh_pairwise_finish"] = max(errs["mesh_pairwise_finish"], max_abs_err(
                 torch, sim.mesh_pairwise_finish(*c, metric).view(torch.int32), sim.mesh_pairwise_finish_plain(*c, metric).view(torch.int32)))
+    # the fused filters at the 4x2 blocks: the block's plan, as _filter
+    # hands it to the aggregate, with ids -1 and >= R
+    PF = ops.PlannedFilter  # noqa: N806
+    mplane, tplane2 = (s_l, w_l), (ts_l, w_l)
+    pf_head = PF([fb], [(0, 1), (0, 2)], [(L, 0), (L, 1), (A, 0)], [], *mplane)
+    pf_not = PF([fb, eb], [(1, 0), (0, 3)], [(L, 0), (L, 1), (N, 0)], [], *mplane)
+    pf_cab = PF([cab], [(0, 1)], [(L, 0)], [], *tplane2)
+    pf_cond = PF([cab, tbm], [(0, 0)], [(L, 0), (C, 0), (A, 0)], [(1, D, ">=", -500)], *tplane2)
+    pf_between = PF([tbm], [], [(C, 0), (C, 1), (A, 0)], [(0, D, ">=", 2000), (0, D, "<=", -500)], *tplane2)
+    # all-ones and bit-31 words at the block shapes: rows and filters of
+    # them, and a 12-plane BSI block (the rest of 2 + D read zero)
+    edge_b = torch.full((2, s_l, w_l), -1, dtype=torch.int32, device=dev)
+    edge_b[1].fill_(-(2**31))
+    edge_t = torch.full((12, ts_l, w_l), -1, dtype=torch.int32, device=dev)
+    for p in (1, 3, 6):
+        edge_t[p].fill_(-(2**31))
+    pf_edge = PF([edge_b, fb], [(0, 0), (0, 1), (1, 5)], [(L, 0), (L, 1), (X, 0), (L, 2), (O, 0)], [], *mplane)
+    pf_ones, pf_high = (PF([edge_t], [(0, r)], [(L, 0)], [], *tplane2) for r in (2, 3))
+    for m, pf, ii in ((fb, pf_head, None), (fb, pf_not, ids), (pc, pf_cond, None), (pc, pf_between, i32([1, -1, 16, 0])),
+                      (edge_b, pf_edge, None), (pc, pf_high, None)):
+        fused_check(torch, errs, "row_counts_tree", ops.row_counts(m, pf, ii),
+                    topn.row_counts_plain(m, pf.plain(dev, tuple(m.shape[1:])), ii))
+    for st, pf in ((tbm, pf_cab), (tbm, pf_cond), (tbm, pf_between), (tbm, pf_high), (edge_t, pf_ones), (edge_t, pf_high)):
+        fused_check(torch, errs, "bsi_sum_tree", ops.bsi_sum(st, D, pf), bsi.bsi_sum_plain(st, D, pf.plain(dev, tplane2)[None]))
+        for want_max in (False, True):
+            fused_check(torch, errs, "bsi_minmax_tree", ops.bsi_min_max(st, D, pf, want_max),
+                        bsi.bsi_min_max_plain(st, D, pf.plain(dev, tplane2), want_max))
+    del edge_b, edge_t, pf_edge, pf_ones, pf_high
     log("max |kernel - plain| on the mesh path's 4x2 blocks:", json.dumps(errs))
     if any(errs.values()):
         raise AssertionError(f"a kernel disagrees with its plain version: {errs}")
@@ -1633,6 +2047,23 @@ def mesh_path(torch, device: str, main: dict, taxi: dict, sim_block: int) -> tup
             ms=cuda_ms(torch, lambda: sim.mesh_pairwise_finish(inter_p, a_pop, b_pop, "tanimoto"), 10),
             plain_ms=cuda_ms(torch, lambda: sim.mesh_pairwise_finish_plain(inter_p, a_pop, b_pop, "tanimoto"), 2),
             bound_ms=bound_ms(2 * n_p * m_p * 4 + (n_p + m_p) * 4), library_ms=None, shape=f"Tanimoto, [{n_p}, {m_p}]"),
+        # the fused filters per block: the rows or planes and the filter's
+        # leaf planes, each read once
+        "row_counts_tree": dict(
+            ms=cuda_ms(torch, lambda: ops.row_counts(fb, pf_head), 10),
+            plain_ms=cuda_ms(torch, lambda: topn.row_counts_plain(fb, pf_head.plain(dev, mplane)), 1),
+            bound_ms=bound_ms(R_PAD * plane + fused_plan_bytes(pf_head, plane, (fb,))), library_ms=None,
+            shape=f"rows+tree under Intersect, {block}", replaces="pilosa_tpu/parallel/mesh.py:399"),
+        "bsi_sum_tree": dict(
+            ms=cuda_ms(torch, lambda: ops.bsi_sum(tbm, D, pf_cab), 20),
+            plain_ms=cuda_ms(torch, lambda: bsi.bsi_sum_plain(tbm, D, pf_cab.plain(dev, tplane2)[None]), 2),
+            bound_ms=bound_ms((2 + D) * tplane + fused_plan_bytes(pf_cab, tplane)), library_ms=None,
+            shape=f"one+tree under Row(cab_type=1), 4x2 block [32, {ts_l}, {w_l}]", replaces="pilosa_tpu/parallel/mesh.py:440"),
+        "bsi_minmax_tree": dict(
+            ms=cuda_ms(torch, lambda: ops.bsi_min_max(tbm, D, pf_cab, True), 20),
+            plain_ms=cuda_ms(torch, lambda: bsi.bsi_min_max_plain(tbm, D, pf_cab.plain(dev, tplane2), True), 2),
+            bound_ms=bound_ms((2 + D) * tplane + fused_plan_bytes(pf_cab, tplane)), library_ms=None,
+            shape=f"max+tree under Row(cab_type=1), 4x2 block [32, {ts_l}, {w_l}]", replaces="pilosa_tpu/parallel/mesh.py:486"),
     }
     times["sim_select_k5_library"] = "torch.topk of the f32 scores"
     times["pairwise_library"] = "torch._int_mm int8" if int_mm else "torch.matmul bf16"
@@ -1731,9 +2162,8 @@ def graft_path(torch, device: str, main: dict) -> tuple:
     for k in _cuda.KERNELS.values():
         k.reset()
     t0 = time.perf_counter()
-    bound = topn.max_row_count(*filt.shape)  # the host's range check of the count keys
     new_m, counts, total = ops.ingest_counts(matrix, delta, filt)
-    vals, ids = ops.select_top_counts(counts, GRAFT_K, bound)
+    vals, ids = ops.select_top_counts(counts, GRAFT_K)
     vals, ids = vals.cpu(), ids.cpu()
     times["first_step_s"] = time.perf_counter() - t0
     sync()
@@ -1758,7 +2188,7 @@ def graft_path(torch, device: str, main: dict) -> tuple:
         raise AssertionError(f"graft step top {GRAFT_K} {vals.tolist()} {ids.tolist()} != numpy {host[order].tolist()} {order.tolist()}")
     p_vals, p_ids = topn.select_top_counts_plain(p_counts, GRAFT_K)
     errs["sim_select"] = max(max_abs_err(torch, vals, p_vals.cpu()), max_abs_err(torch, ids, p_ids.cpu()))
-    keys, hist = sim.count_keys(counts, bound)
+    keys, hist = sim.count_keys(counts)
     bits = sim.count_key_bits(counts.shape[0])
     p_keys, p_hist = sim.count_keys_plain(counts)
     errs["count_keys"] = max(max_abs_err(torch, keys, p_keys), max_abs_err(torch, hist, p_hist))
@@ -1768,7 +2198,17 @@ def graft_path(torch, device: str, main: dict) -> tuple:
     gen.manual_seed(GRAFT_SEED + 1)
     ties = torch.tensor([5, 9, 9, 0, 3, 9, 1 << 40, 0], dtype=torch.int64, device=device)
     many = torch.randint(0, 64, (4097,), generator=gen, device=device) << 30
-    for c, ks in ((ties, (1, 4, 8)), (many, (5, 4096, 4097))):
+    # counts where a key of count << b | row would pass 62 bits: 2^(62 - b)
+    # and 2^62 - 1 with ties at the k-th value, up to 2^63 - 1, and
+    # negative counts, all to the plain version (lax.top_k's order)
+    b8, b4097 = sim.count_key_bits(8), sim.count_key_bits(4097)
+    big = torch.tensor([1 << (62 - b8), (1 << 62) - 1, 1 << (62 - b8), 7, (1 << 62) - 1, 1 << (62 - b8), -1, 2**63 - 1],
+                       dtype=torch.int64, device=device)
+    wide = torch.randint(0, 4, (4097,), generator=gen, device=device) * (1 << (62 - b4097))
+    wide[torch.randint(0, 4097, (64,), generator=gen, device=device)] = (1 << 62) - 1
+    wide[:8] = -(2**63)
+    cases = ((ties, (1, 4, 8)), (many, (5, 4096, 4097)), (big, (1, 2, 3, 4, 5, 8)), (wide, (1, 63, 64, 65, 4097)))
+    for c, ks in cases:
         kk, hh = sim.count_keys(c)
         pk, ph = sim.count_keys_plain(c)
         errs["count_keys"] = max(errs["count_keys"], max_abs_err(torch, kk, pk), max_abs_err(torch, hh, ph))
@@ -1795,7 +2235,7 @@ def graft_path(torch, device: str, main: dict) -> tuple:
             bound_ms=k13_bound, library_ms=None, shape=f"[{n}, {matrix.shape[1]}, {matrix.shape[2]}]",
             replaces="__graft_entry__.py:65"),
         "count_keys": dict(
-            ms=cuda_ms(torch, lambda: sim.count_keys(counts, bound), 20), plain_ms=cuda_ms(torch, lambda: sim.count_keys_plain(counts), 20),
+            ms=cuda_ms(torch, lambda: sim.count_keys(counts), 20), plain_ms=cuda_ms(torch, lambda: sim.count_keys_plain(counts), 20),
             bound_ms=bound_ms(2 * n * 8 + sim.SELECT_BINS * 4), library_ms=None, shape=f"{n} counts, launch-bound",
             replaces="__graft_entry__.py:71"),
         "sim_select": dict(
@@ -1809,7 +2249,7 @@ def graft_path(torch, device: str, main: dict) -> tuple:
         "ingest_counts_bound_all_written_ms": k13_bound_all,
         "delta_bytes_written": written,
         "bitwise_or_ms (Tensor.bitwise_or_ of the same pair: not the same function)": or_ms,
-        "step_sync_p50_ms": sync_p50_ms(torch, lambda: ops.select_top_counts(ops.ingest_counts(matrix, delta, filt)[1], GRAFT_K, bound)[1].cpu()),
+        "step_sync_p50_ms": sync_p50_ms(torch, lambda: ops.select_top_counts(ops.ingest_counts(matrix, delta, filt)[1], GRAFT_K)[1].cpu()),
         "ingest_sync_p50_ms": sync_p50_ms(torch, lambda: ops.ingest_counts(matrix, delta, filt)[2].cpu()),
     })
     t = results["ingest_counts"]
@@ -1873,7 +2313,6 @@ def mesh_programs_path(torch, device: str, graft: dict, main: dict, taxi: dict) 
     free()
     load = [(bitwise.OP_LOAD, 0)]
     n_s, n_w = filt.shape
-    bound = topn.max_row_count(n_s, n_w)
 
     def one_search():
         inter, pop = ops.row_counts(matrix, filt), ops.row_counts(matrix)
@@ -1898,7 +2337,7 @@ def mesh_programs_path(torch, device: str, graft: dict, main: dict, taxi: dict) 
     log(f"ok  top_rows of shard 0 under the filter  -> {f_vals.tolist()} at rows {f_ids.tolist()}, as numpy's")
     one_p50 = {
         "ingest_and_aggregate": ans["ingest_p50_ms"],
-        "topn": sync_p50_ms(torch, lambda: ops.select_top_counts(ops.row_counts(matrix, filt), GRAFT_K, bound)[1].cpu()),
+        "topn": sync_p50_ms(torch, lambda: ops.select_top_counts(ops.row_counts(matrix, filt), GRAFT_K)[1].cpu()),
         "bsi_sum": sync_p50_ms(torch, lambda: ops.sum_device(slices, cab1)[0].cpu()),
         "count_and": sync_p50_ms(torch, lambda: ops.count_and(matrix[0], matrix[1]).cpu()),
         "tanimoto": sync_p50_ms(torch, lambda: one_search()[1].cpu()),
@@ -1999,7 +2438,7 @@ def mesh_programs_path(torch, device: str, graft: dict, main: dict, taxi: dict) 
     counts4 = ops.row_counts(m1, fb)
     pop4 = ops.row_counts(m1)
     q4 = pop4[1:2].contiguous()
-    keys4, hist4 = sim.count_keys(counts4, topn.max_row_count(s_l, w_l))
+    keys4, hist4 = sim.count_keys(counts4)
     pk4, ph4 = sim.count_keys_plain(counts4)
     errs["count_keys"] = max(max_abs_err(torch, keys4, pk4), max_abs_err(torch, hist4, ph4))
     bits4 = sim.count_key_bits(n_rows)
@@ -2037,7 +2476,7 @@ def mesh_programs_path(torch, device: str, graft: dict, main: dict, taxi: dict) 
             bound_ms=bound_ms(plane), library_ms=None, shape=f"count of the query, 4x2 block [{s_l}, {w_l}]",
             replaces="pilosa_tpu/parallel/mesh.py:677"),
         "count_keys": dict(
-            ms=cuda_ms(torch, lambda: sim.count_keys(counts4, topn.max_row_count(s_l, w_l)), 20), plain_ms=cuda_ms(torch, lambda: sim.count_keys_plain(counts4), 20),
+            ms=cuda_ms(torch, lambda: sim.count_keys(counts4), 20), plain_ms=cuda_ms(torch, lambda: sim.count_keys_plain(counts4), 20),
             bound_ms=bound_ms(2 * n_rows * 8 + sim.SELECT_BINS * 4), library_ms=None, shape=f"{n_rows} counts, launch-bound"),
         "sim_select": dict(
             ms=cuda_ms(torch, lambda: sim.select_top(keys4, hist4, GRAFT_K, bits4), 20),
@@ -2152,6 +2591,16 @@ def main(
             counts.sort(key=lambda rc: (-rc[1], rc[0]))
             return [{"id": r, "count": c} for r, c in counts[:n]]
 
+        def expect_topn_words(filt_fn, n, ids=None) -> list:
+            """TopN under the filter words ``filt_fn(block, exists)``."""
+            pairs = []
+            for r in ids if ids is not None else range(R_PAD):
+                c = 0 if r >= R_PAD else expect_count(lambda b, e, r=r: b[r] & filt_fn(b, e))
+                if c:
+                    pairs.append((r, c))
+            pairs.sort(key=lambda rc: (-rc[1], rc[0]))
+            return [{"id": r, "count": c} for r, c in (pairs[:n] if n else pairs)]
+
         api = API(h, device=device, route_mode="device")
         sub = list(range(0, N_SHARDS, 97))
         checks = [
@@ -2236,6 +2685,20 @@ def main(
             api.query("bench", "TopN(f, n=5)")
             lat.append(time.perf_counter() - t0)
         times["topn_p50_ms"] = float(np.median(lat)) * 1e3
+        # the fused filters: filtered TopN, plain and ids=, each filter
+        # evaluated inside K2 (one launch), with the Shift's sub-program
+        fused_cases = [(pql, expect_topn_words(fn, n, ids))
+                       for filt, fn in main_filters() for pql, n, ids in main_fused_queries(filt)]
+        n_filters = len(main_filters())
+        times["fused_launches"] = fused_phase(
+            torch, api, "bench", fused_cases, "main",
+            fused_modes(1, topn=n_filters, ids=n_filters, shift=2))
+        lat = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            api.query("bench", "TopN(f, Row(f=1), n=5)")
+            lat.append(time.perf_counter() - t0)
+        times["topn_filtered_p50_ms"] = float(np.median(lat)) * 1e3
         # a point write: one Set into the write shard, at a column that is in
         # no row of its block, so Row(f=1) gains one bit and Not(Row(f=1))
         # keeps its count (the column joins the existence row too)
@@ -2334,7 +2797,7 @@ def main(
             ([fm], [], [(Z, 0)]),  # empty Union()
             ([edge, fm], [(0, 0), (0, 1), (1, 5)], [(L, 0), (L, 1), (A, 0), (L, 0), (L, 2), (N, 0), (X, 0)]),
         ]
-        errs = {"tree_eval": 0, "row_counts": 0, "stack_delta": 0, "shift_words": 0}
+        errs = {"tree_eval": 0, "row_counts": 0, "stack_delta": 0, "shift_words": 0, "row_counts_tree": 0}
         for stacks_, leaves, prog in tree_cases:
             for count in (True, False):
                 got = ops.tree_eval(stacks_, leaves, prog, N_SHARDS, count=count, device=dev)
@@ -2376,6 +2839,22 @@ def main(
         errs["shift_words"] = max(errs["shift_words"], max_abs_err(
             torch, got, bitwise.shift_words_plain(edge[1].contiguous(), 1)))
         del got
+        # K2's fused filter: the headline's Intersect, Not, an empty
+        # Union(), a row >= R, ids with -1 and >= R, all-ones and bit-31
+        # rows under an all-ones, bit-31 and random filter
+        PF = ops.PlannedFilter  # noqa: N806
+        plane2 = (N_SHARDS, W)
+        pf_head = PF([fm], [(0, 1), (0, 2)], [(L, 0), (L, 1), (A, 0)], [], *plane2)
+        fused_k2 = [
+            (fm, pf_head, None), (fm, pf_head, ids),
+            (fm, PF([fm, em], [(1, 0), (0, 3)], [(L, 0), (L, 1), (N, 0)], [], *plane2), ids),
+            (fm, PF([], [], [(Z, 0)], [], *plane2), None),
+            (fm, PF([fm], [(0, R_PAD)], [(L, 0)], [], *plane2), None),
+            (edge, PF([edge, fm], [(0, 0), (0, 1), (1, 5)], [(L, 0), (L, 1), (X, 0), (L, 2), (O, 0)], [], *plane2), None),
+        ]
+        for m, pf, ii in fused_k2:
+            fused_check(torch, errs, "row_counts_tree", ops.row_counts(m, pf, ii),
+                        topn.row_counts_plain(m, pf.plain(dev, plane2), ii))
         log("max |kernel - plain|:", json.dumps(errs))
         if any(errs.values()):
             raise AssertionError(f"a kernel disagrees with its plain version: {errs}")
@@ -2428,6 +2907,18 @@ def main(
             bound_ms=bound_ms(2 * plane),
             library_ms=None,  # no one PyTorch call shifts per shard with a carry
         )
+        head_filter = lambda: ops.tree_eval([fm], [(0, 1), (0, 2)], [(L, 0), (L, 1), (A, 0)], N_SHARDS, count=False, device=dev)  # noqa: E731
+        k2t = dict(
+            replaces="pilosa_tpu/executor/executor.py:1019",  # _filter_plan in the TopN program (:1356-1383)
+            ms=cuda_ms(torch, lambda: ops.row_counts(fm, pf_head), 10),
+            plain_ms=cuda_ms(torch, lambda: topn.row_counts_plain(fm, pf_head.plain(dev, plane2)), 1),
+            # the 8 rows, each read once: the filter's leaves are rows 1 and 2
+            bound_ms=bound_ms(fm.shape[0] * plane + fused_plan_bytes(pf_head, plane, (fm,))),
+            library_ms=None,
+            shape=f"rows+tree, [{R_PAD}, {N_SHARDS}, {W}] under Intersect(Row(f=1), Row(f=2))",
+        )
+        times["row_counts_two_launches_ms (K1 words, then K2 filtered)"] = cuda_ms(
+            torch, lambda: ops.row_counts(fm, head_filter()), 10)
         times.update({
             "tree_eval_words_ms": words_ms,
             "tree_eval_words_plain_ms": cuda_ms(
@@ -2437,7 +2928,7 @@ def main(
             "row_counts_filtered_bound_ms": bound_ms((R_PAD + 1) * plane),
         })
         log("times:", json.dumps(times))
-        results = {"tree_eval": k1, "row_counts": k2, "stack_delta": k3, "shift_words": k7}
+        results = {"tree_eval": k1, "row_counts": k2, "stack_delta": k3, "shift_words": k7, "row_counts_tree": k2t}
         return {name: (errs[name], t) for name, t in results.items()}, launches, mesh_ctx
     main_results, main_launches, main_ctx = main_path()
     gc.collect()
@@ -2445,7 +2936,7 @@ def main(
         torch.cuda.empty_cache()
     taxi_results, taxi_launches, taxi = taxi_path(torch, device, taxi_shards)
     # the mesh path's share of the taxi holder (the residency path drops its API)
-    taxi_ctx = {k: taxi[k] for k in ("holder", "index", "checks", "answers", "depth", "p50")}
+    taxi_ctx = {k: taxi[k] for k in ("holder", "index", "checks", "answers", "depth", "p50", "fused")}
     res_results, res_launches = residency_path(torch, device, taxi, budget)
     del taxi
     gc.collect()

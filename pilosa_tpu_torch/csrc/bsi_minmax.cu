@@ -28,7 +28,18 @@
 // narrowed set, re-reading the plane from L1. So each plane crosses from
 // device memory once and a bit costs one barrier, not a popcount
 // reduction.
-#include "common.cuh"
+//
+// bsi_minmax_tree: the filter is a call tree (tree_interp.cuh) that the
+// kernel evaluates itself, as the reference evaluates it inside the
+// Min/Max program (executor.py:1019 _filter_plan, :1167-1203), so the
+// [S, W] filter is never written to device memory and the bound counts
+// the tree's leaf and condition planes. The block first evaluates its
+// shard's filter once per vector into shared memory (8,192 vectors, 128
+// KB at most), then walks as the plain kernel does with the filter read
+// from there: the interpreter's stack and the 8 candidate vectors per
+// thread are never live at once (together they passed the 64 registers
+// of a 1,024-thread block and spilled).
+#include "tree_interp.cuh"
 
 #define MM_THREADS 1024
 #define MM_VPT 8  // vectors per thread: a shard holds at most 8,192
@@ -37,14 +48,27 @@ __device__ __forceinline__ uint4 mm_step(uint4 cand, uint4 mag, bool prefer_set)
   return prefer_set ? pt_and4(cand, mag) : pt_andn4(cand, mag);
 }
 
-__global__ void __launch_bounds__(MM_THREADS, 1)
-    bsi_minmax_kernel(const uint4* __restrict__ stack, long long n_vec,
-                      int vps, int present, int depth,
-                      const uint4* __restrict__ filt, int want_max,
-                      long long* __restrict__ value_out,
-                      long long* __restrict__ count_out) {
+// The shard's filter words of bsi_minmax_tree (dynamic shared memory).
+extern __shared__ uint4 mm_filter[];
+
+// One shard's extreme. With TREE the filter is the program `tree`, first
+// evaluated into mm_filter; without, the plane `filt` or all ones.
+template <bool TREE>
+__device__ __forceinline__ void mm_shard(const TreeArgs* tree,
+                                         const uint4* __restrict__ stack,
+                                         long long n_vec, int vps,
+                                         int present, int depth,
+                                         const uint4* __restrict__ filt,
+                                         int want_max,
+                                         long long* __restrict__ value_out,
+                                         long long* __restrict__ count_out) {
   __shared__ unsigned warp_sums[MM_THREADS / 32];
   const long long off = (long long)blockIdx.x * vps;
+  if (TREE) {
+#pragma unroll 1
+    for (int v = threadIdx.x; v < vps; v += MM_THREADS) mm_filter[v] = te_eval(*tree, off + v);
+    __syncthreads();
+  }
   uint4 cand[MM_VPT];
   unsigned any = 0;
   // the preferred set: positives for Max, negatives for Min
@@ -54,7 +78,11 @@ __global__ void __launch_bounds__(MM_THREADS, 1)
     cand[j] = pt_zero4();
     if (v < vps) {
       uint4 base = pt_plane(stack, n_vec, present, 0, off + v);
-      if (filt != nullptr) base = pt_and4(base, filt[off + v]);
+      if (TREE) {
+        base = pt_and4(base, mm_filter[v]);
+      } else if (filt != nullptr) {
+        base = pt_and4(base, filt[off + v]);
+      }
       const uint4 sg = pt_plane(stack, n_vec, present, 1, off + v);
       cand[j] = want_max ? pt_andn4(base, sg) : pt_and4(base, sg);
       any |= pt_any4(cand[j]);
@@ -68,7 +96,11 @@ __global__ void __launch_bounds__(MM_THREADS, 1)
       const int v = threadIdx.x + j * MM_THREADS;
       if (v < vps) {
         cand[j] = pt_plane(stack, n_vec, present, 0, off + v);
-        if (filt != nullptr) cand[j] = pt_and4(cand[j], filt[off + v]);
+        if (TREE) {
+          cand[j] = pt_and4(cand[j], mm_filter[v]);
+        } else if (filt != nullptr) {
+          cand[j] = pt_and4(cand[j], filt[off + v]);
+        }
       }
     }
   }
@@ -121,6 +153,28 @@ __global__ void __launch_bounds__(MM_THREADS, 1)
   }
 }
 
+__global__ void __launch_bounds__(MM_THREADS, 1)
+    bsi_minmax_kernel(const uint4* __restrict__ stack, long long n_vec,
+                      int vps, int present, int depth,
+                      const uint4* __restrict__ filt, int want_max,
+                      long long* __restrict__ value_out,
+                      long long* __restrict__ count_out) {
+  mm_shard<false>(nullptr, stack, n_vec, vps, present, depth, filt, want_max,
+                  value_out, count_out);
+}
+
+__global__ void __launch_bounds__(MM_THREADS, 1)
+    bsi_minmax_tree_kernel(const __grid_constant__ TreeArgs tree,
+                           const uint4* __restrict__ stack, long long n_vec,
+                           int vps, int present, int depth, int want_max,
+                           long long* __restrict__ value_out,
+                           long long* __restrict__ count_out) {
+  mm_shard<true>(&tree, stack, n_vec, vps, present, depth, nullptr, want_max,
+                 value_out, count_out);
+}
+
+static_assert(TE_PARAMS_FIT(8), "bsi_minmax_tree's parameters pass 4 KB");
+
 // stack: int32[present, S, W] with vps = W / 4 vectors per shard and
 // n_vec = S * vps; filt: int32[S, W] or null (all ones); value, count:
 // int64[S]. Returns cudaGetLastError().
@@ -136,5 +190,28 @@ PT_EXPORT int bsi_minmax(const void* stack, long long n_shards, int vps,
   bsi_minmax_kernel<<<(unsigned)n_shards, MM_THREADS, 0, (cudaStream_t)stream>>>(
       (const uint4*)stack, n_shards * vps, vps, present, depth,
       (const uint4*)filt, want_max, (long long*)value, (long long*)count);
+  return (int)cudaGetLastError();
+}
+
+// filt: the filter's program over [S, W] planes of n_shards * vps
+// vectors; the rest as bsi_minmax. Returns cudaGetLastError().
+PT_EXPORT int bsi_minmax_tree(const TreeArgs* filt, const void* stack,
+                              long long n_shards, int vps, int present,
+                              int depth, int want_max, void* value,
+                              void* count, void* stream) {
+  if (stack == nullptr || n_shards < 1 || n_shards > 0x7fffffffLL ||
+      vps < 1 || vps > MM_THREADS * MM_VPT || present < 1 || depth < 0 ||
+      depth > 63 || !tree_program_ok(filt, n_shards * vps)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  // the filter's words in dynamic shared memory: past the 48 KB default
+  const int most = MM_THREADS * MM_VPT * (int)sizeof(uint4);
+  cudaError_t err = cudaFuncSetAttribute(
+      bsi_minmax_tree_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+  if (err != cudaSuccess) return (int)err;
+  bsi_minmax_tree_kernel<<<(unsigned)n_shards, MM_THREADS, (size_t)vps * sizeof(uint4),
+                           (cudaStream_t)stream>>>(
+      *filt, (const uint4*)stack, n_shards * vps, vps, present, depth,
+      want_max, (long long*)value, (long long*)count);
   return (int)cudaGetLastError();
 }

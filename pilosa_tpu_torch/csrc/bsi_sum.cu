@@ -30,7 +30,20 @@
 // popc(a ^ b ^ c) + 2 popc(maj(a, b, c))), which saves a quarter of
 // them. One mask (Sum) takes the same kernel: on the card it ran faster
 // than a variant keeping per-thread counters over many vectors.
-#include "common.cuh"
+//
+// bsi_sum_tree: one mask that is a call tree (tree_interp.cuh), the
+// filtered Sum's filter, evaluated in the kernel where the reference
+// evaluates it inside the Sum's program (executor.py:1019 _filter_plan,
+// :1107-1132): the [S, W] filter is never written to device memory, and
+// the bound counts the tree's leaf and condition planes in place of the
+// mask. Each thread issues the 2 + D plane loads of its vector, then
+// evaluates the filter, so the interpreter's leaf loads (each waited for
+// through its local-memory stack) overlap the planes' instead of coming
+// before them; at one 256-thread block per SM (the planes take ~180
+// registers) little else hides their latency. Grouped mode has no tree:
+// GroupBy's masks are built planes, as the reference's are
+// (executor.py:1606-1616).
+#include "tree_interp.cuh"
 
 #define BS_KCH 24  // magnitude planes held in registers per pass
 #define BS_GCH 16  // masks per pass (per-warp shared counters)
@@ -43,13 +56,18 @@ __device__ __forceinline__ unsigned bs_popc4(uint4 v) {
   return __popc(s) + __popc(v.w) + 2u * __popc(c);
 }
 
-__global__ void __launch_bounds__(PT_BLOCK)
-    bsi_sum_kernel(const uint4* __restrict__ stack, long long n_vec,
-                   int present, int depth, const uint4* __restrict__ masks,
-                   int n_groups, int k0, int g0,
-                   unsigned long long* __restrict__ pos_out,
-                   unsigned long long* __restrict__ neg_out,
-                   unsigned long long* __restrict__ n_out) {
+// One pass: masks g0.. and planes k0.. . With TREE the one mask is the
+// program `filt` (null otherwise); without, `masks` or all ones.
+template <bool TREE>
+__device__ __forceinline__ void bs_pass(const TreeArgs* filt,
+                                        const uint4* __restrict__ stack,
+                                        long long n_vec, int present,
+                                        int depth,
+                                        const uint4* __restrict__ masks,
+                                        int n_groups, int k0, int g0,
+                                        unsigned long long* __restrict__ pos_out,
+                                        unsigned long long* __restrict__ neg_out,
+                                        unsigned long long* __restrict__ n_out) {
   __shared__ unsigned s_cnt[PT_BLOCK / 32][BS_GCH][BS_NC];
   const int kn = depth - k0 < BS_KCH ? depth - k0 : BS_KCH;
   const int gn = n_groups - g0 < BS_GCH ? n_groups - g0 : BS_GCH;
@@ -71,12 +89,15 @@ __global__ void __launch_bounds__(PT_BLOCK)
     for (int j = 0; j < BS_KCH; ++j) {
       mag[j] = ok && j < kn ? pt_plane(stack, n_vec, present, 2 + k0 + j, i) : pt_zero4();
     }
+    // the filter after the planes' loads are issued, so its leaf loads
+    // wait with theirs rather than before them
+    const uint4 f = TREE && ok ? te_eval(*filt, i) : pt_ones4();
     // the next mask's vector is loaded while this one's counts run; no
     // masks means one mask of all ones
-    uint4 m_next = !ok ? pt_zero4() : masks != nullptr ? masks[(long long)g0 * n_vec + i] : pt_ones4();
+    uint4 m_next = !ok ? pt_zero4() : TREE ? f : masks != nullptr ? masks[(long long)g0 * n_vec + i] : pt_ones4();
     for (int g = 0; g < gn; ++g) {
       const uint4 m = m_next;
-      if (ok && masks != nullptr && g + 1 < gn) m_next = masks[(long long)(g0 + g + 1) * n_vec + i];
+      if (!TREE && ok && masks != nullptr && g + 1 < gn) m_next = masks[(long long)(g0 + g + 1) * n_vec + i];
       const uint4 e = pt_and4(ex, m);
       const uint4 p = pt_andn4(e, sg);
       const uint4 q = pt_and4(e, sg);
@@ -117,6 +138,40 @@ __global__ void __launch_bounds__(PT_BLOCK)
   }
 }
 
+__global__ void __launch_bounds__(PT_BLOCK)
+    bsi_sum_kernel(const uint4* __restrict__ stack, long long n_vec,
+                   int present, int depth, const uint4* __restrict__ masks,
+                   int n_groups, int k0, int g0,
+                   unsigned long long* __restrict__ pos_out,
+                   unsigned long long* __restrict__ neg_out,
+                   unsigned long long* __restrict__ n_out) {
+  bs_pass<false>(nullptr, stack, n_vec, present, depth, masks, n_groups, k0,
+                 g0, pos_out, neg_out, n_out);
+}
+
+__global__ void __launch_bounds__(PT_BLOCK)
+    bsi_sum_tree_kernel(const __grid_constant__ TreeArgs filt,
+                        const uint4* __restrict__ stack, long long n_vec,
+                        int present, int depth, int k0,
+                        unsigned long long* __restrict__ pos_out,
+                        unsigned long long* __restrict__ neg_out,
+                        unsigned long long* __restrict__ n_out) {
+  bs_pass<true>(&filt, stack, n_vec, present, depth, nullptr, 1, k0, 0,
+                pos_out, neg_out, n_out);
+}
+
+static_assert(TE_PARAMS_FIT(8), "bsi_sum_tree's parameters pass 4 KB");
+
+// The grid of one pass: resident blocks, fewer for a small stack; 0 where
+// a warp's 32-bit shared counters could overflow (they hold at most
+// 32 * 128 bits per vector step the warp takes).
+static long long bs_grid(long long n_vec) {
+  const long long most = (n_vec + PT_BLOCK - 1) / PT_BLOCK;
+  const long long grid = pt_resident_blocks() < most ? pt_resident_blocks() : most;
+  if ((n_vec + grid * PT_BLOCK - 1) / (grid * PT_BLOCK) > (1ll << 19)) return 0;
+  return grid;
+}
+
 // stack: int32[present, S, W] with n_vec = S * W / 4; masks: int32[G, S, W]
 // or null (then n_groups == 1 and the mask is all ones); pos, neg: zeroed
 // int64[G, depth]; n: zeroed int64[G]. Returns cudaGetLastError().
@@ -127,13 +182,8 @@ PT_EXPORT int bsi_sum(const void* stack, long long n_vec, int present,
       depth > 63 || n_groups < 1 || (masks == nullptr && n_groups != 1)) {
     return (int)cudaErrorInvalidValue;
   }
-  const long long most = (n_vec + PT_BLOCK - 1) / PT_BLOCK;
-  const long long grid = pt_resident_blocks() < most ? pt_resident_blocks() : most;
-  // a warp's 32-bit shared counters hold at most 32 * 128 bits per
-  // vector step it takes
-  if ((n_vec + grid * PT_BLOCK - 1) / (grid * PT_BLOCK) > (1ll << 19)) {
-    return (int)cudaErrorInvalidValue;
-  }
+  const long long grid = bs_grid(n_vec);
+  if (grid == 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   for (int g0 = 0; g0 < n_groups; g0 += BS_GCH) {
     int k0 = 0;
@@ -147,5 +197,31 @@ PT_EXPORT int bsi_sum(const void* stack, long long n_vec, int present,
       k0 += BS_KCH;
     } while (k0 < depth);
   }
+  return 0;
+}
+
+// filt: the filter's program over [S, W] planes of n_vec = S * W / 4
+// vectors; stack, present, depth as bsi_sum; pos, neg: zeroed int64[1,
+// depth]; n: zeroed int64[1]. Returns cudaGetLastError().
+PT_EXPORT int bsi_sum_tree(const TreeArgs* filt, const void* stack,
+                           long long n_vec, int present, int depth, void* pos,
+                           void* neg, void* n, void* stream) {
+  if (stack == nullptr || n_vec <= 0 || present < 1 || depth < 0 ||
+      depth > 63 || !tree_program_ok(filt, n_vec)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const long long grid = bs_grid(n_vec);
+  if (grid == 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  int k0 = 0;
+  do {
+    bsi_sum_tree_kernel<<<(unsigned)grid, PT_BLOCK, 0, s>>>(
+        *filt, (const uint4*)stack, n_vec, present, depth, k0,
+        (unsigned long long*)pos, (unsigned long long*)neg,
+        (unsigned long long*)n);
+    const int err = (int)cudaGetLastError();
+    if (err != 0) return err;
+    k0 += BS_KCH;
+  } while (k0 < depth);
   return 0;
 }

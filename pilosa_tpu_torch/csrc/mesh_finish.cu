@@ -15,24 +15,21 @@
 //               root is not > 0.
 //   Each score becomes K10's sortable key, (score bits) << 32 |
 //   (2^32 - 1 - row), as csrc/similarity_scan.cu's K9 writes it, and the
-//   first-digit histogram K10 starts from counts key >> 50 (clamped to
-//   its last bin, which only counts with inter > min(row_pop, q_pop)
-//   reach). K10 then takes the reference's lax.top_k (:690, :735).
+//   first-digit histogram K10 starts from counts key >> 52 (a score's
+//   bits are below 2^31, so the digit is below 2^11). K10 then takes the
+//   reference's lax.top_k (:690, :735).
 // - mesh_pairwise_finish: the all-pairs epilogue (:796-800) on the
 //   intersection counts summed over the words axis, inter f32[N, M],
 //   with a_pop f32[N] and b_pop f32[M]: Tanimoto or cosine, rounded as
 //   K11's fused modes (csrc/pairwise.cu).
 //
 // - count_keys: the keys of an integer top-k (the lax.top_k of int64 row
-//   counts at mesh.py:647-652, and of ops/topn.py:24 top_rows): for R
-//   counts and b = max(1, bit length of R - 1) row bits,
-//     key = count << b | (2^b - 1 - row),
-//   distinct, ordered by count and, among equal counts, with the lower
-//   row first, as lax.top_k breaks ties; below 2^62 while every count is
-//   below 2^(62 - b), so K10's six digits cover it. A count at or above
-//   that (or negative) adds one to `over` and writes a zero count's key;
-//   the wrapper raises on it. The first-digit histogram is written as
-//   mesh_sim_keys writes it, for K10's int mode.
+//   counts at mesh.py:647-652, and of ops/topn.py:24 top_rows): the count
+//   alone with its sign bit flipped, key = count ^ 2^63, which orders as
+//   uint64 as the int64 counts do, over their whole range. Equal counts
+//   give equal keys: K10's int mode takes their ties in row order (the
+//   row is the key's index), as lax.top_k breaks them. The first-digit
+//   histogram (key >> 52) is written as mesh_sim_keys writes it.
 //
 // The intrinsics (__fadd_rn, __fmul_rn, __fsqrt_rn, __fdiv_rn) keep
 // nvcc from contracting a product into a sum and give the IEEE results.
@@ -42,7 +39,7 @@
 #include "common.cuh"
 
 #define MF_BINS 4096
-#define MF_FIRST_SHIFT 50
+#define MF_FIRST_SHIFT 52
 #define MF_TANIMOTO 0
 #define MF_COSINE 1
 
@@ -76,10 +73,7 @@ __global__ void __launch_bounds__(PT_BLOCK)
     const u64 key = ((u64)__float_as_uint(sc) << 32) |
                     (u64)(0xffffffffu - (unsigned)row);
     keys[row] = key;
-    // counts with inter <= min(row_pop, q_pop) give scores below 2.0, so
-    // the digit is below MF_BINS; the clamp keeps other input in bounds
-    const u64 digit = key >> MF_FIRST_SHIFT;
-    atomicAdd(&s_hist[digit < MF_BINS ? (unsigned)digit : MF_BINS - 1], 1u);
+    atomicAdd(&s_hist[(unsigned)(key >> MF_FIRST_SHIFT)], 1u);
   }
   __syncthreads();
   for (int i = threadIdx.x; i < MF_BINS; i += PT_BLOCK) {
@@ -104,23 +98,14 @@ __global__ void __launch_bounds__(PT_BLOCK)
 
 __global__ void __launch_bounds__(PT_BLOCK)
     count_keys_kernel(const long long* __restrict__ counts, long long n,
-                      int bits, u64* __restrict__ keys,
-                      unsigned* __restrict__ hist,
-                      unsigned* __restrict__ over) {
+                      u64* __restrict__ keys, unsigned* __restrict__ hist) {
   __shared__ unsigned s_hist[MF_BINS];
   for (int i = threadIdx.x; i < MF_BINS; i += PT_BLOCK) s_hist[i] = 0u;
   __syncthreads();
-  const u64 limit = 1ull << (62 - bits);
-  const u64 low = (1ull << bits) - 1ull;
   const long long step = (long long)gridDim.x * PT_BLOCK;
   for (long long row = (long long)blockIdx.x * PT_BLOCK + threadIdx.x;
        row < n; row += step) {
-    u64 c = (u64)counts[row];
-    if (c >= limit) {
-      atomicAdd(over, 1u);
-      c = 0;
-    }
-    const u64 key = (c << bits) | (low - (u64)row);
+    const u64 key = (u64)counts[row] ^ (1ull << 63);
     keys[row] = key;
     atomicAdd(&s_hist[(unsigned)(key >> MF_FIRST_SHIFT)], 1u);
   }
@@ -167,18 +152,13 @@ PT_EXPORT int mesh_pairwise_finish(const void* inter, const void* a_pop,
   return (int)cudaGetLastError();
 }
 
-// counts: int64[n]; bits: the row bits b, with n <= 2^b; keys: int64[n];
-// hist: zeroed int32[4096]; over: zeroed int32[1], the counts out of
-// range. Returns cudaGetLastError().
-PT_EXPORT int count_keys(const void* counts, long long n, int bits, void* keys,
-                         void* hist, void* over, void* stream) {
-  if (n < 0 || n > 0x7fffffffLL || bits < 1 || bits > 31 ||
-      n > (1ll << bits)) {
-    return (int)cudaErrorInvalidValue;
-  }
+// counts: int64[n]; keys: int64[n]; hist: zeroed int32[4096]. Returns
+// cudaGetLastError().
+PT_EXPORT int count_keys(const void* counts, long long n, void* keys,
+                         void* hist, void* stream) {
+  if (n < 0 || n > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   if (n == 0) return (int)cudaGetLastError();
   count_keys_kernel<<<mf_grid(n), PT_BLOCK, 0, (cudaStream_t)stream>>>(
-      (const long long*)counts, n, bits, (u64*)keys, (unsigned*)hist,
-      (unsigned*)over);
+      (const long long*)counts, n, (u64*)keys, (unsigned*)hist);
   return (int)cudaGetLastError();
 }

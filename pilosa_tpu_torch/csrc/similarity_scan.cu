@@ -16,7 +16,10 @@
 // their values and every key is below 2^62; the keys are distinct, and
 // among equal scores the lower row has the larger key. So the k largest
 // keys in descending order are exactly top_k's answer: ties to the lower
-// index, a zero-score tail in index order.
+// index, a zero-score tail in index order. A count key is the count alone
+// (count ^ 2^63, any int64): equal counts give equal keys, so the int
+// mode selects and sorts (key, row) pairs, a larger key or an equal key
+// of a lower row first, the row being the key's index.
 //
 // The scores round as the reference's f32 program: counts cast to f32
 // (round to nearest), union = (|row| + |query|) - inter, one IEEE
@@ -38,21 +41,25 @@
 // (or rows that are not 16 B aligned) takes the same loop over 4 B words.
 //
 // K10 is a radix select over the keys' six digits (12, 12, 12, 12, 12
-// and 2 bits, most significant first). K9's histogram gives the first
-// digit; each later level is a histogram pass over the keys that match
-// the prefix chosen so far, and a one-block pick that finds the bin
+// and 4 bits, most significant first: all 64). K9's histogram gives the
+// first digit; each later level is a histogram pass over the keys that
+// match the prefix chosen so far, and a one-block pick that finds the bin
 // holding the k-th largest key. It stops once a chosen bin is taken
-// whole, and then exactly k keys are >= the prefix: a ballot compaction
-// gathers them, a bitonic sort orders them (in one block's shared memory
-// up to 4,096 keys, above that with merge steps in device memory), and
-// the first k are decoded. Any k from 1 to R. Its bound is reading the
-// keys once; each level reads them again, and its small launches cost
-// more than the bytes.
+// whole, and then exactly k keys are >= the prefix. In the int mode, ties
+// at the k-th count go on through the digits of the row order, 2^b - 1 -
+// row for b row bits (12 at a time), among the keys equal to that count:
+// (count, row) pairs are distinct, so the select always ends, with exactly
+// k pairs at or above the (key, row-order) prefix. A ballot compaction
+// gathers them (with their rows in the int mode), a bitonic sort orders
+// them (in one block's shared memory up to 4,096, above that with merge
+// steps in device memory), and the first k are decoded. Any k from 1 to
+// R. Its bound is reading the keys once; each level reads them again, and
+// its small launches cost more than the bytes.
 #include "common.cuh"
 
 #define SIM_BITS 12
 #define SIM_BINS (1 << SIM_BITS)
-#define SIM_FIRST_SHIFT 50
+#define SIM_FIRST_SHIFT 52
 #define SIM_LEVELS 6
 #define SIM_TILE 4096  // keys a block sorts in shared memory
 #define SIM_SORT_THREADS 1024
@@ -61,11 +68,13 @@
 typedef unsigned long long u64;
 
 struct SimState {
-  u64 prefix;  // the digits chosen so far, zeros below
-  u64 mask;    // the bits of the chosen digits
-  u64 kr;      // keys still to take among those matching the prefix
-  u64 done;    // 1 once exactly k keys are >= prefix
-  u64 count;   // keys gathered by the compaction
+  u64 prefix;     // the digits chosen so far, zeros below
+  u64 mask;       // the bits of the chosen digits
+  u64 kr;         // keys still to take among those matching the prefix
+  u64 done;       // 1 once exactly k keys are >= prefix
+  u64 count;      // keys gathered by the compaction
+  u64 prefix_lo;  // the int mode's row-order digits chosen so far
+  u64 mask_lo;    // their bits
 };
 
 template <int VEC>
@@ -242,11 +251,11 @@ PT_EXPORT int sim_scan(const void* matrix, long long n_rows, long long n_words,
 
 // One block: find the bin of this level's histogram that holds the
 // kr-th largest key among those matching the prefix (bins scanned from
-// the top), and extend the prefix by it. `first` starts the select with
-// kr = k.
+// the top), and extend the prefix by it (the row-order prefix with
+// `rows`). `first` starts the select with kr = k.
 __global__ void __launch_bounds__(SIM_SORT_THREADS)
     sim_pick_kernel(const unsigned* __restrict__ hist, int shift, int bits,
-                    int first, u64 k, SimState* st) {
+                    int rows, int first, u64 k, SimState* st) {
   __shared__ u64 s_sum[SIM_SORT_THREADS];
   if (!first && st->done) return;  // uniform: read before any write below
   const u64 kr = first ? k : st->kr;
@@ -279,8 +288,13 @@ __global__ void __launch_bounds__(SIM_SORT_THREADS)
         st->prefix = 0;
         st->mask = 0;
       }
-      st->prefix |= (u64)b << shift;
-      st->mask |= (u64)(nb - 1) << shift;
+      if (rows) {
+        st->prefix_lo |= (u64)b << shift;
+        st->mask_lo |= (u64)(nb - 1) << shift;
+      } else {
+        st->prefix |= (u64)b << shift;
+        st->mask |= (u64)(nb - 1) << shift;
+      }
       st->kr = rest;
       st->done = h == rest ? 1ull : 0ull;
       return;
@@ -289,22 +303,29 @@ __global__ void __launch_bounds__(SIM_SORT_THREADS)
   }
 }
 
-// Histogram of one digit over the keys that match the prefix so far.
+// Histogram of one digit over the keys that match the prefix so far; with
+// `rows`, of one digit of the row order (low - row) over the keys equal
+// to the chosen count whose row order matches its prefix so far.
 __global__ void __launch_bounds__(PT_BLOCK)
     sim_hist_kernel(const u64* __restrict__ keys, long long n, int shift,
-                    unsigned dmask, const SimState* __restrict__ st,
+                    unsigned dmask, int rows, u64 low,
+                    const SimState* __restrict__ st,
                     unsigned* __restrict__ hist) {
   __shared__ unsigned s_hist[SIM_BINS];
   if (st->done) return;
   const u64 prefix = st->prefix, mask = st->mask;
+  const u64 prefix_lo = st->prefix_lo, mask_lo = st->mask_lo;
   for (int i = threadIdx.x; i < SIM_BINS; i += PT_BLOCK) s_hist[i] = 0u;
   __syncthreads();
   for (long long base = (long long)blockIdx.x * PT_BLOCK; base < n;
        base += (long long)gridDim.x * PT_BLOCK) {
     const long long i = base + threadIdx.x;
     const u64 key = i < n ? keys[i] : 0ull;
-    const bool has = i < n && (key & mask) == prefix;
-    sim_count_digit(s_hist, has, (unsigned)(key >> shift) & dmask);
+    const u64 order = low - (u64)i;
+    const bool has = i < n && (key & mask) == prefix &&
+                     (!rows || (order & mask_lo) == prefix_lo);
+    const u64 digit = rows ? order >> shift : key >> shift;
+    sim_count_digit(s_hist, has, (unsigned)digit & dmask);
   }
   __syncthreads();
   for (int i = threadIdx.x; i < SIM_BINS; i += PT_BLOCK) {
@@ -312,86 +333,117 @@ __global__ void __launch_bounds__(PT_BLOCK)
   }
 }
 
-// Gather the keys >= the final prefix (exactly k of them), in any order.
+// Gather the keys at or above the final prefix (exactly k of them), in
+// any order; in the int mode (out_rows non-null) a key equal to the
+// chosen count only where its row order is at or above the row prefix,
+// and each key's row beside it.
 __global__ void __launch_bounds__(PT_BLOCK)
     sim_compact_kernel(const u64* __restrict__ keys, long long n, u64 k,
-                       SimState* st, u64* __restrict__ out) {
-  const u64 lo = st->prefix;
+                       u64 low, SimState* st, u64* __restrict__ out,
+                       unsigned* __restrict__ out_rows) {
+  const u64 lo = st->prefix, lo_rows = st->prefix_lo;
   const int lane = threadIdx.x & 31;
   for (long long base = (long long)blockIdx.x * PT_BLOCK; base < n;
        base += (long long)gridDim.x * PT_BLOCK) {
     const long long i = base + threadIdx.x;
     const u64 key = i < n ? keys[i] : 0ull;
-    const bool take = i < n && key >= lo;
+    const bool take = i < n && (key > lo || (key == lo && (out_rows == nullptr ||
+                                                          low - (u64)i >= lo_rows)));
     const unsigned ballot = __ballot_sync(0xffffffffu, take);
     if (!ballot) continue;
     u64 pos = 0;
     if (lane == __ffs(ballot) - 1) pos = atomicAdd(&st->count, (u64)__popc(ballot));
     pos = __shfl_sync(0xffffffffu, pos, __ffs(ballot) - 1);
     pos += __popc(ballot & ((1u << lane) - 1u));
-    if (take && pos < k) out[pos] = key;
+    if (take && pos < k) {
+      out[pos] = key;
+      if (out_rows != nullptr) out_rows[pos] = (unsigned)i;
+    }
   }
+}
+
+// Does (kx, rx) come before (ky, ry) in the output: a larger key, or an
+// equal key of a lower row. Score keys (no rows) are distinct.
+template <bool PAIR>
+__device__ __forceinline__ bool sim_before(u64 kx, unsigned rx, u64 ky,
+                                           unsigned ry) {
+  return kx > ky || (PAIR && kx == ky && rx < ry);
 }
 
 // Compare-exchange for a descending bitonic sort: the pair (lo, hi) of a
 // merge of `size` runs descending where lo's size bit is clear.
-__device__ __forceinline__ void sim_cmpx(u64* a, long long lo, long long hi,
-                                         bool desc) {
+template <bool PAIR>
+__device__ __forceinline__ void sim_cmpx(u64* a, unsigned* r, long long lo,
+                                         long long hi, bool desc) {
   const u64 x = a[lo], y = a[hi];
-  if (desc ? x < y : x > y) {
+  const unsigned rx = PAIR ? r[lo] : 0u, ry = PAIR ? r[hi] : 0u;
+  if (desc ? sim_before<PAIR>(y, ry, x, rx) : sim_before<PAIR>(x, rx, y, ry)) {
     a[lo] = y;
     a[hi] = x;
+    if (PAIR) {
+      r[lo] = ry;
+      r[hi] = rx;
+    }
   }
 }
 
 // One tile of the bitonic sort in shared memory: merge sizes size_lo to
-// size_hi, each from stride min(size, tile) / 2 down to 1.
+// size_hi, each from stride min(size, tile) / 2 down to 1. With PAIR the
+// rows move with their keys (48 KB of shared memory at SIM_TILE).
+template <bool PAIR>
 __global__ void __launch_bounds__(SIM_SORT_THREADS)
-    sim_sort_tile_kernel(u64* __restrict__ a, long long n, long long size_lo,
-                         long long size_hi) {
+    sim_sort_tile_kernel(u64* __restrict__ a, unsigned* __restrict__ ra,
+                         long long n, long long size_lo, long long size_hi) {
   __shared__ u64 s[SIM_TILE];
+  __shared__ unsigned sr[PAIR ? SIM_TILE : 1];
   const long long tile = n < SIM_TILE ? n : SIM_TILE;
   const long long base = (long long)blockIdx.x * tile;
-  for (long long i = threadIdx.x; i < tile; i += SIM_SORT_THREADS) s[i] = a[base + i];
+  for (long long i = threadIdx.x; i < tile; i += SIM_SORT_THREADS) {
+    s[i] = a[base + i];
+    if (PAIR) sr[i] = ra[base + i];
+  }
   __syncthreads();
   for (long long size = size_lo; size <= size_hi; size <<= 1) {
     for (long long stride = (size < tile ? size : tile) >> 1; stride > 0; stride >>= 1) {
       for (long long p = threadIdx.x; p < tile / 2; p += SIM_SORT_THREADS) {
         const long long lo = ((p & ~(stride - 1)) << 1) | (p & (stride - 1));
-        sim_cmpx(s, lo, lo + stride, ((base + lo) & size) == 0);
+        sim_cmpx<PAIR>(s, sr, lo, lo + stride, ((base + lo) & size) == 0);
       }
       __syncthreads();
     }
   }
-  for (long long i = threadIdx.x; i < tile; i += SIM_SORT_THREADS) a[base + i] = s[i];
-}
-
-// One merge step of the bitonic sort in device memory, stride >= a tile.
-__global__ void __launch_bounds__(PT_BLOCK)
-    sim_sort_step_kernel(u64* __restrict__ a, long long n, long long size,
-                         long long stride) {
-  for (long long p = (long long)blockIdx.x * PT_BLOCK + threadIdx.x; p < n / 2;
-       p += (long long)gridDim.x * PT_BLOCK) {
-    const long long lo = ((p & ~(stride - 1)) << 1) | (p & (stride - 1));
-    sim_cmpx(a, lo, lo + stride, (lo & size) == 0);
+  for (long long i = threadIdx.x; i < tile; i += SIM_SORT_THREADS) {
+    a[base + i] = s[i];
+    if (PAIR) ra[base + i] = sr[i];
   }
 }
 
-// Decode the first k sorted keys. Score keys (int_bits 0): the f32 score
-// from the high half, the row from the low. Count keys (int_bits b > 0,
-// csrc/mesh_finish.cu's count_keys): the int64 count key >> b, the row
-// 2^b - 1 - (key & (2^b - 1)).
+// One merge step of the bitonic sort in device memory, stride >= a tile.
+template <bool PAIR>
 __global__ void __launch_bounds__(PT_BLOCK)
-    sim_emit_kernel(const u64* __restrict__ sorted, long long k,
-                    void* __restrict__ values, int int_bits,
-                    int* __restrict__ ids) {
+    sim_sort_step_kernel(u64* __restrict__ a, unsigned* __restrict__ ra,
+                         long long n, long long size, long long stride) {
+  for (long long p = (long long)blockIdx.x * PT_BLOCK + threadIdx.x; p < n / 2;
+       p += (long long)gridDim.x * PT_BLOCK) {
+    const long long lo = ((p & ~(stride - 1)) << 1) | (p & (stride - 1));
+    sim_cmpx<PAIR>(a, ra, lo, lo + stride, (lo & size) == 0);
+  }
+}
+
+// Decode the first k sorted keys. Score keys (no rows): the f32 score
+// from the high half, the row from the low. Count keys
+// (csrc/mesh_finish.cu's count_keys): the int64 count key ^ 2^63, the row
+// from `rows`.
+__global__ void __launch_bounds__(PT_BLOCK)
+    sim_emit_kernel(const u64* __restrict__ sorted,
+                    const unsigned* __restrict__ rows, long long k,
+                    void* __restrict__ values, int* __restrict__ ids) {
   for (long long i = (long long)blockIdx.x * PT_BLOCK + threadIdx.x; i < k;
        i += (long long)gridDim.x * PT_BLOCK) {
     const u64 key = sorted[i];
-    if (int_bits > 0) {
-      const u64 low = (1ull << int_bits) - 1ull;
-      ((long long*)values)[i] = (long long)(key >> int_bits);
-      ids[i] = (int)(low - (key & low));
+    if (rows != nullptr) {
+      ((long long*)values)[i] = (long long)(key ^ (1ull << 63));
+      ids[i] = (int)rows[i];
     } else {
       ((float*)values)[i] = __uint_as_float((unsigned)(key >> 32));
       ids[i] = (int)(0xffffffffu - (unsigned)key);
@@ -399,49 +451,68 @@ __global__ void __launch_bounds__(PT_BLOCK)
   }
 }
 
+template <bool PAIR>
+static void sim_sort(u64* a, unsigned* ra, long long n_sort, cudaStream_t s) {
+  if (n_sort < 2) return;
+  const long long tile = n_sort < SIM_TILE ? n_sort : SIM_TILE;
+  const unsigned tiles = (unsigned)(n_sort / tile);
+  sim_sort_tile_kernel<PAIR><<<tiles, SIM_SORT_THREADS, 0, s>>>(a, ra, n_sort, 2, tile);
+  const unsigned step_grid = sim_grid(n_sort / 2, PT_BLOCK);
+  for (long long size = tile * 2; size <= n_sort; size <<= 1) {
+    for (long long stride = size / 2; stride >= tile; stride >>= 1) {
+      sim_sort_step_kernel<PAIR><<<step_grid, PT_BLOCK, 0, s>>>(a, ra, n_sort, size, stride);
+    }
+    sim_sort_tile_kernel<PAIR><<<tiles, SIM_SORT_THREADS, 0, s>>>(a, ra, n_sort, size, size);
+  }
+}
+
 // keys: int64[n] from sim_scan (or count_keys) and hist0 its histogram;
-// hists: zeroed int32[5, 4096]; state: zeroed int64[8]; work: zeroed
+// hists: zeroed int32[5 + 3, 4096]; state: zeroed int64[8]; work: zeroed
 // int64[n_sort], n_sort the power of two >= k; int_bits: 0 for score
-// keys, then values is f32[k], or the row bits b of count keys, then
-// values is int64[k]; ids: int32[k]. Returns cudaGetLastError().
+// keys, then values is f32[k] and work_rows null, or the row bits b of
+// count keys (n <= 2^b), then values is int64[k] and work_rows an
+// int32[n_sort] of -1; ids: int32[k]. Returns cudaGetLastError().
 PT_EXPORT int sim_select(const void* keys, long long n, const void* hist0,
                          void* hists, void* state, long long k, void* work,
-                         long long n_sort, int int_bits, void* values,
-                         void* ids, void* stream) {
+                         void* work_rows, long long n_sort, int int_bits,
+                         void* values, void* ids, void* stream) {
   if (n < 1 || n > 0x7fffffffLL || k < 1 || k > n || n_sort < k ||
-      (n_sort & (n_sort - 1)) || int_bits < 0 || int_bits > 31) {
+      (n_sort & (n_sort - 1)) || int_bits < 0 || int_bits > 31 ||
+      (int_bits > 0) != (work_rows != nullptr) ||
+      (int_bits > 0 && n > (1ll << int_bits))) {
     return (int)cudaErrorInvalidValue;
   }
-  static const int shifts[SIM_LEVELS] = {SIM_FIRST_SHIFT, 38, 26, 14, 2, 0};
-  static const int bits[SIM_LEVELS] = {SIM_BITS, SIM_BITS, SIM_BITS, SIM_BITS, SIM_BITS, 2};
+  static const int shifts[SIM_LEVELS] = {SIM_FIRST_SHIFT, 40, 28, 16, 4, 0};
+  static const int bits[SIM_LEVELS] = {SIM_BITS, SIM_BITS, SIM_BITS, SIM_BITS, SIM_BITS, 4};
   cudaStream_t s = (cudaStream_t)stream;
   const u64* kk = (const u64*)keys;
   SimState* st = (SimState*)state;
   const unsigned grid = sim_grid(n, PT_BLOCK);
+  const u64 low = int_bits > 0 ? (1ull << int_bits) - 1ull : 0ull;
+  unsigned* h = (unsigned*)hists;
   sim_pick_kernel<<<1, SIM_SORT_THREADS, 0, s>>>((const unsigned*)hist0, shifts[0],
-                                                 bits[0], 1, (u64)k, st);
-  for (int level = 1; level < SIM_LEVELS; ++level) {
-    unsigned* h = (unsigned*)hists + (long long)(level - 1) * SIM_BINS;
+                                                 bits[0], 0, 1, (u64)k, st);
+  for (int level = 1; level < SIM_LEVELS; ++level, h += SIM_BINS) {
     sim_hist_kernel<<<grid, PT_BLOCK, 0, s>>>(kk, n, shifts[level],
-                                              (1u << bits[level]) - 1u, st, h);
+                                              (1u << bits[level]) - 1u, 0, low, st, h);
     sim_pick_kernel<<<1, SIM_SORT_THREADS, 0, s>>>(h, shifts[level], bits[level],
-                                                   0, (u64)k, st);
+                                                   0, 0, (u64)k, st);
+  }
+  // the int mode's ties: the row order's digits, 12 at a time from the top
+  for (int top = int_bits; top > 0; h += SIM_BINS) {
+    const int w = top < SIM_BITS ? top : SIM_BITS;
+    top -= w;
+    sim_hist_kernel<<<grid, PT_BLOCK, 0, s>>>(kk, n, top, (1u << w) - 1u, 1, low, st, h);
+    sim_pick_kernel<<<1, SIM_SORT_THREADS, 0, s>>>(h, top, w, 1, 0, (u64)k, st);
   }
   u64* a = (u64*)work;
-  sim_compact_kernel<<<grid, PT_BLOCK, 0, s>>>(kk, n, (u64)k, st, a);
-  if (n_sort >= 2) {
-    const long long tile = n_sort < SIM_TILE ? n_sort : SIM_TILE;
-    const unsigned tiles = (unsigned)(n_sort / tile);
-    sim_sort_tile_kernel<<<tiles, SIM_SORT_THREADS, 0, s>>>(a, n_sort, 2, tile);
-    const unsigned step_grid = sim_grid(n_sort / 2, PT_BLOCK);
-    for (long long size = tile * 2; size <= n_sort; size <<= 1) {
-      for (long long stride = size / 2; stride >= tile; stride >>= 1) {
-        sim_sort_step_kernel<<<step_grid, PT_BLOCK, 0, s>>>(a, n_sort, size, stride);
-      }
-      sim_sort_tile_kernel<<<tiles, SIM_SORT_THREADS, 0, s>>>(a, n_sort, size, size);
-    }
+  unsigned* ra = (unsigned*)work_rows;
+  sim_compact_kernel<<<grid, PT_BLOCK, 0, s>>>(kk, n, (u64)k, low, st, a, ra);
+  if (ra != nullptr) {
+    sim_sort<true>(a, ra, n_sort, s);
+  } else {
+    sim_sort<false>(a, nullptr, n_sort, s);
   }
-  sim_emit_kernel<<<sim_grid(k, PT_BLOCK), PT_BLOCK, 0, s>>>(a, k, values, int_bits,
-                                                            (int*)ids);
+  sim_emit_kernel<<<sim_grid(k, PT_BLOCK), PT_BLOCK, 0, s>>>(a, ra, k, values, (int*)ids);
   return (int)cudaGetLastError();
 }

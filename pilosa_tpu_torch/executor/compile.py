@@ -1323,6 +1323,14 @@ class QueryCompiler:
         arrays = planner.materialize()
         return arrays, planner.resolved_leaves(), ops_list, planner.conds
 
+    def planned_filter(self, idx: Index, call: Call, shards: list[int]) -> "ops.PlannedFilter":
+        """A filter's call tree planned against its materialized planes,
+        launching nothing (a Shift's sub-program excepted): what K2, K4
+        and K5 evaluate inside their own launch, as the reference's
+        aggregates evaluate ``_filter_plan`` inside their program."""
+        arrays, leaves, prog, conds = self._plan(idx, call, shards)
+        return ops.PlannedFilter(arrays, leaves, prog, conds, len(shards), WORDS_PER_SHARD)
+
     def bitmap_device(self, idx: Index, call: Call, shards: list[int]) -> torch.Tensor:
         """Evaluate a bitmap call for all shards in one launch → device
         int32[S, W]."""

@@ -2,11 +2,13 @@
 
 Reference: pilosa_tpu/executor/executor.py (itself a redesign of the Go
 executor.go). Every device-routed read call is one launch of the
-hand-written kernels over stacked ``int32[R, S, W]`` field arrays — or
-two where a filter child runs first as K1's words (a filtered TopN, Sum,
-Min, Max or GroupBy; the reference fuses the filter into one program,
-ROADMAP.md A8) — and only scalars or small count vectors cross back to
-the host, all of a query's results in one readback wave.
+hand-written kernels over stacked ``int32[R, S, W]`` field arrays — a
+filtered TopN, Sum, Min or Max included: its filter's call tree runs
+inside the aggregate's kernel (K2, K4 and K5's fused modes), as the
+reference fuses ``_filter_plan`` into the aggregate's program; GroupBy
+builds its base mask first, as the reference does — and only scalars or
+small count vectors cross back to the host, all of a query's results in
+one readback wave.
 
 Ported here: Count, the bitmap calls (Row, Range, Union, Intersect,
 Difference, Xor, Not, All, Shift, and BSI conditions), TopN (with and
@@ -765,19 +767,25 @@ class Executor:
 
     def _filter_device(self, idx: Index, call: Call, shards: list[int]):
         """The child-call filter as device int32[S, W] (K1's words mode),
-        or None without one (the kernels read None as all ones). The
-        aggregate then reads it back: two launches where the reference
-        fuses the filter into the aggregate's program (``_filter_plan``,
-        executor.py:1019; ROADMAP.md A8)."""
+        or None without one: the streamed TopN's, built once for all its
+        chunks, as the reference's (executor.py:1263-1273)."""
         if not call.children:
             return None
         return self.compiler.bitmap_device(idx, call.children[0], shards)
 
+    def _filter_tree(self, idx: Index, call: Call, shards: list[int]):
+        """The child-call filter as a planned call tree (``PlannedFilter``)
+        that K2, K4 or K5 evaluates inside its own launch, as the
+        reference's ``_filter_plan`` (executor.py:1019) runs inside the
+        aggregate's program; None without one (all columns)."""
+        if not call.children:
+            return None
+        return self.compiler.planned_filter(idx, call.children[0], shards)
+
     def _filter_plan(self, idx: Index, call: Call, shards: list[int], mode: str):
         """The child-call filter of a mesh aggregate as (BlockPlan, placed
-        arrays): each block's filter is K1's words of its block, launched
-        before the aggregate's kernel on the same block. None without
-        one."""
+        arrays): each block's plan is evaluated inside the aggregate's
+        kernel on that block. None without one."""
         if not call.children:
             return None
         return self.compiler.mesh_plan(idx, call.children[0], shards, mode)
@@ -815,8 +823,7 @@ class Executor:
             run = eng.sum_tree(mode, fplan=self._filter_plan(idx, call, shards, mode))
             pos, neg, n = eng.dispatch("sum", run, stack, depth)
         else:
-            filt = self._filter_device(idx, call, shards)
-            pos, neg, n = ops.bsi_sum(stack, depth, None if filt is None else filt[None])
+            pos, neg, n = ops.bsi_sum(stack, depth, self._filter_tree(idx, call, shards))
         pend = _Pending(
             [pos, neg, n],
             lambda a: SumCount(ops.bsi.weigh_sum(a[0][0], a[1][0]), int(a[2][0])),
@@ -843,8 +850,7 @@ class Executor:
             run = eng.minmax_tree(want_max, mode, fplan=self._filter_plan(idx, call, shards, mode))
             values, counts = eng.dispatch("minmax", run, stack, depth)
         else:
-            filt = self._filter_device(idx, call, shards)
-            values, counts = ops.bsi_min_max(stack, depth, filt, want_max)
+            values, counts = ops.bsi_min_max(stack, depth, self._filter_tree(idx, call, shards), want_max)
 
         def finish(a):
             # per-shard (or per-block) extremes merge exactly: min/max
@@ -885,8 +891,6 @@ class Executor:
             return self._topn_finish(
                 field, pairs, n, attr_name, attr_values, min_count
             )
-        # the filter is K1's words output, then K2 reads it: two launches
-        # where the reference fuses the filter into the TopN program
         try:
             matrix, _n_rows = self.compiler.stacks.matrix(idx, field, VIEW_STANDARD, shards)
         except StackOverBudget:
@@ -908,9 +912,8 @@ class Executor:
         else:
             if not isinstance(matrix, torch.Tensor):
                 matrix = matrix.gather()
-            filt = self._filter_device(idx, call, shards)
             row_ids = self.compiler.device_scalars(list(ids)) if ids is not None else None
-            counts = ops.row_counts(matrix, filt, row_ids)
+            counts = ops.row_counts(matrix, self._filter_tree(idx, call, shards), row_ids)
         if ids is not None:
 
             def finish(a):

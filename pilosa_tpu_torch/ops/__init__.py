@@ -21,6 +21,11 @@ names the reference function it replaces (paths under pilosa_tpu/):
   Sum's per-bit counts under G masks → int64 pos[G, D], neg[G, D], n[G];
 - K5 ``bsi.bsi_min_max`` (csrc/bsi_minmax.cu) <- ops/bsi.py:152
   ``min_max``: Min/Max per shard → int64 value[S], count[S];
+- the fused filters of K2, K4 (one mask) and K5 (``row_counts_tree``,
+  ``bsi_sum_tree``, ``bsi_minmax_tree`` in the same sources) <-
+  executor/executor.py:1019 ``_filter_plan``: the filter's call tree,
+  a ``bitwise.PlannedFilter``, evaluated inside the aggregate's kernel
+  by K1's interpreter (csrc/tree_interp.cuh);
 - K6 ``groupby.gb_counts`` and ``groupby.gb_masks`` (csrc/groupby.cu) <-
   executor/executor.py:177 ``_gb_counts``, :192 ``_gb_masks``: GroupBy's
   level counts int64[G, K] and its group masks;
@@ -44,7 +49,7 @@ names the reference function it replaces (paths under pilosa_tpu/):
   counts, and the all-pairs epilogue on counts summed over the mesh;
   and ``similarity.count_keys`` <- the ``lax.top_k`` of int64 counts
   (parallel/mesh.py:647-652, ops/topn.py:24): the keys that K10's int
-  mode decodes, for ``topn.select_top_counts``;
+  mode selects, ties in row order, for ``topn.select_top_counts``;
 - K13 ``topn.ingest_counts`` (csrc/ingest_counts.cu) <-
   parallel/mesh.py:852 ``_ingest_prog`` and __graft_entry__.py:65
   ``query_step``: ``matrix |= delta`` in place with every row's count
@@ -62,6 +67,7 @@ word axis (parallel/mesh.py).
 from pilosa_tpu_torch.ops import bitwise, bsi, containers, groupby, similarity, stack, topn
 from pilosa_tpu_torch.ops._cuda import KERNELS, resolve_device
 from pilosa_tpu_torch.ops.bitwise import (
+    PlannedFilter,
     column_mask,
     count_and,
     count_andnot,
@@ -99,6 +105,7 @@ from pilosa_tpu_torch.ops.topn import (
 
 __all__ = [
     "KERNELS",
+    "PlannedFilter",
     "apply_stack_delta",
     "bitwise",
     "bsi",

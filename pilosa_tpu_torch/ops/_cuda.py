@@ -77,11 +77,14 @@ def _lib_path(name: str) -> str:
 
 
 def _stale(name: str) -> bool:
+    """Whether ``lib<name>.so`` is older than its source or any header
+    in ``csrc/`` (``common.cuh``, ``tree_interp.cuh``)."""
     lib = _lib_path(name)
     if not os.path.exists(lib):
         return True
     built = os.path.getmtime(lib)
-    sources = [os.path.join(CSRC, f"{name}.cu"), os.path.join(CSRC, "common.cuh")]
+    headers = [os.path.join(CSRC, f) for f in os.listdir(CSRC) if f.endswith(".cuh")]
+    sources = [os.path.join(CSRC, f"{name}.cu"), *headers]
     return any(os.path.getmtime(s) > built for s in sources)
 
 
@@ -119,7 +122,8 @@ class Kernel:
     """One hand-written kernel: its source, its C entry and its count of
     launches (raised only where the kernel is launched), also kept per
     mode of the launch (``modes``). ``stem`` names the source when one
-    file holds several entries (K6, K9 and K10, K12)."""
+    file holds several entries (K6, K9 and K10, K12, and the fused-filter
+    entries of K2, K4 and K5)."""
 
     def __init__(self, name: str, argtypes: list, replaces: str, stem: str | None = None):
         self.name = name
@@ -184,6 +188,14 @@ ROW_COUNTS = Kernel(
     # matrix_filter_counts; also ops/topn.py:29 candidate_counts
     "pilosa_tpu/ops/bitwise.py:102",
 )
+ROW_COUNTS_TREE = Kernel(
+    "row_counts_tree",
+    [_VP, _VP, _LL, _LL, _VP, _LL, _VP, _VP],
+    # the filtered TopN's program with its filter's tree inside
+    # (_filter_plan, :1276-1312 ids=, :1356-1383)
+    "pilosa_tpu/executor/executor.py:1019",
+    stem="row_counts",
+)
 STACK_DELTA = Kernel(
     "stack_delta",
     [_VP, _VP, _LL, _LL, _LL, _VP, _VP, _LL, _VP, _VP],
@@ -196,10 +208,26 @@ BSI_SUM = Kernel(
     # _grouped_sum_program (:1088)
     "pilosa_tpu/ops/bsi.py:113",
 )
+BSI_SUM_TREE = Kernel(
+    "bsi_sum_tree",
+    [_VP, _VP, _LL, _I, _I, _VP, _VP, _VP, _VP],
+    # the filtered Sum's program with its filter's tree inside
+    # (_filter_plan, :1107-1132)
+    "pilosa_tpu/executor/executor.py:1019",
+    stem="bsi_sum",
+)
 BSI_MINMAX = Kernel(
     "bsi_minmax",
     [_VP, _LL, _I, _I, _I, _VP, _I, _VP, _VP, _VP],
     "pilosa_tpu/ops/bsi.py:152",  # min_max, vmapped at executor.py:1194
+)
+BSI_MINMAX_TREE = Kernel(
+    "bsi_minmax_tree",
+    [_VP, _VP, _LL, _I, _I, _I, _I, _VP, _VP, _VP],
+    # the filtered Min/Max program with its filter's tree inside
+    # (_filter_plan, :1167-1203)
+    "pilosa_tpu/executor/executor.py:1019",
+    stem="bsi_minmax",
 )
 GB_COUNTS = Kernel(
     "gb_counts",
@@ -234,7 +262,7 @@ SIM_SCAN = Kernel(
 )
 SIM_SELECT = Kernel(
     "sim_select",
-    [_VP, _LL, _VP, _VP, _VP, _LL, _VP, _LL, _I, _VP, _VP, _VP],
+    [_VP, _LL, _VP, _VP, _VP, _LL, _VP, _VP, _LL, _I, _VP, _VP, _VP],
     # tanimoto_search's jax.lax.top_k; its int mode the lax.top_k of int64
     # counts (mesh.py:647-652, ops/topn.py:24)
     "pilosa_tpu/ops/similarity.py:25",
@@ -262,7 +290,7 @@ MESH_PAIRWISE_FINISH = Kernel(
 )
 COUNT_KEYS = Kernel(
     "count_keys",
-    [_VP, _LL, _I, _VP, _VP, _VP, _VP],
+    [_VP, _LL, _VP, _VP, _VP],
     # the integer top-k's keys: lax.top_k of the mesh TopN's int64 counts
     "pilosa_tpu/parallel/mesh.py:650",
     stem="mesh_finish",
@@ -277,9 +305,10 @@ INGEST_COUNTS = Kernel(
 KERNELS = {
     k.name: k
     for k in (
-        TREE_EVAL, ROW_COUNTS, STACK_DELTA, BSI_SUM, BSI_MINMAX, GB_COUNTS, GB_MASKS,
-        SHIFT_WORDS, CONTAINER_COUNT, SIM_SCAN, SIM_SELECT, PAIRWISE,
-        MESH_SIM_KEYS, MESH_PAIRWISE_FINISH, COUNT_KEYS, INGEST_COUNTS,
+        TREE_EVAL, ROW_COUNTS, ROW_COUNTS_TREE, STACK_DELTA, BSI_SUM, BSI_SUM_TREE,
+        BSI_MINMAX, BSI_MINMAX_TREE, GB_COUNTS, GB_MASKS, SHIFT_WORDS, CONTAINER_COUNT,
+        SIM_SCAN, SIM_SELECT, PAIRWISE, MESH_SIM_KEYS, MESH_PAIRWISE_FINISH, COUNT_KEYS,
+        INGEST_COUNTS,
     )
 }
 # the sources, one nvcc process each

@@ -15,7 +15,10 @@ the plain interpreter, a CUDA tensor launches the kernel or raises. Its
 CMP opcode evaluates a BSI condition in the same launch; the plain
 interpreter runs ``ops.bsi.compare`` for it. LOAD_SPARSE and LOAD_RUN
 read a row that is resident as a compressed container; the plain
-interpreter decodes it with ``ops.containers``.
+interpreter decodes it with ``ops.containers``. ``pack_tree`` packs a
+program for the interpreter (csrc/tree_interp.cuh), and a
+``PlannedFilter`` is a program that K2, K4 and K5 evaluate as their
+filter.
 
 ``shift_words`` (PQL Shift) is the wrapper of ``csrc/shift_words.cu``
 (K7), with the same CPU/CUDA split.
@@ -30,6 +33,7 @@ count with, on either device.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -390,45 +394,21 @@ def _check_stacks(
     return max(caps[OP_LOAD_SPARSE], default=0), max(caps[OP_LOAD_RUN], default=0)
 
 
-def tree_eval(
+def pack_tree(
     stacks: list[torch.Tensor],
     leaves: list[tuple[int, int]],
     ops: list[tuple[int, int]],
     n_shards: int,
-    count: bool,
-    device="cpu",
     conds: list[tuple[int, int, str, int]] = (),
-    out: torch.Tensor | None = None,
     n_words: int = WORDS_PER_SHARD,
-) -> torch.Tensor:
-    """Evaluate a postfix call-tree program over [S, W] planes (K1).
-
-    The stacks' device decides the route; ``device`` names it only for a
-    program with no stack (an empty Union(), say). In words mode ``out``
-    (contiguous int32[S, W], a plane of a larger tensor, say) receives
-    the words in place of a new tensor. ``n_words`` is W: a shard's
-    words, or a mesh block's slice of them (parallel/mesh.py)."""
+) -> _TreeArgs:
+    """Pack a planned tree against the planes it reads into the kernels'
+    ``TreeArgs`` (csrc/tree_interp.cuh), after checking the stacks and
+    K1's limits. The struct holds raw pointers: the caller keeps
+    ``stacks`` alive until the launch."""
     from pilosa_tpu_torch.ops.bsi import CMP_OPS
 
-    dev = stacks[0].device if stacks else torch.device(device)
-    for m in stacks:
-        if m.device != dev:
-            raise ValueError(f"stacks on {m.device} and {dev}")
-    if n_words < 4 or n_words % 4:
-        raise ValueError(f"W = {n_words} is not a positive multiple of 4 words")
     sparse_cap, run_cap = _check_stacks(stacks, leaves, ops, n_shards, conds, n_words)
-    plane = (n_shards, n_words)
-    if out is not None and (
-        count or out.device != dev or out.dtype != torch.int32
-        or tuple(out.shape) != plane or not out.is_contiguous()
-    ):
-        raise ValueError(f"out must be a contiguous int32{list(plane)} on {dev}, in words mode")
-    if dev.type == "cpu":
-        got = tree_eval_plain(stacks, leaves, ops, n_shards, count, dev, conds, n_words)
-        if out is None:
-            return got
-        out.copy_(got)
-        return out
     if (
         len(leaves) > TREE_MAX_LEAVES
         or len(ops) > TREE_MAX_OPS
@@ -456,8 +436,50 @@ def tree_eval(
         a.arg[i] = arg
     a.n_leaves, a.n_ops, a.n_conds = len(leaves), len(ops), len(conds)
     a.sparse_cap, a.run_cap = sparse_cap, run_cap
+    return a
+
+
+def tree_eval(
+    stacks: list[torch.Tensor],
+    leaves: list[tuple[int, int]],
+    ops: list[tuple[int, int]],
+    n_shards: int,
+    count: bool,
+    device="cpu",
+    conds: list[tuple[int, int, str, int]] = (),
+    out: torch.Tensor | None = None,
+    n_words: int = WORDS_PER_SHARD,
+) -> torch.Tensor:
+    """Evaluate a postfix call-tree program over [S, W] planes (K1).
+
+    The stacks' device decides the route; ``device`` names it only for a
+    program with no stack (an empty Union(), say). In words mode ``out``
+    (contiguous int32[S, W], a plane of a larger tensor, say) receives
+    the words in place of a new tensor. ``n_words`` is W: a shard's
+    words, or a mesh block's slice of them (parallel/mesh.py)."""
+    dev = stacks[0].device if stacks else torch.device(device)
+    for m in stacks:
+        if m.device != dev:
+            raise ValueError(f"stacks on {m.device} and {dev}")
+    if n_words < 4 or n_words % 4:
+        raise ValueError(f"W = {n_words} is not a positive multiple of 4 words")
+    plane = (n_shards, n_words)
+    if out is not None and (
+        count or out.device != dev or out.dtype != torch.int32
+        or tuple(out.shape) != plane or not out.is_contiguous()
+    ):
+        raise ValueError(f"out must be a contiguous int32{list(plane)} on {dev}, in words mode")
+    if dev.type == "cpu":
+        _check_stacks(stacks, leaves, ops, n_shards, conds, n_words)
+        got = tree_eval_plain(stacks, leaves, ops, n_shards, count, dev, conds, n_words)
+        if out is None:
+            return got
+        out.copy_(got)
+        return out
+    a = pack_tree(stacks, leaves, ops, n_shards, conds, n_words)
+    n_vec = n_shards * n_words // 4
     mode = ("count" if count else "words") + ("+cmp" if conds else "")
-    if sparse_cap or run_cap:
+    if a.sparse_cap or a.run_cap:
         mode += "+containers"
     if count:
         res = torch.zeros((), dtype=torch.int64, device=dev)
@@ -466,3 +488,49 @@ def tree_eval(
         res = out if out is not None else torch.empty(plane, dtype=torch.int32, device=dev)
         _cuda.TREE_EVAL.launch(dev, ctypes.byref(a), n_vec, res.data_ptr(), None, mode=mode)
     return res
+
+
+# ----------------------------------------------------- planned filters
+class PlannedFilter(NamedTuple):
+    """A filter's call tree, planned against the planes it reads but not
+    launched: what K2, K4 and K5 take in place of an [S, W] filter plane
+    (``topn.row_counts``, ``bsi.bsi_sum``, ``bsi.bsi_min_max``). Their
+    fused modes evaluate it word by word inside the aggregate's kernel,
+    as the reference evaluates a filter inside the aggregate's program
+    (pilosa_tpu/executor/executor.py:1019 ``_filter_plan``), so the [S, W]
+    filter is never written to device memory. ``arrays``, ``leaves``,
+    ``ops`` and ``conds`` are ``tree_eval``'s stacks, leaves, program and
+    BSI conditions; ``n_shards`` and ``n_words`` the [S, W] it covers (a
+    mesh block's own, parallel/mesh.py)."""
+
+    arrays: list
+    leaves: list
+    ops: list
+    conds: list
+    n_shards: int
+    n_words: int
+
+    def check(self, device: torch.device, plane: tuple[int, int]) -> None:
+        """Raise where the filter covers another [S, W] than the
+        aggregate's ``plane``, or reads planes on another device."""
+        if (self.n_shards, self.n_words) != tuple(plane):
+            raise ValueError(f"filter over {(self.n_shards, self.n_words)} != {tuple(plane)}")
+        for m in self.arrays:
+            if m.device != device:
+                raise ValueError(f"a filter plane on {m.device}, the aggregate's on {device}")
+
+    def plain(self, device: torch.device, plane: tuple[int, int]) -> torch.Tensor:
+        """The filter's words by the plain interpreter, checked against
+        the aggregate's ``plane``: the first half of every fused kernel's
+        plain version."""
+        self.check(device, plane)
+        _check_stacks(self.arrays, self.leaves, self.ops, self.n_shards, self.conds, self.n_words)
+        return tree_eval_plain(
+            self.arrays, self.leaves, self.ops, self.n_shards, False, device, self.conds, self.n_words,
+        )
+
+    def pack(self, device: torch.device, plane: tuple[int, int]) -> _TreeArgs:
+        """``pack_tree`` for a fused launch over the aggregate's ``plane``
+        on ``device``, after ``check``."""
+        self.check(device, plane)
+        return pack_tree(self.arrays, self.leaves, self.ops, self.n_shards, self.conds, self.n_words)

@@ -25,15 +25,22 @@ CUDA tensor launches the kernel or raises):
 - K5 ``bsi_min_max`` (csrc/bsi_minmax.cu): the extreme value per shard
   and how many columns hold it → int64 ``value[S]``, ``count[S]``.
 
+Both take their filter (K4: its one mask) as a planned call tree too
+(``bitwise.PlannedFilter``), which their fused modes evaluate inside
+the kernel; the plain version is the filter's plain words, then the
+aggregate's plain version.
+
 The BSI conditions run inside K1 (``bitwise.tree_eval``'s CMP op).
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from pilosa_tpu_torch.ops import _cuda
-from pilosa_tpu_torch.ops.bitwise import popcount_plain, popcount_rows_plain
+from pilosa_tpu_torch.ops.bitwise import PlannedFilter, popcount_plain, popcount_rows_plain
 
 # the widest word axis K5 takes: 8,192 vectors per shard, held in one
 # block's registers (csrc/bsi_minmax.cu)
@@ -240,27 +247,38 @@ def bsi_sum_plain(
 
 
 def bsi_sum(
-    stack: torch.Tensor, depth: int, masks: torch.Tensor | None = None
+    stack: torch.Tensor, depth: int, masks: "torch.Tensor | PlannedFilter | None" = None
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Sum counts of a BSI stack ``int32[P, S, W]`` at depth D under
-    ``masks`` (``int32[G, S, W]``, or None for one all-ones mask) (K4)
-    → int64 pos[G, D], neg[G, D], n[G]."""
+    ``masks`` (``int32[G, S, W]``, a planned filter as one mask, or None
+    for one all-ones mask) (K4) → int64 pos[G, D], neg[G, D], n[G]."""
     n_shards, n_words = _check_stack(stack, depth)
     dev = stack.device
-    if masks is not None:
+    tree = masks if isinstance(masks, PlannedFilter) else None
+    if masks is not None and tree is None:
         if masks.dim() != 3 or masks.shape[0] < 1:
             raise ValueError("masks must be int32[G, S, W] with G >= 1")
         _check_plane(masks, (masks.shape[0], n_shards, n_words), dev, "masks")
     if dev.type == "cpu":
+        if tree is not None:
+            return bsi_sum_plain(stack, depth, tree.plain(dev, (n_shards, n_words))[None])
         return bsi_sum_plain(stack, depth, masks)
-    n_groups = 1 if masks is None else masks.shape[0]
+    n_groups = 1 if masks is None or tree is not None else masks.shape[0]
     pos = torch.zeros((n_groups, depth), dtype=torch.int64, device=dev)
     neg = torch.zeros_like(pos)
     n = torch.zeros(n_groups, dtype=torch.int64, device=dev)
+    n_vec = n_shards * n_words // 4
+    if tree is not None:
+        args = tree.pack(dev, (n_shards, n_words))
+        _cuda.BSI_SUM_TREE.launch(
+            dev, ctypes.byref(args), stack.data_ptr(), n_vec, stack.shape[0], depth,
+            pos.data_ptr(), neg.data_ptr(), n.data_ptr(), mode="one+tree",
+        )
+        return pos, neg, n
     _cuda.BSI_SUM.launch(
         dev,
         stack.data_ptr(),
-        n_shards * n_words // 4,
+        n_vec,
         stack.shape[0],
         depth,
         None if masks is None else masks.data_ptr(),
@@ -305,21 +323,32 @@ def bsi_min_max_plain(
 
 
 def bsi_min_max(
-    stack: torch.Tensor, depth: int, filt: torch.Tensor | None, want_max: bool
+    stack: torch.Tensor, depth: int, filt: "torch.Tensor | PlannedFilter | None", want_max: bool
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-shard Min or Max of a BSI stack ``int32[P, S, W]`` at depth D
-    under ``filt`` (``int32[S, W]``, or None for all columns) (K5)
-    → int64 value[S], count[S]."""
+    under ``filt`` (``int32[S, W]``, a planned filter, or None for all
+    columns) (K5) → int64 value[S], count[S]."""
     n_shards, n_words = _check_stack(stack, depth)
     dev = stack.device
-    if filt is not None:
+    tree = filt if isinstance(filt, PlannedFilter) else None
+    if filt is not None and tree is None:
         _check_plane(filt, (n_shards, n_words), dev, "filter")
     if dev.type == "cpu":
+        if tree is not None:
+            filt = tree.plain(dev, (n_shards, n_words))
         return bsi_min_max_plain(stack, depth, filt, want_max)
     if n_words > MINMAX_MAX_WORDS:
         raise ValueError(f"K5 takes at most {MINMAX_MAX_WORDS} words per shard, got {n_words}")
     value = torch.empty(n_shards, dtype=torch.int64, device=dev)
     count = torch.empty(n_shards, dtype=torch.int64, device=dev)
+    name = "max" if want_max else "min"
+    if tree is not None:
+        args = tree.pack(dev, (n_shards, n_words))
+        _cuda.BSI_MINMAX_TREE.launch(
+            dev, ctypes.byref(args), stack.data_ptr(), n_shards, n_words // 4, stack.shape[0], depth,
+            int(want_max), value.data_ptr(), count.data_ptr(), mode=name + "+tree",
+        )
+        return value, count
     _cuda.BSI_MINMAX.launch(
         dev,
         stack.data_ptr(),
@@ -331,6 +360,6 @@ def bsi_min_max(
         int(want_max),
         value.data_ptr(),
         count.data_ptr(),
-        mode=("max" if want_max else "min") + (" filtered" if filt is not None else ""),
+        mode=name + (" filtered" if filt is not None else ""),
     )
     return value, count

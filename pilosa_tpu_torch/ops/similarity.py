@@ -21,8 +21,8 @@ are ``int32[.., W]`` views of the reference's ``uint32`` words.
   (parallel/mesh.py) on counts reduced over the mesh: the search's K10
   keys, and the all-pairs scores from summed intersection counts.
 - ``count_keys`` (K12) and ``select_top``'s int mode (K10): the top-k of
-  int64 counts (``topn.select_top_counts``), keys ``count << b | (2^b -
-  1 - row)`` decoded back to (count, row).
+  int64 counts (``topn.select_top_counts``), keys ``count ^ 2^63`` (the
+  count alone, ordered as uint64), whose ties K10 takes in row order.
 
 Each wrapper takes the plain version for tensors on the CPU and launches
 its kernel for CUDA tensors, or raises. The public entry points take
@@ -47,11 +47,15 @@ import torch
 from pilosa_tpu_torch.ops import _cuda
 from pilosa_tpu_torch.ops.bitwise import matrix_filter_counts_plain, popcount_rows_plain
 
-# K10's radix select: 12-bit digits of the key, most significant first;
-# a key is below 2^62 (a score is at most 1.0, bits 0x3F800000)
+# K10's radix select: 12-bit digits of the 64-bit key, most significant
+# first (the last digit 4 bits); the int mode's ties go on through the
+# row order's digits, at most SELECT_ROW_LEVELS more
 SELECT_BITS = 12
 SELECT_BINS = 1 << SELECT_BITS
-SELECT_SHIFTS = (50, 38, 26, 14, 2, 0)
+SELECT_SHIFTS = (52, 40, 28, 16, 4, 0)
+SELECT_ROW_LEVELS = 3
+# a count key is the int64 count with its sign bit flipped
+_SIGN = -(1 << 63)
 # K10 sorts up to this many keys in one block's shared memory
 SELECT_TILE = 4096
 # K9 counts a row's bits in 32 bits
@@ -123,11 +127,13 @@ def search_keys_plain(
 def select_top_plain(keys: torch.Tensor, k: int, int_bits: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
     """The k largest keys in descending order, decoded → (f32 scores[k],
     int32 ids[k]), or with ``int_bits`` b > 0 count keys (``count_keys``)
-    → (int64 counts[k], int32 ids[k]); the plain version of K10."""
-    top = torch.topk(keys, k).values
+    → (int64 counts[k], int32 ids[k]), ties in row order; the plain
+    version of K10."""
     if int_bits:
-        low = (1 << int_bits) - 1
-        return top >> int_bits, (low - (top & low)).to(torch.int32)
+        counts = keys ^ _SIGN
+        order = torch.sort(counts, descending=True, stable=True).indices[:k]
+        return counts[order], order.to(torch.int32)
+    top = torch.topk(keys, k).values
     scores = (top >> 32).to(torch.int32).view(torch.float32)
     ids = (_LOW32 - (top & _LOW32)).to(torch.int32)
     return scores, ids
@@ -187,17 +193,17 @@ def select_top(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The k largest of ``int64[R]`` distinct keys in descending order →
     (f32 scores[k], int32 ids[k]) (K10). ``hist`` is K9's histogram of
-    the keys' top digit. With ``int_bits`` b > 0 the keys are
-    ``count_keys``' and decode to (int64 counts[k], int32 ids[k]), K10's
-    int mode."""
+    the keys' top digit. With ``int_bits`` b > 0 (R <= 2^b) the keys are
+    ``count_keys``' and decode to (int64 counts[k], int32 ids[k]), equal
+    counts in row order: K10's int mode."""
     if keys.dtype != torch.int64 or keys.dim() != 1 or not keys.is_contiguous():
         raise ValueError("keys must be contiguous int64[R]")
     if hist.dtype != torch.int32 or tuple(hist.shape) != (SELECT_BINS,) or hist.device != keys.device:
         raise ValueError(f"hist must be int32[{SELECT_BINS}] on the keys' device")
     if not 0 <= k <= keys.shape[0]:
         raise ValueError(f"k = {k} is not in [0, {keys.shape[0]}]")
-    if not 0 <= int_bits <= 31:
-        raise ValueError(f"int_bits = {int_bits} is not in [0, 31]")
+    if not 0 <= int_bits <= 31 or (int_bits and keys.shape[0] > 1 << int_bits):
+        raise ValueError(f"int_bits = {int_bits} is not in [0, 31] or below the row bits of {keys.shape[0]} keys")
     dev = keys.device
     if dev.type == "cpu":
         return select_top_plain(keys, k, int_bits)
@@ -206,11 +212,15 @@ def select_top(
     if k:
         n_sort = 1 << (k - 1).bit_length()
         work = torch.zeros(n_sort, dtype=torch.int64, device=dev)
-        hists = torch.zeros((len(SELECT_SHIFTS) - 1, SELECT_BINS), dtype=torch.int32, device=dev)
+        # the int mode's rows beside their keys; -1 pads past k
+        work_rows = torch.full((n_sort,), -1, dtype=torch.int32, device=dev) if int_bits else None
+        levels = len(SELECT_SHIFTS) - 1 + SELECT_ROW_LEVELS
+        hists = torch.zeros((levels, SELECT_BINS), dtype=torch.int32, device=dev)
         state = torch.zeros(8, dtype=torch.int64, device=dev)
         _cuda.SIM_SELECT.launch(
             dev, keys.data_ptr(), keys.shape[0], hist.data_ptr(), hists.data_ptr(), state.data_ptr(),
-            k, work.data_ptr(), n_sort, int_bits, scores.data_ptr(), ids.data_ptr(),
+            k, work.data_ptr(), None if work_rows is None else work_rows.data_ptr(), n_sort, int_bits,
+            scores.data_ptr(), ids.data_ptr(),
             mode=("tile" if n_sort <= SELECT_TILE else "merge") + (" int" if int_bits else ""),
         )
     return scores, ids
@@ -359,8 +369,7 @@ def mesh_sim_keys_plain(
     scores = _score_plain(inter.to(f32), row_pop.to(f32), q_pop.reshape(()).to(f32), metric)
     ids = torch.arange(inter.shape[0], dtype=torch.int64, device=inter.device)
     keys = (scores.view(torch.int32).to(torch.int64) << 32) | (_LOW32 - ids)
-    digits = (keys >> SELECT_SHIFTS[0]).clamp(max=SELECT_BINS - 1)
-    hist = torch.bincount(digits, minlength=SELECT_BINS).to(torch.int32)
+    hist = torch.bincount(keys >> SELECT_SHIFTS[0], minlength=SELECT_BINS).to(torch.int32)
     return keys, hist
 
 
@@ -370,10 +379,7 @@ def mesh_sim_keys(
     """Scores of a one-vs-all search from its reduced counts (K12):
     ``inter`` = |a ∩ q| and ``row_pop`` = |a| (int64[R]), ``q_pop`` = |q|
     (an int64 of one element) → (int64[R] keys, int32[SELECT_BINS]
-    histogram) for ``select_top`` (K10). Counts of a set and its
-    intersections (inter <= min(row_pop, q_pop)) score below 2.0, whose
-    keys' first digit fits the histogram; a larger one counts in its
-    last bin."""
+    histogram) for ``select_top`` (K10)."""
     if metric not in MESH_METRICS:
         raise ValueError(f"metric must be one of {sorted(MESH_METRICS)}, got {metric!r}")
     dev = inter.device
@@ -431,44 +437,36 @@ def mesh_pairwise_finish(
 
 # ------------------------------------------------------ integer top-k keys
 # K12's count_keys entry: the keys of a top-k of int64 counts for K10's
-# int mode. ``key = count << b | (2^b - 1 - row)`` with b row bits: the
-# keys are distinct, order by count, and among equal counts the lower
-# row's key is the larger, so K10's k largest are ``lax.top_k``'s answer.
+# int mode. ``key = count ^ 2^63``: the count alone, whose uint64 order is
+# the int64 order of the counts over their whole range. Equal counts give
+# equal keys; K10's int mode takes their ties in row order (the row is
+# the key's index), so its k largest are ``lax.top_k``'s answer.
 
 
 def count_key_bits(n: int) -> int:
-    """The row bits b of ``n`` count keys: max(1, bit length of n - 1)."""
+    """The row bits b of ``n`` count keys, K10's int mode's tie levels:
+    max(1, bit length of n - 1)."""
     return max(1, (n - 1).bit_length())
 
 
-def count_keys_plain(counts: torch.Tensor, max_count: "int | None" = None) -> tuple[torch.Tensor, torch.Tensor]:
-    """K12's count_keys, plain: int64[R] counts in [0, 2^(62 - b)) →
-    (int64[R] keys, int32[SELECT_BINS] histogram of their top digit);
-    raises ValueError for a count out of range, or for a ``max_count``
-    out of it."""
-    n = counts.shape[0]
-    bits = count_key_bits(n)
-    check_count_range(max_count, n)
-    if n and (int(counts.min()) < 0 or int(counts.max()) >= 1 << (62 - bits)):
-        raise ValueError(f"a count is outside [0, 2^{62 - bits}): its key would pass 2^62")
-    rows = torch.arange(n, dtype=torch.int64, device=counts.device)
-    keys = (counts << bits) | (((1 << bits) - 1) - rows)
-    hist = torch.bincount(keys >> SELECT_SHIFTS[0], minlength=SELECT_BINS).to(torch.int32)
-    return keys, hist
+def _first_digits(keys: torch.Tensor) -> torch.Tensor:
+    """The histogram of the keys' top digit as uint64 (a logical shift of
+    int64 keys)."""
+    digits = (keys >> SELECT_SHIFTS[0]) & (SELECT_BINS - 1)
+    return torch.bincount(digits, minlength=SELECT_BINS).to(torch.int32)
 
 
-def check_count_range(max_count: "int | None", n: int) -> None:
-    """Raise ValueError where ``max_count``, the largest count a caller's
-    shapes allow (S·W·32 for counts from K2 or K13), reaches 2^(62 - b):
-    the host's check, in place of reading K12's overflow flag back."""
-    if max_count is not None and max_count >= 1 << (62 - count_key_bits(n)):
-        raise ValueError(f"counts up to {max_count} can pass 2^{62 - count_key_bits(n)}: their keys would pass 2^62")
+def count_keys_plain(counts: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """K12's count_keys, plain: int64[R] counts → (int64[R] keys,
+    int32[SELECT_BINS] histogram of their top digit)."""
+    keys = counts ^ _SIGN
+    return keys, _first_digits(keys)
 
 
-def count_keys_launch(counts: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, "torch.Tensor | None"]:
-    """``count_keys`` without the range check on CUDA → (keys, hist, the
-    int32[1] count of out-of-range counts on the device, or None on the
-    CPU, whose plain version has raised already)."""
+def count_keys(counts: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Keys of an integer top-k of ``int64[R]`` counts (K12) → (int64[R]
+    keys, int32[SELECT_BINS] histogram) for ``select_top`` with
+    ``int_bits=count_key_bits(R)``."""
     if counts.dtype != torch.int64 or counts.dim() != 1 or not counts.is_contiguous():
         raise ValueError("counts must be contiguous int64[R]")
     n = counts.shape[0]
@@ -476,33 +474,9 @@ def count_keys_launch(counts: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor,
         raise ValueError(f"{n} counts are more than 2^31 rows")
     dev = counts.device
     if dev.type == "cpu":
-        return (*count_keys_plain(counts), None)
+        return count_keys_plain(counts)
     keys = torch.empty(n, dtype=torch.int64, device=dev)
     hist = torch.zeros(SELECT_BINS, dtype=torch.int32, device=dev)
-    over = torch.zeros(1, dtype=torch.int32, device=dev)
     if n:
-        _cuda.COUNT_KEYS.launch(
-            dev, counts.data_ptr(), n, count_key_bits(n), keys.data_ptr(), hist.data_ptr(), over.data_ptr(),
-        )
-    return keys, hist, over
-
-
-def raise_if_over(over: "torch.Tensor | None", n: int) -> None:
-    """Read K12's overflow count back (a sync) and raise if it is not 0."""
-    if over is not None and int(over.item()):
-        raise ValueError(f"a count is outside [0, 2^{62 - count_key_bits(n)}): its key would pass 2^62")
-
-
-def count_keys(counts: torch.Tensor, max_count: "int | None" = None) -> tuple[torch.Tensor, torch.Tensor]:
-    """Keys of an integer top-k of ``int64[R]`` non-negative counts (K12)
-    → (int64[R] keys, int32[SELECT_BINS] histogram) for ``select_top``
-    with ``int_bits=count_key_bits(R)``. Raises ValueError for a count at
-    or above 2^(62 - b), or below 0. Given ``max_count``, the largest
-    count the caller's shapes allow, that check is made on the host and
-    nothing waits for the card; without it, a CUDA call reads K12's
-    overflow flag back after the launch."""
-    check_count_range(max_count, counts.shape[0])
-    keys, hist, over = count_keys_launch(counts)
-    if max_count is None:
-        raise_if_over(over, counts.shape[0])
+        _cuda.COUNT_KEYS.launch(dev, counts.data_ptr(), n, keys.data_ptr(), hist.data_ptr())
     return keys, hist

@@ -7,17 +7,21 @@ __graft_entry__.py:65 ``query_step`` (pilosa_tpu/parallel/mesh.py:852
 ``_ingest_prog`` per device). ``row_counts`` is the wrapper of
 ``csrc/row_counts.cu`` and ``ingest_counts`` of ``csrc/ingest_counts.cu``:
 a CPU tensor takes the plain version, a CUDA tensor launches the kernel
-or raises. ``select_top_counts`` is ``lax.top_k`` of int64 counts: K12's
-count keys and K10's int mode (ops/similarity.py); ``top_rows`` is K2
-then that top-k.
+or raises. ``row_counts`` takes its filter as an [S, W] plane or as a
+planned call tree (``bitwise.PlannedFilter``), which K2's fused mode
+evaluates itself. ``select_top_counts`` is ``lax.top_k`` of int64
+counts: K12's count keys and K10's int mode (ops/similarity.py);
+``top_rows`` is K2 then that top-k.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from pilosa_tpu_torch.ops import _cuda, similarity
-from pilosa_tpu_torch.ops.bitwise import popcount_rows_plain
+from pilosa_tpu_torch.ops.bitwise import PlannedFilter, popcount_rows_plain
 
 
 def candidate_counts(
@@ -51,11 +55,13 @@ def row_counts_plain(
 
 def row_counts(
     matrix: torch.Tensor,
-    filt: torch.Tensor | None = None,
+    filt: "torch.Tensor | PlannedFilter | None" = None,
     ids: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Per-row popcount of ``matrix & filt`` summed over shards → int64[R],
-    or int64[C] for candidate ``ids`` (int32[C]) (K2)."""
+    or int64[C] for candidate ``ids`` (int32[C]) (K2). ``filt`` is an
+    int32[S, W] plane, a planned call tree (K2's fused mode evaluates it
+    once per vector), or None for all columns."""
     dev = matrix.device
     if matrix.dtype != torch.int32 or matrix.dim() != 3 or not matrix.is_contiguous():
         raise ValueError("matrix must be contiguous int32[R, S, W]")
@@ -63,28 +69,39 @@ def row_counts(
     if n_words < 4 or n_words % 4:
         # a shard's words, or a mesh block's slice of them
         raise ValueError(f"matrix word axis {n_words} is not a positive multiple of 4")
-    for t in (filt, ids):
+    tree = filt if isinstance(filt, PlannedFilter) else None
+    plane = filt if tree is None else None
+    for t in (plane, ids):
         if t is not None and (t.device != dev or t.dtype != torch.int32 or not t.is_contiguous()):
             raise ValueError("filter and ids must be contiguous int32 on the matrix's device")
-    if filt is not None and tuple(filt.shape) != (n_shards, n_words):
-        raise ValueError(f"filter shape {tuple(filt.shape)} != {(n_shards, n_words)}")
+    if plane is not None and tuple(plane.shape) != (n_shards, n_words):
+        raise ValueError(f"filter shape {tuple(plane.shape)} != {(n_shards, n_words)}")
     if ids is not None and ids.dim() != 1:
         raise ValueError("ids must be int32[C]")
     if dev.type == "cpu":
-        return row_counts_plain(matrix, filt, ids)
+        return row_counts_plain(matrix, plane if tree is None else tree.plain(dev, (n_shards, n_words)), ids)
     n_out = n_rows if ids is None else ids.shape[0]
     out = torch.zeros(n_out, dtype=torch.int64, device=dev)
-    if n_out:
+    n_vec = n_shards * n_words // 4
+    ids_ptr = None if ids is None else ids.data_ptr()
+    if tree is not None:
+        args = tree.pack(dev, (n_shards, n_words))
+        if n_out:
+            _cuda.ROW_COUNTS_TREE.launch(
+                dev, ctypes.byref(args), matrix.data_ptr(), n_rows, n_vec, ids_ptr, n_out, out.data_ptr(),
+                mode=("ids" if ids is not None else "rows") + "+tree",
+            )
+    elif n_out:
         _cuda.ROW_COUNTS.launch(
             dev,
             matrix.data_ptr(),
             n_rows,
-            n_shards * n_words // 4,
-            None if filt is None else filt.data_ptr(),
-            None if ids is None else ids.data_ptr(),
+            n_vec,
+            None if plane is None else plane.data_ptr(),
+            ids_ptr,
             n_out,
             out.data_ptr(),
-            mode=("filtered" if filt is not None else "rows") + (" ids" if ids is not None else ""),
+            mode=("filtered" if plane is not None else "rows") + (" ids" if ids is not None else ""),
         )
     return out
 
@@ -135,24 +152,18 @@ def ingest_counts(
 
 
 def select_top_counts_plain(counts: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """``select_top_counts``' plain version: torch.topk of the same keys."""
+    """``select_top_counts``' plain version: the plain count keys and
+    K10's plain int mode."""
     k = min(int(k), counts.shape[0])
     keys, _hist = similarity.count_keys_plain(counts)
     return similarity.select_top_plain(keys, k, similarity.count_key_bits(counts.shape[0]))
 
 
-def select_top_counts(
-    counts: torch.Tensor, k: int, max_count: "int | None" = None
-) -> tuple[torch.Tensor, torch.Tensor]:
+def select_top_counts(counts: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     """The k largest of ``int64[R]`` counts in descending order →
     (int64 counts[k], int32 ids[k]), k clamped to R, ties to the lower
-    row: ``lax.top_k``'s answer. K12's count keys, then K10's int mode.
-    Raises ValueError for a count at or above 2^(62 - b), b the row bits
-    (``similarity.count_key_bits``), or below 0. ``max_count`` is the
-    largest count the caller's shapes allow (``max_row_count``): given
-    it, the range is checked on the host and the two launches run with
-    no sync; without it, K12's overflow flag is read after K10 is
-    queued."""
+    row: ``lax.top_k``'s answer for any int64 counts. K12's count keys,
+    then K10's int mode; nothing waits for the card."""
     if k < 0:
         raise ValueError(f"k must be non-negative, got {k}")
     if counts.dtype != torch.int64 or counts.dim() != 1:
@@ -160,21 +171,10 @@ def select_top_counts(
     counts = counts.contiguous()
     n = counts.shape[0]
     k = min(int(k), n)
-    similarity.check_count_range(max_count, n)
-    keys, hist, over = similarity.count_keys_launch(counts)
+    keys, hist = similarity.count_keys(counts)
     if k == 0:
-        top = counts[:0].clone(), torch.empty(0, dtype=torch.int32, device=counts.device)
-    else:
-        top = similarity.select_top(keys, hist, k, similarity.count_key_bits(n))
-    if max_count is None:
-        similarity.raise_if_over(over, n)
-    return top
-
-
-def max_row_count(n_shards: int, n_words: int) -> int:
-    """The largest count of one row over ``[S, W]`` int32 words: S·W·32,
-    the host's bound for ``select_top_counts`` of K2's or K13's counts."""
-    return n_shards * n_words * 32
+        return counts[:0].clone(), torch.empty(0, dtype=torch.int32, device=counts.device)
+    return similarity.select_top(keys, hist, k, similarity.count_key_bits(n))
 
 
 def top_rows(matrix: torch.Tensor, filt: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -185,5 +185,5 @@ def top_rows(matrix: torch.Tensor, filt: torch.Tensor, k: int) -> tuple[torch.Te
     if matrix.dim() != 2 or filt.dim() != 1:
         raise ValueError("top_rows takes one fragment int32[R, W] and a filter int32[W]")
     counts = row_counts(matrix[:, None].contiguous(), filt[None].contiguous())
-    vals, ids = select_top_counts(counts, k, max_row_count(1, matrix.shape[1]))
+    vals, ids = select_top_counts(counts, k)
     return vals.to(torch.int32), ids

@@ -456,14 +456,17 @@ class MeshQueryEngine:
         )
 
     def _filter(self, fplan, i: int, j: int, mode: str):
-        """Block (i, j) of a filter: its plan's K1 words, or a placed
-        plane's block, or None for all columns."""
+        """Block (i, j) of a filter for K2, K4 or K5: a placed plane's
+        block, or its plan's block as a ``PlannedFilter`` that the
+        aggregate's fused mode evaluates (nothing is launched here), or
+        None for all columns."""
         if fplan is None:
             return None
         if isinstance(fplan, MeshArray):
             return fplan.blocks[i][j]
         plan, arrays = fplan
-        return self._tree(plan, arrays, i, j, mode, count=False)
+        sl, wl = self.block_shape(plan.n_shards, plan.n_words, mode)
+        return ops.PlannedFilter([a.blocks[i][j] for a in arrays], plan.leaves, plan.ops, plan.conds, sl, wl)
 
     def _each(self, fn) -> "list[list]":
         ns, nw = self.mesh.shape[AXIS_SHARDS], self.mesh.shape[AXIS_WORDS]
@@ -493,9 +496,9 @@ class MeshQueryEngine:
 
     def topn_tree(self, mode: str, filtered: bool, ids: bool, fplan=None):
         """(matrix, row_ids, filter) → int64[R] (or [K] for ids=) on the
-        lead device: K2 per block under the block's filter (K1 words of
-        its plan), then the reduction tree. ``row_ids`` is replicated
-        ({device: int32[K]})."""
+        lead device: K2 per block under the block's filter (its plan,
+        evaluated inside K2), then the reduction tree. ``row_ids`` is
+        replicated ({device: int32[K]})."""
         self._build()
         if filtered != (fplan is not None):
             raise ValueError("a filtered TopN program needs its filter plan")
@@ -515,14 +518,14 @@ class MeshQueryEngine:
 
     def sum_tree(self, mode: str, fplan=None):
         """(slices [P, S, W], depth) → (pos[1, D], neg[1, D], n[1]) on the
-        lead device: K4 per block under the filter, each output reduced
-        by the tree."""
+        lead device: K4 per block under the filter (a plan's inside K4),
+        each output reduced by the tree."""
         self._build()
 
         def run(slices: MeshArray, depth: int):
             def block(i, j):
                 filt = self._filter(fplan, i, j, mode)
-                return ops.bsi_sum(slices.blocks[i][j], depth, None if filt is None else filt[None])
+                return ops.bsi_sum(slices.blocks[i][j], depth, filt[None] if isinstance(filt, torch.Tensor) else filt)
 
             parts = self._each(block)
             return tuple(self._psum_both([[p[k] for p in row] for row in parts]) for k in range(3))
@@ -542,7 +545,8 @@ class MeshQueryEngine:
 
     def minmax_tree(self, want_max: bool, mode: str, fplan=None):
         """(slices, depth) → (values, counts) on the lead device: K5's
-        per-shard extremes of every block, all-gathered words then shards.
+        per-shard extremes of every block under the filter (a plan's
+        inside K5), all-gathered words then shards.
         In words mode a block holds a slice of every shard, so its partial
         covers that slice; the executor's finish merges the partials
         exactly (min/max with its count is associative over disjoint
@@ -756,8 +760,7 @@ class MeshQueryEngine:
         self._check_grid(matrix, filt, "topn")
 
         def run(matrix: MeshArray, filt: MeshArray, k: int):
-            bound = ops.topn.max_row_count(matrix.shape[1], matrix.shape[2])
-            return ops.select_top_counts(self._filtered_counts(matrix, filt), k, bound)
+            return ops.select_top_counts(self._filtered_counts(matrix, filt), k)
 
         return self.dispatch("topn", run, matrix, filt, k)
 

@@ -262,7 +262,7 @@ def test_condition_table_layout_is_the_sources():
     """TE_CMP, TE_MAX_CONDS, the CmpOp order and the 4 KB parameter."""
     import ctypes
 
-    with open(_cuda.CSRC + "/tree_eval.cu") as fh:
+    with open(_cuda.CSRC + "/tree_interp.cuh") as fh:
         src = fh.read()
     assert int(re.search(r"#define TE_MAX_CONDS (\d+)", src).group(1)) == bitwise.TREE_MAX_CONDS
     assert int(re.search(r"TE_CMP = (\d+)", src).group(1)) == bitwise.OP_CMP

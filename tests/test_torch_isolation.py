@@ -73,27 +73,40 @@ def test_chip_smoke_rehearses_on_the_cpu(capsys):
     """chip_smoke.py's steps on the plain versions at a tiny size: the
     same data recipes, queries, numpy checks, write phase, taxi path,
     residency path (over a lowered budget), similarity path and kernel
-    comparisons, the mesh path on eight CPU positions in both layouts, the
-    graft step and the mesh programs of dryrun_multichip, without the card
-    lines or the final ok line."""
+    comparisons, the fused-filter phases, the mesh path on eight CPU
+    positions in both layouts, the graft step and the mesh programs of
+    dryrun_multichip, without the card lines or the final ok line."""
     import json
 
     sys.path.insert(0, REPO)
     import chip_smoke
+    import torch
 
-    assert chip_smoke.main(
-        device="cpu", n_shards=64, taxi_shards=16, budget=32 << 20, sim_rows=5000, sim_block=300
-    ) == 0
+    # one intra-op thread: beside the other test workers, torch's thread
+    # pool on every core slows this many-small-ops run tenfold
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        assert chip_smoke.main(
+            device="cpu", n_shards=64, taxi_shards=16, budget=32 << 20, sim_rows=5000, sim_block=300
+        ) == 0
+    finally:
+        torch.set_num_threads(threads)
     lines = capsys.readouterr().out.strip().splitlines()
     kernels = json.loads(lines[-2])["kernels"]
+    fused = ("row_counts_tree", "bsi_sum_tree", "bsi_minmax_tree")
     assert [(k["path"], k["name"]) for k in kernels] == [
         ("main", "tree_eval"), ("main", "row_counts"), ("main", "stack_delta"), ("main", "shift_words"),
+        ("main", "row_counts_tree"),
         ("taxi", "bsi_sum"), ("taxi", "bsi_minmax"), ("taxi", "gb_counts"), ("taxi", "gb_masks"),
+        *(("taxi", n) for n in fused),
         ("residency", "tree_eval"), ("residency", "container_count"), ("residency", "stack_delta"),
+        *(("residency", n) for n in fused),
         ("similarity", "sim_scan"), ("similarity", "sim_select"), ("similarity", "pairwise"),
         ("mesh", "tree_eval"), ("mesh", "row_counts"), ("mesh", "stack_delta"), ("mesh", "bsi_sum"),
         ("mesh", "bsi_minmax"), ("mesh", "gb_counts"), ("mesh", "gb_masks"), ("mesh", "sim_select"),
         ("mesh", "pairwise"), ("mesh", "mesh_sim_keys"), ("mesh", "mesh_pairwise_finish"),
+        *(("mesh", n) for n in fused),
         ("graft", "ingest_counts"), ("graft", "count_keys"), ("graft", "sim_select"),
         ("mesh_programs", "ingest_counts"), ("mesh_programs", "row_counts"), ("mesh_programs", "bsi_sum"),
         ("mesh_programs", "tree_eval"), ("mesh_programs", "count_keys"), ("mesh_programs", "sim_select"),
@@ -105,18 +118,19 @@ def test_chip_smoke_rehearses_on_the_cpu(capsys):
     assert all(keys <= set(k) for k in kernels)
     paths = {"main", "taxi", "residency", "similarity", "mesh", "graft", "mesh_programs"}
     assert {k["launches_by_path"].keys() == paths for k in kernels} == {True}
-    pairwise = kernels[13]
+    pairwise = kernels[20]
     assert pairwise["bound_by"] == "operations" and pairwise["library_ms"] is not None
     assert {k["replaces"].split(":")[0] for k in kernels if k["path"] == "mesh"} == {
         "pilosa_tpu/parallel/mesh.py", "pilosa_tpu/executor/compile.py"}
-    # main 8 + Shift 2, write 2, taxi 13, residency 7 + the write + slots,
-    # similarity 3 searches + 4 all-pairs blocks; per mesh layout: the main
-    # holder's 10 queries, the Row readback, Shift, 4 Counts around the
-    # Set and Clear and their line, the taxi's 13 and the level-synchronous
-    # GroupBy (2 lines), 4 searches, 3 all-pairs blocks; the graft step;
-    # top_rows of one fragment; per layout, the five mesh programs of
-    # dryrun_multichip
-    mesh_layout = 10 + 1 + 1 + 4 + 1 + 13 + 2 + 4 + 3
+    # main 8 + Shift 2 + the fused phase, write 2, taxi 13 + the fused
+    # phase, residency 7 + 4 fused queries + the fused phase + the write +
+    # slots, similarity 3 searches + 4 all-pairs blocks; per mesh layout:
+    # the main holder's 10 queries, its fused phase, the Row readback,
+    # Shift, 4 Counts around the Set and Clear and their line, the taxi's
+    # 13, its fused phase and the level-synchronous GroupBy (2 lines), 4
+    # searches, 3 all-pairs blocks; the graft step; top_rows of one
+    # fragment; per layout, the five mesh programs of dryrun_multichip
+    mesh_layout = 10 + 1 + 1 + 1 + 4 + 1 + 13 + 1 + 2 + 4 + 3
     assert sum(line.startswith("ok  ") for line in lines) == (
-        8 + 2 + 2 + 13 + 7 + 2 + 3 + 4 + 2 * mesh_layout + 1 + 1 + 2 * 5)
+        8 + 2 + 1 + 2 + 13 + 1 + 7 + 4 + 1 + 2 + 3 + 4 + 2 * mesh_layout + 1 + 1 + 2 * 5)
     assert not any(line.startswith('{"ok"') for line in lines)

@@ -426,10 +426,12 @@ def test_mesh_sim_keys_plain_rounds_as_f32():
         k = keys.numpy()
         assert np.array_equal((k >> 32).astype(np.uint32), scores.astype(np.float32).view(np.uint32)), metric
         assert np.array_equal(k & 0xFFFFFFFF, 0xFFFFFFFF - np.arange(n))
-        assert np.array_equal(hist.numpy(), np.bincount(k >> 50, minlength=4096))
-    # a count past its set's: the digit stays in the histogram's last bin
+        assert np.array_equal(hist.numpy(), np.bincount(k >> similarity.SELECT_SHIFTS[0], minlength=4096))
+    # a count past its set's: the 64-bit digits put any f32 score's key
+    # in the histogram, in the bin of its top digit
     keys, hist = similarity.mesh_sim_keys(*(torch.tensor(v, dtype=torch.int64) for v in ([9], [1], [1])), "cosine")
-    assert keys.item() >> 32 == np.float32(9).view(np.uint32) and hist[-1].item() == 1 and hist.sum().item() == 1
+    digit = keys.item() >> similarity.SELECT_SHIFTS[0]
+    assert keys.item() >> 32 == np.float32(9).view(np.uint32) and hist[digit].item() == 1 and hist.sum().item() == 1
 
 
 @pytest.mark.parametrize("layout", sorted(LAYOUTS))

@@ -312,31 +312,34 @@ def test_sum_device_matches_reference():
 
 
 def test_select_top_counts_range():
-    """A count at or above 2^(62 - b) raises, b = max(1, bit length of
-    R - 1); one below it is selected."""
+    """Counts at 2^(62 - b) (b = max(1, bit length of R - 1), where the
+    keys of count << b | row ended), at 2^62 - 1 and up to 2^63 - 1,
+    negative counts, and ties at the k-th value: the answer is the
+    reference's ``lax.top_k`` of the same int64 counts, ties to the lower
+    row. K12's keys are the count alone, so there is no range left."""
+    ref_ops.popcount  # the reference package enables jax's int64
+    rng = np.random.default_rng(5)
     for n in (1, 2, 8, 4097):
         b = similarity.count_key_bits(n)
         assert b == max(1, (n - 1).bit_length())
-        counts = torch.zeros(n, dtype=torch.int64)
-        counts[-1] = (1 << (62 - b)) - 1
-        vals, ids = ops.select_top_counts(counts, 1)
-        assert vals.tolist() == [(1 << (62 - b)) - 1] and ids.tolist() == [n - 1]
-        counts[-1] = 1 << (62 - b)
-        with pytest.raises(ValueError):
-            ops.select_top_counts(counts, 1)
-    with pytest.raises(ValueError):
-        ops.select_top_counts(torch.tensor([3, -1]), 1)
-    # the host's bound from the shapes: S·W·32 at 10,240 shards is far
-    # inside the range, a bound past it raises whatever the counts
-    counts = torch.tensor([5, 9, 9, 0], dtype=torch.int64)
-    bound = ops.topn.max_row_count(10240, 32768)
-    assert bound == 10240 * 2**20
-    vals, ids = ops.select_top_counts(counts, 2, bound)
-    assert vals.tolist() == [9, 9] and ids.tolist() == [1, 2]
-    with pytest.raises(ValueError):
-        ops.select_top_counts(counts, 2, 1 << 60)
-    with pytest.raises(ValueError):
-        similarity.count_keys(counts, 1 << 60)
+        for top in (1 << (62 - b), (1 << 62) - 1, 2**63 - 1):
+            c = rng.integers(0, 3, n).astype(np.int64) * (top // 4)
+            rows = rng.choice(n, min(n, 5), replace=False)
+            c[rows[:3]] = top  # ties at the largest value
+            c[rows[3:]] = top - 1
+            if n > 8:
+                c[rng.choice(n, 4, replace=False)] = -(2**63)
+            for k in sorted({1, 2, 3, 4, min(n, 9), n}):
+                rv, ri = jax.lax.top_k(jax.numpy.asarray(c), min(k, n))
+                vals, ids = ops.select_top_counts(torch.from_numpy(c), k)
+                assert vals.tolist() == np.asarray(rv).tolist(), (n, top, k)
+                assert ids.tolist() == np.asarray(ri).tolist(), (n, top, k)
+    # the old key's boundary exactly, one count past every other, a tie
+    counts = torch.tensor([5, 1 << 61, 1 << 61, (1 << 61) - 1, -1], dtype=torch.int64)
+    vals, ids = ops.select_top_counts(counts, 3)
+    assert vals.tolist() == [1 << 61, 1 << 61, (1 << 61) - 1] and ids.tolist() == [1, 2, 3]
+    vals, ids = ops.select_top_counts(torch.tensor([3, -1]), 2)
+    assert vals.tolist() == [3, -1] and ids.tolist() == [0, 1]
 
 
 def test_select_top_counts_ties_and_merge_sizes():

@@ -209,7 +209,7 @@ def test_kernel_limits_are_the_sources_defines():
     """The planner's limits are the kernel's: read them from the source."""
     import re
 
-    with open(_cuda.CSRC + "/tree_eval.cu") as fh:
+    with open(_cuda.CSRC + "/tree_interp.cuh") as fh:
         src = fh.read()
     defines = dict(re.findall(r"#define (TE_MAX_\w+) (\d+)", src))
     assert int(defines["TE_MAX_STACK"]) == bitwise.TREE_MAX_STACK == 32

@@ -231,13 +231,13 @@ def test_tree_eval_decodes_container_leaves():
 
 def test_container_opcodes_are_the_sources():
     """LOAD_SPARSE, LOAD_RUN and the two capacities in TreeArgs mirror
-    csrc/tree_eval.cu, and the parameter stays within 4 KB."""
+    csrc/tree_interp.cuh, and the parameter stays within 4 KB."""
     import ctypes
     import re
 
     from pilosa_tpu_torch.ops import _cuda
 
-    with open(_cuda.CSRC + "/tree_eval.cu") as fh:
+    with open(_cuda.CSRC + "/tree_interp.cuh") as fh:
         src = fh.read()
     assert int(re.search(r"TE_LOAD_SPARSE = (\d+)", src).group(1)) == bitwise.OP_LOAD_SPARSE
     assert int(re.search(r"TE_LOAD_RUN = (\d+)", src).group(1)) == bitwise.OP_LOAD_RUN
