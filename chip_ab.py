@@ -16,7 +16,10 @@ own that builds that root's kernels, and each run prints one JSON line:
   shapes (1,024 shards, depth 20; random words), fused where the root
   has the fused modes (``ops.PlannedFilter``) and as two launches (K1
   words, then the filter-plane mode), with a digest of the fused
-  results.
+  results; then K10's top-k of 8 counts and of 5 of 8 score keys (200
+  calls: the host's rate, where the device waits for the host) beside
+  ``torch.topk``, K10 over all 4,882,813 keys of a search, and K11 at
+  16,384^2 x 2048 bits, with a digest of their answers.
 
 Compare roots only within one call: the host's load and the card's
 clocks differ from one call to the next.
@@ -39,6 +42,7 @@ def measure(root: str) -> dict:
     from pilosa_tpu_torch import ops
     from pilosa_tpu_torch.core import Holder
     from pilosa_tpu_torch.ops import _cuda, bitwise
+    from pilosa_tpu_torch.ops import similarity as sim
     from pilosa_tpu_torch.parallel import MeshContext, make_mesh
     from pilosa_tpu_torch.server import API
     from pilosa_tpu_torch.shardwidth import WORDS_PER_SHARD as W
@@ -123,6 +127,24 @@ def measure(root: str) -> dict:
         k["K5 max+tree"] = ms(lambda: ops.bsi_min_max(stack, depth, pf, True))
         got = [ops.row_counts(pc, pf), *ops.bsi_sum(stack, depth, pf), *ops.bsi_min_max(stack, depth, pf, True)]
         k["fused digest"] = [int(t.sum()) for t in got]
+    del stack, cab, pc
+    # K10: the integer top-k of 8 counts (the graft step's), the mesh
+    # search's 5 of 8 score keys, and all 4,882,813 keys of a search; K11
+    # at 16,384^2 x 2048 bits; with a digest of the answers
+    c8 = torch.tensor([5, 9, 9, 0, 3, 9, 1 << 40, 0], dtype=torch.int64, device=dev)
+    k8, h8 = sim.mesh_sim_keys(c8, c8 + 9, c8[1:2].contiguous() + 9, "tanimoto")
+    k["K10 select_top_counts, 4 of 8"] = ms(lambda: ops.select_top_counts(c8, 4), 200)
+    k["K10 select_top, 5 of 8 score keys"] = ms(lambda: sim.select_top(k8, h8, 5), 200)
+    k["torch.topk, 4 of 8"] = ms(lambda: torch.topk(c8, 4), 200)
+    fps = words(4_882_813, 64)
+    fps &= words(4_882_813, 64)
+    keys, hist = sim.search_keys(fps, fps[17], 0.0)
+    k["K10 select_top, every one of 4,882,813 keys"] = ms(lambda: sim.select_top(keys, hist, keys.shape[0]), 3)
+    blk = fps[:16384]
+    k["K11 tanimoto, 16,384^2 x 2048 bits"] = ms(lambda: sim.pairwise(blk, blk, "tanimoto"), 5)
+    top = [ops.select_top_counts(c8, 4), sim.select_top(k8, h8, 5), sim.select_top(keys, hist, keys.shape[0])]
+    k["K10 K11 digest"] = [int(t.view(torch.int32).long().sum()) for pair in top for t in pair] + [
+        int(sim.pairwise(blk, blk, "tanimoto").view(torch.int32).long().sum())]
     return out
 
 

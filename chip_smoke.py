@@ -5,7 +5,9 @@
 Run from the root of a checkout. In order:
 
 1. build the kernels from ``pilosa_tpu_torch/csrc`` with nvcc for
-   sm_90a, one nvcc process per source, all started together;
+   sm_90a, one nvcc process per source, all started together, and count
+   the tensor-core instructions in K11's SASS (``cuobjdump``; none
+   fails);
 2. six paths, each with every kernel's launch count set to 0 just
    before it and read just after, and printed on a line of its own:
    - the main path: ``API(holder, device="cuda", route_mode="device")``
@@ -75,12 +77,19 @@ Run from the root of a checkout. In order:
    container payloads at a plane's edges, slots -1 and past the store;
    fingerprints with all-ones, bit-31, zero and duplicate rows, a zero
    query, W of 1, 3 and 512 and rows off a 16 B boundary, k of 1, 10,
-   1,000, 4,096, 4,097, 50,000 and R; the integer top-k at counts of
-   2^(62 - b), 2^62 - 1 and 2^63 - 1, negative, with ties at the k-th;
+   1,000, 4,096, 4,097, 50,000, 65,536 and R (K10's tile and radix
+   routes) and every k of 1, 8 and 4,096 keys (its small route); K11 at
+   W of 1, 7, 8, 9, 33 and 64 with N, M of 1, 63, 65 and 129, on rows
+   off a 16 B boundary, and at N = 4,194,368 rows (past the old grid);
+   the integer top-k at 1, 8, 4,096, 4,097 and 8,192 counts, of
+   2^(62 - b), 2^62 - 1, 2^63 - 1 and -2^63, negative, with ties at the
+   k-th;
    the fused filters' kernels under planned trees; the mesh path's
    kernels at its 4x2 blocks, W = 16,384), exact equality, and its time
-   beside its bound (bytes over 3.35 TB/s, or K11's unpacked product at
-   the int8 tensor rate) and the plain version's;
+   beside its bound (bytes over 3.35 TB/s; K11's too: its binary MMA has
+   no published rate and runs past the int8 figure), the plain version's,
+   and for K10 and K11 the device time of the same calls replayed from a
+   CUDA graph, without the host's launch rate;
 4. print the card (nvidia-smi name and power limit), the launch counts,
    the router's calibration after the main path, the times, the kernel
    JSON line, and last
@@ -93,6 +102,7 @@ line. It needs one CUDA card; without one it exits 1 at once.
 import gc
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -131,6 +141,21 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def k11_tensor_ops() -> dict:
+    """The tensor-core instructions in K11's SASS (``cuobjdump
+    --dump-sass`` of its built library), by opcode: BMMA, IMMA, HMMA or
+    the GMMA family."""
+    from pilosa_tpu_torch.ops import _cuda
+
+    tool = os.path.join(os.path.dirname(_cuda.nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "--dump-sass", _cuda._lib_path(_cuda.PAIRWISE.stem)],
+                          capture_output=True, text=True, timeout=120, check=True).stdout
+    ops = {}
+    for m in re.finditer(r"\b(?:[BIH]MMA|[A-Z]*GMMA)(?:\.\w+)*", sass):
+        ops[m.group(0)] = ops.get(m.group(0), 0) + 1
+    return ops
+
+
 def cuda_ms(torch, fn, reps: int) -> float:
     """Mean device time of ``fn`` over ``reps`` launches, after one
     warm-up (host clock for a CPU rehearsal)."""
@@ -149,6 +174,36 @@ def cuda_ms(torch, fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(torch, fn, reps: int):
+    """Device ms per call of ``fn`` with ``reps`` calls captured in one
+    CUDA graph and the graph replayed: the host's launch rate is not in
+    it, as it is in ``cuda_ms`` for a call of a few microseconds. None
+    without a card."""
+    if not torch.cuda.is_available():
+        return None
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # the warm-up builds and loads what fn needs
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (3 * reps)
 
 
 def split_ms(ex, index: str, pql: str, reps: int = 10) -> dict:
@@ -213,8 +268,10 @@ def bound_ms(nbytes: int) -> float:
 
 
 def ops_ms(n_ops: int) -> float:
-    """The least time for ``n_ops`` operations of an unpacked-bit product
-    at the card's dense int8 tensor rate."""
+    """``n_ops`` operations of an unpacked-bit product at the card's dense
+    int8 tensor rate: a yardstick, not K11's bound. K11's binary MMA has
+    no published rate and runs past this figure (the inter mode at
+    16,384² takes less), so its bound is its bytes."""
     return n_ops / INT8_OPS_PER_S * 1e3
 
 
@@ -233,6 +290,10 @@ def kernel_entry(k, launches: dict, err: int, t: dict, path: str) -> dict:
         "bound_ms": t["bound_ms"],
         "bound_by": t.get("bound_by", "bytes"),
         "library_ms": t["library_ms"],
+        # the same calls captured in a CUDA graph: device time without the
+        # host's launch rate (None where not measured)
+        "graph_ms": t.get("graph_ms"),
+        "library_graph_ms": t.get("library_graph_ms"),
         "path": path,
         "launches_by_path": launches,
     }
@@ -1418,10 +1479,18 @@ def similarity_path(torch, device: str, n_rows: int = SIM_ROWS, big: int = SIM_B
     for thr in (0.0, 0.3):
         errs["sim_scan"] = max(errs["sim_scan"], scan_err(matrix, query, thr))
         full_keys[thr] = sim.search_keys(matrix, query, thr)
-    for thr, ks in ((0.0, (1, 10, 1000, 4096, 4097, 50_000, n_rows)), (0.3, (1, 1000, n_rows - 1))):
+    # the tile route (k <= 4,096) and the radix sort past it
+    for thr, ks in ((0.0, (1, 10, 1000, 4096, 4097, 50_000, 65_536, n_rows)), (0.3, (1, 1000, 65_536, n_rows - 1))):
         keys, hist = full_keys[thr]
         for k in sorted({min(k, n_rows) for k in ks}):
             errs["sim_select"] = max(errs["sim_select"], select_err(keys, hist, k))
+    # the small route: one block over n <= 4,096 keys (duplicate and edge
+    # rows give equal scores, the threshold a zero-score tail)
+    for n_s in (1, 8, 4096):
+        for thr in (0.0, 0.3):
+            keys, hist = sim.search_keys(matrix[:n_s], query, thr)
+            for k in sorted({1, n_s}):
+                errs["sim_select"] = max(errs["sim_select"], select_err(keys, hist, k))
     # edges: all-ones, bit-31 and zero rows, duplicates, a zero query, a
     # query equal to a row, W not a multiple of 4, rows that are not 16 B
     # aligned, a threshold of 1.0
@@ -1441,6 +1510,25 @@ def similarity_path(torch, device: str, n_rows: int = SIM_ROWS, big: int = SIM_B
     flat[1:] = sim.as_words(sim_edge_words(rng, 300, 64), dev).reshape(-1)
     shifted = flat[1:].view(300, 64)  # 4 B past a 16 B boundary: the word loop
     errs["sim_scan"] = max(errs["sim_scan"], scan_err(shifted, shifted[0].clone(), 0.0))
+
+    def pair_err(a, b, mode) -> int:
+        return max_abs_err(torch, sim.pairwise(a, b, mode).view(torch.int32), sim.pairwise_plain(a, b, mode).view(torch.int32))
+
+    # K11 at the edges of its 128-row tiles and 8-word k-steps, on rows that
+    # are not 16 B aligned (its 4 B copies), and past the old grid's
+    # 4,194,240 rows (C3; a 134 MB output)
+    for w in (1, 7, 8, 9, 33, 64):
+        for n_e, m_e in ((1, 1), (63, 65), (129, 63), (65, 129)):
+            a, b = (sim.as_words(sim_edge_words(rng, max(r, 8), w)[:r], dev) for r in (n_e, m_e))
+            for mode in sim.PAIRWISE_MODES:
+                errs["pairwise"] = max(errs["pairwise"], pair_err(a, b, mode))
+    big_w = (sim.as_words(sim_edge_words(rng, 8, 1 << 18)[:r], dev) for r in (3, 2))  # counts past 2^23
+    for a, b in ((shifted, shifted[:129]), tuple(big_w)):
+        for mode in sim.PAIRWISE_MODES:
+            errs["pairwise"] = max(errs["pairwise"], pair_err(a, b, mode))
+    n_c3 = min(4_194_304 + 64, n_rows)
+    errs["pairwise"] = max(errs["pairwise"], pair_err(matrix[:n_c3], matrix[:8], "tanimoto"))
+    times["pairwise_c3_rows"] = n_c3
     log("max |kernel - plain| on the similarity path's shapes:", json.dumps(errs))
     if any(errs.values()):
         raise AssertionError(f"a kernel disagrees with its plain version: {errs}")
@@ -1464,6 +1552,8 @@ def similarity_path(torch, device: str, n_rows: int = SIM_ROWS, big: int = SIM_B
         bound_ms=bound_ms(n_rows * 8 + 10 * 8),
         # torch.topk of the scores: the same k, not the reference's order of ties
         library_ms=cuda_ms(torch, lambda: torch.topk(scores_plain, 10), 20),
+        graph_ms=graph_ms(torch, lambda: sim.select_top(keys, hist, 10), 20),
+        library_graph_ms=graph_ms(torch, lambda: torch.topk(scores_plain, 10), 20),
     )
     keys3, hist3 = full_keys[0.3]
     scores3 = sim._scores_plain(matrix_filter_counts_plain(matrix, query), popcount_rows_plain(matrix), popcount_rows_plain(query), 0.3)
@@ -1492,22 +1582,31 @@ def similarity_path(torch, device: str, n_rows: int = SIM_ROWS, big: int = SIM_B
             return cuda_ms(torch, lambda: torch._int_mm(bits, bits.t()), reps)
         return cuda_ms(torch, lambda: torch.matmul(bits, bits.t()), reps)
 
+    # K11's bound is its bytes: both operands read once, the f32 output
+    # written once (its binary MMA has no published rate; the int8 figure
+    # is kept beside it as a yardstick)
     for n_blk, mode in blocks[:3]:
         blk = matrix[:n_blk]
         times[f"pairwise_{mode}_{n_blk}_ms"] = cuda_ms(torch, lambda: sim.pairwise(blk, blk, mode), 10)
+        times[f"pairwise_{mode}_{n_blk}_graph_ms"] = graph_ms(torch, lambda: sim.pairwise(blk, blk, mode), 20)
         times[f"pairwise_{mode}_{n_blk}_plain_ms"] = cuda_ms(torch, lambda: sim.pairwise_plain(blk, blk, mode), 2)
-        times[f"pairwise_{mode}_{n_blk}_bound_ms"] = max(
-            bound_ms(2 * n_blk * FP_WORDS * 4 + n_blk * n_blk * 4), ops_ms(2 * n_blk * n_blk * FP_WORDS * 32))
-    times[f"pairwise_{blocks[0][0]}_library_ms"] = library_ms(matrix[: blocks[0][0]], 10)
+        times[f"pairwise_{mode}_{n_blk}_bound_ms"] = bound_ms(2 * n_blk * FP_WORDS * 4 + n_blk * n_blk * 4)
+        times[f"pairwise_{n_blk}_int8_ops_ms"] = ops_ms(2 * n_blk * n_blk * FP_WORDS * 32)
+    blk = matrix[: blocks[0][0]]
+    times[f"pairwise_{blocks[0][0]}_library_ms"] = library_ms(blk, 10)
+    bits = unpack8(blk)
+    times[f"pairwise_{blocks[0][0]}_library_graph_ms"] = graph_ms(
+        torch, (lambda: torch._int_mm(bits, bits.t())) if int_mm else (lambda: torch.matmul(bits, bits.t())), 20)
+    del bits
     n_big = min(big, n_rows)
     blk = matrix[:n_big]
-    out_b = bound_ms(2 * n_big * FP_WORDS * 4 + n_big * n_big * 4)
-    op_b = ops_ms(2 * n_big * n_big * FP_WORDS * 32)
+    times[f"pairwise_inter_{n_big}_ms"] = cuda_ms(torch, lambda: sim.pairwise(blk, blk, "inter"), 5)
+    times[f"pairwise_{n_big}_int8_ops_ms"] = ops_ms(2 * n_big * n_big * FP_WORDS * 32)
     k11 = dict(
         ms=cuda_ms(torch, lambda: sim.pairwise(blk, blk, "tanimoto"), 5),
         plain_ms=cuda_ms(torch, lambda: sim.pairwise_plain(blk, blk, "tanimoto"), 2),
-        bound_ms=max(out_b, op_b),
-        bound_by="operations" if op_b >= out_b else "bytes",
+        bound_ms=bound_ms(2 * n_big * FP_WORDS * 4 + n_big * n_big * 4),
+        bound_by="bytes",
         library_ms=library_ms(blk, 5),
     )
     times["pairwise_unpack_ms"] = cuda_ms(torch, lambda: unpack8(blk), 5)
@@ -1991,7 +2090,7 @@ def mesh_path(torch, device: str, main: dict, taxi: dict, sim_block: int) -> tup
     mm = (lambda: torch._int_mm(a8, b8.t())) if int_mm else (lambda: torch.matmul(a8, b8.t()))
     keep = (didx[:, 0] >= 0) & (didx[:, 0] < R_PAD) & (didx[:, 1] >= 0) & (didx[:, 1] < s_l)
     r_ok, s_ok, rows_ok = didx[keep, 0].long(), didx[keep, 1].long(), drows[keep]
-    out_b, op_b = bound_ms((n_p + m_p) * w_p * 4 + n_p * m_p * 4), ops_ms(2 * n_p * m_p * w_p * 32)
+    times["pairwise_block_int8_ops_ms"] = ops_ms(2 * n_p * m_p * w_p * 32)
     block = f"4x2 block [{R_PAD}, {s_l}, {w_l}]"
     results = {
         "tree_eval": dict(
@@ -2031,12 +2130,16 @@ def mesh_path(torch, device: str, main: dict, taxi: dict, sim_block: int) -> tup
         "sim_select": dict(
             ms=cuda_ms(torch, lambda: sim.select_top(keys, hist, 5), 20), plain_ms=cuda_ms(torch, lambda: sim.select_top_plain(keys, 5), 20),
             bound_ms=bound_ms(R_PAD * 8 + 5 * 8), library_ms=cuda_ms(torch, lambda: torch.topk(scores, 5), 20),
+            graph_ms=graph_ms(torch, lambda: sim.select_top(keys, hist, 5), 20),
+            library_graph_ms=graph_ms(torch, lambda: torch.topk(scores, 5), 20),
             shape=f"k = 5 of the search's {R_PAD} keys", replaces="pilosa_tpu/parallel/mesh.py:690"),
         "pairwise": dict(
             ms=cuda_ms(torch, lambda: sim.pairwise(pa_b, pb_b, "inter"), 10),
             plain_ms=cuda_ms(torch, lambda: sim.pairwise_plain(pa_b, pb_b, "inter"), 2),
-            bound_ms=max(out_b, op_b), bound_by="operations" if op_b >= out_b else "bytes",
+            bound_ms=bound_ms((n_p + m_p) * w_p * 4 + n_p * m_p * 4), bound_by="bytes",
             library_ms=cuda_ms(torch, mm, 10), shape=f"inter, [{n_p}, {w_p}] x [{m_p}, {w_p}]",
+            graph_ms=graph_ms(torch, lambda: sim.pairwise(pa_b, pb_b, "inter"), 10),
+            library_graph_ms=graph_ms(torch, mm, 10),
             replaces="pilosa_tpu/parallel/mesh.py:786"),
         "mesh_sim_keys": dict(
             ms=cuda_ms(torch, lambda: sim.mesh_sim_keys(inter, row_pop, q_pop, "tanimoto"), 20),
@@ -2130,14 +2233,15 @@ def graft_path(torch, device: str, main: dict) -> tuple:
     one device at the main cell's size: the main recipe's matrix
     int32[8, S, W] (10.7 GB at 10,240 shards), a write delta of the same
     shape and a filter (GRAFT_SEED). K13 ORs the delta in place and counts
-    every row under the filter, with the total; K12's count keys and K10's
-    int mode take the top 4. The counts, the total, the new matrix and the
-    top 4 against the plain version on a copy made before the in-place
-    call, and the top 4 against numpy's stable argsort; then K12's and
-    K10's int modes at R = 8 with ties and at 4,097 keys (K10's tile and
-    merge sizes). Returns the kernel entries, the launch counts and the
-    arrays (the new matrix, the delta, the filter, the answers) for
-    ``mesh_programs_path``."""
+    every row under the filter, with the total; K10's one-launch ``small
+    int`` route takes the top 4 of the 8 counts. The counts, the total,
+    the new matrix and the top 4 against the plain version on a copy made
+    before the in-place call, and the top 4 against numpy's stable
+    argsort; then ``select_top_counts`` (K10 small int, or K12's count keys
+    and K10's tile and radix int routes) and K10 on count keys at 1, 8,
+    4,096, 4,097 and 8,192 counts, with ties, -2^63 and 2^63 - 1. Returns
+    the kernel entries, the launch counts and the arrays (the new matrix,
+    the delta, the filter, the answers) for ``mesh_programs_path``."""
     from pilosa_tpu_torch import ops
     from pilosa_tpu_torch.ops import _cuda, topn
     from pilosa_tpu_torch.ops import similarity as sim
@@ -2171,8 +2275,10 @@ def graft_path(torch, device: str, main: dict) -> tuple:
     log("launches on the graft step:", json.dumps(launches))
     log("launches on the graft step by mode:", json.dumps({n: k.modes for n, k in _cuda.KERNELS.items() if k.modes}))
     path_kernels = ("ingest_counts", "count_keys", "sim_select")
-    if on_card and any(launches[n] != 1 for n in path_kernels):
-        raise AssertionError(f"the graft step did not run K13, K12 count_keys and K10 once each: {launches}")
+    want_launches = {"ingest_counts": 1, "count_keys": 0, "sim_select": 1}
+    if on_card and ({n: launches[n] for n in path_kernels} != want_launches
+                    or _cuda.SIM_SELECT.modes != {"small int": 1}):
+        raise AssertionError(f"the graft step did not run K13 once and K10 small int once, no K12: {launches}")
     if new_m is not matrix:
         raise AssertionError("ingest_counts did not return the matrix it updated in place")
     # ---------------------------------------------- against the plain version
@@ -2189,11 +2295,10 @@ def graft_path(torch, device: str, main: dict) -> tuple:
     p_vals, p_ids = topn.select_top_counts_plain(p_counts, GRAFT_K)
     errs["sim_select"] = max(max_abs_err(torch, vals, p_vals.cpu()), max_abs_err(torch, ids, p_ids.cpu()))
     keys, hist = sim.count_keys(counts)
-    bits = sim.count_key_bits(counts.shape[0])
     p_keys, p_hist = sim.count_keys_plain(counts)
     errs["count_keys"] = max(max_abs_err(torch, keys, p_keys), max_abs_err(torch, hist, p_hist))
     # K12 and K10's int modes: ties at R = 8; 4,097 keys with ties, k up to
-    # K10's shared-memory tile (4,096) and past it (its merge steps)
+    # K10's shared-memory tile (4,096) and past it (its radix sort)
     gen = torch.Generator(device=device)
     gen.manual_seed(GRAFT_SEED + 1)
     ties = torch.tensor([5, 9, 9, 0, 3, 9, 1 << 40, 0], dtype=torch.int64, device=device)
@@ -2207,15 +2312,28 @@ def graft_path(torch, device: str, main: dict) -> tuple:
     wide = torch.randint(0, 4, (4097,), generator=gen, device=device) * (1 << (62 - b4097))
     wide[torch.randint(0, 4097, (64,), generator=gen, device=device)] = (1 << 62) - 1
     wide[:8] = -(2**63)
-    cases = ((ties, (1, 4, 8)), (many, (5, 4096, 4097)), (big, (1, 2, 3, 4, 5, 8)), (wide, (1, 63, 64, 65, 4097)))
+    # K10's small route at 1 and 4,096 counts (ties, -2^63, 2^63 - 1), and
+    # select_top_counts past it: 8,192 counts, K12 then K10's tile and
+    # radix int routes
+    one = torch.tensor([-(2**63)], dtype=torch.int64, device=device)
+    full = torch.randint(-3, 4, (4096,), generator=gen, device=device) << 40
+    full[torch.randint(0, 4096, (64,), generator=gen, device=device)] = 2**63 - 1
+    full[:8] = -(2**63)
+    past = torch.randint(0, 64, (8192,), generator=gen, device=device) << 50
+    past[torch.randint(0, 8192, (16,), generator=gen, device=device)] = -(2**63)
+    past[-5:] = 2**63 - 1
+    cases = ((ties, (1, 4, 8)), (many, (5, 4096, 4097)), (big, (1, 2, 3, 4, 5, 8)), (wide, (1, 63, 64, 65, 4097)),
+             (one, (1,)), (full, (1, 64, 65, 4096)), (past, (1, 4, 4096, 4097, 8192)))
     for c, ks in cases:
         kk, hh = sim.count_keys(c)
         pk, ph = sim.count_keys_plain(c)
         errs["count_keys"] = max(errs["count_keys"], max_abs_err(torch, kk, pk), max_abs_err(torch, hh, ph))
         b = sim.count_key_bits(c.shape[0])
         for k in ks:
-            got, want = sim.select_top(kk, hh, k, b), sim.select_top_plain(pk, k, b)
-            errs["sim_select"] = max(errs["sim_select"], max_abs_err(torch, got[0], want[0]), max_abs_err(torch, got[1], want[1]))
+            for got, want in ((sim.select_top(kk, hh, k, b), sim.select_top_plain(pk, k, b)),
+                              (topn.select_top_counts(c, k), topn.select_top_counts_plain(c, k))):
+                errs["sim_select"] = max(errs["sim_select"], max_abs_err(torch, got[0], want[0]),
+                                         max_abs_err(torch, got[1], want[1]))
     log("max |kernel - plain| on the graft step:", json.dumps(errs))
     if any(errs.values()):
         raise AssertionError(f"a kernel disagrees with its plain version: {errs}")
@@ -2234,15 +2352,18 @@ def graft_path(torch, device: str, main: dict) -> tuple:
             plain_ms=cuda_ms(torch, lambda: topn.ingest_counts_plain(matrix, delta, filt), 1),
             bound_ms=k13_bound, library_ms=None, shape=f"[{n}, {matrix.shape[1]}, {matrix.shape[2]}]",
             replaces="__graft_entry__.py:65"),
+        # K12's keys now serve only a top-k past 4,096 counts
         "count_keys": dict(
-            ms=cuda_ms(torch, lambda: sim.count_keys(counts), 20), plain_ms=cuda_ms(torch, lambda: sim.count_keys_plain(counts), 20),
-            bound_ms=bound_ms(2 * n * 8 + sim.SELECT_BINS * 4), library_ms=None, shape=f"{n} counts, launch-bound",
-            replaces="__graft_entry__.py:71"),
+            ms=cuda_ms(torch, lambda: sim.count_keys(past), 20), plain_ms=cuda_ms(torch, lambda: sim.count_keys_plain(past), 20),
+            bound_ms=bound_ms(2 * past.numel() * 8 + sim.SELECT_BINS * 4), library_ms=None,
+            shape=f"{past.numel()} counts (a top-k past 4,096 counts)", replaces="__graft_entry__.py:71"),
         "sim_select": dict(
-            ms=cuda_ms(torch, lambda: sim.select_top(keys, hist, GRAFT_K, bits), 20),
-            plain_ms=cuda_ms(torch, lambda: sim.select_top_plain(keys, GRAFT_K, bits), 20),
+            ms=cuda_ms(torch, lambda: ops.select_top_counts(counts, GRAFT_K), 20),
+            plain_ms=cuda_ms(torch, lambda: topn.select_top_counts_plain(counts, GRAFT_K), 20),
             bound_ms=bound_ms(n * 8 + GRAFT_K * 12), library_ms=cuda_ms(torch, lambda: torch.topk(counts, GRAFT_K), 20),
-            shape=f"int mode, k = {GRAFT_K} of {n} counts, launch-bound", replaces="__graft_entry__.py:71"),
+            graph_ms=graph_ms(torch, lambda: ops.select_top_counts(counts, GRAFT_K), 20),
+            library_graph_ms=graph_ms(torch, lambda: torch.topk(counts, GRAFT_K), 20),
+            shape=f"small int, k = {GRAFT_K} of {n} counts, one launch", replaces="__graft_entry__.py:71"),
     }
     or_ms = cuda_ms(torch, lambda: matrix.bitwise_or_(delta), 5)
     times.update({
@@ -2276,9 +2397,9 @@ def mesh_programs_path(torch, device: str, graft: dict, main: dict, taxi: dict) 
     one-device p50 of the same work; ``top_rows`` of one fragment against
     numpy. The launch counts start after the one-device work and must be
     the programs' exact counts. Then K13 (on block (0, 0) as it was before
-    the ingest), K2, K4, K1, K12 and K10 at the 4x2 blocks against their
-    plain versions. Returns the kernel entries and the path's launch
-    counts."""
+    the ingest), K2, K4, K1, K12's mesh_sim_keys and K10's small int
+    route at the 4x2 blocks against their plain versions. Returns the
+    kernel entries and the path's launch counts."""
     from pilosa_tpu_torch import ops
     from pilosa_tpu_torch.core import VIEW_BSI
     from pilosa_tpu_torch.ops import _cuda, bitwise, bsi, topn
@@ -2402,18 +2523,19 @@ def mesh_programs_path(torch, device: str, graft: dict, main: dict, taxi: dict) 
     launches = {n: k.launches for n, k in _cuda.KERNELS.items()}
     log("launches on the mesh programs path:", json.dumps(launches))
     log("launches on the mesh programs path by mode:", json.dumps({n: k.modes for n, k in _cuda.KERNELS.items() if k.modes}))
-    path_kernels = ("ingest_counts", "row_counts", "bsi_sum", "tree_eval", "count_keys", "sim_select", "mesh_sim_keys")
+    path_kernels = ("ingest_counts", "row_counts", "bsi_sum", "tree_eval", "sim_select", "mesh_sim_keys")
     # each program runs 12 times a layout (the checked call, the p50's
     # warm-up and ten): K13, K4 and K1 once a block, K2 four times a block
     # (topn, count_and, and the search's |a ∩ q| and |a|), K12 and K10 on
-    # the lead device once a topn (count_keys, int mode) or search
+    # the lead device: one K10 small int launch a topn (no count_keys), and
+    # mesh_sim_keys and one K10 small launch a search
     calls = len(MESH_LAYOUTS) * (1 + 1 + 10)
     per_block = calls * MESH_POSITIONS
     want_launches = {n: 0 for n in launches}
     want_launches.update(ingest_counts=per_block, row_counts=4 * per_block, bsi_sum=per_block, tree_eval=per_block,
-                count_keys=calls, mesh_sim_keys=calls, sim_select=2 * calls)
+                mesh_sim_keys=calls, sim_select=2 * calls)
     want_modes = {"row_counts": {"filtered": 3 * per_block, "rows": per_block},
-                  "sim_select": {"tile int": calls, "tile": calls}}
+                  "sim_select": {"small int": calls, "small": calls}}
     if on_card and (launches != want_launches or any(_cuda.KERNELS[n].modes != m for n, m in want_modes.items())):
         raise AssertionError(f"the mesh programs did not launch their kernels once a block: {launches} != {want_launches}")
     for prog, ms in one_p50.items():
@@ -2438,11 +2560,8 @@ def mesh_programs_path(torch, device: str, graft: dict, main: dict, taxi: dict) 
     counts4 = ops.row_counts(m1, fb)
     pop4 = ops.row_counts(m1)
     q4 = pop4[1:2].contiguous()
-    keys4, hist4 = sim.count_keys(counts4)
-    pk4, ph4 = sim.count_keys_plain(counts4)
-    errs["count_keys"] = max(max_abs_err(torch, keys4, pk4), max_abs_err(torch, hist4, ph4))
-    bits4 = sim.count_key_bits(n_rows)
-    errs["sim_select"] = max(max_abs_err(torch, a, b) for a, b in zip(sim.select_top(keys4, hist4, GRAFT_K, bits4), sim.select_top_plain(pk4, GRAFT_K, bits4)))
+    errs["sim_select"] = max(max_abs_err(torch, a, b) for a, b in zip(
+        ops.select_top_counts(counts4, GRAFT_K), topn.select_top_counts_plain(counts4, GRAFT_K)))
     errs["mesh_sim_keys"] = max(max_abs_err(torch, a, b) for a, b in zip(
         sim.mesh_sim_keys(counts4, pop4, q4, "tanimoto"), sim.mesh_sim_keys_plain(counts4, pop4, q4, "tanimoto")))
     log("max |kernel - plain| on the mesh programs' 4x2 blocks:", json.dumps(errs))
@@ -2475,14 +2594,13 @@ def mesh_programs_path(torch, device: str, graft: dict, main: dict, taxi: dict) 
             plain_ms=cuda_ms(torch, lambda: bitwise.tree_eval_plain([q_block], [(0, 0)], load, s_l, True, fb.device, (), w_l), 2),
             bound_ms=bound_ms(plane), library_ms=None, shape=f"count of the query, 4x2 block [{s_l}, {w_l}]",
             replaces="pilosa_tpu/parallel/mesh.py:677"),
-        "count_keys": dict(
-            ms=cuda_ms(torch, lambda: sim.count_keys(counts4), 20), plain_ms=cuda_ms(torch, lambda: sim.count_keys_plain(counts4), 20),
-            bound_ms=bound_ms(2 * n_rows * 8 + sim.SELECT_BINS * 4), library_ms=None, shape=f"{n_rows} counts, launch-bound"),
         "sim_select": dict(
-            ms=cuda_ms(torch, lambda: sim.select_top(keys4, hist4, GRAFT_K, bits4), 20),
-            plain_ms=cuda_ms(torch, lambda: sim.select_top_plain(keys4, GRAFT_K, bits4), 20),
+            ms=cuda_ms(torch, lambda: ops.select_top_counts(counts4, GRAFT_K), 20),
+            plain_ms=cuda_ms(torch, lambda: topn.select_top_counts_plain(counts4, GRAFT_K), 20),
             bound_ms=bound_ms(n_rows * 8 + GRAFT_K * 12), library_ms=cuda_ms(torch, lambda: torch.topk(counts4, GRAFT_K), 20),
-            shape=f"int mode, k = {GRAFT_K} of {n_rows} counts, launch-bound", replaces="pilosa_tpu/parallel/mesh.py:650"),
+            graph_ms=graph_ms(torch, lambda: ops.select_top_counts(counts4, GRAFT_K), 20),
+            library_graph_ms=graph_ms(torch, lambda: torch.topk(counts4, GRAFT_K), 20),
+            shape=f"small int, k = {GRAFT_K} of {n_rows} counts, one launch", replaces="pilosa_tpu/parallel/mesh.py:650"),
         "mesh_sim_keys": dict(
             ms=cuda_ms(torch, lambda: sim.mesh_sim_keys(counts4, pop4, q4, "tanimoto"), 20),
             plain_ms=cuda_ms(torch, lambda: sim.mesh_sim_keys_plain(counts4, pop4, q4, "tanimoto"), 20),
@@ -2532,6 +2650,10 @@ def main(
         t0 = time.perf_counter()
         build_s = _cuda.build(_cuda.SOURCES, force=True)
         log(f"kernel build: {time.perf_counter() - t0:.3f} s wall, per source {json.dumps(build_s)}")
+        tensor_ops = k11_tensor_ops()
+        log("K11 SASS tensor-core instructions:", json.dumps(tensor_ops))
+        if not tensor_ops:
+            raise AssertionError("K11's SASS holds no tensor-core instruction")
 
     def sync():
         if on_card:

@@ -262,7 +262,7 @@ SIM_SCAN = Kernel(
 )
 SIM_SELECT = Kernel(
     "sim_select",
-    [_VP, _LL, _VP, _VP, _VP, _LL, _VP, _VP, _LL, _I, _VP, _VP, _VP],
+    [_VP, _LL, _VP, _VP, _VP, _LL, _I, _I, _VP, _VP, _VP],
     # tanimoto_search's jax.lax.top_k; its int mode the lax.top_k of int64
     # counts (mesh.py:647-652, ops/topn.py:24)
     "pilosa_tpu/ops/similarity.py:25",
@@ -270,7 +270,7 @@ SIM_SELECT = Kernel(
 )
 PAIRWISE = Kernel(
     "pairwise",
-    [_VP, _LL, _VP, _LL, _LL, _I, _VP, _VP],
+    [_VP, _LL, _VP, _LL, _LL, _I, _I, _VP, _VP],
     # pairwise_intersections, with the epilogues of tanimoto_matrix (:63)
     # and cosine_matrix (:72)
     "pilosa_tpu/ops/similarity.py:51",

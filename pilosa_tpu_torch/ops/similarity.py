@@ -7,22 +7,27 @@ are ``int32[.., W]`` views of the reference's ``uint32`` words.
 - ``tanimoto_search``: one query against every row. K9 ``search_keys``
   (csrc/similarity_scan.cu) scans the matrix once and writes one 64-bit
   key per row; K10 ``select_top`` (same file) picks the k largest keys
-  in order. The key is ``(float bits of the score) << 32 | (2^32 - 1 -
+  in order, on the route ``select_route`` picks from (n, k): one block
+  over at most 4,096 keys, else a radix select, then one block's sort
+  or a radix sort of the k it gathered. The key is ``(float bits of the score) << 32 | (2^32 - 1 -
   row)``: scores are non-negative f32, so their bits order like their
   values, and among equal scores the lower row has the larger key. The
   k largest of these distinct keys are exactly ``jax.lax.top_k``'s
   answer, ties to the lower index, the zero-score tail in index order.
 - ``pairwise_intersections``, ``tanimoto_matrix``, ``cosine_matrix``:
   all pairs. K11 ``pairwise`` (csrc/pairwise.cu) counts each pair with
-  AND + popcount and applies the mode's epilogue in the same launch.
+  the tensor cores' binary MMA (AND, then popcount, of the packed words)
+  and applies the mode's epilogue in the same launch.
 
 - ``mesh_sim_keys``, ``mesh_pairwise_finish``: K12 (csrc/mesh_finish.cu),
   the elementwise finish of the mesh engine's programs
   (parallel/mesh.py) on counts reduced over the mesh: the search's K10
   keys, and the all-pairs scores from summed intersection counts.
-- ``count_keys`` (K12) and ``select_top``'s int mode (K10): the top-k of
-  int64 counts (``topn.select_top_counts``), keys ``count ^ 2^63`` (the
-  count alone, ordered as uint64), whose ties K10 takes in row order.
+- ``select_counts`` (K10's one-launch ``small int`` route, up to 4,096
+  counts), or ``count_keys`` (K12) and ``select_top``'s int mode (K10):
+  the top-k of int64 counts (``topn.select_top_counts``), keys ``count ^
+  2^63`` (the count alone, ordered as uint64), whose ties K10 takes in
+  row order.
 
 Each wrapper takes the plain version for tensors on the CPU and launches
 its kernel for CUDA tensors, or raises. The public entry points take
@@ -58,6 +63,14 @@ SELECT_ROW_LEVELS = 3
 _SIGN = -(1 << 63)
 # K10 sorts up to this many keys in one block's shared memory
 SELECT_TILE = 4096
+# K10's routes (csrc/similarity_scan.cu): the C entry's route number by
+# the name ``select_route`` gives (the int mode appends " int")
+SELECT_ROUTES = {"small": 0, "small counts": 1, "tile": 2, "radix": 3}
+# the select's zeroed level histograms and state, in int64 words
+SELECT_ZEROED_WORDS = (len(SELECT_SHIFTS) - 1 + SELECT_ROW_LEVELS) * SELECT_BINS // 2 + 160
+# K10's radix sort: 8-bit digits, RADIX_TILE keys a block
+RADIX_BINS = 256
+RADIX_TILE = 2048
 # K9 counts a row's bits in 32 bits
 SEARCH_MAX_WORDS = 1 << 26
 _LOW32 = 0xFFFFFFFF
@@ -65,6 +78,8 @@ _LOW32 = 0xFFFFFFFF
 PAIRWISE_MODES = {"inter": 0, "tanimoto": 1, "cosine": 2}
 # counts stay exact in f32 (below 2^24), as the reference's bf16 product
 PAIRWISE_MAX_WORDS = 1 << 19
+# K11's rows on either side: any int32 row index
+PAIRWISE_MAX_ROWS = (1 << 31) - 1
 # plain pairwise: rows of ``a`` unpacked per matmul
 _PLAIN_ROWS = 4096
 
@@ -188,14 +203,62 @@ def search_keys(
     return keys, hist
 
 
+def select_route(n: int, k: int, int_bits: int = 0) -> str:
+    """K10's route for the k largest of n keys: ``none`` for k = 0;
+    ``small`` for n <= SELECT_TILE (one block sorts every key, one
+    launch); else the radix select and a compaction of the k largest,
+    then ``tile`` (k <= SELECT_TILE, sorted in one block) or ``radix``
+    (a radix sort). The int mode (``int_bits`` > 0) appends " int"."""
+    if k == 0:
+        return "none"
+    route = "small" if n <= SELECT_TILE else "tile" if k <= SELECT_TILE else "radix"
+    return route + (" int" if int_bits else "")
+
+
+def select_work_bytes(k: int, int_bits: int, route: str) -> int:
+    """Bytes of K10's uninitialised work buffer on the ``tile`` or
+    ``radix`` route: the k gathered keys (int64) and, in the int mode,
+    their rows (int32); the radix sort keeps two of each and its
+    [RADIX_BINS, blocks] table of int32 offsets."""
+    rows = 4 * k if int_bits else 0
+    if route.startswith("tile"):
+        return 8 * k + rows
+    blocks = -(-k // RADIX_TILE)
+    return 2 * (8 * k + rows) + 4 * RADIX_BINS * blocks
+
+
+def _launch_select(src: torch.Tensor, hist, k: int, int_bits: int, route: str, counts: bool = False):
+    """One K10 call on ``route`` (``select_route``'s name) → (values[k],
+    int32 ids[k]); ``counts``: ``src`` holds int64 counts (the small int
+    route builds their keys itself). Its launches count under the route's
+    name, but ``count_keys``' keys on the small int route count as
+    ``small int keys``, apart from the counts route that
+    ``select_top_counts`` takes."""
+    dev = src.device
+    values = torch.empty(k, dtype=torch.int64 if int_bits else torch.float32, device=dev)
+    ids = torch.empty(k, dtype=torch.int32, device=dev)
+    base = route.split(" ")[0]
+    zeroed = work = None
+    if base != "small":
+        zeroed = torch.zeros(SELECT_ZEROED_WORDS, dtype=torch.int64, device=dev)
+        work = torch.empty(select_work_bytes(k, int_bits, base), dtype=torch.uint8, device=dev)
+    _cuda.SIM_SELECT.launch(
+        dev, src.data_ptr(), src.shape[0], None if hist is None else hist.data_ptr(),
+        None if zeroed is None else zeroed.data_ptr(), None if work is None else work.data_ptr(),
+        k, int_bits, SELECT_ROUTES["small counts" if counts else base], values.data_ptr(), ids.data_ptr(),
+        mode=route + (" keys" if route == "small int" and not counts else ""),
+    )
+    return values, ids
+
+
 def select_top(
     keys: torch.Tensor, hist: torch.Tensor, k: int, int_bits: int = 0
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The k largest of ``int64[R]`` distinct keys in descending order →
-    (f32 scores[k], int32 ids[k]) (K10). ``hist`` is K9's histogram of
-    the keys' top digit. With ``int_bits`` b > 0 (R <= 2^b) the keys are
-    ``count_keys``' and decode to (int64 counts[k], int32 ids[k]), equal
-    counts in row order: K10's int mode."""
+    (f32 scores[k], int32 ids[k]) (K10, on ``select_route``'s route).
+    ``hist`` is K9's histogram of the keys' top digit. With ``int_bits``
+    b > 0 (R <= 2^b) the keys are ``count_keys``' and decode to (int64
+    counts[k], int32 ids[k]), equal counts in row order: K10's int mode."""
     if keys.dtype != torch.int64 or keys.dim() != 1 or not keys.is_contiguous():
         raise ValueError("keys must be contiguous int64[R]")
     if hist.dtype != torch.int32 or tuple(hist.shape) != (SELECT_BINS,) or hist.device != keys.device:
@@ -207,23 +270,30 @@ def select_top(
     dev = keys.device
     if dev.type == "cpu":
         return select_top_plain(keys, k, int_bits)
-    scores = torch.empty(k, dtype=torch.int64 if int_bits else torch.float32, device=dev)
-    ids = torch.empty(k, dtype=torch.int32, device=dev)
-    if k:
-        n_sort = 1 << (k - 1).bit_length()
-        work = torch.zeros(n_sort, dtype=torch.int64, device=dev)
-        # the int mode's rows beside their keys; -1 pads past k
-        work_rows = torch.full((n_sort,), -1, dtype=torch.int32, device=dev) if int_bits else None
-        levels = len(SELECT_SHIFTS) - 1 + SELECT_ROW_LEVELS
-        hists = torch.zeros((levels, SELECT_BINS), dtype=torch.int32, device=dev)
-        state = torch.zeros(8, dtype=torch.int64, device=dev)
-        _cuda.SIM_SELECT.launch(
-            dev, keys.data_ptr(), keys.shape[0], hist.data_ptr(), hists.data_ptr(), state.data_ptr(),
-            k, work.data_ptr(), None if work_rows is None else work_rows.data_ptr(), n_sort, int_bits,
-            scores.data_ptr(), ids.data_ptr(),
-            mode=("tile" if n_sort <= SELECT_TILE else "merge") + (" int" if int_bits else ""),
-        )
-    return scores, ids
+    route = select_route(keys.shape[0], k, int_bits)
+    if route == "none":
+        return (torch.empty(0, dtype=torch.int64 if int_bits else torch.float32, device=dev),
+                torch.empty(0, dtype=torch.int32, device=dev))
+    return _launch_select(keys, hist, k, int_bits, route)
+
+
+def select_counts(counts: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The k largest of at most SELECT_TILE ``int64[R]`` counts in
+    descending order, ties to the lower row → (int64 counts[k], int32
+    ids[k]): K10's ``small int`` route, one launch that reads the counts
+    and builds their keys itself (no ``count_keys``)."""
+    if counts.dtype != torch.int64 or counts.dim() != 1 or not counts.is_contiguous():
+        raise ValueError("counts must be contiguous int64[R]")
+    n = counts.shape[0]
+    if not 0 <= k <= n or n > SELECT_TILE:
+        raise ValueError(f"k = {k} of {n} counts: k must be in [0, R] and R at most {SELECT_TILE}")
+    bits = count_key_bits(n)
+    if counts.device.type == "cpu":  # K10's plain int mode on the keys count ^ 2^63
+        return select_top_plain(counts ^ _SIGN, k, bits)
+    route = select_route(n, k, bits)
+    if route == "none":
+        return counts[:0].clone(), torch.empty(0, dtype=torch.int32, device=counts.device)
+    return _launch_select(counts, None, k, bits, route, counts=True)
 
 
 def tanimoto_search(
@@ -312,12 +382,15 @@ def pairwise(a: torch.Tensor, b: torch.Tensor, mode: str) -> torch.Tensor:
     if dev.type == "cpu":
         return pairwise_plain(a, b, mode)
     n, m = a.shape[0], b.shape[0]
-    if n > 65535 * 64:
-        raise ValueError(f"N = {n} rows is more than K11's grid takes (4,194,240)")
+    if n > PAIRWISE_MAX_ROWS or m > PAIRWISE_MAX_ROWS:
+        raise ValueError(f"N = {n} and M = {m} must each fit an int32 row index")
     out = torch.empty((n, m), dtype=torch.float32, device=dev)
     if n and m:
+        # 16 B copies where every row starts on a 16 B boundary
+        vec = a.shape[1] % 4 == 0 and a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0
         _cuda.PAIRWISE.launch(
-            dev, a.data_ptr(), n, b.data_ptr(), m, a.shape[1], PAIRWISE_MODES[mode], out.data_ptr(), mode=mode
+            dev, a.data_ptr(), n, b.data_ptr(), m, a.shape[1], PAIRWISE_MODES[mode], int(vec), out.data_ptr(),
+            mode=mode,
         )
     return out
 

@@ -10,8 +10,9 @@ a CPU tensor takes the plain version, a CUDA tensor launches the kernel
 or raises. ``row_counts`` takes its filter as an [S, W] plane or as a
 planned call tree (``bitwise.PlannedFilter``), which K2's fused mode
 evaluates itself. ``select_top_counts`` is ``lax.top_k`` of int64
-counts: K12's count keys and K10's int mode (ops/similarity.py);
-``top_rows`` is K2 then that top-k.
+counts: K10's one-launch ``small int`` route up to 4,096 counts, else
+K12's count keys and K10's int mode (ops/similarity.py); ``top_rows``
+is K2 then that top-k.
 """
 
 from __future__ import annotations
@@ -162,8 +163,10 @@ def select_top_counts_plain(counts: torch.Tensor, k: int) -> tuple[torch.Tensor,
 def select_top_counts(counts: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     """The k largest of ``int64[R]`` counts in descending order →
     (int64 counts[k], int32 ids[k]), k clamped to R, ties to the lower
-    row: ``lax.top_k``'s answer for any int64 counts. K12's count keys,
-    then K10's int mode; nothing waits for the card."""
+    row: ``lax.top_k``'s answer for any int64 counts. Up to SELECT_TILE
+    counts, one K10 launch (``small int``) that reads the counts; above
+    that, K12's count keys, then K10's int mode. Nothing waits for the
+    card."""
     if k < 0:
         raise ValueError(f"k must be non-negative, got {k}")
     if counts.dtype != torch.int64 or counts.dim() != 1:
@@ -171,10 +174,13 @@ def select_top_counts(counts: torch.Tensor, k: int) -> tuple[torch.Tensor, torch
     counts = counts.contiguous()
     n = counts.shape[0]
     k = min(int(k), n)
-    keys, hist = similarity.count_keys(counts)
     if k == 0:
         return counts[:0].clone(), torch.empty(0, dtype=torch.int32, device=counts.device)
-    return similarity.select_top(keys, hist, k, similarity.count_key_bits(n))
+    bits = similarity.count_key_bits(n)
+    if similarity.select_route(n, k, bits) == "small int":
+        return similarity.select_counts(counts, k)
+    keys, hist = similarity.count_keys(counts)
+    return similarity.select_top(keys, hist, k, bits)
 
 
 def top_rows(matrix: torch.Tensor, filt: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:

@@ -12,6 +12,7 @@ program does on the CPU.
 
 import os
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -127,18 +128,26 @@ def test_search_keys_and_select_top_plain_pieces():
 
 
 @pytest.mark.parametrize("mode", ["inter", "tanimoto", "cosine"])
-@pytest.mark.parametrize("w", [1, 3, 64, 512])
+@pytest.mark.parametrize("w", [1, 3, 7, 8, 9, 33, 64, 512])
 def test_pairwise_matches_reference(w, mode):
-    a = _fingerprints(100 + w, 64, w)
-    b = _fingerprints(200 + w, 37, w)
-    b[5] = a[3]  # a duplicate pair: tanimoto and cosine 1.0
+    """Exact: every f32 of the three matrices bit-equal to the
+    reference's. W around K11's 8-word k-step (7, 8, 9, 33) and its
+    16-word tiles, N and M at 1 and around its 128-row tiles' quarters
+    (63, 65, 129), with all-ones, bit-31-only and zero rows."""
     fn = {"inter": "pairwise_intersections", "tanimoto": "tanimoto_matrix", "cosine": "cosine_matrix"}[mode]
-    want = np.asarray(getattr(ref, fn)(a, b))
-    got = getattr(sim, fn)(a, b, device="cpu")
-    assert got.dtype == torch.float32 and tuple(got.shape) == (64, 37)
-    assert np.array_equal(_bits(got.numpy()), _bits(want))
-    assert np.array_equal(_bits(sim.pairwise_plain(torch.from_numpy(a.view(np.int32)),
-                                                   torch.from_numpy(b.view(np.int32)), mode).numpy()), _bits(want))
+    # the reference's function as one program: one compile per shape
+    ref_fn = jax.jit(getattr(ref, fn))
+    for n, m in ((64, 37), (1, 129), (129, 1), (63, 65)):
+        a = _fingerprints(100 + w + n, n, w)
+        b = _fingerprints(200 + w + m, m, w)
+        if n > 3 and m > 5:
+            b[5] = a[3]  # a duplicate pair: tanimoto and cosine 1.0
+        want = np.asarray(ref_fn(a, b))
+        got = getattr(sim, fn)(a, b, device="cpu")
+        assert got.dtype == torch.float32 and tuple(got.shape) == (n, m)
+        assert np.array_equal(_bits(got.numpy()), _bits(want)), (n, m)
+        assert np.array_equal(_bits(sim.pairwise_plain(torch.from_numpy(a.view(np.int32)),
+                                                       torch.from_numpy(b.view(np.int32)), mode).numpy()), _bits(want))
 
 
 def test_unpack_bits_matches_reference():
