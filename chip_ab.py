@@ -10,7 +10,8 @@ own that builds that root's kernels, and each run prints one JSON line:
 - ``host``: the sync p50 in ms (host clock around a query that ends in
   its readback, 30 queries after 3) of a Count, a TopN and a filtered
   TopN through ``API.query``, on one device and on 8 positions of the
-  card (8x1 and 4x2), over 2,048 shards of chip_smoke's main recipe;
+  card (8x1 and 4x2), over 2,048 shards of chip_smoke's main recipe,
+  and of the main path's Count over all 10,240 shards on one device;
 - ``kernels``: the device time in ms (CUDA events, 20 launches after
   one) of K2, K4 and K5 under Row(cab_type=1) at chip_smoke's taxi
   shapes (1,024 shards, depth 20; random words), fused where the root
@@ -19,7 +20,11 @@ own that builds that root's kernels, and each run prints one JSON line:
   results; then K10's top-k of 8 counts and of 5 of 8 score keys (200
   calls: the host's rate, where the device waits for the host) beside
   ``torch.topk``, K10 over all 4,882,813 keys of a search, and K11 at
-  16,384^2 x 2048 bits, with a digest of their answers.
+  16,384^2 x 2048 bits, with a digest of their answers; then K1's count
+  of an Intersect over the main path's stack [8, 10240, 32768] and over
+  one 4x2 block [8, 2560, 16384], K3's delta on that 10 GiB stack (7
+  entries: _OOB ones and a repeat) and its row scatter of one row into a
+  2 GiB run store, with a digest of each answer.
 
 Compare roots only within one call: the host's load and the card's
 clocks differ from one call to the next.
@@ -62,15 +67,29 @@ def measure(root: str) -> dict:
         e = np.zeros((rows, W), np.uint32)
         e[0] = np.bitwise_or.reduce(b, axis=0)
         exists.append(e)
-    h = Holder(None)
-    idx = h.create_index("bench")
-    view = idx.create_field("f").create_view_if_not_exists("standard")
-    ex_view = idx.existence_field().create_view_if_not_exists("standard")
-    for s in range(n_shards):
-        for v, src in ((view, blocks), (ex_view, exists)):
-            frag = v.create_fragment_if_not_exists(s)
-            frag._np_matrix = src[s % g]  # packed-matrix injection, as chip_smoke's main path
-            frag._all_dirty = False
+    def holder(shards):
+        h = Holder(None)
+        idx = h.create_index("bench")
+        view = idx.create_field("f").create_view_if_not_exists("standard")
+        ex_view = idx.existence_field().create_view_if_not_exists("standard")
+        for s in range(shards):
+            for v, src in ((view, blocks), (ex_view, exists)):
+                frag = v.create_fragment_if_not_exists(s)
+                frag._np_matrix = src[s % g]  # packed-matrix injection, as chip_smoke's main path
+                frag._all_dirty = False
+        return h
+
+    def p50(api, q):
+        for _ in range(3):
+            api.query("bench", q)
+        lat = []
+        for _ in range(30):
+            t0 = time.perf_counter()
+            api.query("bench", q)
+            lat.append(time.perf_counter() - t0)
+        return float(np.median(lat)) * 1e3
+
+    h = holder(n_shards)
     queries = ["Count(Intersect(Row(f=1), Row(f=2)))", "TopN(f, n=5)", "TopN(f, Row(f=1), n=5)"]
     positions = ["cuda:0"] * 8
     for name, make in (("one", lambda: API(h, device="cuda", route_mode="device")),
@@ -78,16 +97,15 @@ def measure(root: str) -> dict:
                        ("4x2", lambda: API(h, mesh_ctx=MeshContext(make_mesh(positions, words_axis=2)), route_mode="mesh"))):
         api = make()
         for q in queries:
-            for _ in range(3):
-                api.query("bench", q)
-            lat = []
-            for _ in range(30):
-                t0 = time.perf_counter()
-                api.query("bench", q)
-                lat.append(time.perf_counter() - t0)
-            out["host"][f"{name} {q}"] = float(np.median(lat)) * 1e3
+            out["host"][f"{name} {q}"] = p50(api, q)
         del api
         torch.cuda.empty_cache()
+    # the main path's Count: all 10,240 shards, one device
+    api = API(holder(10240), device="cuda", route_mode="device")
+    out["host"][f"one, 10,240 shards, {queries[0]}"] = p50(api, queries[0])
+    out["host"]["main Count answer"] = api.query("bench", queries[0])
+    del api, h
+    torch.cuda.empty_cache()
 
     # ------------------------------------------------------------- kernels
     s, depth, dev = 1024, 20, torch.device("cuda", 0)
@@ -145,6 +163,28 @@ def measure(root: str) -> dict:
     top = [ops.select_top_counts(c8, 4), sim.select_top(k8, h8, 5), sim.select_top(keys, hist, keys.shape[0])]
     k["K10 K11 digest"] = [int(t.view(torch.int32).long().sum()) for pair in top for t in pair] + [
         int(sim.pairwise(blk, blk, "tanimoto").view(torch.int32).long().sum())]
+    del fps, keys, hist, blk, top
+    torch.cuda.empty_cache()
+    # K1 and K3 at the main path's and a 4x2 block's shapes
+    big, blk = words(8, 10240, W), words(8, 2560, W // 2)
+    inter = [(bitwise.OP_LOAD, 0), (bitwise.OP_LOAD, 1), (bitwise.OP_AND, 0)]
+    k1_main = lambda: ops.tree_eval([big], [(0, 1), (0, 2)], inter, 10240, count=True)  # noqa: E731
+    k1_block = lambda: ops.tree_eval([blk], [(0, 1), (0, 2)], inter, 2560, count=True, n_words=W // 2)  # noqa: E731
+    k["K1 count Intersect, [8, 10240, 32768]"] = ms(k1_main)
+    k["K1 count Intersect, 4x2 block [8, 2560, 16384]"] = ms(k1_block)
+    k["K1 digest"] = [int(k1_main()), int(k1_block())]
+    oob = 2**30
+    didx = torch.tensor([[1, 0], [oob, oob], [7, 10239], [2, oob], [-1, 1], [0, 5120], [1, 0]], dtype=torch.int32, device=dev)
+    drows = words(7, W)
+    k["K3 delta, 10 GiB stack"] = ms(lambda: ops.apply_stack_delta(big, didx, drows), 5)
+    # int64 sums wrap alike on both roots: a digest of every word
+    k["K3 delta digest"] = int(ops.apply_stack_delta(big, didx, drows).view(torch.int64).sum())
+    del big, blk
+    torch.cuda.empty_cache()
+    run = words(2 << 20, 128, 2)  # a 2 GiB run store of 1 KB rows
+    one, row = torch.tensor([3], dtype=torch.int32, device=dev), words(1, 128, 2)
+    k["K3 rows, 2 GiB run store"] = ms(lambda: ops.scatter_rows(run, one, row), 5)
+    k["K3 rows digest"] = int(ops.scatter_rows(run, one, row).view(torch.int64).sum())
     return out
 
 

@@ -74,6 +74,11 @@ Run from the root of a checkout. In order:
    delta entries, an empty Union(); BSI constants 0, negative and
    |c| >= 2^D, lo > hi, a stack with fewer planes than 2 + D, a shard
    with no value; group padding; shifts by 1, 31, 32, 33 and 32 W - 1;
+   K1 at its limits on small planes (a program of 256 leaves, 16
+   conditions of depth 63, a stack 32 deep, null leaves, container
+   leaves, W of 4 words); K3 deltas with K = 0, duplicates and _OOB
+   entries, on the main stack, per block and in row mode into every
+   store kind;
    container payloads at a plane's edges, slots -1 and past the store;
    fingerprints with all-ones, bit-31, zero and duplicate rows, a zero
    query, W of 1, 3 and 512 and rows off a 16 B boundary, k of 1, 10,
@@ -88,8 +93,8 @@ Run from the root of a checkout. In order:
    kernels at its 4x2 blocks, W = 16,384), exact equality, and its time
    beside its bound (bytes over 3.35 TB/s; K11's too: its binary MMA has
    no published rate and runs past the int8 figure), the plain version's,
-   and for K10 and K11 the device time of the same calls replayed from a
-   CUDA graph, without the host's launch rate;
+   and for K10, K11 and the per-block K1 and K3 the device time of the
+   same calls replayed from a CUDA graph, without the host's launch rate;
 4. print the card (nvidia-smi name and power limit), the launch counts,
    the router's calibration after the main path, the times, the kernel
    JSON line, and last
@@ -431,6 +436,66 @@ def fused_plan_bytes(pf, plane_bytes: int, counted=()) -> int:
                 seen.add(("cmp", si))
                 total += min(2 + depth, pf.arrays[si].shape[0]) * plane_bytes
     return total
+
+
+def tree_limit_cases(torch, dev) -> list:
+    """K1 at its limits on small planes: a program of 256 leaves, 16
+    conditions of depth 63, a stack 32 deep, null leaves (rows -1, R and
+    _OOB), a condition over a stack with fewer planes than 2 + D and a
+    constant past 2^D, container leaves at a plane's edges, and planes
+    of W = 4 words. → [(stacks, leaves, program, conds, S, W)]."""
+    from pilosa_tpu_torch.executor.residency import RUN_MAX_INTERVALS, SPARSE_MAX_IDS
+    from pilosa_tpu_torch.ops import bitwise, bsi
+    from pilosa_tpu_torch.shardwidth import WORDS_PER_SHARD as W  # noqa: N811
+
+    L, Z, C = bitwise.OP_LOAD, bitwise.OP_ZERO, bitwise.OP_CMP  # noqa: N806
+    LS, LR = bitwise.OP_LOAD_SPARSE, bitwise.OP_LOAD_RUN  # noqa: N806
+    A, O, X, N = bitwise.OP_AND, bitwise.OP_OR, bitwise.OP_XOR, bitwise.OP_ANDNOT  # noqa: N806
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+
+    def words(*shape):
+        return torch.randint(-(2**31), 2**31 - 1, shape, generator=gen, dtype=torch.int32, device=dev)
+
+    values = [0, 1, -1, 5, -(2**62), 2**62 + 3, 2**63 - 1, -77]
+    conds = [(1, 63, bsi.CMP_OPS[i % 6], values[i % len(values)]) for i in range(bitwise.TREE_MAX_CONDS)]
+    cond_prog = [(C, 0)] + [op for i in range(1, len(conds)) for op in ((C, i), (O if i % 3 else A, 0))]
+    wide = [(0, 1 + i % 7) for i in range(bitwise.TREE_MAX_LEAVES)]
+    wide_prog = [(L, 0)] + [op for i in range(1, len(wide)) for op in ((L, i), (O if i % 5 else X, 0))]
+    deep = [(0, i % 8) for i in range(bitwise.TREE_MAX_STACK)]
+    deep_prog = [(L, i) for i in range(len(deep))] + [(A if i % 3 else O, 0) for i in range(len(deep) - 1)]
+    cases = []
+    for s, w in ((5, W), (3, 4)):
+        m = words(8, s, w)
+        m[0].fill_(-1)  # all-ones words
+        m[1].fill_(-(2**31))  # only bit 31
+        bs = words(65, s, w)
+        cases += [
+            ([m], wide, wide_prog, [], s, w),
+            ([m, bs], [], cond_prog, conds, s, w),
+            ([m], deep, deep_prog, [], s, w),
+            ([m], [(0, -1), (0, R_PAD), (0, 2**30), (0, 3)],
+             [(L, 0), (L, 3), (O, 0), (L, 1), (N, 0), (L, 2), (X, 0), (Z, 0), (O, 0)], [], s, w),
+            ([m, bs[:10].contiguous()], [(0, 2)], [(C, 0), (C, 1), (A, 0), (L, 0), (O, 0)],
+             [(1, 20, ">", 5000), (1, 20, "<", 2**40)], s, w),
+        ]
+    # container leaves: ids and runs at the plane's first and last bits
+    s = 3
+    bits = s * W * 32
+    sp = torch.full((3, SPARSE_MAX_IDS), -1, dtype=torch.int32, device=dev)
+    ids = torch.randint(0, bits, (SPARSE_MAX_IDS - 8,), generator=gen, device=dev).unique().to(torch.int32)
+    sp[1, : ids.numel()] = ids
+    sp[2, :5] = torch.tensor([0, 31, 32, 127, bits - 1], dtype=torch.int32, device=dev)
+    rn = torch.zeros((3, RUN_MAX_INTERVALS, 2), dtype=torch.int32, device=dev)
+    starts = torch.arange(100, dtype=torch.int32, device=dev) * (bits // 101) + 7
+    rn[1, :100] = torch.stack([starts, starts + 700], 1)
+    rn[2, :2] = torch.tensor([[3, 5], [bits - 65, bits]], dtype=torch.int32, device=dev)
+    m = words(4, s, W)
+    cases += [
+        ([m, sp, rn], [(0, 1), (1, 1), (2, 1)], [(L, 0), (LS, 1), (O, 0), (LR, 2), (O, 0)], [], s, W),
+        ([m, sp, rn], [(1, 2), (2, 2), (1, -1), (0, 2)], [(LS, 0), (LR, 1), (X, 0), (LS, 2), (O, 0), (L, 3), (A, 0)], [], s, W),
+    ]
+    return cases
 
 
 def np_shift(words: np.ndarray, n: int) -> np.ndarray:
@@ -1209,12 +1274,14 @@ def residency_path(torch, device: str, taxi: dict, budget: "int | None" = None) 
     oob = stack.OOB
     for store in (edge_sparse, edge_run, dense_store[:8].contiguous(), sparse_store):
         h_ = store.shape[0]
-        sidx = i32([1, oob, h_ - 1, -1, 1])  # the repeated slot: the later entry wins
-        rows = torch.randint(-(2**31), 2**31 - 1, (5,) + tuple(store.shape[1:]), dtype=torch.int32, device=dev)
-        got = ops.scatter_rows(store, sidx, rows)
-        want = stack.scatter_rows_plain(store, sidx, rows)
-        errs["stack_delta"] = max(errs["stack_delta"], max_abs_err(torch, got, want))
-        del got, want, rows
+        # the repeated slot: the later entry wins; one slot; K = 0
+        for sl in ([1, oob, h_ - 1, -1, 1], [h_ - 1], []):
+            sidx = i32(sl)
+            rows = torch.randint(-(2**31), 2**31 - 1, (len(sl),) + tuple(store.shape[1:]), dtype=torch.int32, device=dev)
+            got = ops.scatter_rows(store, sidx, rows)
+            want = stack.scatter_rows_plain(store, sidx, rows)
+            errs["stack_delta"] = max(errs["stack_delta"], max_abs_err(torch, got, want))
+            del got, want, rows
     # the fused filters over container leaves: the day's run row, the
     # tail's sparse row, the edge payloads, and the Union of all three kinds
     PF = ops.PlannedFilter  # noqa: N806
@@ -1997,9 +2064,10 @@ def mesh_path(torch, device: str, main: dict, taxi: dict, sim_block: int) -> tup
     didx = torch.tensor([[1, 0], [stack.OOB, stack.OOB], [R_PAD - 1, s_l - 1], [2, stack.OOB], [-1, 1], [1, 0]],
                         dtype=torch.int32, device=dev)
     drows = torch.randint(-(2**31), 2**31 - 1, (didx.shape[0], w_l), dtype=torch.int32, device=dev)
-    got = ops.apply_stack_delta(fb, didx, drows)
-    errs["stack_delta"] = max_abs_err(torch, got, stack.apply_stack_delta_plain(fb, didx, drows))
-    del got
+    for di, dr in ((didx, drows), (didx[:0], drows[:0])):  # and K = 0
+        got = ops.apply_stack_delta(fb, di, dr)
+        errs["stack_delta"] = max(errs["stack_delta"], max_abs_err(torch, got, stack.apply_stack_delta_plain(fb, di, dr)))
+        del got
     free()
     i32 = lambda v: torch.tensor(v, dtype=torch.int32, device=dev)  # noqa: E731
     rows16 = i32(list(range(10)) + [-1] * 6)
@@ -2097,6 +2165,8 @@ def mesh_path(torch, device: str, main: dict, taxi: dict, sim_block: int) -> tup
             ms=cuda_ms(torch, lambda: ops.tree_eval([fb], [(0, 1), (0, 2)], [(L, 0), (L, 1), (A, 0)], s_l, True, device=dev, n_words=w_l), 20),
             plain_ms=cuda_ms(torch, lambda: bitwise.tree_eval_plain([fb], [(0, 1), (0, 2)], [(L, 0), (L, 1), (A, 0)], s_l, True, dev, (), w_l), 2),
             bound_ms=bound_ms(2 * plane), library_ms=None, shape=f"count, Intersect, {block}",
+            graph_ms=graph_ms(torch, lambda: ops.tree_eval([fb], [(0, 1), (0, 2)], [(L, 0), (L, 1), (A, 0)], s_l, True,
+                                                           device=dev, n_words=w_l), 20),
             replaces="pilosa_tpu/parallel/mesh.py:388"),
         "row_counts": dict(
             ms=cuda_ms(torch, lambda: ops.row_counts(fb), 10), plain_ms=cuda_ms(torch, lambda: topn.row_counts_plain(fb), 1),
@@ -2107,6 +2177,8 @@ def mesh_path(torch, device: str, main: dict, taxi: dict, sim_block: int) -> tup
             plain_ms=cuda_ms(torch, lambda: stack.apply_stack_delta_plain(fb, didx, drows), 2),
             bound_ms=bound_ms(2 * fb.numel() * 4 + int(keep.sum()) * w_l * 4 + didx.numel() * 4),
             library_ms=cuda_ms(torch, lambda: torch.index_put(fb, (r_ok, s_ok), rows_ok), 5), shape=f"delta, {block}",
+            graph_ms=graph_ms(torch, lambda: ops.apply_stack_delta(fb, didx, drows), 5),
+            library_graph_ms=graph_ms(torch, lambda: torch.index_put(fb, (r_ok, s_ok), rows_ok), 5),
             replaces="pilosa_tpu/executor/compile.py:194"),
         "bsi_sum": dict(
             ms=cuda_ms(torch, lambda: ops.bsi_sum(tbm, D), 20), plain_ms=cuda_ms(torch, lambda: bsi.bsi_sum_plain(tbm, D), 2),
@@ -2593,6 +2665,7 @@ def mesh_programs_path(torch, device: str, graft: dict, main: dict, taxi: dict) 
             ms=cuda_ms(torch, lambda: ops.tree_eval([q_block], [(0, 0)], load, s_l, count=True, n_words=w_l), 20),
             plain_ms=cuda_ms(torch, lambda: bitwise.tree_eval_plain([q_block], [(0, 0)], load, s_l, True, fb.device, (), w_l), 2),
             bound_ms=bound_ms(plane), library_ms=None, shape=f"count of the query, 4x2 block [{s_l}, {w_l}]",
+            graph_ms=graph_ms(torch, lambda: ops.tree_eval([q_block], [(0, 0)], load, s_l, count=True, n_words=w_l), 20),
             replaces="pilosa_tpu/parallel/mesh.py:677"),
         "sim_select": dict(
             ms=cuda_ms(torch, lambda: ops.select_top_counts(counts4, GRAFT_K), 20),
@@ -2926,6 +2999,11 @@ def main(
                 want = bitwise.tree_eval_plain(stacks_, leaves, prog, N_SHARDS, count, dev)
                 errs["tree_eval"] = max(errs["tree_eval"], max_abs_err(torch, got, want))
                 del got, want
+        for stacks_, leaves, prog, conds, s_n, w_n in tree_limit_cases(torch, dev):
+            for count in (True, False):
+                got = ops.tree_eval(stacks_, leaves, prog, s_n, count=count, device=dev, conds=conds, n_words=w_n)
+                want = bitwise.tree_eval_plain(stacks_, leaves, prog, s_n, count, dev, conds, w_n)
+                errs["tree_eval"] = max(errs["tree_eval"], max_abs_err(torch, got, want))
         filt = ops.tree_eval([fm], [(0, 1)], [(L, 0)], N_SHARDS, count=False, device=dev)
         ids = torch.tensor([-1, 0, 3, 7, R_PAD, 2**30], dtype=torch.int32, device=dev)
         for m, fl, ii in ((fm, None, None), (fm, filt, None), (fm, filt, ids), (edge, None, None), (edge, edge[1].contiguous(), ids)):
@@ -2945,11 +3023,13 @@ def main(
             )
             drows = torch.randint(-(2**31), 2**31 - 1, (didx.shape[0], W), dtype=torch.int32, device=dev)
             delta_cases.append((m, didx, drows))
-            got = ops.apply_stack_delta(m, didx, drows)
-            want = stack.apply_stack_delta_plain(m, didx, drows)
-            errs["stack_delta"] = max(errs["stack_delta"], max_abs_err(torch, got, want))
-            del got, want
-            torch.cuda.empty_cache()
+            # and K = 0: the copy alone
+            for di, dr in ((didx, drows), (didx[:0], drows[:0])):
+                got = ops.apply_stack_delta(m, di, dr)
+                want = stack.apply_stack_delta_plain(m, di, dr)
+                errs["stack_delta"] = max(errs["stack_delta"], max_abs_err(torch, got, want))
+                del got, want
+                torch.cuda.empty_cache()
         # K7 on the main path's words: the carry at 31/33, whole-word
         # rolls, and a shift leaving one bit per shard
         for n in (1, 31, 32, 33, 32 * W - 1):

@@ -69,9 +69,8 @@ __device__ __forceinline__ unsigned long long pt_block_sum(
   return v;
 }
 
-// Blocks to keep in flight for a streaming kernel: eight PT_BLOCK-thread
-// blocks per SM fill the SM's 2048 threads.
-static inline int pt_resident_blocks() {
+// The SMs of the current device (132 on an H100 SXM).
+static inline int pt_sm_count() {
   static int sms = 0;
   if (sms == 0) {
     int dev = 0;
@@ -79,8 +78,12 @@ static inline int pt_resident_blocks() {
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (sms <= 0) sms = 132;
   }
-  return sms * 8;
+  return sms;
 }
+
+// Blocks to keep in flight for a streaming kernel: eight PT_BLOCK-thread
+// blocks per SM fill the SM's 2048 threads.
+static inline int pt_resident_blocks() { return pt_sm_count() * 8; }
 
 PT_EXPORT const char* pt_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -1,11 +1,13 @@
 // The call-tree interpreter: one postfix program evaluated word by word.
 //
-// K1 (tree_eval.cu) runs it over a whole [S, W] plane; K2, K4 and K5
-// (row_counts.cu, bsi_sum.cu, bsi_minmax.cu) run it as their filter, so a
+// K2, K4 and K5 (row_counts.cu, bsi_sum.cu, bsi_minmax.cu) run it as
+// their filter, one vector at a time (te_eval), so a
 // filtered TopN, Sum, Min or Max never writes the [S, W] filter to device
 // memory: the reference evaluates the filter's call tree inside the
 // aggregate's own program (pilosa_tpu/executor/executor.py:1019
-// _filter_plan).
+// _filter_plan). K1 (tree_eval.cu) runs the same program over a whole
+// [S, W] plane tile by tile, its planes fed through a shared-memory ring,
+// with the comparison and container decoders below.
 //
 // The program, its leaf table and its condition table are one TreeArgs,
 // passed as a __grid_constant__ kernel parameter (3,608 B, under the 4 KB
@@ -109,33 +111,13 @@ static_assert(sizeof(TreeArgs) == 3608, "TreeArgs layout is mirrored in ops/bitw
 // each stays within the 4 KB parameter space.
 #define TE_PARAMS_FIT(n) (sizeof(TreeArgs) + 8 * (n) <= 4096)
 
-// Columns of vector i whose value compares true against the constant.
-__device__ __forceinline__ uint4 te_compare(const TreeCond& c, long long i) {
-  const uint4 ex = pt_plane(c.base, c.stride, c.present, 0, i);
-  const uint4 sg = pt_plane(c.base, c.stride, c.present, 1, i);
+// The comparison's answer from the existence and sign words and the
+// magnitude chain's eq / lt / gt words (bsi.py:80-106's sign select).
+__device__ __forceinline__ uint4 te_cmp_select(const TreeCond& c, uint4 ex,
+                                               uint4 sg, uint4 eq, uint4 lt,
+                                               uint4 gt) {
   const uint4 pos = pt_andn4(ex, sg);
   const uint4 neg = pt_and4(ex, sg);
-  uint4 eq, lt, gt;
-  if (c.big) {
-    eq = pt_zero4();
-    lt = pt_ones4();
-    gt = pt_zero4();
-  } else {
-    eq = pt_ones4();
-    lt = pt_zero4();
-    gt = pt_zero4();
-#pragma unroll 4
-    for (int k = (int)c.depth - 1; k >= 0; --k) {
-      const uint4 bit = pt_plane(c.base, c.stride, c.present, 2 + k, i);
-      if ((c.c_abs >> k) & 1ull) {
-        lt = pt_or4(lt, pt_andn4(eq, bit));
-        eq = pt_and4(eq, bit);
-      } else {
-        gt = pt_or4(gt, pt_and4(eq, bit));
-        eq = pt_andn4(eq, bit);
-      }
-    }
-  }
   uint4 e, l, g;
   if (!c.neg) {
     e = pt_and4(pos, eq);
@@ -156,21 +138,63 @@ __device__ __forceinline__ uint4 te_compare(const TreeCond& c, long long i) {
   }
 }
 
-// The 4 words of vector i of a sparse payload (see the header).
-__device__ __forceinline__ uint4 te_sparse(const int* __restrict__ ids, int cap,
-                                           long long i) {
-  const unsigned b0 = (unsigned)(i * 128);
-  int lo = 0, hi = cap;
+// One step of the MSB->LSB chain: magnitude bit k of the constant
+// against the plane's `bit` words.
+__device__ __forceinline__ void te_cmp_step(bool c_bit, uint4 bit, uint4& eq,
+                                            uint4& lt, uint4& gt) {
+  if (c_bit) {
+    lt = pt_or4(lt, pt_andn4(eq, bit));
+    eq = pt_and4(eq, bit);
+  } else {
+    gt = pt_or4(gt, pt_and4(eq, bit));
+    eq = pt_andn4(eq, bit);
+  }
+}
+
+// Columns of vector i whose value compares true against the constant.
+__device__ __forceinline__ uint4 te_compare(const TreeCond& c, long long i) {
+  const uint4 ex = pt_plane(c.base, c.stride, c.present, 0, i);
+  const uint4 sg = pt_plane(c.base, c.stride, c.present, 1, i);
+  uint4 eq, lt, gt;
+  if (c.big) {
+    eq = pt_zero4();
+    lt = pt_ones4();
+    gt = pt_zero4();
+  } else {
+    eq = pt_ones4();
+    lt = pt_zero4();
+    gt = pt_zero4();
+#pragma unroll 4
+    for (int k = (int)c.depth - 1; k >= 0; --k) {
+      const uint4 bit = pt_plane(c.base, c.stride, c.present, 2 + k, i);
+      te_cmp_step((c.c_abs >> k) & 1ull, bit, eq, lt, gt);
+    }
+  }
+  return te_cmp_select(c, ex, sg, eq, lt, gt);
+}
+
+// First index in [lo, hi) of a sparse payload whose id (as uint32) is at
+// or past bit b; hi if none.
+__device__ __forceinline__ int te_sparse_find(const int* __restrict__ ids,
+                                              int lo, int hi, unsigned b) {
   while (lo < hi) {
     const int mid = (lo + hi) >> 1;
-    if ((unsigned)__ldg(ids + mid) < b0) {
+    if ((unsigned)__ldg(ids + mid) < b) {
       lo = mid + 1;
     } else {
       hi = mid;
     }
   }
+  return lo;
+}
+
+// The 4 words of vector i of a sparse payload whose ids of the vector
+// lie in [lo, hi) (see the header).
+__device__ __forceinline__ uint4 te_sparse_in(const int* __restrict__ ids,
+                                              int lo, int hi, long long i) {
+  const unsigned b0 = (unsigned)(i * 128);
   unsigned w0 = 0u, w1 = 0u, w2 = 0u, w3 = 0u;
-  for (int k = lo; k < cap; ++k) {
+  for (int k = te_sparse_find(ids, lo, hi, b0); k < hi; ++k) {
     const unsigned off = (unsigned)__ldg(ids + k) - b0;
     if (off >= 128u) break;  // past the vector, or the -1 padding
     const unsigned bit = 1u << (off & 31u);
@@ -183,6 +207,12 @@ __device__ __forceinline__ uint4 te_sparse(const int* __restrict__ ids, int cap,
   return make_uint4(w0, w1, w2, w3);
 }
 
+// The 4 words of vector i of a sparse payload (see the header).
+__device__ __forceinline__ uint4 te_sparse(const int* __restrict__ ids, int cap,
+                                           long long i) {
+  return te_sparse_in(ids, 0, cap, i);
+}
+
 // Bits [a, b) of one word, 0 <= a <= b <= 32.
 __device__ __forceinline__ unsigned te_span(long long a, long long b) {
   if (b <= a) return 0u;
@@ -190,11 +220,11 @@ __device__ __forceinline__ unsigned te_span(long long a, long long b) {
   return (n == 32u ? ~0u : ((1u << n) - 1u)) << (unsigned)a;
 }
 
-// The 4 words of vector i of a run payload (see the header).
-__device__ __forceinline__ uint4 te_run(const int2* __restrict__ runs, int cap,
-                                        long long i) {
+// The valid runs of a run payload: a prefix, end > start.
+__device__ __forceinline__ int te_run_len(const int2* __restrict__ runs,
+                                          int cap) {
   int lo = 0, hi = cap;
-  while (lo < hi) {  // valid runs are a prefix: end > start
+  while (lo < hi) {
     const int mid = (lo + hi) >> 1;
     const int2 iv = __ldg(runs + mid);
     if (iv.y > iv.x) {
@@ -203,20 +233,30 @@ __device__ __forceinline__ uint4 te_run(const int2* __restrict__ runs, int cap,
       hi = mid;
     }
   }
-  const int n = lo;
-  const long long b0 = i * 128;
-  lo = 0;
-  hi = n;
-  while (lo < hi) {  // first run that ends past b0
+  return lo;
+}
+
+// First run in [lo, hi) that ends past bit b; hi if none.
+__device__ __forceinline__ int te_run_find(const int2* __restrict__ runs,
+                                           int lo, int hi, long long b) {
+  while (lo < hi) {
     const int mid = (lo + hi) >> 1;
-    if ((long long)__ldg(runs + mid).y <= b0) {
+    if ((long long)__ldg(runs + mid).y <= b) {
       lo = mid + 1;
     } else {
       hi = mid;
     }
   }
+  return lo;
+}
+
+// The 4 words of vector i of a run payload whose runs that reach the
+// vector lie in [lo, n), n the valid runs (see the header).
+__device__ __forceinline__ uint4 te_run_in(const int2* __restrict__ runs,
+                                           int lo, int n, long long i) {
+  const long long b0 = i * 128;
   unsigned w[4] = {0u, 0u, 0u, 0u};
-  for (int k = lo; k < n; ++k) {
+  for (int k = te_run_find(runs, lo, n, b0); k < n; ++k) {
     const int2 iv = __ldg(runs + k);
     if ((long long)iv.x >= b0 + 128) break;
 #pragma unroll
@@ -228,6 +268,12 @@ __device__ __forceinline__ uint4 te_run(const int2* __restrict__ runs, int cap,
     }
   }
   return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// The 4 words of vector i of a run payload (see the header).
+__device__ __forceinline__ uint4 te_run(const int2* __restrict__ runs, int cap,
+                                        long long i) {
+  return te_run_in(runs, 0, te_run_len(runs, cap), i);
 }
 
 // The program's value at vector i.

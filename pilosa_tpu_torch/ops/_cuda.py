@@ -78,7 +78,7 @@ def _lib_path(name: str) -> str:
 
 def _stale(name: str) -> bool:
     """Whether ``lib<name>.so`` is older than its source or any header
-    in ``csrc/`` (``common.cuh``, ``tree_interp.cuh``)."""
+    in ``csrc/`` (``common.cuh``, ``bulk.cuh``, ``tree_interp.cuh``)."""
     lib = _lib_path(name)
     if not os.path.exists(lib):
         return True
@@ -198,7 +198,7 @@ ROW_COUNTS_TREE = Kernel(
 )
 STACK_DELTA = Kernel(
     "stack_delta",
-    [_VP, _VP, _LL, _LL, _LL, _VP, _VP, _LL, _VP, _VP],
+    [_VP, _VP, _LL, _LL, _LL, _VP, _I, _VP, _LL, _VP, _VP],
     "pilosa_tpu/executor/compile.py:194",  # _apply_stack_delta
 )
 BSI_SUM = Kernel(

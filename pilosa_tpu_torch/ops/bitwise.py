@@ -237,7 +237,7 @@ def shift_words(words: torch.Tensor, n: int) -> torch.Tensor:
 
 # ------------------------------------------------------------ tree programs
 # Opcodes of the postfix call-tree program, and the kernel's fixed limits
-# (the #defines of csrc/tree_eval.cu; the planner raises PlanError above
+# (the #defines of csrc/tree_interp.cuh; the planner raises PlanError above
 # them). CMP's argument indexes the condition table: (stack index, depth
 # D, op in bsi.CMP_OPS, constant) per BSI condition. A LOAD_SPARSE or
 # LOAD_RUN leaf is (store index, slot) into an int32[H, K] sparse or
