@@ -12,12 +12,16 @@ own that builds that root's kernels, and each run prints one JSON line:
   TopN through ``API.query``, on one device and on 8 positions of the
   card (8x1 and 4x2), over 2,048 shards of chip_smoke's main recipe,
   and of the main path's Count over all 10,240 shards on one device;
+  and of the taxi path's GroupBy with aggregate=Sum and its fused
+  two-level GroupBy over 1,024 shards of random blocks, with their
+  answers;
 - ``kernels``: the device time in ms (CUDA events, 20 launches after
   one) of K2, K4 and K5 under Row(cab_type=1) at chip_smoke's taxi
   shapes (1,024 shards, depth 20; random words), fused where the root
   has the fused modes (``ops.PlannedFilter``) and as two launches (K1
   words, then the filter-plane mode), with a digest of the fused
-  results; then K10's top-k of 8 counts and of 5 of 8 score keys (200
+  results; K4 over every column and under 16 masks (grouped), and K6's
+  counts of 4 masks against 16 ids, with a digest; then K10's top-k of 8 counts and of 5 of 8 score keys (200
   calls: the host's rate, where the device waits for the host) beside
   ``torch.topk``, K10 over all 4,882,813 keys of a search, and K11 at
   16,384^2 x 2048 bits, with a digest of their answers; then K1's count
@@ -35,6 +39,50 @@ import os
 import subprocess
 import sys
 import time
+
+
+def taxi_holder(n_shards: int):
+    """chip_smoke.py's taxi holder in short: 16 random blocks cycled over
+    the shards, cab_type (3 rows) and passenger_count (10 rows) one row a
+    column, total_amount of depth 20 from random planes; the last shard
+    holds its rows as true bits, which Rows() reads."""
+    import numpy as np
+
+    from pilosa_tpu_torch.core import VIEW_BSI, FieldOptions, Holder
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH as SW
+    from pilosa_tpu_torch.shardwidth import WORDS_PER_SHARD as W
+
+    rng = np.random.default_rng(13)
+
+    def one_hot(n_rows: int, pad: int) -> np.ndarray:
+        m = np.zeros((pad, W), np.uint32)
+        bits = rng.integers(0, n_rows, SW)[None] == np.arange(n_rows)[:, None]
+        m[:n_rows] = np.packbits(bits, axis=1, bitorder="little").view(np.uint32)
+        return m
+
+    mats = []
+    for _ in range(16):
+        bsi = np.zeros((32, W), np.uint32)  # a fragment pads its 22 rows to 32
+        bsi[:22] = rng.integers(0, 2**32, (22, W), dtype=np.uint32)
+        bsi[1] &= rng.integers(0, 2**32, W, dtype=np.uint32)
+        mats.append({"cab": one_hot(3, 8), "pc": one_hot(10, 16), "bsi": bsi})
+    h = Holder(None)
+    idx = h.create_index("taxi")
+    amt = idx.create_field("total_amount", FieldOptions(field_type="int", min=-100_000, max=1_000_000))
+    views = [(idx.create_field("cab_type").create_view_if_not_exists("standard"), "cab", True),
+             (idx.create_field("passenger_count").create_view_if_not_exists("standard"), "pc", True),
+             (amt.create_view_if_not_exists(VIEW_BSI), "bsi", False)]
+    for s in range(n_shards):
+        for view, key, rows in views:
+            frag = view.create_fragment_if_not_exists(s)
+            m = mats[s % 16][key]
+            if rows and s == n_shards - 1:
+                r, c = np.nonzero(np.unpackbits(m.view(np.uint8), axis=1, bitorder="little"))
+                frag.union_positions(r.astype(np.uint64) * SW + c.astype(np.uint64))
+                continue
+            frag._np_matrix = m
+            frag._all_dirty = False
+    return h
 
 
 def measure(root: str) -> dict:
@@ -79,13 +127,13 @@ def measure(root: str) -> dict:
                 frag._all_dirty = False
         return h
 
-    def p50(api, q):
+    def p50(api, q, index="bench"):
         for _ in range(3):
-            api.query("bench", q)
+            api.query(index, q)
         lat = []
         for _ in range(30):
             t0 = time.perf_counter()
-            api.query("bench", q)
+            api.query(index, q)
             lat.append(time.perf_counter() - t0)
         return float(np.median(lat)) * 1e3
 
@@ -105,6 +153,16 @@ def measure(root: str) -> dict:
     out["host"][f"one, 10,240 shards, {queries[0]}"] = p50(api, queries[0])
     out["host"]["main Count answer"] = api.query("bench", queries[0])
     del api, h
+    torch.cuda.empty_cache()
+
+    # the taxi path's two GroupBys over 1,024 shards: the aggregate=Sum
+    # (K6 counts, K6 masks, K4 grouped) and the fused two-level one
+    api = API(taxi_holder(1024), device="cuda", route_mode="device")
+    for q in ("GroupBy(Rows(passenger_count), aggregate=Sum(field=total_amount))",
+              "GroupBy(Rows(cab_type), Rows(passenger_count))"):
+        out["host"][f"taxi {q}"] = p50(api, q, "taxi")
+        out["host"][f"taxi {q} answer"] = api.query("taxi", q)["results"][0]
+    del api
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------------- kernels
@@ -145,7 +203,19 @@ def measure(root: str) -> dict:
         k["K5 max+tree"] = ms(lambda: ops.bsi_min_max(stack, depth, pf, True))
         got = [ops.row_counts(pc, pf), *ops.bsi_sum(stack, depth, pf), *ops.bsi_min_max(stack, depth, pf, True)]
         k["fused digest"] = [int(t.sum()) for t in got]
-    del stack, cab, pc
+    # K4 over all columns; its grouped mode under the aggregate GroupBy's
+    # 16 masks; K6's counts of the fused GroupBy's 4 masks against 16 ids
+    # (10 rows, 6 of -1)
+    masks16 = words(16, s, W)
+    ids16 = torch.tensor(list(range(10)) + [-1] * 6, dtype=torch.int32, device=dev)
+    k["K4 all"] = ms(lambda: ops.bsi_sum(stack, depth))
+    k["K4 grouped, 16 masks"] = ms(lambda: ops.bsi_sum(stack, depth, masks16), 10)
+    k["K6 gb_counts, 4 masks x 16 ids"] = ms(lambda: ops.gb_counts(masks16[:4], pc, ids16))
+    got = [*ops.bsi_sum(stack, depth), *ops.bsi_sum(stack, depth, masks16), ops.gb_counts(masks16[:4], pc, ids16)]
+    # the sums, and the sums weighted by position (a moved count shows)
+    k["K4 K6 digest"] = [int(t.sum()) for t in got] + [
+        int((t.flatten() * torch.arange(1, t.numel() + 1, device=dev)).sum()) for t in got]
+    del stack, cab, pc, masks16
     # K10: the integer top-k of 8 counts (the graft step's), the mesh
     # search's 5 of 8 score keys, and all 4,882,813 keys of a search; K11
     # at 16,384^2 x 2048 bits; with a digest of the answers

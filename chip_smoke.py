@@ -6,8 +6,9 @@ Run from the root of a checkout. In order:
 
 1. build the kernels from ``pilosa_tpu_torch/csrc`` with nvcc for
    sm_90a, one nvcc process per source, all started together, and count
-   the tensor-core instructions in K11's SASS (``cuobjdump``; none
-   fails);
+   the tensor-core instructions in the SASS of K11, K4 and K6 (the
+   binary MMAs of ``pairwise.cu`` and of the split-K core that K4's
+   grouped mode and K6's gb_counts run; ``cuobjdump``; none fails);
 2. six paths, each with every kernel's launch count set to 0 just
    before it and read just after, and printed on a line of its own:
    - the main path: ``API(holder, device="cuda", route_mode="device")``
@@ -27,17 +28,19 @@ Run from the root of a checkout. In order:
      an int total_amount of depth 20; 16 synthetic blocks cycled over
      the shards): BSI conditions, Sum, Min, Max and GroupBy (fused, with
      filter= and limit=, and aggregate=Sum) through ``API.query``, each
-     answer checked against numpy. K1, K4, K5 and K6 must launch here;
+     answer checked against numpy. K1, K4 (its grouped mode too), K5
+     and K6 must launch here;
    - the residency path, on the same holder: two fields over the card's
      own stack budget (70 % of its memory), ``pickup_day`` (one row per
      day over six years, each a run of rides) and ``dropoff_cell`` (a
      4,096-cell grid with Zipf rows), served through tiered residency —
      each query cold, then promoted, then resident, in dense, sparse and
      run container stores — with direct container counts, a Sum with a
-     tiered filter, the streamed TopN ids= and GroupBy level, a Set that
-     drops a resident row, and one Count in the legacy slots mode, each
-     answer checked against numpy. K1 (container leaves), K2, K3 (row
-     and hot modes), K4, K6 and K8 must launch here;
+     tiered filter, the streamed TopN ids= and GroupBy level (with and
+     without aggregate=Sum), a Set that drops a resident row, and one
+     Count in the legacy slots mode, each answer checked against numpy.
+     K1 (container leaves), K2, K3 (row and hot modes), K4 (its grouped
+     mode too), K6 and K8 must launch here;
    - the similarity path: BASELINE config 5 on one card, 4,882,813
      fingerprints of 2048 bits (10.0 Gbit, a 1.25 GB matrix; the
      chemical-similarity demo's recipe), searched through
@@ -59,8 +62,8 @@ Run from the root of a checkout. In order:
      cosine search of row 1 against the main holder's rows; the 2048²
      all-pairs block in both modes and the 16,384² Tanimoto block, each
      answer against numpy and the one-device route, with the sync p50
-     of Count, TopN, Sum and GroupBy beside the one-device p50. K1-K6,
-     K10, K11 and K12 must launch here;
+     of Count, TopN, Sum and GroupBy beside the one-device p50. K1-K6
+     (K4's grouped mode too), K10, K11 and K12 must launch here;
    on the main, taxi, residency and mesh paths (8x1 and 4x2), a
    fused-filter phase: filtered TopN (plain and ids=), Sum, Min and Max
    under every filter kind (a row, an Intersect, Not, a BSI condition, a
@@ -73,7 +76,10 @@ Run from the root of a checkout. In order:
    path's shapes (all-ones and bit-31 words, rows -1 and >= R, _OOB
    delta entries, an empty Union(); BSI constants 0, negative and
    |c| >= 2^D, lo > hi, a stack with fewer planes than 2 + D, a shard
-   with no value; group padding; shifts by 1, 31, 32, 33 and 32 W - 1;
+   with no value; group padding; K4's grouped mode at 2, 16, 17, 32 and
+   40 masks and depths 5, 20, 24, 25, 30 and 63, on the edge stack and a
+   plane that ends half-way through a 256-bit step, K6 past one pass of
+   masks and of ids; shifts by 1, 31, 32, 33 and 32 W - 1;
    K1 at its limits on small planes (a program of 256 leaves, 16
    conditions of depth 63, a stack 32 deep, null leaves, container
    leaves, W of 4 words); K3 deltas with K = 0, duplicates and _OOB
@@ -146,14 +152,19 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def k11_tensor_ops() -> dict:
-    """The tensor-core instructions in K11's SASS (``cuobjdump
-    --dump-sass`` of its built library), by opcode: BMMA, IMMA, HMMA or
-    the GMMA family."""
+# the sources whose SASS must hold binary MMAs: K11, and the split-K core
+# in K4's grouped mode and K6's gb_counts
+TENSOR_CORE_SOURCES = ("pairwise", "bsi_sum", "groupby")
+
+
+def tensor_ops(stem: str) -> dict:
+    """The tensor-core instructions in the SASS of ``lib<stem>.so``
+    (``cuobjdump --dump-sass`` of the built library), by opcode: BMMA,
+    IMMA, HMMA or the GMMA family."""
     from pilosa_tpu_torch.ops import _cuda
 
     tool = os.path.join(os.path.dirname(_cuda.nvcc()), "cuobjdump")
-    sass = subprocess.run([tool, "--dump-sass", _cuda._lib_path(_cuda.PAIRWISE.stem)],
+    sass = subprocess.run([tool, "--dump-sass", _cuda._lib_path(stem)],
                           capture_output=True, text=True, timeout=120, check=True).stdout
     ops = {}
     for m in re.finditer(r"\b(?:[BIH]MMA|[A-Z]*GMMA)(?:\.\w+)*", sass):
@@ -282,7 +293,9 @@ def ops_ms(n_ops: int) -> float:
 
 def kernel_entry(k, launches: dict, err: int, t: dict, path: str) -> dict:
     """One kernel's entry of the JSON line: its launches on ``path``, the
-    path it is measured for, and its counts on every path beside them."""
+    path it is measured for, and its counts on every path beside them; a
+    kernel timed at more than one shape or mode has an entry for each,
+    its ``shape`` telling them apart."""
     return {
         "name": k.name,
         "route": "cuda",
@@ -300,6 +313,7 @@ def kernel_entry(k, launches: dict, err: int, t: dict, path: str) -> dict:
         "graph_ms": t.get("graph_ms"),
         "library_graph_ms": t.get("library_graph_ms"),
         "path": path,
+        "shape": t.get("shape"),
         "launches_by_path": launches,
     }
 
@@ -777,7 +791,7 @@ def taxi_path(torch, device: str, n_shards: int) -> list:
     log("launches on the taxi path:", json.dumps(launches))
     log("launches on the taxi path by mode:", json.dumps({n: k.modes for n, k in _cuda.KERNELS.items() if k.modes}))
     path_kernels = ("tree_eval", "bsi_sum", "bsi_minmax", "gb_counts", "gb_masks")
-    if on_card and any(launches[n] <= 0 for n in path_kernels):
+    if on_card and (any(launches[n] <= 0 for n in path_kernels) or _cuda.BSI_SUM.modes.get("grouped", 0) <= 0):
         raise AssertionError(f"a kernel of the taxi path never launched: {launches}")
 
     # ------------------------------------------- kernels vs plain versions
@@ -817,11 +831,20 @@ def taxi_path(torch, device: str, n_shards: int) -> list:
     # fused GroupBy's 4 level-0 masks (1 padding)
     masks16 = ops.gb_masks(ones[None], pcm, i32([0] * 16), rows16)
     masks4 = ops.gb_masks(ones[None], cabm, i32([0] * 4), rows_c)
-    # 20 masks and depth 30 take the grouped kernel's second group and
-    # plane passes
-    masks20 = torch.cat([masks16, masks4])
+    # the grouped mode's tensor-core product at the edges of its passes:
+    # 2, 16, 17 (a third mask octet), 32 and 40 masks (a second pass of
+    # masks), depths 5, 20, 24, 25 (a second pass of columns), 30 and 63,
+    # the edge stack, and a tail shape (3 shards of 36 words: the plane
+    # ends half-way through a 256-bit step); the one-mask kernel at depth
+    # 40 takes its second plane pass
+    masks40 = torch.cat([masks16, masks4, masks16, masks4])
+    masks2, masks17, masks32 = masks4[:2], masks40[:17], masks40[:32]
+    tail = torch.randint(-(2**31), 2**31 - 1, (22, 3, 36), dtype=torch.int32, device=dev)
+    tail_masks = torch.randint(-(2**31), 2**31 - 1, (17, 3, 36), dtype=torch.int32, device=dev)
     for st, d, m in ((bm, D, None), (bm, D, masks16), (bm, 5, None), (edge, D, None), (edge, D, masks4),
-                     (bm, D, masks20), (bm, 30, masks4), (bm, 40, None)):
+                     (bm, 30, masks4), (bm, 40, None), (bm, D, masks2), (bm, 24, masks17), (bm, 25, masks32),
+                     (bm, 30, masks40), (bm, 5, masks17), (edge, 63, masks16), (edge, D, masks2),
+                     (tail, D, tail_masks), (tail, 63, tail_masks[:2])):
         got = ops.bsi_sum(st, d, m)
         want = bsi.bsi_sum_plain(st, d, m)
         errs["bsi_sum"] = max([errs["bsi_sum"]] + [max_abs_err(torch, a, b) for a, b in zip(got, want)])
@@ -834,8 +857,12 @@ def taxi_path(torch, device: str, n_shards: int) -> list:
         want = bsi.bsi_min_max_plain(st, D, f, want_max)
         errs["bsi_minmax"] = max([errs["bsi_minmax"]] + [max_abs_err(torch, a, b) for a, b in zip(got, want)])
     edge2 = edge[:2].contiguous()
+    # and past one pass each way: 40 masks against 67 ids (16 rows four
+    # times, -1, R and 2^30), and the tail shape
     for m, mat, rows in ((masks4, pcm, rows16), (masks4, pcm, i32([9, -1, 16, 2**30, 0, 3])),
-                         (masks16, cabm, rows_c), (edge2, pcm, rows16)):
+                         (masks16, cabm, rows_c), (edge2, pcm, rows16),
+                         (masks40, pcm, i32(list(range(16)) * 4 + [-1, 16, 2**30])),
+                         (tail_masks, tail, i32([0, 21, -1, 22, 5]))):
         got = ops.gb_counts(m, mat, rows)
         want = groupby.gb_counts_plain(m, mat, rows)
         errs["gb_counts"] = max(errs["gb_counts"], max_abs_err(torch, got, want))
@@ -868,7 +895,7 @@ def taxi_path(torch, device: str, n_shards: int) -> list:
     log("max |kernel - plain| on the taxi path's shapes:", json.dumps(errs))
     if any(errs.values()):
         raise AssertionError(f"a kernel disagrees with its plain version: {errs}")
-    del edge, edge2, filt0, masks20, pf_edge
+    del edge, edge2, filt0, masks40, masks2, masks17, tail, tail_masks, pf_edge
     if on_card:
         torch.cuda.empty_cache()
 
@@ -887,11 +914,23 @@ def taxi_path(torch, device: str, n_shards: int) -> list:
         bound_ms=bound_ms((2 + D) * plane),
         library_ms=None,
     )
+    # the aggregate GroupBy's 16 masks, and 32 (the mask budget's chunk
+    # at 1,024 shards): one pass each, every plane and mask read once
     k4g = dict(
-        ms=cuda_ms(torch, lambda: ops.bsi_sum(bm, D, masks16), 5),
+        ms=cuda_ms(torch, lambda: ops.bsi_sum(bm, D, masks16), 10),
         plain_ms=cuda_ms(torch, lambda: bsi.bsi_sum_plain(bm, D, masks16), 1),
-        bound_ms=bound_ms((2 + D + 16) * plane),
+        bound_ms=bound_ms((2 + D + 16) * plane), library_ms=None,
+        shape=f"grouped, 16 masks x [{2 + D}, {n_shards}, {W}], {len(bsi.grouped_passes(16, D))} pass",
+        replaces="pilosa_tpu/executor/executor.py:1088",
     )
+    k4g32 = dict(
+        ms=cuda_ms(torch, lambda: ops.bsi_sum(bm, D, masks32), 10),
+        plain_ms=cuda_ms(torch, lambda: bsi.bsi_sum_plain(bm, D, masks32), 1),
+        bound_ms=bound_ms((2 + D + 32) * plane), library_ms=None,
+        shape=f"grouped, 32 masks x [{2 + D}, {n_shards}, {W}], {len(bsi.grouped_passes(32, D))} pass",
+        replaces="pilosa_tpu/executor/executor.py:1088",
+    )
+    del masks32
     k5 = dict(
         ms=cuda_ms(torch, lambda: ops.bsi_min_max(bm, D, None, False), 20),
         plain_ms=cuda_ms(torch, lambda: bsi.bsi_min_max_plain(bm, D, None, False), 2),
@@ -905,7 +944,11 @@ def taxi_path(torch, device: str, n_shards: int) -> list:
         plain_ms=cuda_ms(torch, lambda: groupby.gb_counts_plain(masks4, pcm, rows16), 2),
         bound_ms=bound_ms((4 + 10) * plane),
         library_ms=None,
+        shape="4 masks x 10 rows (16 ids)",
     )
+    # the other way round: the aggregate GroupBy's 16 masks against cab_type's 3 rows
+    times["gb_counts_16x3_ms"] = cuda_ms(torch, lambda: ops.gb_counts(masks16, cabm, rows_c), 20)
+    times["gb_counts_16x3_bound_ms"] = bound_ms((16 + 3) * plane)
     # the aggregate GroupBy's level: 1 base mask and 10 rows in, 16 masks out
     k6m = dict(
         ms=cuda_ms(torch, lambda: ops.gb_masks(ones[None], pcm, zeros16, rows16), 10),
@@ -947,18 +990,16 @@ def taxi_path(torch, device: str, n_shards: int) -> list:
     times.update({
         "tree_eval_cmp_ms": k1c["ms"], "tree_eval_cmp_plain_ms": k1c["plain_ms"],
         "tree_eval_cmp_bound_ms": k1c["bound_ms"], "tree_eval_taxi_launches": launches["tree_eval"],
-        "bsi_sum_grouped16_ms": k4g["ms"], "bsi_sum_grouped16_plain_ms": k4g["plain_ms"],
-        "bsi_sum_grouped16_bound_ms": k4g["bound_ms"],
     })
     log("taxi times:", json.dumps(times))
-    results = {"bsi_sum": k4, "bsi_minmax": k5, "gb_counts": k6c, "gb_masks": k6m,
-               "row_counts_tree": k2t, "bsi_sum_tree": k4t, "bsi_minmax_tree": k5t}
+    results = {"bsi_sum": k4, "bsi_sum grouped16": k4g, "bsi_sum grouped32": k4g32, "bsi_minmax": k5,
+               "gb_counts": k6c, "gb_masks": k6m, "row_counts_tree": k2t, "bsi_sum_tree": k4t, "bsi_minmax_tree": k5t}
     taxi = {
         "holder": h, "index": idx, "api": api, "blocks": blocks, "mult": mult, "checks": checks, "answers": answers,
         "depth": depth, "p50": {"sum": times["taxi_sum_p50_ms"], "groupby": times["taxi_groupby_fused_p50_ms"]},
         "fused": [(pql, want) for pql, want in fused_cases if "Shift" not in pql],
     }
-    return {name: (errs[name], t) for name, t in results.items()}, launches, taxi
+    return {name: (errs[name.split()[0]], t) for name, t in results.items()}, launches, taxi
 
 
 def bitmap_of_runs(ranges):
@@ -1062,15 +1103,23 @@ def residency_path(torch, device: str, taxi: dict, budget: "int | None" = None) 
     topn_want = sorted(((i, int(totals[i])) for i in ids if totals[i]), key=lambda rc: (-rc[1], rc[0]))[:5]
     gb_days = 16
     gb = np.zeros(3 * gb_days, dtype=np.int64)
+    day_sum = np.zeros(gb_days, dtype=np.int64)  # the days' total_amount, for the aggregate
     for s in range(-(-(gb_days * rpd) // SW)):
         cols = np.arange(SW, dtype=np.int64)[: max(0, min(SW, gb_days * rpd - s * SW))]
         dd = (s * SW + cols) // rpd
-        gb += np.bincount(blocks[s % T_G]["cab"][: cols.size] * gb_days + dd, minlength=3 * gb_days)
+        b = blocks[s % T_G]
+        gb += np.bincount(b["cab"][: cols.size] * gb_days + dd, minlength=3 * gb_days)
+        has_c = b["has"][: cols.size]
+        np.add.at(day_sum, dd[has_c], b["amt"][: cols.size][has_c])
     gb_want = [
         {"group": [{"field": "cab_type", "rowID": k // gb_days}, {"field": "pickup_day", "rowID": k % gb_days}],
          "count": int(gb[k])}
         for k in np.flatnonzero(gb).tolist()
     ]
+    # GroupBy's aggregate over the streamed level's 16 masks (K4 grouped)
+    day_n = gb.reshape(3, gb_days).sum(axis=0)
+    gb_sum_want = [{"group": [{"field": "pickup_day", "rowID": d}], "count": int(day_n[d]), "sum": int(day_sum[d])}
+                   for d in range(gb_days) if day_n[d]]
     queries = [  # (name, PQL, numpy's answer)
         ("count_cab_day", f"Count(Intersect(Row(cab_type=1), Row(pickup_day={day})))",
          on_day(lambda s, sl: (blocks[s % T_G]["cab"][sl] == 1).sum())),
@@ -1084,6 +1133,8 @@ def residency_path(torch, device: str, taxi: dict, budget: "int | None" = None) 
         ("topn_ids", f"TopN(dropoff_cell, n=5, ids=[{', '.join(map(str, ids))}])",
          [{"id": r, "count": c} for r, c in topn_want]),
         ("groupby_day", f"GroupBy(Rows(cab_type), Rows(pickup_day, limit={gb_days}))", gb_want),
+        ("groupby_day_sum", f"GroupBy(Rows(pickup_day, limit={gb_days}), aggregate=Sum(field=total_amount))",
+         gb_sum_want),
     ]
     # the fused filters over container leaves: the day's run row and the
     # tail's sparse row as the filters of a TopN (plain and ids=), a Min
@@ -1226,6 +1277,7 @@ def residency_path(torch, device: str, taxi: dict, budget: "int | None" = None) 
         any(launches[n] <= 0 for n in ("tree_eval", "container_count", "stack_delta", "row_counts", "gb_counts", "bsi_sum"))
         or not any("containers" in m for m in modes["tree_eval"])
         or modes["stack_delta"].get("rows", 0) <= 0 or modes["stack_delta"].get("hot", 0) <= 0
+        or modes["bsi_sum"].get("grouped", 0) <= 0
     ):
         raise AssertionError(f"a kernel of the residency path never launched: {modes}")
     if on_card:
@@ -2029,7 +2081,7 @@ def mesh_path(torch, device: str, main: dict, taxi: dict, sim_block: int) -> tup
     log("launches on the mesh path by mode:", json.dumps({n: k.modes for n, k in _cuda.KERNELS.items() if k.modes}))
     path_kernels = ("tree_eval", "row_counts", "stack_delta", "bsi_sum", "bsi_minmax", "gb_counts", "gb_masks",
                     "sim_select", "pairwise", "mesh_sim_keys", "mesh_pairwise_finish")
-    if on_card and any(launches[n] <= 0 for n in path_kernels):
+    if on_card and (any(launches[n] <= 0 for n in path_kernels) or _cuda.BSI_SUM.modes.get("grouped", 0) <= 0):
         raise AssertionError(f"a kernel of the mesh path never launched: {launches}")
     if launches["shift_words"] != 2 * on_card:
         raise AssertionError(f"Shift ran {launches['shift_words']} K7 launches, not one a layout")
@@ -2184,6 +2236,11 @@ def mesh_path(torch, device: str, main: dict, taxi: dict, sim_block: int) -> tup
             ms=cuda_ms(torch, lambda: ops.bsi_sum(tbm, D), 20), plain_ms=cuda_ms(torch, lambda: bsi.bsi_sum_plain(tbm, D), 2),
             bound_ms=bound_ms((2 + D) * tplane), library_ms=None, shape=f"Sum, 4x2 block [32, {ts_l}, {w_l}]",
             replaces="pilosa_tpu/parallel/mesh.py:440"),
+        "bsi_sum grouped": dict(
+            ms=cuda_ms(torch, lambda: ops.bsi_sum(tbm, D, masks16), 20),
+            plain_ms=cuda_ms(torch, lambda: bsi.bsi_sum_plain(tbm, D, masks16), 1),
+            bound_ms=bound_ms((2 + D + 16) * tplane), library_ms=None,
+            shape=f"grouped, 16 masks x 4x2 block [{2 + D}, {ts_l}, {w_l}]", replaces="pilosa_tpu/parallel/mesh.py:471"),
         "bsi_minmax": dict(
             ms=cuda_ms(torch, lambda: ops.bsi_min_max(tbm, D, None, False), 20),
             plain_ms=cuda_ms(torch, lambda: bsi.bsi_min_max_plain(tbm, D, None, False), 2),
@@ -2251,7 +2308,7 @@ def mesh_path(torch, device: str, main: dict, taxi: dict, sim_block: int) -> tup
             f"mesh 4x2 {times['4x2_' + key + '_p50_ms']:.3f} ms")
     del block_inputs, pairwise_out
     free()
-    return {n: (errs[n], t) for n, t in results.items()}, launches
+    return {n: (errs[n.split()[0]], t) for n, t in results.items()}, launches
 
 
 GRAFT_SEED = 6  # the graft step's delta and filter
@@ -2723,10 +2780,11 @@ def main(
         t0 = time.perf_counter()
         build_s = _cuda.build(_cuda.SOURCES, force=True)
         log(f"kernel build: {time.perf_counter() - t0:.3f} s wall, per source {json.dumps(build_s)}")
-        tensor_ops = k11_tensor_ops()
-        log("K11 SASS tensor-core instructions:", json.dumps(tensor_ops))
-        if not tensor_ops:
-            raise AssertionError("K11's SASS holds no tensor-core instruction")
+        for stem in TENSOR_CORE_SOURCES:
+            found = tensor_ops(stem)
+            log(f"{stem}.cu SASS tensor-core instructions:", json.dumps(found))
+            if not any(op.startswith("BMMA") for op in found):
+                raise AssertionError(f"{stem}.cu's SASS holds no binary MMA")
 
     def sync():
         if on_card:
@@ -3162,10 +3220,13 @@ def main(
              ("residency", res_results, res_launches), ("similarity", sim_results, sim_launches),
              ("mesh", mesh_results, mesh_launches), ("graft", graft_results, graft_launches),
              ("mesh_programs", prog_results, prog_launches))
+    # a result's key is the kernel's name, then (for a second entry of
+    # one kernel) what it times
     kernels = [
-        kernel_entry(_cuda.KERNELS[name], {p: launches[name] for p, _r, launches in paths}, err, t, path)
+        kernel_entry(_cuda.KERNELS[key.split()[0]], {p: launches[key.split()[0]] for p, _r, launches in paths},
+                     err, t, path)
         for path, results, _launches in paths
-        for name, (err, t) in results.items()
+        for key, (err, t) in results.items()
     ]
     for t in kernels:
         log(f"{t['name']}: {t['ms']:.4f} ms (bound {t['bound_ms']:.4f} ms by {t['bound_by']}, "

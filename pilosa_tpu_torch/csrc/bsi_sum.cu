@@ -16,20 +16,27 @@
 // host (weigh_sum). A plane at or past P reads as zero.
 //
 // Bound on the H100: bytes, the 2 + D stack planes and the G masks read
-// once. Design: G x D counters do not fit in registers, and a block per
-// mask would read the stack G times. So each thread holds its 16 B
-// vector of up to 24 magnitude planes (and exists, sign) in registers
-// and loops over the masks, reading each mask vector once (the next one
-// is in flight while a mask's counts run); every (mask, plane) count is
-// reduced across the warp at once (REDUX) into per-warp shared
-// counters, and each block adds one 64-bit atomic per counter at the
-// end. So the stack crosses from device memory once per pass and the
-// masks once; a deeper field, or more than 16 masks, takes further
-// passes. The work is G * D popcounts per word: three words of a vector
-// go through a carry-save adder first (popc(a) + popc(b) + popc(c) =
-// popc(a ^ b ^ c) + 2 popc(maj(a, b, c))), which saves a quarter of
-// them. One mask (Sum) takes the same kernel: on the card it ran faster
-// than a variant keeping per-thread counters over many vectors.
+// once.
+// One mask (Sum, and the filtered Sum): each thread holds its 16 B vector
+// of up to 24 magnitude planes (and exists, sign) in registers and ANDs
+// them with its mask vector; every plane's count is reduced across the
+// warp at once (REDUX) into per-warp shared counters, and each block adds
+// one 64-bit atomic per counter at the end. The work is 2 D + 1
+// popcounts a word: three words of a vector go through a carry-save adder first
+// (popc(a) + popc(b) + popc(c) = popc(a ^ b ^ c) + 2 popc(maj(a, b, c))),
+// which saves a quarter of them. On the card it ran faster than a
+// variant keeping per-thread counters over many vectors.
+// Grouped mode (G >= BS_MMA_MIN_GROUPS masks, GroupBy's aggregate=Sum):
+// on the CUDA cores the same design costs 2 G D ANDs and popcounts a
+// word, bound by arithmetic (10.1 ms for 16 masks at the taxi shape
+// against 1.5 ms of bytes). There the counts are a binary product, masks
+// against the magnitude planes, with a huge inner dimension: the split-K
+// core of bmma.cuh on the tensor cores, each mask's P_g = m_g & e & ~s
+// and N_g = m_g & e & s formed in registers, the magnitude planes and a
+// column of ones as B. A pass takes BM_A_PLANES masks and BM_BSI_COLS
+// columns (D + 1 of them): at G <= 32 and D <= 23 one pass reads every
+// plane and mask once; more masks, or a deeper field, take further
+// passes, ceil(G / 32) * ceil((D + 1) / 24) in all.
 //
 // bsi_sum_tree: one mask that is a call tree (tree_interp.cuh), the
 // filtered Sum's filter, evaluated in the kernel where the reference
@@ -43,10 +50,12 @@
 // registers) little else hides their latency. Grouped mode has no tree:
 // GroupBy's masks are built planes, as the reference's are
 // (executor.py:1606-1616).
+#include "bmma.cuh"
 #include "tree_interp.cuh"
 
+#define BS_MMA_MIN_GROUPS 2  // masks from which bsi_sum runs the tensor-core product
+
 #define BS_KCH 24  // magnitude planes held in registers per pass
-#define BS_GCH 16  // masks per pass (per-warp shared counters)
 #define BS_NC (2 * BS_KCH + 1)
 
 // popcount of a 16 B vector with three of its words through a full adder
@@ -56,23 +65,21 @@ __device__ __forceinline__ unsigned bs_popc4(uint4 v) {
   return __popc(s) + __popc(v.w) + 2u * __popc(c);
 }
 
-// One pass: masks g0.. and planes k0.. . With TREE the one mask is the
-// program `filt` (null otherwise); without, `masks` or all ones.
+// One pass over planes k0.. under one mask: with TREE the program `filt`;
+// without, the plane `mask`, or all ones where it is null.
 template <bool TREE>
 __device__ __forceinline__ void bs_pass(const TreeArgs* filt,
                                         const uint4* __restrict__ stack,
                                         long long n_vec, int present,
                                         int depth,
-                                        const uint4* __restrict__ masks,
-                                        int n_groups, int k0, int g0,
+                                        const uint4* __restrict__ mask, int k0,
                                         unsigned long long* __restrict__ pos_out,
                                         unsigned long long* __restrict__ neg_out,
                                         unsigned long long* __restrict__ n_out) {
-  __shared__ unsigned s_cnt[PT_BLOCK / 32][BS_GCH][BS_NC];
+  __shared__ unsigned s_cnt[PT_BLOCK / 32][BS_NC];
   const int kn = depth - k0 < BS_KCH ? depth - k0 : BS_KCH;
-  const int gn = n_groups - g0 < BS_GCH ? n_groups - g0 : BS_GCH;
-  for (int c = threadIdx.x; c < (PT_BLOCK / 32) * BS_GCH * BS_NC; c += PT_BLOCK) {
-    (&s_cnt[0][0][0])[c] = 0u;
+  for (int c = threadIdx.x; c < (PT_BLOCK / 32) * BS_NC; c += PT_BLOCK) {
+    (&s_cnt[0][0])[c] = 0u;
   }
   __syncthreads();
   const int lane = threadIdx.x & 31;
@@ -92,47 +99,39 @@ __device__ __forceinline__ void bs_pass(const TreeArgs* filt,
     // the filter after the planes' loads are issued, so its leaf loads
     // wait with theirs rather than before them
     const uint4 f = TREE && ok ? te_eval(*filt, i) : pt_ones4();
-    // the next mask's vector is loaded while this one's counts run; no
-    // masks means one mask of all ones
-    uint4 m_next = !ok ? pt_zero4() : TREE ? f : masks != nullptr ? masks[(long long)g0 * n_vec + i] : pt_ones4();
-    for (int g = 0; g < gn; ++g) {
-      const uint4 m = m_next;
-      if (!TREE && ok && masks != nullptr && g + 1 < gn) m_next = masks[(long long)(g0 + g + 1) * n_vec + i];
-      const uint4 e = pt_and4(ex, m);
-      const uint4 p = pt_andn4(e, sg);
-      const uint4 q = pt_and4(e, sg);
-      unsigned* cnt = s_cnt[warp][g];
+    const uint4 m = !ok ? pt_zero4() : TREE ? f : mask != nullptr ? mask[i] : pt_ones4();
+    const uint4 e = pt_and4(ex, m);
+    const uint4 p = pt_andn4(e, sg);
+    const uint4 q = pt_and4(e, sg);
+    unsigned* cnt = s_cnt[warp];
 #pragma unroll
-      for (int j = 0; j < BS_KCH; ++j) {
-        if (j < kn) {
-          const unsigned a = __reduce_add_sync(0xffffffffu, bs_popc4(pt_and4(mag[j], p)));
-          const unsigned z = __reduce_add_sync(0xffffffffu, bs_popc4(pt_and4(mag[j], q)));
-          if (lane == 0) {
-            cnt[2 * j] += a;
-            cnt[2 * j + 1] += z;
-          }
+    for (int j = 0; j < BS_KCH; ++j) {
+      if (j < kn) {
+        const unsigned a = __reduce_add_sync(0xffffffffu, bs_popc4(pt_and4(mag[j], p)));
+        const unsigned z = __reduce_add_sync(0xffffffffu, bs_popc4(pt_and4(mag[j], q)));
+        if (lane == 0) {
+          cnt[2 * j] += a;
+          cnt[2 * j + 1] += z;
         }
       }
-      if (k0 == 0) {
-        const unsigned c = __reduce_add_sync(0xffffffffu, bs_popc4(e));
-        if (lane == 0) cnt[2 * BS_KCH] += c;
-      }
+    }
+    if (k0 == 0) {
+      const unsigned c = __reduce_add_sync(0xffffffffu, bs_popc4(e));
+      if (lane == 0) cnt[2 * BS_KCH] += c;
     }
   }
   __syncthreads();
-  for (int c = threadIdx.x; c < gn * BS_NC; c += PT_BLOCK) {
-    const int g = c / BS_NC;
-    const int r = c % BS_NC;
+  for (int r = threadIdx.x; r < BS_NC; r += PT_BLOCK) {
     if (r >= 2 * kn && r != 2 * BS_KCH) continue;
     if (r == 2 * BS_KCH && k0 != 0) continue;
     unsigned long long t = 0;
 #pragma unroll
-    for (int w = 0; w < PT_BLOCK / 32; ++w) t += s_cnt[w][g][r];
+    for (int w = 0; w < PT_BLOCK / 32; ++w) t += s_cnt[w][r];
     if (t == 0) continue;
     if (r == 2 * BS_KCH) {
-      atomicAdd(&n_out[g0 + g], t);
+      atomicAdd(n_out, t);
     } else {
-      const long long o = (long long)(g0 + g) * depth + k0 + r / 2;
+      const int o = k0 + r / 2;
       atomicAdd((r & 1) ? &neg_out[o] : &pos_out[o], t);
     }
   }
@@ -140,13 +139,12 @@ __device__ __forceinline__ void bs_pass(const TreeArgs* filt,
 
 __global__ void __launch_bounds__(PT_BLOCK)
     bsi_sum_kernel(const uint4* __restrict__ stack, long long n_vec,
-                   int present, int depth, const uint4* __restrict__ masks,
-                   int n_groups, int k0, int g0,
-                   unsigned long long* __restrict__ pos_out,
+                   int present, int depth, const uint4* __restrict__ mask,
+                   int k0, unsigned long long* __restrict__ pos_out,
                    unsigned long long* __restrict__ neg_out,
                    unsigned long long* __restrict__ n_out) {
-  bs_pass<false>(nullptr, stack, n_vec, present, depth, masks, n_groups, k0,
-                 g0, pos_out, neg_out, n_out);
+  bs_pass<false>(nullptr, stack, n_vec, present, depth, mask, k0, pos_out,
+                 neg_out, n_out);
 }
 
 __global__ void __launch_bounds__(PT_BLOCK)
@@ -156,8 +154,8 @@ __global__ void __launch_bounds__(PT_BLOCK)
                         unsigned long long* __restrict__ pos_out,
                         unsigned long long* __restrict__ neg_out,
                         unsigned long long* __restrict__ n_out) {
-  bs_pass<true>(&filt, stack, n_vec, present, depth, nullptr, 1, k0, 0,
-                pos_out, neg_out, n_out);
+  bs_pass<true>(&filt, stack, n_vec, present, depth, nullptr, k0, pos_out,
+                neg_out, n_out);
 }
 
 static_assert(TE_PARAMS_FIT(8), "bsi_sum_tree's parameters pass 4 KB");
@@ -172,9 +170,40 @@ static long long bs_grid(long long n_vec) {
   return grid;
 }
 
+// Grouped mode: the passes of the split-K product, masks g0.. against
+// columns c0.. (magnitude bits, then the ones that count n).
+static int bs_grouped(const void* stack, long long n_vec, int present, int depth,
+                      const void* masks, int n_groups, void* pos, void* neg, void* n,
+                      cudaStream_t s) {
+  if (!pt_aligned16(stack) || !pt_aligned16(masks)) return (int)cudaErrorMisalignedAddress;
+  for (int g0 = 0; g0 < n_groups; g0 += BM_A_PLANES) {
+    for (int c0 = 0; c0 <= depth; c0 += BM_BSI_COLS) {
+      BmArgs a = {};
+      a.a = (const uint4*)masks + (long long)g0 * n_vec;
+      a.b = (const uint4*)stack;
+      a.out0 = (unsigned long long*)pos;
+      a.out1 = (unsigned long long*)neg;
+      a.out2 = (unsigned long long*)n;
+      a.n_vec = n_vec;
+      a.n_a = n_groups - g0 < BM_A_PLANES ? n_groups - g0 : BM_A_PLANES;
+      a.n_b = depth + 1 - c0 < BM_BSI_COLS ? depth + 1 - c0 : BM_BSI_COLS;
+      a.a0 = g0;
+      a.b0 = c0;
+      a.n_groups = n_groups;
+      a.n_cols = depth;
+      a.b_limit = present;
+      const int err = bm_launch<true>(a, s);
+      if (err != 0) return err;
+    }
+  }
+  return 0;
+}
+
 // stack: int32[present, S, W] with n_vec = S * W / 4; masks: int32[G, S, W]
 // or null (then n_groups == 1 and the mask is all ones); pos, neg: zeroed
-// int64[G, depth]; n: zeroed int64[G]. Returns cudaGetLastError().
+// int64[G, depth]; n: zeroed int64[G]. G >= BS_MMA_MIN_GROUPS masks run
+// the tensor-core product, one mask bsi_sum_kernel. Returns
+// cudaGetLastError().
 PT_EXPORT int bsi_sum(const void* stack, long long n_vec, int present,
                       int depth, const void* masks, int n_groups, void* pos,
                       void* neg, void* n, void* stream) {
@@ -182,21 +211,22 @@ PT_EXPORT int bsi_sum(const void* stack, long long n_vec, int present,
       depth > 63 || n_groups < 1 || (masks == nullptr && n_groups != 1)) {
     return (int)cudaErrorInvalidValue;
   }
+  cudaStream_t s = (cudaStream_t)stream;
+  if (n_groups >= BS_MMA_MIN_GROUPS) {
+    return bs_grouped(stack, n_vec, present, depth, masks, n_groups, pos, neg, n, s);
+  }
   const long long grid = bs_grid(n_vec);
   if (grid == 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  for (int g0 = 0; g0 < n_groups; g0 += BS_GCH) {
-    int k0 = 0;
-    do {
-      bsi_sum_kernel<<<(unsigned)grid, PT_BLOCK, 0, s>>>(
-          (const uint4*)stack, n_vec, present, depth, (const uint4*)masks,
-          n_groups, k0, g0, (unsigned long long*)pos,
-          (unsigned long long*)neg, (unsigned long long*)n);
-      const int err = (int)cudaGetLastError();
-      if (err != 0) return err;
-      k0 += BS_KCH;
-    } while (k0 < depth);
-  }
+  int k0 = 0;
+  do {
+    bsi_sum_kernel<<<(unsigned)grid, PT_BLOCK, 0, s>>>(
+        (const uint4*)stack, n_vec, present, depth, (const uint4*)masks, k0,
+        (unsigned long long*)pos, (unsigned long long*)neg,
+        (unsigned long long*)n);
+    const int err = (int)cudaGetLastError();
+    if (err != 0) return err;
+    k0 += BS_KCH;
+  } while (k0 < depth);
   return 0;
 }
 

@@ -10,61 +10,18 @@
 // Bound on the H100: bytes, the distinct planes read once (the G masks
 // and the K rows for gb_counts; the masks and rows named for gb_masks)
 // plus the output written once.
-// gb_counts design: grid (K, slices of the plane). Block (k, y) streams
-// its slice of row k once, 16 B per thread, and ANDs each vector with the
-// same vector of up to 8 masks at a time, keeping a 32-bit count per mask
-// in registers; more masks take further passes over the slice, which
-// come back from L2. Blocks of consecutive k run together over the same
-// slice, so the masks' bytes are read from device memory about once and
-// served to the other rows by L2 (the effect K2's filtered TopN showed).
-// A padding row returns before any load. Each block reduces its counts
-// with a warp REDUX and shared atomics, then adds one int64 per mask.
+// gb_counts design: the counts are a binary product, G masks against K
+// rows, with a tiny output and a huge inner dimension: the split-K core of
+// bmma.cuh on the tensor cores (A the masks, B the rows the ids pick). An
+// id of -1 or >= R issues no load and reads as a zero row. A pass takes
+// BM_A_PLANES masks and BM_PAIR_COLS ids: at G <= 32 and K <= 64 every
+// mask and every picked row crosses device memory once; more take
+// ceil(G / 32) * ceil(K / 64) passes, each reading its planes again. (The
+// first design, a block per (row, slice) re-reading the masks through
+// L2, grew its popcounts as G * K.)
 // gb_masks design: grid (P, slices); each block streams its slice of one
 // output plane from the two planes it names, or writes zeros.
-#include "common.cuh"
-
-#define GB_GCH 8  // masks per pass over a row slice
-
-__global__ void __launch_bounds__(PT_BLOCK)
-    gb_counts_kernel(const uint4* __restrict__ masks, long long n_groups,
-                     const uint4* __restrict__ m, long long n_rows,
-                     long long n_vec, const int* __restrict__ rows,
-                     long long n_out, unsigned long long* __restrict__ out) {
-  __shared__ unsigned long long s_cnt[GB_GCH];
-  const long long k = blockIdx.x;
-  const long long r = rows[k];
-  if (r < 0 || r >= n_rows) return;  // uniform over the block
-  const uint4* row = m + r * n_vec;
-  const long long step = (long long)gridDim.y * PT_BLOCK;
-  const int lane = threadIdx.x & 31;
-  for (long long g0 = 0; g0 < n_groups; g0 += GB_GCH) {
-    const int gn = n_groups - g0 < GB_GCH ? (int)(n_groups - g0) : GB_GCH;
-    if (threadIdx.x < GB_GCH) s_cnt[threadIdx.x] = 0;
-    __syncthreads();
-    unsigned c[GB_GCH];
-#pragma unroll
-    for (int j = 0; j < GB_GCH; ++j) c[j] = 0u;
-    for (long long i = (long long)blockIdx.y * PT_BLOCK + threadIdx.x;
-         i < n_vec; i += step) {
-      const uint4 v = row[i];
-#pragma unroll
-      for (int j = 0; j < GB_GCH; ++j) {
-        if (j < gn) c[j] += pt_popc4(pt_and4(v, masks[(g0 + j) * n_vec + i]));
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < GB_GCH; ++j) {
-      if (j < gn) {
-        const unsigned t = __reduce_add_sync(0xffffffffu, c[j]);
-        if (lane == 0 && t) atomicAdd(&s_cnt[j], (unsigned long long)t);
-      }
-    }
-    __syncthreads();
-    if (threadIdx.x < gn && s_cnt[threadIdx.x]) {
-      atomicAdd(&out[(g0 + threadIdx.x) * n_out + k], s_cnt[threadIdx.x]);
-    }
-  }
-}
+#include "bmma.cuh"
 
 __global__ void __launch_bounds__(PT_BLOCK)
     gb_masks_kernel(uint4* __restrict__ out, const uint4* __restrict__ masks,
@@ -101,21 +58,34 @@ static unsigned gb_slices(long long n_out, long long n_vec) {
 PT_EXPORT int gb_counts(const void* masks, long long n_groups, const void* m,
                         long long n_rows, long long n_vec, const void* rows,
                         long long n_out, void* out, void* stream) {
-  if (n_vec <= 0 || n_groups < 1 || n_rows < 1 || n_out < 0 ||
+  if (n_vec <= 0 || n_groups < 1 || n_groups > 0x7fffffffLL || n_rows < 1 || n_out < 0 ||
       n_out > 0x7fffffffLL) {
     return (int)cudaErrorInvalidValue;
   }
   if (n_out == 0) return (int)cudaGetLastError();
-  const unsigned per = gb_slices(n_out, n_vec);
-  // a thread's 32-bit counters hold at most 128 bits per vector it reads
-  if ((n_vec + (long long)per * PT_BLOCK - 1) / ((long long)per * PT_BLOCK) > (1ll << 24)) {
-    return (int)cudaErrorInvalidValue;
+  if (!pt_aligned16(masks) || !pt_aligned16(m)) return (int)cudaErrorMisalignedAddress;
+  // ids are int32: every one is below a larger R
+  const int limit = n_rows < 0x7fffffffLL ? (int)n_rows : 0x7fffffff;
+  for (long long g0 = 0; g0 < n_groups; g0 += BM_A_PLANES) {
+    for (long long k0 = 0; k0 < n_out; k0 += BM_PAIR_COLS) {
+      BmArgs a = {};
+      a.a = (const uint4*)masks + g0 * n_vec;
+      a.b = (const uint4*)m;
+      a.ids = (const int*)rows + k0;
+      a.out0 = (unsigned long long*)out;
+      a.n_vec = n_vec;
+      a.n_a = (int)(n_groups - g0 < BM_A_PLANES ? n_groups - g0 : BM_A_PLANES);
+      a.n_b = (int)(n_out - k0 < BM_PAIR_COLS ? n_out - k0 : BM_PAIR_COLS);
+      a.a0 = (int)g0;
+      a.b0 = (int)k0;
+      a.n_groups = (int)n_groups;
+      a.n_cols = (int)n_out;
+      a.b_limit = limit;
+      const int err = bm_launch<false>(a, (cudaStream_t)stream);
+      if (err != 0) return err;
+    }
   }
-  dim3 grid((unsigned)n_out, per);
-  gb_counts_kernel<<<grid, PT_BLOCK, 0, (cudaStream_t)stream>>>(
-      (const uint4*)masks, n_groups, (const uint4*)m, n_rows, n_vec,
-      (const int*)rows, n_out, (unsigned long long*)out);
-  return (int)cudaGetLastError();
+  return 0;
 }
 
 // out: int32[P, S, W]; masks: int32[G, S, W]; m: int32[R, S, W];

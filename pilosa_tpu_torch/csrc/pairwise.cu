@@ -13,9 +13,9 @@
 // product into a sum). The reference unpacks the bits to bf16 and takes
 // one matrix product on the matrix unit; here the product runs on the
 // packed words with the tensor cores' binary MMA,
-// mma.m16n8k256.row.col.s32.b1.b1.s32.and.popc: AND, then popcount, of
-// 256-bit slices, summed into int32 (exact), so nothing is unpacked and
-// the [N, M] counts are never written out and read back.
+// mma.m16n8k256.row.col.s32.b1.b1.s32.and.popc (bmma.cuh): AND, then
+// popcount, of 256-bit slices, summed into int32 (exact), so nothing is
+// unpacked and the [N, M] counts are never written out and read back.
 //
 // Bound on the H100: the unpacked product is 2 * N * M * 32W operations,
 // 0.56 ms at the int8 tensor rate for N = M = 16,384 and 2048-bit rows,
@@ -31,7 +31,7 @@
 // The epilogue stages each warp's 16 x 32 slab of f32 through shared
 // memory and writes it a 128 B row at a time. The grid is one dimension
 // over the tiles, so N takes any int32 row count.
-#include "common.cuh"
+#include "bmma.cuh"
 
 #define PW_BM 128    // output rows per block
 #define PW_BN 128    // output columns per block
@@ -45,10 +45,6 @@
 
 static_assert(PW_BM == PW_BN, "one loader serves both tiles");
 static_assert(8 * 16 * PW_OUT_LD <= 4 * PW_TILE_WORDS, "the epilogue's staging fits the tiles");
-
-__device__ __forceinline__ unsigned pw_smem(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
 
 // One cp.async of `bytes` (16 or 4); `take` false zero-fills the
 // destination and reads nothing.
@@ -67,23 +63,6 @@ __device__ __forceinline__ void pw_commit() { asm volatile("cp.async.commit_grou
 template <int N>
 __device__ __forceinline__ void pw_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void pw_ldmatrix4(unsigned addr, unsigned& r0, unsigned& r1,
-                                             unsigned& r2, unsigned& r3) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-               : "r"(addr));
-}
-
-// c += popc(a AND b) over one m16n8k256 tile: a row-major 16 x 256 bits,
-// b column-major 256 x 8 bits.
-__device__ __forceinline__ void pw_mma(int* c, const unsigned* a, const unsigned* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 // Fill one stage: the 128 x 16-word slices of a's rows row0.. and b's rows
@@ -105,8 +84,8 @@ __device__ __forceinline__ void pw_load(unsigned* sa, unsigned* sb, const unsign
     const bool in_a = in_w && row0 + r < n, in_b = in_w && col0 + r < m;
     const unsigned* pa = a + (in_a ? (row0 + r) * n_words + w : 0);
     const unsigned* pb = b + (in_b ? (col0 + r) * n_words + w : 0);
-    pw_copy<VEC * 4>(pw_smem(sa + r * PW_LD + c), pa, in_a);
-    pw_copy<VEC * 4>(pw_smem(sb + r * PW_LD + c), pb, in_b);
+    pw_copy<VEC * 4>(pt_smem(sa + r * PW_LD + c), pa, in_a);
+    pw_copy<VEC * 4>(pt_smem(sb + r * PW_LD + c), pb, in_b);
   }
 }
 
@@ -166,18 +145,18 @@ __global__ void __launch_bounds__(PT_BLOCK, 2)
       unsigned fa[4][4], fb[4][2];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        pw_ldmatrix4(pw_smem(sa + (a_row + 16 * i) * PW_LD + ks * 8 + a_word), fa[i][0],
+        pt_ldmatrix4(pt_smem(sa + (a_row + 16 * i) * PW_LD + ks * 8 + a_word), fa[i][0],
                      fa[i][1], fa[i][2], fa[i][3]);
       }
 #pragma unroll
       for (int j = 0; j < 4; j += 2) {
-        pw_ldmatrix4(pw_smem(sb + (b_row + 8 * j) * PW_LD + ks * 8 + b_word), fb[j][0],
+        pt_ldmatrix4(pt_smem(sb + (b_row + 8 * j) * PW_LD + ks * 8 + b_word), fb[j][0],
                      fb[j][1], fb[j + 1][0], fb[j + 1][1]);
       }
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
 #pragma unroll
-        for (int j = 0; j < 4; ++j) pw_mma(acc[i][j], fa[i], fb[j]);
+        for (int j = 0; j < 4; ++j) pt_bmma(acc[i][j], fa[i], fb[j]);
       }
     }
     __syncthreads();  // the next load overwrites this stage

@@ -78,7 +78,8 @@ def _lib_path(name: str) -> str:
 
 def _stale(name: str) -> bool:
     """Whether ``lib<name>.so`` is older than its source or any header
-    in ``csrc/`` (``common.cuh``, ``bulk.cuh``, ``tree_interp.cuh``)."""
+    in ``csrc/`` (``common.cuh``, ``bulk.cuh``, ``bmma.cuh``,
+    ``tree_interp.cuh``)."""
     lib = _lib_path(name)
     if not os.path.exists(lib):
         return True

@@ -21,7 +21,9 @@ CUDA tensor launches the kernel or raises):
 
 - K4 ``bsi_sum`` (csrc/bsi_sum.cu): per-bit positive and negative counts
   and the value count under G masks → int64 ``pos[G, D]``,
-  ``neg[G, D]``, ``n[G]``;
+  ``neg[G, D]``, ``n[G]``; one mask on the CUDA cores, two or more
+  (GroupBy's aggregate=Sum, mode ``grouped``) as a binary product on the
+  tensor cores (``sum_route``, ``ops.bmma``);
 - K5 ``bsi_min_max`` (csrc/bsi_minmax.cu): the extreme value per shard
   and how many columns hold it → int64 ``value[S]``, ``count[S]``.
 
@@ -39,12 +41,16 @@ import ctypes
 
 import torch
 
-from pilosa_tpu_torch.ops import _cuda
+from pilosa_tpu_torch.ops import _cuda, bmma
 from pilosa_tpu_torch.ops.bitwise import PlannedFilter, popcount_plain, popcount_rows_plain
 
 # the widest word axis K5 takes: 8,192 vectors per shard, held in one
 # block's registers (csrc/bsi_minmax.cu)
 MINMAX_MAX_WORDS = 1 << 15
+
+# K4 runs the tensor cores' split-K product from this many masks up
+# (BS_MMA_MIN_GROUPS in csrc/bsi_sum.cu)
+GROUPED_MIN_MASKS = 2
 
 EXISTS_ROW = 0
 SIGN_ROW = 1
@@ -225,6 +231,22 @@ def _check_plane(t: torch.Tensor, shape: tuple, dev: torch.device, what: str) ->
         raise ValueError(f"{what} shape {tuple(t.shape)} != {shape}")
 
 
+def sum_route(n_groups: int, depth: int) -> str:
+    """K4's route for G masks at depth D: ``cores`` (one mask: each
+    thread's vector of every plane in registers, popcounts on the CUDA
+    cores) or ``bmma`` (G >= GROUPED_MIN_MASKS: the split-K binary
+    product of csrc/bmma.cuh, in ``grouped_passes(G, D)`` launches)."""
+    if n_groups < 1 or not 0 <= depth <= 63:
+        raise ValueError(f"{n_groups} masks at depth {depth}")
+    return "bmma" if n_groups >= GROUPED_MIN_MASKS else "cores"
+
+
+def grouped_passes(n_groups: int, depth: int) -> list[tuple[int, int, int, int]]:
+    """The passes of K4's ``bmma`` route: (first mask, masks, first
+    column, columns) over the D magnitude bits and the ones column."""
+    return bmma.passes(True, n_groups, depth + 1)
+
+
 def bsi_sum_plain(
     stack: torch.Tensor, depth: int, masks: torch.Tensor | None = None
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -286,7 +308,7 @@ def bsi_sum(
         pos.data_ptr(),
         neg.data_ptr(),
         n.data_ptr(),
-        mode="grouped" if n_groups > 1 else ("filtered" if masks is not None else "all"),
+        mode="grouped" if sum_route(n_groups, depth) == "bmma" else ("filtered" if masks is not None else "all"),
     )
     return pos, neg, n
 

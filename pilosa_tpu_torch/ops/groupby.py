@@ -10,13 +10,18 @@ takes the plain version, a CUDA tensor launches the kernel or raises.
 A row id of −1 (the executor's padding) or ≥ R gathers a zero row, as
 the reference's ``jnp.take(mode="fill", fill_value=0)``; so does a group
 index outside [0, G), which the executor never produces.
+
+``gb_counts`` runs the split-K binary product on the tensor cores
+(``csrc/bmma.cuh``, ``ops.bmma``): the G masks against the K rows the
+ids pick, in ``counts_passes(G, K)`` launches of the kernel; an id
+outside [0, R) loads nothing.
 """
 
 from __future__ import annotations
 
 import torch
 
-from pilosa_tpu_torch.ops import _cuda
+from pilosa_tpu_torch.ops import _cuda, bmma
 from pilosa_tpu_torch.ops.bitwise import popcount_rows_plain
 
 
@@ -50,6 +55,11 @@ def gb_masks_plain(
         if 0 <= g < masks.shape[0] and 0 <= r < matrix.shape[0]:
             torch.bitwise_and(masks[g], matrix[r], out=out[p])
     return out
+
+
+def counts_passes(n_groups: int, n_ids: int) -> list[tuple[int, int, int, int]]:
+    """The passes of ``gb_counts``: (first mask, masks, first id, ids)."""
+    return bmma.passes(False, n_groups, n_ids)
 
 
 def _check(masks: torch.Tensor, matrix: torch.Tensor, *index: torch.Tensor) -> None:

@@ -98,12 +98,13 @@ def test_chip_smoke_rehearses_on_the_cpu(capsys):
     assert [(k["path"], k["name"]) for k in kernels] == [
         ("main", "tree_eval"), ("main", "row_counts"), ("main", "stack_delta"), ("main", "shift_words"),
         ("main", "row_counts_tree"),
-        ("taxi", "bsi_sum"), ("taxi", "bsi_minmax"), ("taxi", "gb_counts"), ("taxi", "gb_masks"),
+        ("taxi", "bsi_sum"), ("taxi", "bsi_sum"), ("taxi", "bsi_sum"), ("taxi", "bsi_minmax"), ("taxi", "gb_counts"),
+        ("taxi", "gb_masks"),
         *(("taxi", n) for n in fused),
         ("residency", "tree_eval"), ("residency", "container_count"), ("residency", "stack_delta"),
         *(("residency", n) for n in fused),
         ("similarity", "sim_scan"), ("similarity", "sim_select"), ("similarity", "pairwise"),
-        ("mesh", "tree_eval"), ("mesh", "row_counts"), ("mesh", "stack_delta"), ("mesh", "bsi_sum"),
+        ("mesh", "tree_eval"), ("mesh", "row_counts"), ("mesh", "stack_delta"), ("mesh", "bsi_sum"), ("mesh", "bsi_sum"),
         ("mesh", "bsi_minmax"), ("mesh", "gb_counts"), ("mesh", "gb_masks"), ("mesh", "sim_select"),
         ("mesh", "pairwise"), ("mesh", "mesh_sim_keys"), ("mesh", "mesh_pairwise_finish"),
         *(("mesh", n) for n in fused),
@@ -117,7 +118,10 @@ def test_chip_smoke_rehearses_on_the_cpu(capsys):
     assert all(keys <= set(k) for k in kernels)
     paths = {"main", "taxi", "residency", "similarity", "mesh", "graft", "mesh_programs"}
     assert {k["launches_by_path"].keys() == paths for k in kernels} == {True}
-    pairwise = kernels[20]
+    # K4's grouped mode has entries of its own: 16 and 32 masks, per block
+    assert [k["path"] for k in kernels if k["name"] == "bsi_sum" and (k["shape"] or "").startswith("grouped")] == [
+        "taxi", "taxi", "mesh"]
+    pairwise = next(k for k in kernels if (k["path"], k["name"]) == ("similarity", "pairwise"))
     # K11's bound is its bytes: its binary MMA has no published rate
     assert pairwise["bound_by"] == "bytes" and pairwise["library_ms"] is not None
     # the CUDA-graph device times: on every entry, not measured without a card
@@ -125,7 +129,7 @@ def test_chip_smoke_rehearses_on_the_cpu(capsys):
     assert {k["replaces"].split(":")[0] for k in kernels if k["path"] == "mesh"} == {
         "pilosa_tpu/parallel/mesh.py", "pilosa_tpu/executor/compile.py"}
     # main 8 + Shift 2 + the fused phase, write 2, taxi 13 + the fused
-    # phase, residency 7 + 4 fused queries + the fused phase + the write +
+    # phase, residency 8 + 4 fused queries + the fused phase + the write +
     # slots, similarity 3 searches + 4 all-pairs blocks; per mesh layout:
     # the main holder's 10 queries, its fused phase, the Row readback,
     # Shift, 4 Counts around the Set and Clear and their line, the taxi's
@@ -134,5 +138,5 @@ def test_chip_smoke_rehearses_on_the_cpu(capsys):
     # fragment; per layout, the five mesh programs of dryrun_multichip
     mesh_layout = 10 + 1 + 1 + 1 + 4 + 1 + 13 + 1 + 2 + 4 + 3
     assert sum(line.startswith("ok  ") for line in lines) == (
-        8 + 2 + 1 + 2 + 13 + 1 + 7 + 4 + 1 + 2 + 3 + 4 + 2 * mesh_layout + 1 + 1 + 2 * 5)
+        8 + 2 + 1 + 2 + 13 + 1 + 8 + 4 + 1 + 2 + 3 + 4 + 2 * mesh_layout + 1 + 1 + 2 * 5)
     assert not any(line.startswith('{"ok"') for line in lines)
