@@ -9,7 +9,7 @@ Run from the root of a checkout. In order:
    the tensor-core instructions in the SASS of K11, K4 and K6 (the
    binary MMAs of ``pairwise.cu`` and of the split-K core that K4's
    grouped mode and K6's gb_counts run; ``cuobjdump``; none fails);
-2. six paths, each with every kernel's launch count set to 0 just
+2. the paths, each with every kernel's launch count set to 0 just
    before it and read just after, and printed on a line of its own:
    - the main path: ``API(holder, device="cuda", route_mode="device")``
      over 10,240 shards × 8 rows (10.7 B columns; bench.py's default
@@ -23,6 +23,19 @@ Run from the root of a checkout. In order:
    - the write phase, on a small holder built with ``API.import_roaring``
      and ``API.import_bits``: Set, then Count, which must move and ride
      the delta scatter;
+   - the serving phase: the port's HTTP ``Server(config, device)`` on a
+     temp data dir and 127.0.0.1:0, after its CUDA probe, with the main
+     path's blocks and an int field injected into its holder over the
+     same shards; over HTTP/JSON the headline Count, TopN plain and
+     filtered, Sum, one tree past each of K1's fixed limits (C4: 17
+     BSI conditions, a stack 33 deep, 300 leaves; and a TopN under the
+     300 leaves), a Set then the Count (K3's delta), /import-roaring and
+     /import-value each followed by a Count or Sum, every answer against
+     numpy and the kernels each query launched asserted with the result
+     cache off; the C4 trees in K1's count and words modes through the
+     server's compiler; the HTTP sync p50s beside ``API.query``'s, 64
+     Counts from 8 keep-alive clients, the device busy share of an HTTP
+     Count, cache hits timed apart, and the probe's wall time;
    - the taxi path, on a holder shaped after Pilosa's NYC-taxi demo
      (1,024 shards × 2^20 = 1.07 B rides; cab_type, passenger_count and
      an int total_amount of depth 20; 16 synthetic blocks cycled over
@@ -237,37 +250,53 @@ def split_ms(ex, index: str, pql: str, reps: int = 10) -> dict:
     return {"dispatch_p50_ms": float(np.median(dispatch)) * 1e3, "settle_p50_ms": float(np.median(settle)) * 1e3}
 
 
-def device_busy(torch, fn, reps: int = 10) -> dict:
+def device_busy(torch, fn, wrapper: str, kernel: str, reps: int = 10) -> dict:
     """Wall ms per call of ``fn`` over ``reps`` synchronised calls under
     torch.profiler, and the device's busy ms per call: the union of the
-    trace's device intervals (kernels and copies). None where there is
-    no card or the trace holds no device event."""
+    trace's device intervals (kernels and copies). The calls launch the
+    kernel ``kernel`` (a substring of its name) through the wrapper
+    ``wrapper``, on whatever thread serves them; the wrapper's count
+    says how often. A trace holding fewer of the kernel's events than
+    that has missed device work, and then no busy share is given (None),
+    as where there is no card. ``kernel_ms`` is the kernel's device time
+    per call."""
     if not torch.cuda.is_available():
         return {"wall_ms": None, "device_busy_ms": None, "busy_share": None}
     from torch.profiler import ProfilerActivity, profile
 
+    from pilosa_tpu_torch.ops import _cuda
+
     fn()
     torch.cuda.synchronize()
+    counter = _cuda.KERNELS[wrapper]
+    before = counter.launches
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    spans = sorted(
-        (e.time_range.start, e.time_range.end) for e in prof.events()
-        if e.device_type == torch.autograd.DeviceType.CUDA
-    )
+    launched = counter.launches - before
+    device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in device)
     busy, end = 0.0, float("-inf")
     for a, b in spans:
         if b > end:
             busy += b - max(a, end)
             end = b
-    wall_ms = wall / reps * 1e3
-    if not spans:
-        return {"wall_ms": wall_ms, "device_busy_ms": None, "busy_share": None}
+    mine = [e for e in device if kernel in e.name]
+    out = {
+        "wall_ms": wall / reps * 1e3,
+        "kernel": kernel,
+        "launches": launched,
+        "kernel_events": len(mine),
+        "kernel_ms": sum(e.time_range.end - e.time_range.start for e in mine) / 1e3 / reps,
+        "device_events": len(device),
+    }
+    if not launched or len(mine) < launched:
+        return {**out, "device_busy_ms": None, "busy_share": None}
     busy_ms = busy / 1e3 / reps
-    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms, "busy_share": busy_ms / wall_ms}
+    return {**out, "device_busy_ms": busy_ms, "busy_share": busy_ms / out["wall_ms"]}
 
 
 def max_abs_err(torch, a, b) -> int:
@@ -2020,7 +2049,9 @@ def mesh_path(torch, device: str, main: dict, taxi: dict, sim_block: int) -> tup
                 lat.append(time.perf_counter() - t0)
             times[f"{name}_{key}_p50_ms"] = float(np.median(lat)) * 1e3
         times[f"{name}_count_split"] = split_ms(ex, "bench", main_q[0][0])
-        times[f"{name}_count_profiled"] = device_busy(torch, lambda: api.query("bench", main_q[0][0]))
+        times[f"{name}_count_profiled"] = device_busy(
+            torch, lambda: api.query("bench", main_q[0][0]), "tree_eval", "tree_ring_kernel"
+        )
         # the mesh search of row 1 against the main holder's rows (the
         # stack as the Set left it)
         fm = stacks_.matrix(idx, idx.field("f"), "standard", shards)[0]
@@ -2743,6 +2774,311 @@ def mesh_programs_path(torch, device: str, graft: dict, main: dict, taxi: dict) 
     return {n: (errs[n], t) for n, t in results.items()}, launches
 
 
+S_VMAX = 63  # the serving holder's int field v: values 0-63, depth 6
+S_CONDS = 17  # one past K1's condition table
+
+
+def serving_path(torch, device: str, main: dict) -> tuple:
+    """The HTTP server on the card: ``Server(config, device)`` on a temp
+    data dir and 127.0.0.1:0, the main path's 64 blocks injected into
+    its holder over the same shards with an int field v, and PQL sent
+    over HTTP/JSON: the headline Count, TopN plain and filtered, one
+    tree past each of K1's fixed limits (C4: 17 BSI conditions, a stack
+    33 deep, 300 leaves), a Set then the Count (K3's delta), and the
+    /import-roaring and /import-value routes each followed by a Count or
+    Sum, every answer against numpy with the kernels each query must
+    launch (result cache off); the C4 trees again in K1's words and
+    count modes and under a fused-filter TopN, through the server's
+    compiler; then the latencies: HTTP sync p50 beside ``API.query``'s,
+    64 Counts from 8 keep-alive clients, the device busy share of an
+    HTTP Count, cache hits, and the probe's wall time. → ({}, the path's
+    launches)."""
+    import http.client
+    import tempfile
+    import threading
+
+    from pilosa_tpu_torch.core import VIEW_BSI
+    from pilosa_tpu_torch.ops import _cuda
+    from pilosa_tpu_torch.pql import parse
+    from pilosa_tpu_torch.roaring import Bitmap, serialize
+    from pilosa_tpu_torch.server import Server
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH, WORDS_PER_SHARD
+    from pilosa_tpu_torch.utils.config import Config
+
+    on_card = device == "cuda"
+    W = WORDS_PER_SHARD
+    blocks, shards = main["blocks"], main["shards"]
+    n_shards = len(shards)
+    write_shard = n_shards - 1
+    mult = np.bincount(np.arange(n_shards) % G, minlength=G)
+    rng = np.random.default_rng(23)
+    vals = [rng.integers(0, S_VMAX + 1, SHARD_WIDTH) for _ in range(G)]
+    has = [rng.random(SHARD_WIDTH) < 0.5 for _ in range(G)]
+    depth = S_VMAX.bit_length()
+    bsi = []
+    for g in range(G):
+        bits = np.zeros((8, SHARD_WIDTH), dtype=bool)
+        bits[0] = has[g]
+        for k in range(depth):
+            bits[2 + k] = has[g] & (((vals[g] >> k) & 1) == 1)
+        bsi.append(pack(bits))
+    exists = []
+    for g in range(G):
+        ex = np.zeros((R_PAD, W), np.uint32)
+        ex[0] = np.bitwise_or.reduce(blocks[g], axis=0) | bsi[g][0]
+        exists.append(ex)
+
+    def vmask(g: int, pred) -> np.ndarray:
+        return pack(has[g] & pred(vals[g]))
+
+    def expect(fn) -> int:
+        return sum(int(mult[g]) * int(np.bitwise_count(fn(g)).sum()) for g in range(G) if mult[g])
+
+    def expect_topn(fn, n: int) -> list:
+        pairs = [(r, expect(lambda g, r=r: blocks[g][r] & fn(g))) for r in range(R_PAD)]
+        pairs = sorted((rc for rc in pairs if rc[1]), key=lambda rc: (-rc[1], rc[0]))
+        return [{"id": r, "count": c} for r, c in pairs[:n]]
+
+    def expect_sum() -> dict:
+        return {"value": sum(int(mult[g]) * int(vals[g][has[g]].sum()) for g in range(G)),
+                "count": sum(int(mult[g]) * int(has[g].sum()) for g in range(G))}
+
+    deep = "Row(f=1)"
+    for _ in range(33):
+        deep = f"Intersect(Row(f=2), {deep})"
+    c4 = {
+        "conds17": ("Union(" + ", ".join(f"Row(v > {i})" for i in range(S_CONDS)) + ")",
+                    lambda g: vmask(g, lambda v: v > 0)),
+        "depth33": (deep, lambda g: blocks[g][1] & blocks[g][2]),
+        "leaves300": ("Union(" + ", ".join(f"Row(f={i % R_PAD})" for i in range(300)) + ")",
+                      lambda g: np.bitwise_or.reduce(blocks[g], axis=0)),
+    }
+
+    # the probe's verdict file, in a temp dir of this run
+    probe_cache = tempfile.TemporaryDirectory()
+    cache_env = os.environ.get("PILOSA_TPU_TORCH_PROBE_CACHE")
+    os.environ["PILOSA_TPU_TORCH_PROBE_CACHE"] = os.path.join(probe_cache.name, "device_probe.json")
+    data_dir = tempfile.TemporaryDirectory()
+    times = {}
+    t0 = time.perf_counter()
+    srv = Server(Config(bind="127.0.0.1:0", data_dir=data_dir.name, route_mode="device",
+                        result_cache_mode="off"), device=device)
+    srv.open()
+    if not srv.wait_mesh(600) or not srv.device_verdict[0]:
+        raise AssertionError(f"the server's device probe failed: {srv.device_verdict}")
+    times["open_and_probe_s"] = time.perf_counter() - t0
+    times["probe_s"] = srv.probe_seconds
+    conn = http.client.HTTPConnection("127.0.0.1", srv.port, timeout=600)
+
+    def post(path: str, body, want_status: int = 200):
+        data = body if isinstance(body, bytes) else json.dumps(body).encode()
+        conn.request("POST", path, body=data)
+        resp = conn.getresponse()
+        out = json.loads(resp.read() or b"{}")
+        if resp.status != want_status:
+            raise AssertionError(f"POST {path}: {resp.status} {json.dumps(out)[:300]}")
+        return out
+
+    def query(pql: str):
+        return post("/index/bench/query", pql.encode())["results"]
+
+    launches = {n: 0 for n in _cuda.KERNELS}
+
+    def served(pql: str, want, must: dict):
+        """One query over HTTP, its answer against numpy, and the kernel
+        launches it made (counts zeroed just before) against ``must``:
+        {kernel: {mode (None: any mode): at least}}, on the card."""
+        for k in _cuda.KERNELS.values():
+            k.reset()
+        t0 = time.perf_counter()
+        got = query(pql)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        made = kernel_modes(torch)
+        for n, k in _cuda.KERNELS.items():
+            launches[n] += k.launches
+        if got[-1] != want:
+            raise AssertionError(f"serving: {pql[:80]}: {json.dumps(got)[:300]} != numpy {json.dumps(want)[:300]}")
+        short = {n: m for n, m in made.items() if m}
+        log(f"ok  HTTP {pql[:60]}  -> {json.dumps(got[-1])[:60]}  {wall_ms:.3f} ms  launches {json.dumps(short)}")
+        if on_card:
+            for n, modes in must.items():
+                for m, least in modes.items():
+                    if (sum(made[n].values()) if m is None else made[n].get(m, 0)) < least:
+                        raise AssertionError(f"serving: {pql[:80]} launched {short}, not {n} {m} x{least}")
+        return got
+
+    # ------------------------------------------------------------ data
+    t0 = time.perf_counter()
+    post("/index/bench", {"options": {"trackExistence": True}})
+    post("/index/bench/field/f", {"options": {}})
+    post("/index/bench/field/v", {"options": {"type": "int", "min": 0, "max": S_VMAX}})
+    idx = srv.holder.index("bench")
+    v_f = idx.field("v")
+    if v_f.bit_depth != depth:
+        raise AssertionError(f"v's depth {v_f.bit_depth} != {depth}")
+    views = [(idx.field("f").create_view_if_not_exists("standard"), blocks),
+             (v_f.create_view_if_not_exists(VIEW_BSI), bsi),
+             (idx.existence_field().create_view_if_not_exists("standard"), exists)]
+    for s in shards:
+        for view, src in views:
+            frag = view.create_fragment_if_not_exists(s)
+            if s == write_shard:
+                # the writes land here: true roaring storage
+                r, c = np.nonzero(np.unpackbits(src[s % G].view(np.uint8), axis=1, bitorder="little"))
+                frag.union_positions(r.astype(np.uint64) * SHARD_WIDTH + c.astype(np.uint64))
+                continue
+            # packed-matrix injection, as the main path does it
+            frag._np_matrix = src[s % G]
+            frag._all_dirty = False
+    times["serving_data_s"] = time.perf_counter() - t0
+    # the front end closes a keep-alive connection idle past
+    # keepalive-idle-s (75 s), which the data phase may outlast
+    conn.close()
+    conn = http.client.HTTPConnection("127.0.0.1", srv.port, timeout=600)
+    # the router's choice under auto, before the pinned device route serves
+    router = srv.api.executor.router
+    router.mode = "auto"
+    auto_routes = {pql: srv.api.executor.route_for("bench", pql)
+                   for pql in ("Count(Intersect(Row(f=1), Row(f=2)))", "TopN(f, n=5)", "Sum(field=v)")}
+    router.mode = "device"
+    log(f"router under auto at {n_shards} shards:", json.dumps(auto_routes))
+
+    # ------------------------------------------------- queries over HTTP
+    head = "Count(Intersect(Row(f=1), Row(f=2)))"
+    t0 = time.perf_counter()
+    served(head, expect(lambda g: blocks[g][1] & blocks[g][2]), {"tree_eval": {"count": 1}})
+    times["first_http_count_s"] = time.perf_counter() - t0
+    served("TopN(f, n=5)", expect_topn(lambda g: ~np.uint32(0), 5), {"row_counts": {None: 1}})
+    served("TopN(f, Row(f=1), n=5)", expect_topn(lambda g: blocks[g][1], 5), {"row_counts_tree": {"rows+tree": 1}})
+    served("Sum(field=v)", expect_sum(), {"bsi_sum": {None: 1}})
+    for name, (tree, fn) in c4.items():
+        mode = "+cmp" if name == "conds17" else ""
+        served(f"Count({tree})", expect(fn), {"tree_eval": {"words" + mode: 1, "count" + mode: 1}})
+    served(f"TopN(f, {c4['leaves300'][0]}, n=5)", expect_topn(c4["leaves300"][1], 5),
+           {"tree_eval": {"words": 1}, "row_counts_tree": {"rows+tree": 1}})
+    # ------------------------------- C4 trees through the server's compiler
+    comp = srv.api.executor.compiler
+    for name, (tree, fn) in c4.items():
+        for k in _cuda.KERNELS.values():
+            k.reset()
+        call = parse(tree)[0]
+        n = int(comp.count_async(idx, call, shards))
+        words = comp.bitmap_words(idx, call, shards)
+        made = kernel_modes(torch)["tree_eval"]
+        for kk in _cuda.KERNELS.values():
+            launches[kk.name] += kk.launches
+        want_n = expect(fn)
+        if n != want_n or int(np.bitwise_count(words).sum()) != want_n:
+            raise AssertionError(f"C4 {name}: count {n}, words {int(np.bitwise_count(words).sum())}, numpy {want_n}")
+        g_words = words.reshape(n_shards, W)
+        for s in (0, 1, n_shards // 2):
+            if not np.array_equal(g_words[s], fn(s % G)):
+                raise AssertionError(f"C4 {name}: shard {s}'s words differ from numpy")
+        log(f"ok  C4 {name} on {device}: count and words equal to numpy, K1 launches {json.dumps(made)}")
+        mode = "+cmp" if name == "conds17" else ""
+        if on_card and (made.get("words" + mode, 0) < 2 or made.get("count" + mode, 0) < 1):
+            raise AssertionError(f"C4 {name}: K1 ran no sub-program: {made}")
+        del words, g_words
+
+    # a Set in the last shard, at a column in no row of f: the Count takes K3's delta
+    g_w = write_shard % G
+    free = np.flatnonzero(np.unpackbits(exists[g_w][0].view(np.uint8), bitorder="little") == 0)
+    col = write_shard * SHARD_WIDTH + int(free[0])
+    stacks = srv.api.executor.compiler.stacks
+    restacks, deltas = stacks.full_restacks, stacks.delta_updates
+    served(f"Set({col}, f=1)", True, {})
+    served("Count(Row(f=1))", expect(lambda g: blocks[g][1]) + 1, {"stack_delta": {None: 1}, "tree_eval": {"count": 1}})
+    if stacks.full_restacks != restacks or stacks.delta_updates <= deltas:
+        raise AssertionError(f"serving: the Set did not take the delta path: {stacks.stats_snapshot()}")
+    # /import-roaring into the last shard: row 3 gains the free columns
+    new = free[1:1001].astype(np.uint64)
+    bm = Bitmap()
+    bm.add_many(3 * SHARD_WIDTH + new)
+    t0 = time.perf_counter()
+    post(f"/index/bench/field/f/import-roaring/{write_shard}", serialize(bm))
+    times["import_roaring_1000_bits_ms"] = (time.perf_counter() - t0) * 1e3
+    served("Count(Row(f=3))", expect(lambda g: blocks[g][3]) + new.size, {"tree_eval": {"count": 1}})
+    # /import-value into v in the last shard: 1,000 columns without a
+    # value take 63, so the Sum moves by 63 per column
+    no_v = np.flatnonzero(~has[g_w])[:1000]
+    t0 = time.perf_counter()
+    post("/index/bench/field/v/import-value", {
+        "columnIDs": (write_shard * SHARD_WIDTH + no_v).tolist(), "values": [S_VMAX] * no_v.size})
+    times["import_value_1000_ms"] = (time.perf_counter() - t0) * 1e3
+    want = expect_sum()
+    want = {"value": want["value"] + S_VMAX * no_v.size, "count": want["count"] + no_v.size}
+    served("Sum(field=v)", want, {"bsi_sum": {None: 1}})
+
+    # -------------------------------------------------------- latencies
+    def p50_ms(fn, reps: int) -> float:
+        lat = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            lat.append(time.perf_counter() - t0)
+        return float(np.median(lat)) * 1e3
+
+    for pql, key in ((head, "count"), ("TopN(f, n=5)", "topn")):
+        times[f"http_{key}_p50_ms"] = p50_ms(lambda pql=pql: query(pql), 20)
+        times[f"api_{key}_p50_ms"] = p50_ms(lambda pql=pql: srv.api.query("bench", pql), 20)
+    want_head = expect(lambda g: blocks[g][1] & blocks[g][2])
+    errors = []
+
+    def client(n: int) -> None:
+        c = http.client.HTTPConnection("127.0.0.1", srv.port, timeout=600)
+        try:
+            for _ in range(n):
+                c.request("POST", "/index/bench/query", body=head.encode())
+                r = c.getresponse()
+                got = json.loads(r.read())
+                if r.status != 200 or got["results"] != [want_head]:
+                    errors.append((r.status, got))
+        finally:
+            c.close()
+
+    threads = [threading.Thread(target=client, args=(8,)) for _ in range(8)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    times["http_count_8_clients_qps"] = 64 / (time.perf_counter() - t0)
+    if errors:
+        raise AssertionError(f"concurrent Counts: {errors[:3]}")
+    times["http_count_profiled"] = device_busy(torch, lambda: query(head), "tree_eval", "tree_ring_kernel")
+    # cache hits, timed apart: the cache on (and admitting any cost: a
+    # small rehearsal's Count takes under its 1 ms floor), one fill,
+    # then 20 hits that launch nothing
+    cache = srv.http.result_cache
+    cache.mode, min_cost = "on", cache.min_cost_ms
+    cache.min_cost_ms = 0.0
+    query(head)
+    hits = cache.hits
+    for k in _cuda.KERNELS.values():
+        k.reset()
+    times["http_count_cache_hit_p50_ms"] = p50_ms(lambda: query(head), 20)
+    hit_launches = sum(k.launches for k in _cuda.KERNELS.values())
+    cache.mode, cache.min_cost_ms = "off", min_cost
+    if cache.hits - hits != 20:
+        raise AssertionError(f"{cache.hits - hits} of 20 repeats were cache hits: {cache.snapshot()}")
+    if query(head) != [want_head]:
+        raise AssertionError("the headline Count moved")
+    if on_card and hit_launches:
+        raise AssertionError(f"cache hits launched {hit_launches} kernels")
+    times["cache"] = cache.snapshot()
+    log("serving times:", json.dumps(times))
+    log("serving launches:", json.dumps(launches))
+    conn.close()
+    srv.close()
+    data_dir.cleanup()
+    probe_cache.cleanup()
+    if cache_env is None:
+        os.environ.pop("PILOSA_TPU_TORCH_PROBE_CACHE")
+    else:
+        os.environ["PILOSA_TPU_TORCH_PROBE_CACHE"] = cache_env
+    return {}, launches
+
+
 def main(
     device: str = "cuda",
     n_shards: int = N_SHARDS,
@@ -2924,7 +3260,7 @@ def main(
             lat.append(time.perf_counter() - t0)
         times["sync_count_p50_ms"] = float(np.median(lat)) * 1e3
         times["count_split"] = split_ms(api.executor, "bench", headline)
-        times["count_profiled"] = device_busy(torch, lambda: api.query("bench", headline))
+        times["count_profiled"] = device_busy(torch, lambda: api.query("bench", headline), "tree_eval", "tree_ring_kernel")
         n_pipe = 64
         t0 = time.perf_counter()
         pend = [p for _ in range(n_pipe) for p in api.executor.dispatch("bench", headline)]
@@ -3194,6 +3530,10 @@ def main(
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
+    serve_results, serve_launches = serving_path(torch, device, main_ctx)
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
     taxi_results, taxi_launches, taxi = taxi_path(torch, device, taxi_shards)
     # the mesh path's share of the taxi holder (the residency path drops its API)
     taxi_ctx = {k: taxi[k] for k in ("holder", "index", "checks", "answers", "depth", "p50", "fused")}
@@ -3216,7 +3556,8 @@ def main(
     graft_results, graft_launches, graft = graft_path(torch, device, main_ctx)
     prog_results, prog_launches = mesh_programs_path(torch, device, graft, main_ctx, taxi_ctx)
     del main_ctx, taxi_ctx, graft
-    paths = (("main", main_results, main_launches), ("taxi", taxi_results, taxi_launches),
+    paths = (("main", main_results, main_launches), ("serving", serve_results, serve_launches),
+             ("taxi", taxi_results, taxi_launches),
              ("residency", res_results, res_launches), ("similarity", sim_results, sim_launches),
              ("mesh", mesh_results, mesh_launches), ("graft", graft_results, graft_launches),
              ("mesh_programs", prog_results, prog_launches))

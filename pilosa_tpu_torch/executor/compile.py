@@ -26,6 +26,10 @@ by word:
 - ``Shift(x, n)`` splits the program: K1 evaluates x into a temporary
   [S, W] plane, K7 shifts it, and the shifted plane enters the outer
   program as a leaf (the reference fuses all three into one program).
+- a tree past K1's fixed limits (leaves, length, stack depth, BSI
+  conditions) splits the same way: each subtree cut off is a
+  sub-program that K1 evaluates in words mode into a temporary plane,
+  read by the outer program as a one-row stack (``_Planner._fit``).
 
 A field whose dense stack exceeds the budget serves through residency
 (docs/device-residency.md), as the reference's: in the default
@@ -38,6 +42,7 @@ row mode), and K1 decodes sparse and run payloads in place; the legacy
 from __future__ import annotations
 
 import os
+import weakref
 from collections import OrderedDict
 
 import numpy as np
@@ -71,6 +76,8 @@ from pilosa_tpu_torch.ops.bitwise import (
     TREE_MAX_LEAVES,
     TREE_MAX_OPS,
     TREE_MAX_STACK,
+    _LOADS,
+    _PUSHES,
     program_depth,
 )
 from pilosa_tpu_torch.pql import Call, Condition, coerce_timestamp
@@ -189,6 +196,31 @@ def _upload_placed(view, shards: list[int], rows: int, mesh_ctx):
     return out
 
 
+# explicit budget installed from config (device-stack-budget-bytes);
+# wins over the env var and the card's memory
+_budget_override: list[int] = []
+
+
+def set_stack_budget(n: int | None) -> None:
+    """Install the configured device stack budget (Config field
+    ``device-stack-budget-bytes``; the server wires it at boot) for the
+    StackCaches made after it. None or 0 clears back to the env var and
+    the card's memory."""
+    _budget_override.clear()
+    if n:
+        _budget_override.append(int(n))
+
+
+def stack_budget_if_resolved() -> int | None:
+    """The configured or env budget, or None where only the card's
+    memory could answer: the /debug/resources ledger reads it without
+    a CUDA call, since control-plane routes do not pass the probe gate."""
+    if _budget_override:
+        return _budget_override[0]
+    env = os.environ.get("PILOSA_TPU_STACK_BUDGET")
+    return int(env) if env else None
+
+
 def _nbytes(stack) -> int:
     """Device bytes of a stack: a tensor, or a MeshArray's blocks once each."""
     return stack.nbytes if not isinstance(stack, torch.Tensor) else stack.numel() * stack.element_size()
@@ -218,15 +250,16 @@ class StackCache:
     MAX_DELTA_ROWS = 1024  # beyond this a full restack is cheaper
 
     # device-bytes cap for the resident stacks, aggregate. Resolution
-    # order: PILOSA_TPU_STACK_BUDGET env → 70% of the card's memory
+    # order: the configured budget (set_stack_budget) →
+    # PILOSA_TPU_STACK_BUDGET env → 70% of the card's memory
     # (torch.cuda.mem_get_info) → 2 GiB on the CPU. Tests monkeypatch
     # the class attribute with a plain int, which shadows the property.
     @property
     def STACK_BYTES_BUDGET(self) -> int:  # noqa: N802 — the reference's name
         if self._budget is None:
-            env = os.environ.get("PILOSA_TPU_STACK_BUDGET")
-            if env:
-                self._budget = int(env)
+            resolved = stack_budget_if_resolved()
+            if resolved:
+                self._budget = resolved
             elif self.device.type == "cuda":
                 self._budget = int(torch.cuda.mem_get_info(self.device)[1] * 0.7)
             else:
@@ -297,6 +330,21 @@ class StackCache:
                 break
             self._forget_tiered(victim, self._tiered.pop(victim))
             self._note_eviction("tiered")
+
+    def claim(self, nbytes: int) -> object:
+        """Reserve ``nbytes`` of the budget for a query's temporary plane
+        (a cut-off sub-program's or a Shift's), evicting LRU entries to
+        make room → the token that ``release`` frees."""
+        token = object()
+        with self._lock:
+            self._evict_for(nbytes)
+            self._reserved[token] = nbytes
+        return token
+
+    def release(self, token: object) -> None:
+        # no lock: the plane's finalizer calls this on whichever thread
+        # drops the plane, perhaps one holding _lock; a dict pop is atomic
+        self._reserved.pop(token, None)
 
     def _note_eviction(self, tier: str) -> None:
         # caller holds self._lock
@@ -925,14 +973,26 @@ class _Planner:
     With a mesh attached to the stacks, a ``blocked`` plan reads the
     placed stacks themselves (MeshArrays, one K1 launch per block); the
     device route's plan reads each leaf row gathered into a whole plane
-    on the lead device, and a BSI stack gathered whole."""
+    on the lead device, and a BSI stack gathered whole.
 
-    def __init__(self, idx: Index, shards: list[int], stacks: StackCache, blocked: bool = False):
+    ``sub_words(planner, ops, leaves, conds)`` evaluates a sub-program
+    that ``_fit`` cut off into a one-row [1, S, W] plane: K1 words on
+    the device route, K1 words per block on the mesh route. Such a plane,
+    like a Shift's, claims its bytes from the stack budget until it is
+    freed, and is read by one program only: by the outer program, or by
+    a later sub-program, which frees it once it has run (a Union planned
+    as a left fold holds at most two such planes at a time)."""
+
+    def __init__(
+        self, idx: Index, shards: list[int], stacks: StackCache, blocked: bool = False, sub_words=None
+    ):
         self.idx = idx
         self.shards = shards
         self.stacks = stacks
         self.blocked = blocked
+        self.sub_words = sub_words or _device_words
         self._builders: list = []  # device-array builders, called with the planner
+        self._temps: set[int] = set()  # arrays that are temporary planes
         self._array_keys: dict[tuple, int] = {}
         self.arrays: list[torch.Tensor] = []
         # (array index, row id or slot thunk called with the planner)
@@ -1043,25 +1103,114 @@ class _Planner:
         into a temporary [S, W] plane (K1 words), K7 shifts it, and the
         result enters this program as a one-row [1, S, W] stack."""
         sub = _Planner(self.idx, self.shards, self.stacks)
-        prog = sub.plan(child)
-        check_program(prog, len(sub.leaves), len(sub.conds))
+        prog = sub.program(child)
 
-        def build(p: "_Planner") -> torch.Tensor:
-            arrays = sub.materialize()
+        def shifted() -> torch.Tensor:
             words = ops.tree_eval(
-                arrays, sub.resolved_leaves(), prog, len(p.shards), count=False,
-                device=p.stacks.device, conds=sub.conds,
+                sub.materialize(), sub.resolved_leaves(), prog, len(sub.shards), count=False,
+                device=sub.stacks.device, conds=sub.conds,
             )
+            sub.arrays = []  # the sub-program's own planes go now
             return ops.shift_words(words, n)[None]
 
         # a fresh key per Shift node: two shifts of one subtree are two planes
-        ai = self._add_array(("shift", len(self._builders)), build)
+        ai = self._add_array(("shift", len(self._builders)), lambda p: p._temp_plane(shifted, ()))
+        self._temps.add(ai)
         self.leaves.append((ai, 0))
         return [(OP_LOAD, len(self.leaves) - 1)]
 
     # ---------------------------------------------------------- call tree
+    def program(self, call: Call):
+        """→ postfix ops of ``call`` within K1's fixed limits, each
+        sub-program cut off by ``_fit`` checked against them too."""
+        prog = self._fit(self.plan(call))
+        check_program(prog, len(self.leaves), len(self.conds))
+        return prog
+
+    def _fit(self, prog):
+        """Split a program past K1's fixed limits (C4) into sub-programs.
+
+        The reference's planner has no such limit: XLA fuses any tree.
+        Here the postfix program is walked as a tree of fragments; where
+        joining two operands would pass a limit, the heavier one (by its
+        largest share of a limit) is cut off: a sub-program evaluating it
+        into a temporary plane, which the outer program reads with one
+        LOAD. A 300-leaf Union becomes a sub-program of 256 leaves whose
+        plane the outer program ORs with the other 44, a stack 33 deep is
+        cut where it reaches 32, and 17 conditions are cut into groups of
+        at most 16. The planes are arrays of this plan
+        and go with it when the query ends. Rebinds ``leaves`` and
+        ``conds`` to the outer program's own."""
+        if _fits((len(prog), len(self.leaves), len(self.conds), program_depth(prog))):
+            return prog
+        frags = []  # (ops over this planner's leaves and conds, n ops, n leaves, n conds, depth)
+        for op, arg in prog:
+            if op in _PUSHES:
+                frags.append(([(op, arg)], 1, int(op in _LOADS), int(op == OP_CMP), 1))
+                continue
+            b, a = frags.pop(), frags.pop()
+            while True:
+                joined = (a[0] + b[0] + [(op, 0)], a[1] + b[1] + 1, a[2] + b[2], a[3] + b[3], max(a[4], b[4] + 1))
+                if _fits(joined[1:]):
+                    break
+                if _weight(a) >= _weight(b):
+                    a = self._spill(a)
+                else:
+                    b = self._spill(b)
+            frags.append(joined)
+        (top,) = frags
+        out, self.leaves, self.conds = self._local(top[0])
+        return out
+
+    def _local(self, frag_ops):
+        """A fragment's ops re-indexed onto its own leaf and condition
+        lists → (ops, leaves, conds)."""
+        leaves, conds, out = [], [], []
+        for op, arg in frag_ops:
+            if op in _LOADS:
+                leaves.append(self.leaves[arg])
+                arg = len(leaves) - 1
+            elif op == OP_CMP:
+                conds.append(self.conds[arg])
+                arg = len(conds) - 1
+            out.append((op, arg))
+        return out, leaves, conds
+
+    def _spill(self, frag):
+        """Cut a fragment off as a sub-program → the one-LOAD fragment
+        of the plane it writes."""
+        prog, leaves, conds = self._local(frag[0])
+        check_program(prog, len(leaves), len(conds))
+        reads = {si for si, _r in leaves} & self._temps
+        ai = self._add_array(
+            ("split", len(self._builders)),
+            lambda p: p._temp_plane(
+                lambda: p.sub_words(p, prog, [(si, r(p) if callable(r) else r) for si, r in leaves], conds),
+                reads,
+            ),
+        )
+        self._temps.add(ai)
+        self.leaves.append((ai, 0))
+        return ([(OP_LOAD, len(self.leaves) - 1)], 1, 1, 0, 1)
+
+    def _temp_plane(self, make, reads):
+        """``make()``'s one-row plane, its bytes claimed from the stack
+        budget until the plane is dropped; then the temporary planes
+        ``reads``, which only the sub-program just run read, are freed."""
+        token = self.stacks.claim(len(self.shards) * WORDS_PER_SHARD * 4)
+        try:
+            plane = make()
+        except BaseException:
+            self.stacks.release(token)
+            raise
+        anchor = plane.blocks[0][0] if hasattr(plane, "blocks") else plane  # a placed plane's first block
+        weakref.finalize(anchor, self.stacks.release, token)
+        for si in reads:
+            self.arrays[si] = _emptied(self.arrays[si])
+        return plane
+
     def plan(self, call: Call):
-        """→ postfix ops evaluating to one [S, W] plane"""
+        """→ postfix ops evaluating to one [S, W] plane, before ``_fit``"""
         name = call.name
         if name in ("Row", "Range"):
             return self._plan_row(call)
@@ -1219,6 +1368,36 @@ class _Planner:
         raise PlanError(f"bad row value {row!r}")
 
 
+def _device_words(p: _Planner, prog, leaves, conds) -> torch.Tensor:
+    """A cut-off sub-program as K1 words over the arrays built so far →
+    one-row [1, S, W] plane."""
+    return ops.tree_eval(
+        p.arrays, leaves, prog, len(p.shards), count=False, device=p.stacks.device, conds=conds,
+    )[None]
+
+
+def _emptied(a):
+    """A freed plane's stand-in among a plan's arrays: no rows, and
+    otherwise the plane's kind (tensor or placed), shape and device."""
+    empty = lambda b: torch.empty((0,) + tuple(b.shape[1:]), dtype=b.dtype, device=b.device)  # noqa: E731
+    if hasattr(a, "blocks"):
+        return type(a)(a.mesh, (0,) + a.shape[1:], a.mode, [[empty(b) for b in row] for row in a.blocks])
+    return empty(a)
+
+
+_LIMITS = (TREE_MAX_OPS, TREE_MAX_LEAVES, TREE_MAX_CONDS, TREE_MAX_STACK)
+
+
+def _fits(sizes) -> bool:
+    """(ops, leaves, conds, depth) within K1's fixed limits"""
+    return all(n <= most for n, most in zip(sizes, _LIMITS))
+
+
+def _weight(frag) -> float:
+    """A fragment's largest share of one of K1's limits."""
+    return max(n / most for n, most in zip(frag[1:], _LIMITS))
+
+
 def check_program(ops_list: list, n_leaves: int, n_conds: int = 0) -> None:
     """PlanError when a program exceeds csrc/tree_eval.cu's fixed limits."""
     depth = program_depth(ops_list)
@@ -1318,16 +1497,17 @@ class QueryCompiler:
         """(arrays, leaves, program, conditions) for one call tree,
         checked against the kernel's limits."""
         planner = _Planner(idx, shards, self.stacks)
-        ops_list = planner.plan(call)
-        check_program(ops_list, len(planner.leaves), len(planner.conds))
+        ops_list = planner.program(call)
         arrays = planner.materialize()
         return arrays, planner.resolved_leaves(), ops_list, planner.conds
 
     def planned_filter(self, idx: Index, call: Call, shards: list[int]) -> "ops.PlannedFilter":
         """A filter's call tree planned against its materialized planes,
-        launching nothing (a Shift's sub-program excepted): what K2, K4
-        and K5 evaluate inside their own launch, as the reference's
-        aggregates evaluate ``_filter_plan`` inside their program."""
+        launching nothing but the K1 words launches of its sub-programs
+        (a Shift's, and those ``_Planner._fit`` cuts off a tree past K1's
+        limits): what K2, K4 and K5 evaluate inside their own launch, as
+        the reference's aggregates evaluate ``_filter_plan`` inside their
+        program."""
         arrays, leaves, prog, conds = self._plan(idx, call, shards)
         return ops.PlannedFilter(arrays, leaves, prog, conds, len(shards), WORDS_PER_SHARD)
 
@@ -1382,9 +1562,12 @@ class QueryCompiler:
         route; every array is placed in ``mode``."""
         from pilosa_tpu_torch.parallel.mesh import BlockPlan
 
-        planner = _Planner(idx, shards, self.stacks, blocked=True)
-        ops_list = planner.plan(call)
-        check_program(ops_list, len(planner.leaves), len(planner.conds))
+        def sub_words(p: _Planner, prog, leaves, conds):
+            plan = BlockPlan(prog, leaves, conds, len(shards), WORDS_PER_SHARD)
+            return self.mesh_engine.bitmap_tree(plan, mode)(p.arrays)[None]
+
+        planner = _Planner(idx, shards, self.stacks, blocked=True, sub_words=sub_words)
+        ops_list = planner.program(call)
         arrays = planner.materialize()
         for a in arrays:
             if getattr(a, "mode", None) != mode:

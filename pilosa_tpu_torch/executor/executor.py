@@ -538,6 +538,17 @@ class Executor:
         walk(call)
         return tiered, cold
 
+    def route_for(self, index_name: str, query: "str | Call | list[Call]", shards: list[int] | None = None) -> str:
+        """The route a query's first call would take now ("host",
+        "device", "mesh", or "write"), executing nothing: what a
+        benchmark stamps beside its rows."""
+        idx = self.holder.index(index_name)
+        if idx is None:
+            raise ExecutionError(f"index {index_name!r} not found")
+        calls = parse(query) if isinstance(query, str) else query
+        first = calls[0] if isinstance(calls, list) else calls
+        return self._route(idx, first, shards)[0] or "write"
+
     def explain_call(self, idx: Index, call: Call, shards: list[int] | None) -> dict:
         """The plan of one top-level call, executing nothing: the route
         the router takes now, each candidate's modeled cost and the

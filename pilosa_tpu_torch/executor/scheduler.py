@@ -27,10 +27,6 @@ Semantics guardrails:
   token (a globally monotone mutation stamp, core/view.py) guarantees a
   query enqueued after a write never joins a pre-write execution.
 
-Per-query deadlines (the reference's ``parallel.resilience``) arrive with
-the HTTP front end, which is not ported yet; until then no query carries
-one.
-
 Modes (config ``batch-mode`` / env ``PILOSA_TPU_BATCH_MODE``):
 ``off`` — every query runs direct (the pre-scheduler path);
 ``adaptive`` — solo traffic pays no window (the wave occupancy EWMA
@@ -248,6 +244,17 @@ class WaveScheduler:
         """Drop-in for Executor.execute: same signature, same results,
         same exceptions — batchable device-routed queries ride a shared
         wave, everything else runs direct."""
+        # per-query deadline (docs/fault-tolerance.md): a query whose
+        # budget is already spent must fail with the labeled 504 error
+        # BEFORE enqueueing — joining a wave it can no longer wait for
+        # would burn device work on an answer nobody is listening to.
+        # Deferred import: parallel.resilience is a leaf over client.py,
+        # but executor modules must not pull parallel/ in at import time.
+        from pilosa_tpu_torch.parallel.resilience import current_deadline
+
+        deadline = current_deadline()
+        if deadline is not None and deadline.expired():
+            raise deadline.exceeded("scheduler enqueue")
         executor = self._executor_fn()
         calls = parse(query) if isinstance(query, str) else query
         batchable, routes = self._batchable(executor, index, calls, shards)
@@ -281,6 +288,11 @@ class WaveScheduler:
         if item.error is not None:
             raise item.error
         return item.results  # type: ignore[return-value]
+
+    def close(self) -> None:
+        """Nothing to release: the reference's pool for execute_many's
+        host-routed legs comes with the cluster's /internal routes
+        (ROADMAP.md A10). Server.close calls this, as the reference's."""
 
     # ------------------------------------------------------ wave harness
     def _batchable(
@@ -390,8 +402,20 @@ class WaveScheduler:
         self._cond.wait(timeout)
 
     def _window_seconds(self, executor, have: int) -> float:
+        from pilosa_tpu_torch.parallel.resilience import current_deadline
+
+        # the straggler window is bounded by the leader's own query
+        # deadline: a wave must never hold its leader past the budget
+        # the client was promised (retries upstream already consumed
+        # their share — see docs/fault-tolerance.md)
+        deadline = current_deadline()
+        budget = deadline.remaining() if deadline is not None else None
+        if budget is not None and budget <= 0:
+            return 0.0
         if self.mode == "always":
-            return self.window_s
+            return (
+                self.window_s if budget is None else min(self.window_s, budget)
+            )
         # adaptive: solo traffic never pays the window (the c1 latency
         # guard); once waves coalesce — occupancy EWMA above the solo
         # threshold, or multiple queries already drained — wait for
@@ -402,7 +426,8 @@ class WaveScheduler:
         occ_v = occ.value if occ is not None and occ.value else 1.0
         if occ_v <= _SOLO_OCCUPANCY and have <= 1:
             return 0.0
-        return min(self.window_s, 0.5 * router.readback_s.value)
+        eff = min(self.window_s, 0.5 * router.readback_s.value)
+        return eff if budget is None else min(eff, budget)
 
     def _execute_wave(
         self, executor, batch: list[_WorkItem], reason: str

@@ -1,16 +1,16 @@
 """Programmatic API façade — the surface the HTTP layer and tests call.
 
 Reference: pilosa_tpu/server/api.py (after api.go: Query, CreateIndex/
-Field, DeleteIndex/Field, Import, ImportValue, ImportRoaring, Schema).
-Serialization of results to JSON lives here so transport layers stay
-thin. Ported so far: schema, query (on a device mesh too, ``mesh_ctx``),
-the bit/value/roaring imports and the response builder. Cluster,
-EXPLAIN, export and translation wait for the slices that port the HTTP
-front end (ROADMAP.md A5).
+Field, DeleteIndex/Field, Import, ImportValue, ImportRoaring, Schema,
+ApplySchema, ExportCSV, ShardNodes, Hosts, State, Info). Serialization
+of results to JSON lives here so transport layers stay thin. The port
+serves one node: the cluster layer is not ported (ROADMAP.md A10), so
+the cluster surfaces answer for a single node.
 """
 
 from __future__ import annotations
 
+import io
 import re
 import time
 from datetime import datetime
@@ -18,6 +18,7 @@ from typing import Any
 
 import numpy as np
 
+from pilosa_tpu_torch import __version__, roaring
 from pilosa_tpu_torch.core import (
     EXISTENCE_FIELD,
     VIEW_STANDARD,
@@ -29,7 +30,7 @@ from pilosa_tpu_torch.core import (
 )
 from pilosa_tpu_torch.executor import ExecutionError, Executor, RowResult
 from pilosa_tpu_torch.executor.executor import WRITE_CALLS, unwrap_options
-from pilosa_tpu_torch.executor.scheduler import WaveScheduler, dedup_key
+from pilosa_tpu_torch.executor.scheduler import WaveScheduler, dedup_key, stack_token
 from pilosa_tpu_torch.pql import parse
 from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
 from pilosa_tpu_torch.utils import durable
@@ -125,9 +126,23 @@ class API:
             window_us=batch_window_us,
             max_queries=batch_max_queries,
         )
-        # mutation-stamped cross-request result cache; a bare API has
-        # none (the serving front ends install one when they are ported)
+        self.diagnostics = None  # set by Server.open
+        # mutation-stamped cross-request result cache (utils/
+        # resultcache.py, docs/result-cache.md).  None ⇒ uncached:
+        # the serving front ends install one (_ServerCore default,
+        # Server.open config-sized) — a bare API façade in tests keeps
+        # its exact pre-cache semantics.
         self.result_cache = None
+
+    def attach_mesh(self, mesh_ctx) -> None:
+        """Late mesh attachment (Server.open does this after the HTTP
+        listener is up, when ``MeshContext.auto()`` finds two or more
+        cards). The query router carries over: its calibration must
+        survive the executor swap."""
+        self.mesh_ctx = mesh_ctx
+        self.executor = Executor(
+            self.holder, mesh_ctx=mesh_ctx, stats=self.stats, router=self.executor.router,
+        )
 
     # ------------------------------------------------------------- schema
     def create_index(self, name: str, options: dict | None = None) -> Index:
@@ -161,6 +176,35 @@ class API:
 
     def schema(self) -> dict:
         return {"indexes": self.holder.schema()}
+
+    def apply_schema(self, schema: dict, validate: bool = True) -> None:
+        """Idempotently create everything in a schema dump (reference:
+        api.ApplySchema). ``validate=False`` is for cluster schema sync:
+        replication must accept names that predate (or bypass) the
+        create-time validation rule, or a node could fail to join against
+        existing data."""
+        for idx_def in schema.get("indexes", []):
+            if validate:
+                validate_name(idx_def["name"], "index name")
+            opts = idx_def.get("options", {})
+            idx = self.holder.create_index_if_not_exists(
+                idx_def["name"],
+                IndexOptions(
+                    keys=opts.get("keys", False),
+                    track_existence=opts.get("trackExistence", True),
+                ),
+            )
+            for f_def in idx_def.get("fields", []):
+                if validate:
+                    validate_name(f_def["name"], "field name")
+                if idx.field(f_def["name"]) is None:
+                    idx.create_field(
+                        f_def["name"], field_options_from_json(f_def.get("options", {}))
+                    )
+        for idx_def in schema.get("indexes", []):
+            # schema application changes what keys/fields resolve —
+            # every named index's cached results are stale generations
+            self._invalidate_results(idx_def["name"])
 
     # -------------------------------------------------------------- query
     def check_write_limit(self, n: int, what: str) -> None:
@@ -220,6 +264,72 @@ class API:
             cache.offer(key, resp, elapsed, gen=gen)
         return resp
 
+    def explain(self, index: str, pql: str, shards: list[int] | None = None) -> dict:
+        """EXPLAIN (plan only — docs/observability.md): the decisions
+        the serving path would make for this query, without executing
+        it — per-call router cost tables over every candidate path,
+        residency classification of touched row ranges, mesh
+        supportability verdicts, and the wave scheduler's batchability
+        prediction.  ``?explain=analyze`` runs the query too and the
+        HTTP layer merges measured actuals next to these estimates."""
+        calls = parse(pql) if isinstance(pql, str) else pql
+        idx = self.executor.holder.index(index)
+        if idx is None:
+            raise ExecutionError(f"index {index!r} not found")
+        plans = [self.executor.explain_call(idx, c, shards) for c in calls]
+        has_write = any(unwrap_options(c).name in WRITE_CALLS for c in calls)
+        any_device = any(p.get("route") in ("device", "mesh") for p in plans)
+        if self.scheduler.mode == "off":
+            batchable, why = False, "batch-mode is off"
+        elif has_write:
+            batchable, why = False, "query contains writes (never coalesced)"
+        elif not any_device:
+            batchable, why = False, (
+                "no device/mesh-routed call — host-routed queries bypass "
+                "the wave window"
+            )
+        else:
+            batchable, why = True, (
+                "device-routed reads ride shared dispatch/readback waves"
+            )
+        router = self.executor.router
+        return {
+            "index": index,
+            "query": pql if isinstance(pql, str) else repr(pql),
+            "routeMode": router.mode,
+            "crossoverWords": router.crossover_words(),
+            "waveScheduler": {
+                "mode": self.scheduler.mode,
+                "batchable": batchable,
+                "reason": why,
+                "occupancyEwma": router.wave_occupancy.value,
+            },
+            "resultCache": self._explain_result_cache(
+                index, calls, shards, has_write
+            ),
+            "calls": plans,
+        }
+
+    def _explain_result_cache(
+        self, index: str, calls: list, shards, has_write: bool
+    ) -> dict:
+        """EXPLAIN's cache verdict (docs/result-cache.md): whether this
+        exact key is cached RIGHT NOW, and the structural admission
+        candidacy.  The HTTP layer enriches the verdict with the
+        workload plane's measured per-fingerprint cost/bytes."""
+        cache = self.result_cache
+        if cache is None:
+            return {"enabled": False, "reason": "no result cache wired"}
+        out = {"enabled": cache.enabled, "mode": cache.mode}
+        key = (
+            self._result_cache_key(index, calls, shards)
+            if not has_write
+            else None
+        )
+        out["cachedNow"] = key is not None and cache.contains(key)
+        out.update(cache.candidacy(index, has_write))
+        return out
+
     def _result_cache_key(self, index: str, calls: list, shards) -> tuple | None:
         """This query's single-flight dedup identity (executor/
         scheduler.py dedup_key) — the result cache's key.  None when
@@ -238,6 +348,23 @@ class API:
         cache = self.result_cache
         if cache is not None:
             cache.invalidate(index)
+
+    def mutation_stamp(self, index: str) -> tuple | None:
+        """The index's current view-version mutation stamp — the SAME
+        stack token single-flight dedup keys on (executor/scheduler.py),
+        read here for the workload plane's cachability estimate
+        (docs/workload.md): a repeated fingerprint whose stamp is
+        unchanged between repeats is exactly a query a mutation-stamped
+        result cache would have served from cache.  None when the index
+        is gone (the settle races a delete).  Cost: the same
+        O(fields × views) walk stack_token documents — microseconds on
+        realistic schemas; if schemas grow to thousands of fields, take
+        the per-index max-stamp O(1) upgrade described there and both
+        callers get it."""
+        idx = self.holder.index(index)
+        if idx is None:
+            return None
+        return stack_token(idx)
 
     def build_response(self, results: list[Any]) -> dict:
         """Assemble the QueryResponse dict; Options(columnAttrs=true)
@@ -390,6 +517,131 @@ class API:
         if isinstance(t, (int, float)):
             return datetime.utcfromtimestamp(t)
         return datetime.fromisoformat(t)
+
+    # -------------------------------------------------------- translation
+    def _translate_store(self, index: str, field: str | None):
+        """The keyed index's column store or keyed field's row store;
+        validates the keys option (shared by the local path and the
+        cluster's primary-forwarding router)."""
+        idx = self._index(index)
+        if field:
+            f = self._field(idx, field)
+            if not f.options.keys:
+                raise ExecutionError(f"field {field!r} does not use string keys")
+            return f.row_keys
+        if not idx.options.keys:
+            raise ExecutionError(f"index {index!r} does not use string keys")
+        return idx.column_keys
+
+    def translate_keys(
+        self, index: str, field: str | None, keys: list[str], create: bool = True
+    ) -> list[int | None]:
+        """String keys → IDs for a keyed index (column keys) or field
+        (row keys). ``create=False`` (lookup-only) leaves unknown keys as
+        None — the wire layer maps them to 0, IDs start at 1. Creation is
+        a write: the max_writes_per_request limit applies. Reference:
+        api.TranslateKeys via POST /internal/translate/keys."""
+        store = self._translate_store(index, field)
+        if create:
+            self.check_write_limit(len(keys), "translate")
+        ids = store.translate_keys(keys, create=create)
+        if create:
+            # new key→id assignments are acknowledged state: a client
+            # that writes bits under a returned id after a crash must
+            # find the same mapping on replay
+            durable.ack_barrier()
+            # a fresh mapping changes what keyed queries resolve to
+            # without touching any view version — stamp-blind, so the
+            # explicit hook is the only correctness mechanism here
+            self._invalidate_results(index)
+        return ids
+
+    # ------------------------------------------------------------- export
+    def fragment_data(
+        self,
+        index: str,
+        field: str,
+        shard: int,
+        view: str = VIEW_STANDARD,
+        fmt: str = "pilosa",
+    ) -> bytes:
+        """One fragment's bitmap, serialized. ``fmt``: "pilosa" (the
+        cookie-12348 fragment file layout) or "official" (32-bit
+        RoaringFormatSpec — what stock CRoaring/RoaringBitmap clients
+        parse; only representable when every row id < 2^32/SHARD_WIDTH,
+        since the interchange format is 32-bit)."""
+        if fmt not in ("pilosa", "official"):
+            raise ExecutionError(f"unknown roaring format {fmt!r}")
+        idx = self._index(index)
+        f = self._field(idx, field)
+        v = f.view(view)
+        frag = v.fragment(shard) if v is not None else None
+        bm = frag.bitmap if frag is not None else roaring.Bitmap()
+        if fmt == "official":
+            return roaring.serialize_official(bm)
+        return roaring.serialize(bm)
+
+    def export_csv(self, index: str, field: str, shard: int | None = None) -> str:
+        """CSV rows of (rowID/key, columnID/key) pairs (reference:
+        api.ExportCSV)."""
+        idx = self._index(index)
+        f = self._field(idx, field)
+        view = f.view(VIEW_STANDARD)
+        out = io.StringIO()
+        if view is None:
+            return ""
+        shards = sorted(view.available_shards())
+        if shard is not None:
+            shards = [s for s in shards if s == shard]
+        for s in shards:
+            frag = view.fragment(s)
+            for row in frag.row_ids():
+                row_repr = (
+                    f.row_keys.translate_id(row) or str(row)
+                    if f.options.keys
+                    else str(row)
+                )
+                for col in frag.row_columns(row).tolist():
+                    col_repr = (
+                        idx.column_keys.translate_id(col) or str(col)
+                        if idx.options.keys
+                        else str(col)
+                    )
+                    out.write(f"{row_repr},{col_repr}\n")
+        return out.getvalue()
+
+    # -------------------------------------------------------------- info
+    def info(self) -> dict:
+        out = {
+            "shardWidth": SHARD_WIDTH,
+            "version": __version__,
+        }
+        if self.diagnostics is not None:
+            out["diagnostics"] = self.diagnostics.snapshot()
+        return out
+
+    # The port serves one node (ROADMAP.md A10 ports the cluster): the
+    # cluster surfaces answer as the reference's do without a cluster.
+    def state(self) -> str:
+        return "NORMAL"
+
+    def hosts(self) -> list[dict]:
+        return [{"id": "local", "uri": "", "isCoordinator": True}]
+
+    def topology_epoch(self) -> int:
+        return 0
+
+    def translate_pending(self) -> bool:
+        return False
+
+    def node_inventories(self) -> dict:
+        return {
+            name: sorted(idx.available_shards())
+            for name, idx in self.holder.indexes.items()
+        }
+
+    def shard_nodes(self, index: str, shard: int) -> list[dict]:
+        return self.hosts()
 
     # ------------------------------------------------------------ helpers
     def _index(self, name: str) -> Index:

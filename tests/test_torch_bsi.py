@@ -26,7 +26,7 @@ from pilosa_tpu.executor.executor import Executor as RefExecutor
 from pilosa_tpu.executor.executor import _gb_counts, _gb_masks
 from pilosa_tpu.pql import parse as ref_parse
 from pilosa_tpu_torch import ops
-from pilosa_tpu_torch.executor.compile import PlanError, QueryCompiler
+from pilosa_tpu_torch.executor.compile import QueryCompiler
 from pilosa_tpu_torch.ops import _cuda, bitwise, bsi, groupby
 from pilosa_tpu_torch.pql import parse
 from pilosa_tpu_torch.shardwidth import WORDS_PER_SHARD
@@ -331,11 +331,21 @@ def test_one_launch_plans_conditions_beside_row_leaves(pair):
 
 
 def test_condition_table_cap_is_a_plan_error(pair):
-    _ref_idx, pt_idx, _ref_c, pt_c = pair
+    """17 BSI conditions (C4) split into groups of at most 16: the count
+    and the words equal the reference compiler's; 8 betweens (16
+    entries) stay one program."""
+    ref_idx, pt_idx, ref_c, pt_c = pair
     shards = list(range(N_SHARDS))
     over = ", ".join(f"Row(v > {i})" for i in range(bitwise.TREE_MAX_CONDS + 1))
-    with pytest.raises(PlanError, match="BSI condition count 17 exceeds its limit of 16"):
-        pt_c.count_async(pt_idx, parse(f"Union({over})")[0], shards)
+    ref_call, pt_call = ref_parse(f"Union({over})")[0], parse(f"Union({over})")[0]
+    assert int(pt_c.count_async(pt_idx, pt_call, shards)) == int(ref_c.count_async(ref_idx, ref_call, shards))
+    want = np.asarray(ref_c.bitmap_words(ref_idx, ref_call, shards))
+    assert np.array_equal(pt_c.bitmap_words(pt_idx, pt_call, shards), want)
+    _stacks, _leaves, _prog, conds = pt_c._plan(pt_idx, pt_call, shards)
+    assert len(conds) == 1
     # between takes two entries
     eight = ", ".join(f"Row({i} <= v <= {i + 9})" for i in range(bitwise.TREE_MAX_CONDS // 2))
-    assert int(pt_c.count_async(pt_idx, parse(f"Union({eight})")[0], shards)) >= 0
+    stacks, _leaves, _prog, conds = pt_c._plan(pt_idx, parse(f"Union({eight})")[0], shards)
+    assert len(conds) == bitwise.TREE_MAX_CONDS and len(stacks) == 1
+    want = int(ref_c.count_async(ref_idx, ref_parse(f"Union({eight})")[0], shards))
+    assert int(pt_c.count_async(pt_idx, parse(f"Union({eight})")[0], shards)) == want

@@ -14,7 +14,7 @@ import pilosa_tpu_torch.core as pt_core
 from pilosa_tpu.executor.compile import QueryCompiler as RefCompiler
 from pilosa_tpu.pql import parse as ref_parse
 from pilosa_tpu_torch.executor import ExecutionError, Executor
-from pilosa_tpu_torch.executor.compile import PlanError, QueryCompiler, StackCache
+from pilosa_tpu_torch.executor.compile import QueryCompiler, StackCache
 from pilosa_tpu_torch.ops import bitwise
 from pilosa_tpu_torch.pql import parse
 
@@ -89,17 +89,118 @@ def test_one_program_serves_every_row_id(pair):
     assert row_ids == [[r, 1] for r in range(4)]
 
 
-def test_stack_depth_over_the_kernel_limit_is_a_plan_error(pair):
-    _ref_idx, pt_idx, _ref_c, pt_c = pair
+def _deep(n: int) -> str:
     deep = "Row(f=1)"
-    for _ in range(bitwise.TREE_MAX_STACK):
+    for _ in range(n):
         deep = f"Intersect(Row(f=2), {deep})"
-    with pytest.raises(PlanError, match="stack depth 33 exceeds its limit of 32"):
-        pt_c.count_async(pt_idx, parse(deep)[0], SHARDS)
-    ok = "Row(f=1)"
-    for _ in range(bitwise.TREE_MAX_STACK - 1):
-        ok = f"Intersect(Row(f=2), {ok})"
-    assert int(pt_c.count_async(pt_idx, parse(ok)[0], SHARDS)) >= 0
+    return deep
+
+
+def test_stack_depth_over_the_kernel_limit_is_a_plan_error(pair):
+    """A stack 33 deep (C4) splits into sub-programs: the count and the
+    words equal the reference compiler's, and one under the limit plans
+    as one program."""
+    ref_idx, pt_idx, ref_c, pt_c = pair
+    deep = _deep(bitwise.TREE_MAX_STACK)
+    ref_call, pt_call = ref_parse(deep)[0], parse(deep)[0]
+    assert int(pt_c.count_async(pt_idx, pt_call, SHARDS)) == int(ref_c.count_async(ref_idx, ref_call, SHARDS))
+    want = np.asarray(ref_c.bitmap_words(ref_idx, ref_call, SHARDS))
+    assert np.array_equal(pt_c.bitmap_words(pt_idx, pt_call, SHARDS), want)
+    ok = parse(_deep(bitwise.TREE_MAX_STACK - 1))[0]
+    stacks, _leaves, prog, _conds = pt_c._plan(pt_idx, ok, SHARDS)
+    assert bitwise.program_depth(prog) == bitwise.TREE_MAX_STACK and len(stacks) == 1
+
+
+def _unions(leaf: str, n: int, rows: int = 1 << 30) -> str:
+    return "Union(" + ", ".join(leaf.format(i=i % rows) for i in range(n)) + ")"
+
+
+# ROADMAP.md C4's trees and over-limit filters: each answers as the
+# reference does on both routes of the port
+OVER_LIMIT = {
+    "conds17": f"Count({_unions('Row(v > {i})', 17)})",
+    "depth33": f"Count({_deep(33)})",
+    "leaves300": f"Count({_unions('Row(f={i})', 300, 6)})",
+    "words300": _unions("Row(g={i})", 300, 3),
+    "topn_filter": f"TopN(f, {_unions('Row(g={i})', 300, 3)}, n=3)",
+    "sum_filter": f"Sum({_unions('Row(v > {i})', 20)}, field=v)",
+    "max_filter": f"Max({_deep(40)}, field=v)",
+}
+
+
+@pytest.fixture(scope="module")
+def over_limit_executors():
+    from pilosa_tpu.executor import Executor as RefExecutor
+    from pilosa_tpu_torch.parallel.mesh import MeshContext, make_mesh
+
+    ref_h, pt_h = ref_core.Holder(None), pt_core.Holder(None)
+    fill(ref_core, ref_h)
+    fill(pt_core, pt_h)
+    ctx = MeshContext(make_mesh(["cpu"] * 8, words_axis=2))
+    return RefExecutor(ref_h, route_mode="device"), {
+        "device": Executor(pt_h, device="cpu", route_mode="device"),
+        "mesh": Executor(pt_h, device="cpu", mesh_ctx=ctx, route_mode="mesh"),
+    }
+
+
+@pytest.mark.parametrize("route", ["device", "mesh"])
+@pytest.mark.parametrize("case", sorted(OVER_LIMIT))
+def test_over_limit_tree_answers_as_the_reference(over_limit_executors, monkeypatch, case, route):
+    """C4: no program K1 is given passes its limits, and the answer is
+    the reference's; the mesh route runs the sub-programs per block."""
+    ref, ports = over_limit_executors
+    seen = []
+    real = bitwise.tree_eval
+
+    def spy(stacks, leaves, prog, *a, **kw):
+        seen.append((len(prog), len(leaves), len(kw.get("conds", ())), bitwise.program_depth(prog)))
+        return real(stacks, leaves, prog, *a, **kw)
+
+    monkeypatch.setattr("pilosa_tpu_torch.ops.tree_eval", spy)
+    pql = OVER_LIMIT[case]
+    got = ports[route].execute("i", pql)
+    want = ref.execute("i", pql)
+    if case == "words300":
+        got, want = [r.columns().tolist() for r in got], [r.columns().tolist() for r in want]
+    assert got == want
+    limits = (bitwise.TREE_MAX_OPS, bitwise.TREE_MAX_LEAVES, bitwise.TREE_MAX_CONDS, bitwise.TREE_MAX_STACK)
+    assert seen and all(n <= most for sizes in seen for n, most in zip(sizes, limits))
+
+
+def test_three_hundred_leaves_split_into_one_sub_program(pair):
+    """⌈300/256⌉ programs: a sub-program of 256 leaves writes a plane,
+    which the outer program ORs with the last 44 leaves; every
+    program passes check_program."""
+    _ref_idx, pt_idx, _ref_c, pt_c = pair
+    call = parse(OVER_LIMIT["leaves300"][len("Count("):-1])[0]
+    stacks, leaves, prog, _conds = pt_c._plan(pt_idx, call, SHARDS)
+    assert len(stacks) == 2 and tuple(stacks[1].shape) == (1, N_SHARDS, stacks[0].shape[2])
+    assert len(leaves) == 45 and leaves[0] == (1, 0)
+    assert prog[0] == (bitwise.OP_LOAD, 0) and len(prog) == 89
+
+
+@pytest.mark.parametrize("route", ["device", "mesh"])
+def test_long_union_holds_at_most_two_temporary_planes(over_limit_executors, monkeypatch, route):
+    """A Union of 3,000 leaves, planned as a left fold, is a chain of 12
+    sub-programs, each reading the last one's plane: a plane is freed
+    once the next sub-program has run, so at most two are claimed from
+    the stack budget at a time, and no claim outlives the query."""
+    ref, ports = over_limit_executors
+    peak = []
+    real = StackCache.claim
+
+    def claim(self, nbytes):
+        token = real(self, nbytes)
+        peak.append(len(self._reserved))
+        return token
+
+    monkeypatch.setattr(StackCache, "claim", claim)
+    port = ports[route]
+    got = port.execute("i", f"Count({_unions('Row(f={i})', 3000, 6)})")
+    small = f"Count({_unions('Row(f={i})', 6)})"
+    assert got == port.execute("i", small) == ref.execute("i", small)
+    assert len(peak) == 11 and max(peak) == 2
+    assert not port.compiler.stacks._reserved
 
 
 @pytest.mark.parametrize(

@@ -33,6 +33,45 @@ print("LOADED", bad)
 """
 
 
+_SERVE_HTTP = """
+import json, sys, tempfile, urllib.request
+from pilosa_tpu_torch.server import Server
+from pilosa_tpu_torch.utils.config import Config
+
+with tempfile.TemporaryDirectory() as d:
+    srv = Server(Config(bind="127.0.0.1:0", data_dir=d, anti_entropy_interval=0, profiler_enabled=False,
+                        diagnostics_interval=0), device="cpu")
+    srv.open()
+    try:
+        def post(path, body):
+            req = urllib.request.Request(f"http://127.0.0.1:{srv.port}{path}", data=body, method="POST")
+            with urllib.request.urlopen(req, timeout=30) as r:
+                return json.loads(r.read())
+        post("/index/i", b"{}")
+        post("/index/i/field/f", b"{}")
+        post("/index/i/query", b"Set(3, f=1) Set(70000, f=1) Set(3, f=2)")
+        assert post("/index/i/query", b"Count(Intersect(Row(f=1), Row(f=2)))") == {"results": [1]}
+    finally:
+        srv.close()
+bad = sorted(m for m in sys.modules if m in ("jax", "jaxlib", "pilosa_tpu")
+             or m.startswith(("jax.", "jaxlib.", "pilosa_tpu.")))
+print("LOADED", bad)
+"""
+
+
+def test_http_server_loads_no_jax_and_no_pilosa_tpu():
+    """The port's Server answers an HTTP query with neither jax nor
+    pilosa_tpu loaded: its encoding (pilosa_pb2's descriptor names the
+    wire package ``pilosa_tpu``, not a module), config, planes and
+    front end are its own copies."""
+    env = dict(os.environ, PILOSA_TPU_SHARD_WIDTH_EXP="16")
+    out = subprocess.run(
+        [sys.executable, "-c", _SERVE_HTTP], cwd=REPO, env=env, capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout, out.stdout
+
+
 def test_serving_a_query_loads_no_jax_and_no_pilosa_tpu():
     env = dict(os.environ, PILOSA_TPU_SHARD_WIDTH_EXP="16")
     out = subprocess.run(
@@ -65,6 +104,9 @@ def test_no_source_line_imports_jax_or_pilosa_tpu():
     assert {
         "pilosa_tpu_torch/ops/similarity.py", "pilosa_tpu_torch/examples/chemical_similarity.py",
         "pilosa_tpu_torch/parallel/__init__.py", "pilosa_tpu_torch/parallel/mesh.py",
+        "pilosa_tpu_torch/server/server.py", "pilosa_tpu_torch/server/http.py",
+        "pilosa_tpu_torch/server/eventloop.py", "pilosa_tpu_torch/encoding/pilosa_pb2.py",
+        "pilosa_tpu_torch/utils/config.py", "pilosa_tpu_torch/utils/probecache.py",
     } <= scanned
     assert offenders == []
 
@@ -116,7 +158,7 @@ def test_chip_smoke_rehearses_on_the_cpu(capsys):
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms"}
     assert all(keys <= set(k) for k in kernels)
-    paths = {"main", "taxi", "residency", "similarity", "mesh", "graft", "mesh_programs"}
+    paths = {"main", "serving", "taxi", "residency", "similarity", "mesh", "graft", "mesh_programs"}
     assert {k["launches_by_path"].keys() == paths for k in kernels} == {True}
     # K4's grouped mode has entries of its own: 16 and 32 masks, per block
     assert [k["path"] for k in kernels if k["name"] == "bsi_sum" and (k["shape"] or "").startswith("grouped")] == [
@@ -128,7 +170,8 @@ def test_chip_smoke_rehearses_on_the_cpu(capsys):
     assert all(k["graph_ms"] is None and k["library_graph_ms"] is None for k in kernels)
     assert {k["replaces"].split(":")[0] for k in kernels if k["path"] == "mesh"} == {
         "pilosa_tpu/parallel/mesh.py", "pilosa_tpu/executor/compile.py"}
-    # main 8 + Shift 2 + the fused phase, write 2, taxi 13 + the fused
+    # main 8 + Shift 2 + the fused phase, write 2, serving 12 queries over
+    # HTTP + the 3 C4 trees through its compiler, taxi 13 + the fused
     # phase, residency 8 + 4 fused queries + the fused phase + the write +
     # slots, similarity 3 searches + 4 all-pairs blocks; per mesh layout:
     # the main holder's 10 queries, its fused phase, the Row readback,
@@ -138,5 +181,5 @@ def test_chip_smoke_rehearses_on_the_cpu(capsys):
     # fragment; per layout, the five mesh programs of dryrun_multichip
     mesh_layout = 10 + 1 + 1 + 1 + 4 + 1 + 13 + 1 + 2 + 4 + 3
     assert sum(line.startswith("ok  ") for line in lines) == (
-        8 + 2 + 1 + 2 + 13 + 1 + 8 + 4 + 1 + 2 + 3 + 4 + 2 * mesh_layout + 1 + 1 + 2 * 5)
+        8 + 2 + 1 + 2 + 12 + 3 + 13 + 1 + 8 + 4 + 1 + 2 + 3 + 4 + 2 * mesh_layout + 1 + 1 + 2 * 5)
     assert not any(line.startswith('{"ok"') for line in lines)
