@@ -85,6 +85,25 @@ Run from the root of a checkout. In order:
    against the unfused composition (K1 words, then the aggregate's
    filter-plane mode), with the fused launches counted exactly and no
    K1 words launch but a Shift's;
+   - the cli phase: the port as users start it, the CLI's ``server``
+     (``python -m pilosa_tpu_torch server``'s ``main``, in a child that
+     prints the kernels' launch counts when SIGTERM ends it) on the
+     card; ``import --roaring --create`` of a CSV of 10,000,000
+     rowID,columnID records (rows 1-2 over 1,024 shards) and
+     ``loader.bulk_load`` of 100,952,666 bits from numpy; over HTTP a
+     Count of an Intersect, TopN, Counts on the bulk field, a Set and
+     the Count again, each against numpy, with the K1 count, K2 rows
+     and K3 delta launches they must make; the load rates, the first
+     Count after the loads and the warm Count; exit 0 on SIGTERM;
+   - the multihost phase (B16m): the one-process 4x2 mesh on 8
+     positions of the card, then two gloo ranks (4 positions each on
+     ``cuda:0``, each with half the stack budget) making one 4x2 grid
+     over 10,240 shards x R 8 x 32,768 words, each rank placing only its
+     own shards: count_and, a count_tree of an Intersect, topn,
+     bsi_sum, the Tanimoto search and ingest_and_aggregate, both ranks
+     equal to each other, to numpy and to the one-process mesh, each
+     rank's launches exact, each program's sync p50 with its
+     all-reduce's share;
 3. each kernel against its plain torch version on the card at its
    path's shapes (all-ones and bit-31 words, rows -1 and >= R, _OOB
    delta entries, an empty Union(); BSI constants 0, negative and
@@ -3079,6 +3098,477 @@ def serving_path(torch, device: str, main: dict) -> tuple:
     return {}, launches
 
 
+# ---------------------------------------------------------------- the CLI
+CLI_RECORDS = 10_000_000  # rowID,columnID records of the CSV import
+CLI_SHARDS = 1024
+CLI_BULK_BITS = 100_952_666  # BENCH_INGEST_r14.json's bulk line
+CLI_BULK_ROWS = 16  # bench_all.py's bulk ingest rows
+CLI_SEED = 21
+# the server child: the CLI's own entry, and the kernels' launch counts
+# once SIGTERM has ended it
+CLI_CHILD = (
+    "import json, sys\n"
+    "from pilosa_tpu_torch import cli\n"
+    "from pilosa_tpu_torch.ops import _cuda\n"
+    "rc = cli.main(sys.argv[1:])\n"
+    "print('LAUNCHES ' + json.dumps({n: k.launches for n, k in _cuda.KERNELS.items()}), flush=True)\n"
+    "print('MODES ' + json.dumps({n: k.modes for n, k in _cuda.KERNELS.items() if k.modes}), flush=True)\n"
+    "sys.exit(rc)\n"
+)
+
+
+def _lines(proc):
+    """A queue of ``proc``'s stdout lines, read on a thread."""
+    import queue
+    import threading
+
+    q = queue.Queue()
+
+    def pump():
+        for line in proc.stdout:
+            q.put(line.rstrip("\n"))
+        q.put(None)
+
+    threading.Thread(target=pump, daemon=True).start()
+    return q
+
+
+def _wait_line(q, pattern: str, timeout: float, seen: list) -> "re.Match":
+    import queue
+
+    deadline = time.monotonic() + timeout
+    while True:
+        try:
+            line = q.get(timeout=max(0.01, deadline - time.monotonic()))
+        except queue.Empty:
+            raise AssertionError(f"no line matching {pattern!r} within {timeout:.0f} s: {seen[-20:]}") from None
+        if line is None:
+            raise AssertionError(f"the server exited before {pattern!r}: {seen[-40:]}")
+        seen.append(line)
+        m = re.search(pattern, line)
+        if m:
+            return m
+
+
+def cli_path(torch, device: str, records: int = CLI_RECORDS, shards: int = CLI_SHARDS,
+             bulk_bits: int = CLI_BULK_BITS) -> tuple:
+    """The port as users start it: ``python -m pilosa_tpu_torch server``
+    (the CLI's ``main``, in a child this script writes so that it can
+    print the kernels' launch counts when SIGTERM ends it) on
+    127.0.0.1 and a temp data dir, on ``--device``; ``import --roaring
+    --create`` of a CSV of ``records`` rowID,columnID records (rows 1-2
+    over ``shards`` shards); ``loader.bulk_load`` of ``bulk_bits`` bits
+    from numpy (rows 0-15, bench_all.py's bulk recipe); over HTTP a
+    Count of an Intersect, TopN, Counts on the bulk field, a Set and the
+    Count again, each answer against numpy; the kernels the queries must
+    launch, the load rates, the first Count after the import and the
+    warm Count; SIGTERM and exit 0. → ({}, the path's launches)."""
+    import contextlib
+    import io
+    import signal
+    import tempfile
+    import urllib.request
+
+    from pilosa_tpu_torch import cli, loader
+    from pilosa_tpu_torch.ops import _cuda
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+
+    on_card = device == "cuda"
+    tmp = tempfile.TemporaryDirectory()
+    cfg = os.path.join(tmp.name, "server.toml")
+    with open(cfg, "w") as f:
+        # every query launches its kernels: no cached repeat, no host route
+        f.write('route-mode = "device"\nresult-cache-mode = "off"\n')
+    env = dict(os.environ, PILOSA_TPU_TORCH_PROBE_CACHE=os.path.join(tmp.name, "device_probe.json"))
+    times = {}
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-c", CLI_CHILD, "server", "--bind", "127.0.0.1:0", "--data-dir",
+         os.path.join(tmp.name, "data"), "--config", cfg, "--device", device],
+        cwd=os.path.dirname(os.path.abspath(__file__)), env=env, stdout=subprocess.PIPE, text=True,
+    )
+    try:
+        q, seen = _lines(proc), []
+        uri = _wait_line(q, r"^pilosa-tpu server listening on (http://127\.0\.0\.1:\d+)$", 120, seen).group(1)
+        verdict = _wait_line(q, r"^device (\S+): (ready|FAILED) \((.*)\)$", 600, seen)
+        if verdict.group(2) != "ready":
+            raise AssertionError(f"cli: the server's device probe failed: {verdict.group(0)}")
+        times["start_and_probe_s"] = time.perf_counter() - t0
+        log(f"ok  cli: the CLI's server on {verdict.group(1)}, listening on {uri}")
+        host = uri[len("http://"):]
+
+        def post(path: str, body: bytes):
+            req = urllib.request.Request(uri + path, data=body, method="POST")
+            with urllib.request.urlopen(req, timeout=600) as r:
+                return json.loads(r.read())
+
+        def query(pql: str):
+            return post("/index/cli/query", pql.encode())["results"][0]
+
+        # ---------------------------------------------- the CSV, through the CLI
+        rng = np.random.default_rng(CLI_SEED)
+        rows = rng.integers(1, 3, records).astype(np.uint64)
+        cols = rng.integers(0, shards * SHARD_WIDTH, records).astype(np.uint64)
+        csv = os.path.join(tmp.name, "records.csv")
+        t0 = time.perf_counter()
+        with open(csv, "w") as f:
+            f.write("\n".join(f"{r},{c}" for r, c in zip(rows.tolist(), cols.tolist())))
+            f.write("\n")
+        times["csv_write_s"] = time.perf_counter() - t0
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        # one batch: one frame a shard. The default batch (100,000
+        # records) makes a frame per shard per batch, 102,400 frames here,
+        # and each POST costs the server milliseconds whatever its size
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(["import", csv, "--roaring", "--create", "--host", host, "-i", "cli", "-f", "f",
+                           "--batch-size", str(records)])
+        times["csv_import_s"] = time.perf_counter() - t0
+        said = out.getvalue().strip()
+        m = re.match(r"imported (\d+) bits into cli/f via (\d+) roaring frames in \S+s \((\S+) Mbit/s", said)
+        u1, u2 = np.unique(cols[rows == 1]), np.unique(cols[rows == 2])
+        if rc != 0 or not m or int(m.group(1)) != u1.size + u2.size:
+            raise AssertionError(f"cli import: rc {rc}, {said!r}, want {u1.size + u2.size} bits")
+        times["csv_import_mbit_s (the CLI's own figure)"] = float(m.group(3))
+        times["csv_import_records_per_s"] = records / times["csv_import_s"]
+        log(f"ok  cli: import --roaring --create of {records} records  -> {said} "
+            f"({times['csv_import_s']:.1f} s with the parse)")
+        # ----------------------------------------------- numpy, through the loader
+        post("/index/cli/field/bulk", b"{}")
+        b_rows = rng.integers(0, CLI_BULK_ROWS, bulk_bits).astype(np.uint64)
+        b_cols = rng.integers(0, shards * SHARD_WIDTH, bulk_bits).astype(np.uint64)
+        stats = loader.bulk_load(uri, "cli", "bulk", b_rows, b_cols, pipeline=3, batch_bits=bulk_bits)
+        times["bulk_load"] = {k: stats[k] for k in ("bits", "posts", "seconds", "mbitSetPerS", "backoffs429")}
+        log(f"ok  cli: loader.bulk_load of {bulk_bits} bits  -> {stats['bits']} bits set, {stats['mbitSetPerS']} Mbit/s")
+        b3 = np.unique(b_cols[b_rows == 3])
+        del b_rows, b_cols
+
+        # --------------------------------------------------- queries over HTTP
+        if on_card:
+            torch.cuda.synchronize()
+        head = "Count(Intersect(Row(f=1), Row(f=2)))"
+        want = int(np.intersect1d(u1, u2, assume_unique=True).size)
+        t0 = time.perf_counter()
+        got = query(head)
+        times["first_count_after_import_ms"] = (time.perf_counter() - t0) * 1e3
+        n_counts, n_topn = 1, 0
+        if got != want:
+            raise AssertionError(f"cli: {head}: {got} != numpy {want}")
+        log(f"ok  cli: {head}  -> {got}")
+        lat = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            if query(head) != want:
+                raise AssertionError(f"cli: a repeat of {head} differs")
+            lat.append(time.perf_counter() - t0)
+            n_counts += 1
+        times["warm_count_p50_ms"] = float(np.median(lat)) * 1e3
+        top = sorted(((1, int(u1.size)), (2, int(u2.size))), key=lambda rc: (-rc[1], rc[0]))
+        got = query("TopN(f, n=5)")
+        n_topn += 1
+        if got != [{"id": r, "count": c} for r, c in top]:
+            raise AssertionError(f"cli: TopN(f, n=5): {got} != numpy {top}")
+        log(f"ok  cli: TopN(f, n=5)  -> {json.dumps(got)}")
+        bulk_checks = [
+            ("Count(Row(bulk=3))", int(b3.size)),
+            ("Count(Intersect(Row(bulk=3), Row(f=1)))", int(np.intersect1d(b3, u1, assume_unique=True).size)),
+        ]
+        for pql, want_b in bulk_checks:
+            got = query(pql)
+            n_counts += 1
+            if got != want_b:
+                raise AssertionError(f"cli: {pql}: {got} != numpy {want_b}")
+            log(f"ok  cli: {pql}  -> {got}")
+        # a Set into row 1 at a column of row 2 only: the Intersect gains it
+        col = int(np.setdiff1d(u2, u1, assume_unique=True)[0])
+        post("/index/cli/query", f"Set({col}, f=1)".encode())
+        got = query(head)
+        n_counts += 1
+        if got != want + 1:
+            raise AssertionError(f"cli: {head} after Set({col}, f=1): {got} != {want + 1}")
+        log(f"ok  cli: after Set({col}, f=1): {head}  -> {got}")
+    finally:
+        if proc.poll() is None:
+            proc.send_signal(signal.SIGTERM)
+        try:
+            proc.wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            raise
+    rest = []
+    while True:
+        line = q.get(timeout=30)
+        if line is None:
+            break
+        rest.append(line)
+    if proc.returncode != 0:
+        raise AssertionError(f"cli: the server exited {proc.returncode} on SIGTERM: {(seen + rest)[-20:]}")
+    launches = json.loads(next(ln for ln in rest if ln.startswith("LAUNCHES "))[len("LAUNCHES "):])
+    modes = json.loads(next(ln for ln in rest if ln.startswith("MODES "))[len("MODES "):])
+    log("ok  cli: SIGTERM  -> the server closed and exited 0")
+    log("launches on the cli path (the server's):", json.dumps(launches))
+    log("launches on the cli path by mode:", json.dumps(modes))
+    # each Count one K1 count, the TopN one K2 rows, the Set one K3 delta
+    # on the resident stack before the Count that follows it
+    if on_card and (modes.get("tree_eval", {}).get("count") != n_counts or modes.get("row_counts", {}).get("rows") != n_topn
+                    or modes.get("stack_delta", {}).get("delta", 0) < 1):
+        raise AssertionError(f"cli: the queries did not launch their kernels ({n_counts} K1 count, "
+                             f"{n_topn} K2 rows, a K3 delta): {modes}")
+    log("cli times:", json.dumps(times))
+    tmp.cleanup()
+    return {}, launches
+
+
+# ------------------------------------------------------ the multi-host mesh
+MH_PROCESSES = 2
+MH_POSITIONS = 4  # a rank, all on one card here
+MH_WORDS_AXIS = 2
+MH_G = 64  # distinct blocks cycled over the shards
+MH_DEPTH = 6  # BSI magnitude planes
+MH_SEED = 13
+MH_K = 4
+MH_CALLS = 12  # each program: the checked call, the p50's warm-up and ten
+MH_PROGRAMS = ("count_and", "count_tree", "topn", "bsi_sum", "tanimoto", "ingest_and_aggregate")
+
+
+def mh_blocks(W: int) -> dict:
+    """The multi-host cell's distinct blocks, from MH_SEED: row matrices
+    [G, R, W] (the main recipe: three random words ANDed), filters [G,
+    W], sparse ingest deltas [G, R, W] (one word in DELTA_SHARE set) and
+    BSI slices [G, 2 + D, W] (random planes: the sum is a function of the
+    planes)."""
+    rng = np.random.default_rng(MH_SEED)
+    m = rng.integers(0, 2**32, (MH_G, R_PAD, W), dtype=np.uint32)
+    m &= rng.integers(0, 2**32, (MH_G, R_PAD, W), dtype=np.uint32)
+    m &= rng.integers(0, 2**32, (MH_G, R_PAD, W), dtype=np.uint32)
+    d = np.where(rng.integers(0, DELTA_SHARE, (MH_G, R_PAD, W)) == 0,
+                 rng.integers(0, 2**32, (MH_G, R_PAD, W), dtype=np.uint32), 0).astype(np.uint32)
+    return {
+        "m": m, "d": d,
+        "f": rng.integers(0, 2**32, (MH_G, W), dtype=np.uint32),
+        "s": rng.integers(0, 2**32, (MH_G, 2 + MH_DEPTH, W), dtype=np.uint32),
+    }
+
+
+def mh_numpy(blk: dict, n_shards: int) -> dict:
+    """The multi-host programs' answers by numpy: each block's counts
+    times the shards that hold it."""
+    mult = n_shards // MH_G
+    pc = lambda x: int(np.bitwise_count(x).sum(dtype=np.int64))  # noqa: E731
+    m, f, d, s = blk["m"], blk["f"], blk["d"], blk["s"]
+    counts = np.array([sum(pc(m[g, r] & f[g]) for g in range(MH_G)) * mult for r in range(R_PAD)], dtype=np.int64)
+    order = sorted(range(R_PAD), key=lambda r: (-counts[r], r))[:MH_K]
+    pop = np.array([sum(pc(m[g, r]) for g in range(MH_G)) * mult for r in range(R_PAD)], dtype=np.int64)
+    scores, ids = np_search(counts, pop, sum(pc(f[g]) for g in range(MH_G)) * mult, MH_K, 0.0)
+    ex, sign = s[:, 0], s[:, 1]
+    pos, neg = ex & ~sign & f, ex & sign & f
+    total = sum((1 << b) * (pc(s[:, 2 + b] & pos) - pc(s[:, 2 + b] & neg)) for b in range(MH_DEPTH)) * mult
+    new = m | d
+    ingest = [sum(pc(new[g, r] & f[g]) for g in range(MH_G)) * mult for r in range(R_PAD)]
+    return {
+        "count_and": sum(pc(m[g, 0] & m[g, 1]) for g in range(MH_G)) * mult,
+        "count_tree": sum(pc(m[g, 1] & m[g, 2]) for g in range(MH_G)) * mult,
+        "topn": [[int(counts[r]) for r in order], order],
+        "bsi_sum": [total, pc(ex & f) * mult],
+        "tanimoto": [scores.view(np.int32).tolist(), ids.tolist()],
+        "ingest_and_aggregate": [ingest, sum(ingest)],
+    }
+
+
+def mh_local(torch, blocks: np.ndarray, lo: int, hi: int, device):
+    """The shards [lo, hi) of a cycled array on ``device``: block s % G
+    at shard s; [G, P, W] blocks give [P, hi - lo, W], [G, W] give
+    [hi - lo, W]."""
+    blk = torch.from_numpy(np.ascontiguousarray(blocks).view(np.int32)).to(device)
+    sel = torch.arange(lo, hi, device=device) % blk.shape[0]
+    return blk[sel] if blk.dim() == 2 else blk.permute(1, 0, 2)[:, sel].contiguous()
+
+
+def mh_programs(torch, eng, place, blk: dict, n_shards: int, lo: int, hi: int, device, reps: int = 10) -> tuple:
+    """Place shards [lo, hi) of the cell with ``place`` (a rank's share,
+    or the whole on one process) and run the six programs MH_CALLS times
+    each, the ingest last (it changes the matrix in place; a repeat ORs
+    the same delta). → (answers, sync p50 ms, collective ms per call)."""
+    from pilosa_tpu_torch.ops import bitwise
+    from pilosa_tpu_torch.parallel.mesh import BlockPlan
+    from pilosa_tpu_torch.shardwidth import WORDS_PER_SHARD
+
+    arrays = {}
+    for name in ("m", "d", "s"):
+        local = mh_local(torch, blk[name], lo, hi, device)
+        arrays[name] = place(local)
+        del local
+    arrays["f"] = place(mh_local(torch, blk["f"], lo, hi, device))
+    m, d, s, f = (arrays[k] for k in ("m", "d", "s", "f"))
+    L, A = bitwise.OP_LOAD, bitwise.OP_AND
+    tree = eng.count_tree(BlockPlan([(L, 0), (L, 1), (A, 0)], [(0, 1), (0, 2)], [], n_shards, WORDS_PER_SHARD), "grid")
+    progs = {
+        "count_and": lambda: int(eng.count_and(m.row(0), m.row(1))),
+        "count_tree": lambda: int(tree([m])),
+        "topn": lambda: [t.tolist() for t in eng.topn(m, f, MH_K)],
+        "bsi_sum": lambda: [int(t) for t in eng.bsi_sum(s, f)],
+        "tanimoto": lambda: (lambda v, i: [v.view(torch.int32).tolist(), i.tolist()])(*eng.tanimoto(m, f, MH_K)),
+        "ingest_and_aggregate": lambda: (lambda _m, c, t: [c.tolist(), int(t)])(*eng.ingest_and_aggregate(m, d, f)),
+    }
+    answers, p50, coll = {}, {}, {}
+    for name in MH_PROGRAMS:
+        answers[name] = progs[name]()
+        c0 = eng.collective_s
+        p50[name] = sync_p50_ms(torch, progs[name], reps)
+        coll[name] = (eng.collective_s - c0) / (reps + 1) * 1e3
+    del arrays, m, d, s, f
+    return answers, p50, coll
+
+
+def multihost_rank(rank: str, port: str, device: str, n_shards: str, budget: str) -> None:
+    """One rank of the multi-host phase (run by ``multihost_path`` in a
+    process of its own): join the two-rank gloo group at
+    127.0.0.1:``port``, take half the stack budget, build a 4x2 mesh of
+    MH_POSITIONS positions a rank on ``device``, place this rank's half
+    of the cell's shards and run the programs; print one RESULT line."""
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from pilosa_tpu_torch.executor import compile as query_compile
+    from pilosa_tpu_torch.ops import _cuda
+    from pilosa_tpu_torch.parallel import multihost
+    from pilosa_tpu_torch.parallel.mesh import MeshContext, MeshQueryEngine
+    from pilosa_tpu_torch.shardwidth import WORDS_PER_SHARD
+
+    rank, n_shards = int(rank), int(n_shards)
+    if device == "cpu":
+        torch.set_num_threads(1)  # two ranks beside each other on the host's cores
+    query_compile.set_stack_budget(int(budget) // MH_PROCESSES)
+    multihost.init_distributed(f"127.0.0.1:{port}", MH_PROCESSES, rank, timeout_s=300)
+    devices = [torch.device("cuda", 0) if device == "cuda" else "cpu"] * MH_POSITIONS
+    mesh = multihost.make_multihost_mesh(words_axis=MH_WORDS_AXIS, devices=devices)
+    ctx = MeshContext(mesh, multihost=True)
+    eng = MeshQueryEngine(mesh)
+    blk = mh_blocks(WORDS_PER_SHARD)
+    s_l = n_shards // MH_PROCESSES
+    for k in _cuda.KERNELS.values():
+        k.reset()
+    answers, p50, coll = mh_programs(torch, eng, ctx.place_stack, blk, n_shards, rank * s_l, (rank + 1) * s_l, devices[0])
+    if device == "cuda":
+        torch.cuda.synchronize()
+    print("RESULT " + json.dumps({
+        "rank": rank, "owners": mesh.owners, "held": [[i, j] for i in range(mesh.shape["shards"]) if mesh.owns(i)
+                                                      for j in range(mesh.shape["words"])],
+        "answers": answers, "p50_ms": p50, "collective_ms": coll, "snapshot": eng.snapshot(),
+        "launches": {n: k.launches for n, k in _cuda.KERNELS.items()},
+        "modes": {n: k.modes for n, k in _cuda.KERNELS.items() if k.modes},
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9 if device == "cuda" else None,
+    }), flush=True)
+
+
+def multihost_path(torch, device: str, n_shards: int = N_SHARDS) -> tuple:
+    """B16m on one card: two gloo ranks (MH_PROCESSES processes, each
+    with MH_POSITIONS positions on ``cuda:0``, words_axis 2) make a 4x2
+    grid whose shard rows 0-1 are rank 0's and 2-3 rank 1's, over the
+    mesh path's holder shape (``n_shards`` shards, R 8, W of the shard
+    width; each rank's blocks [8, S/4, W/2] built on the card from MH_G
+    blocks cycled over the shards). Each rank places only its own
+    shards and runs count_and, a count_tree of an Intersect, topn,
+    bsi_sum, the Tanimoto search and ingest_and_aggregate; both ranks
+    must agree, and equal numpy and the single-process 4x2 mesh on the
+    same data (run here first, and freed before the ranks start). Each
+    rank's launches are asserted; each program's sync p50 is printed
+    with the share of it spent in the cross-process all-reduce. → ({},
+    the two ranks' launches summed)."""
+    import socket
+
+    from pilosa_tpu_torch.ops import _cuda
+    from pilosa_tpu_torch.parallel.mesh import MeshQueryEngine, make_mesh
+    from pilosa_tpu_torch.shardwidth import WORDS_PER_SHARD
+
+    on_card = device == "cuda"
+    W = WORDS_PER_SHARD
+    blk = mh_blocks(W)
+    want = mh_numpy(blk, n_shards)
+    dev = torch.device("cuda", 0) if on_card else "cpu"
+    # ------------------------------------------ the single-process 4x2 mesh
+    one = MeshQueryEngine(make_mesh([dev] * (MH_PROCESSES * MH_POSITIONS), words_axis=MH_WORDS_AXIS))
+    one_answers, one_p50, _c = mh_programs(torch, one, one.place_matrix, blk, n_shards, 0, n_shards, dev)
+    del one
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    for name in MH_PROGRAMS:
+        if one_answers[name] != want[name]:
+            raise AssertionError(f"multihost: the single-process 4x2 mesh's {name} {one_answers[name]} != numpy {want[name]}")
+    # --------------------------------------------------------- the two ranks
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    budget = int(torch.cuda.get_device_properties(0).total_memory * 0.7) if on_card else 32 << 20
+    env = dict(os.environ, GLOO_SOCKET_IFNAME="lo")
+    t0 = time.perf_counter()
+    procs = [
+        subprocess.Popen(
+            [sys.executable, "-c", "import sys, chip_smoke; chip_smoke.multihost_rank(*sys.argv[1:])",
+             str(r), str(port), device, str(n_shards), str(budget)],
+            cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        for r in range(MH_PROCESSES)
+    ]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall_s = time.perf_counter() - t0
+    results = []
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        line = next((ln for ln in out.splitlines() if ln.startswith("RESULT ")), None)
+        if p.returncode != 0 or line is None:
+            raise AssertionError(f"multihost: rank {r} exited {p.returncode}:\n{out[-4000:]}")
+        results.append(json.loads(line[len("RESULT "):]))
+    for res in results:
+        if res["owners"] != [0, 0, 1, 1] or len(res["held"]) != MH_POSITIONS:
+            raise AssertionError(f"multihost: rank {res['rank']} holds {res['held']} of owners {res['owners']}")
+    for name in MH_PROGRAMS:
+        got = [res["answers"][name] for res in results]
+        if got[0] != got[1] or got[0] != want[name] or got[0] != one_answers[name]:
+            raise AssertionError(f"multihost: {name}: ranks {got} != numpy {want[name]} / one process {one_answers[name]}")
+        log(f"ok  multihost: {name} on 2 ranks x 4 positions  -> {json.dumps(got[0])[:100]}, equal to numpy and "
+            "the single-process 4x2 mesh")
+    # each rank, per call of each program: K2 four times a block (count_and
+    # once, the search's |a ∩ q| and |a|, topn once), K1 count twice a
+    # block (the tree, the search's |q|), K4 and K13 once a block, K10's
+    # small int once (topn) and small once with K12 once (the search)
+    per_block = MH_CALLS * MH_POSITIONS
+    want_launches = {n: 0 for n in _cuda.KERNELS}
+    want_launches.update(row_counts=4 * per_block, tree_eval=2 * per_block, bsi_sum=per_block,
+                         ingest_counts=per_block, sim_select=2 * MH_CALLS, mesh_sim_keys=MH_CALLS)
+    launches = {n: 0 for n in _cuda.KERNELS}
+    for res in results:
+        log(f"launches of multihost rank {res['rank']}:", json.dumps(res["launches"]))
+        log(f"launches of multihost rank {res['rank']} by mode:", json.dumps(res["modes"]))
+        if on_card and res["launches"] != want_launches:
+            raise AssertionError(f"multihost rank {res['rank']}: launches {res['launches']} != {want_launches}")
+        for n, c in res["launches"].items():
+            launches[n] += c
+    times = {"ranks_wall_s": wall_s, "one_process_p50_ms": one_p50,
+             "peak_gb_per_rank": [res["peak_gb"] for res in results]}
+    for res in results:
+        times[f"rank{res['rank']}_p50_ms"] = res["p50_ms"]
+        times[f"rank{res['rank']}_all_reduce_ms"] = res["collective_ms"]
+        times[f"rank{res['rank']}_snapshot"] = res["snapshot"]
+    for name in MH_PROGRAMS:
+        p50s = [res["p50_ms"][name] for res in results]
+        shares = [res["collective_ms"][name] / res["p50_ms"][name] for res in results]
+        log(f"sync p50 {name}: one process 4x2 {one_p50[name]:.3f} ms; two ranks {p50s[0]:.3f} / {p50s[1]:.3f} ms, "
+            f"all-reduce {shares[0]:.0%} / {shares[1]:.0%} of it")
+    log("multihost times:", json.dumps(times))
+    return {}, launches
+
+
 def main(
     device: str = "cuda",
     n_shards: int = N_SHARDS,
@@ -3086,11 +3576,14 @@ def main(
     budget: "int | None" = None,
     sim_rows: int = SIM_ROWS,
     sim_block: int = SIM_BLOCK,
+    cli_records: int = CLI_RECORDS,
+    cli_shards: int = CLI_SHARDS,
+    cli_bulk_bits: int = CLI_BULK_BITS,
 ) -> int:
     """``device="cpu"`` with small ``n_shards``, ``taxi_shards``,
-    ``sim_rows`` and ``sim_block``, and a ``budget`` that puts the
-    residency path's fields over it, rehearses the same steps on the
-    plain versions, without the card lines or the ok line."""
+    ``sim_rows``, ``sim_block`` and ``cli_*`` sizes, and a ``budget`` that
+    puts the residency path's fields over it, rehearses the same steps
+    on the plain versions, without the card lines or the ok line."""
     import torch
 
     on_card = device == "cuda"
@@ -3556,11 +4049,17 @@ def main(
     graft_results, graft_launches, graft = graft_path(torch, device, main_ctx)
     prog_results, prog_launches = mesh_programs_path(torch, device, graft, main_ctx, taxi_ctx)
     del main_ctx, taxi_ctx, graft
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    cli_results, cli_launches = cli_path(torch, device, cli_records, cli_shards, cli_bulk_bits)
+    mh_results, mh_launches = multihost_path(torch, device, N_SHARDS)
     paths = (("main", main_results, main_launches), ("serving", serve_results, serve_launches),
              ("taxi", taxi_results, taxi_launches),
              ("residency", res_results, res_launches), ("similarity", sim_results, sim_launches),
              ("mesh", mesh_results, mesh_launches), ("graft", graft_results, graft_launches),
-             ("mesh_programs", prog_results, prog_launches))
+             ("mesh_programs", prog_results, prog_launches), ("cli", cli_results, cli_launches),
+             ("multihost", mh_results, mh_launches))
     # a result's key is the kernel's name, then (for a second entry of
     # one kernel) what it times
     kernels = [

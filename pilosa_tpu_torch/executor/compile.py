@@ -681,6 +681,13 @@ class StackCache:
     MAX_TIERED_ENTRIES = 4  # count cap; the byte ledger is the real bound
 
     def residency_mode(self) -> str:
+        # a multi-host mesh serves over-budget fields through the slots:
+        # container payloads are packed from this process's fragments,
+        # which no other rank holds (MeshContext.place_block refuses
+        # them), while the [H, S, W] slot stack places by shards like
+        # every other stack (the reference's compile.py:673-683)
+        if self.mesh_ctx is not None and getattr(self.mesh_ctx, "multihost", False):
+            return "slots"
         return self.RESIDENCY_MODE
 
     def is_over_budget(self, idx: Index, field: Field, view_name: str, shards: list[int]) -> bool:

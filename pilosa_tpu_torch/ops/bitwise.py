@@ -180,8 +180,10 @@ def matrix_filter_counts(matrix: torch.Tensor, filt: torch.Tensor) -> torch.Tens
     return row_counts(_rows(matrix), filt.contiguous()[None]).to(torch.int32)
 
 
-def column_mask(width: int, n_words: int, device="cpu") -> torch.Tensor:
-    """int32[n_words] with the low ``width`` bits set."""
+def column_mask(width: int, n_words: int, device="cuda") -> torch.Tensor:
+    """int32[n_words] with the low ``width`` bits set, on ``device``
+    (the card by default; ``device="cpu"`` asks for the CPU)."""
+    device = _cuda.resolve_device(device)
     idx = torch.arange(n_words, dtype=torch.int32, device=device)
     full, rem = width // BITS_PER_WORD, width % BITS_PER_WORD
     w = torch.where(idx < full, torch.tensor(-1, dtype=torch.int32, device=device), 0)

@@ -1,7 +1,9 @@
 """Parallel execution over a mesh of devices (reference:
-pilosa_tpu/parallel). This slice holds the device-mesh engine
-(``mesh``): placement over a (shards × words) grid of devices and the
-serving path's blocked programs."""
+pilosa_tpu/parallel): the device-mesh engine (``mesh``: placement over a
+(shards × words) grid of devices and the serving path's blocked
+programs), the process group and the mesh across processes
+(``multihost``), and the bulk movement lane's accounting
+(``movement``)."""
 
 from pilosa_tpu_torch.parallel.mesh import (
     AXIS_SHARDS,

@@ -31,13 +31,23 @@ The demo and bench programs of the reference (``count_and``, ``topn``,
 reduction tree, and for ``topn`` the integer top-k (K12's count keys,
 K10's int mode) on the lead device.
 
-Not ported yet (ROADMAP.md B16m): multi-process meshes
-(``parallel/multihost.py``).
+A mesh may span processes (B16m; ``parallel/multihost.py`` builds one
+over a ``torch.distributed`` group). Each process then holds the blocks
+of its own positions only, runs the kernels on them, and the reduction
+tree ends in a cross-process sum: this rank's partials are summed words
+first, then shards, and the result is all-reduced over the group, so
+every rank gets the same reduced values and finishes the program (the
+Min/Max merge, the integer and similarity top-k) identically. A program
+over such a mesh is a collective: every rank calls the same programs in
+the same order, or the group waits for the rank that did not (the
+reference's lockstep contract, pilosa_tpu/server/server.py:485-494; the
+serving mesh stays local for that reason).
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from typing import NamedTuple
 
 import numpy as np
@@ -99,20 +109,45 @@ def mesh_supported(call) -> bool:
 class DeviceMesh:
     """A (shards × words) grid of devices; ``grid[i][j]`` is position
     (i, j). Positions run shards-major, the order of the reference's
-    ``P(None, (shards, words))``. The lead device, position (0, 0), holds
-    the reduced results."""
+    ``P(None, (shards, words))``. The lead device holds the reduced
+    results: position (0, 0), or on a mesh that spans processes the first
+    position of this rank.
 
-    def __init__(self, grid: "list[list[torch.device]]"):
+    ``owners[i]`` is the rank of the process that holds shard row i (a
+    words row never spans processes), and ``rank`` is this process's;
+    None where one process holds every position."""
+
+    def __init__(self, grid: "list[list[torch.device]]", owners: "list[int] | None" = None, rank: int = 0):
         self.grid = grid
         self.shape = {AXIS_SHARDS: len(grid), AXIS_WORDS: len(grid[0])}
+        if owners is not None and len(owners) != len(grid):
+            raise ValueError(f"{len(owners)} owners for {len(grid)} shard rows")
+        self.owners = owners if owners is not None and len(set(owners)) > 1 else None
+        self.rank = rank
+        if self.owners is not None and rank not in self.owners:
+            raise ValueError(f"rank {rank} holds no position of the mesh")
+        self._lead = next(row[0] for i, row in enumerate(grid) if self.owns(i))
 
     @property
     def size(self) -> int:
         return self.shape[AXIS_SHARDS] * self.shape[AXIS_WORDS]
 
     @property
+    def multiprocess(self) -> bool:
+        """Do the positions span more than one process?"""
+        return self.owners is not None
+
+    @property
+    def n_processes(self) -> int:
+        return len(set(self.owners)) if self.owners is not None else 1
+
+    def owns(self, i: int) -> bool:
+        """Does this process hold shard row ``i``?"""
+        return self.owners is None or self.owners[i] == self.rank
+
+    @property
     def lead(self) -> torch.device:
-        return self.grid[0][0]
+        return self._lead
 
 
 def make_mesh(devices=None, words_axis: int = 1) -> DeviceMesh:
@@ -147,7 +182,10 @@ class MeshArray:
     - ``rows``: S split over the shards axis, whole over the words axis,
       one block per shard row on its position (i, 0) (``P(shards, None)``);
     - ``cols``: W split over the words axis, the same slice in every
-      shard row (``P(None, words)``)."""
+      shard row (``P(None, words)``).
+
+    On a mesh that spans processes, a block of another rank's position
+    is None here."""
 
     __slots__ = ("mesh", "shape", "mode", "blocks")
 
@@ -156,7 +194,7 @@ class MeshArray:
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.blocks[0][0].dtype
+        return next(b for _i, _j, b in self.items()).dtype
 
     def cover(self, i: int, j: int) -> tuple[int, int, int, int]:
         """(s_lo, s_hi, w_lo, w_hi): the global range of the last two
@@ -164,10 +202,20 @@ class MeshArray:
         return _cover(self.mesh, self.shape[-2], self.shape[-1], self.mode, i, j)
 
     def items(self):
-        """(i, j, block) for every block held, shards-major."""
+        """(i, j, block) for every block this process holds,
+        shards-major."""
         for i, row in enumerate(self.blocks):
             for j, blk in enumerate(row):
-                yield i, j, blk
+                if blk is not None:
+                    yield i, j, blk
+
+    def _addressable(self, what: str) -> None:
+        if self.mesh.multiprocess:
+            raise ValueError(
+                f"{what}: this array spans {self.mesh.n_processes} processes and this one holds "
+                "only its own blocks; reduce it with a mesh program (the reference's "
+                "non-addressable global array cannot be fetched either)"
+            )
 
     @property
     def nbytes(self) -> int:
@@ -177,6 +225,7 @@ class MeshArray:
     def gather(self) -> torch.Tensor:
         """The whole array, assembled on the lead device in the
         placement's order."""
+        self._addressable("gather")
         lead = self.mesh.lead
         if self.mode == "replicate":
             return self.blocks[0][0]
@@ -191,6 +240,7 @@ class MeshArray:
     def gather_row(self, r: int) -> torch.Tensor:
         """Row ``r`` of the leading axis as a [1, S, W] tensor on the lead
         device."""
+        self._addressable("gather_row")
         if self.mode == "replicate":
             return self.blocks[0][0][r : r + 1]
         lead = self.mesh.lead
@@ -203,6 +253,7 @@ class MeshArray:
     def host(self) -> np.ndarray:
         """The whole array as a host numpy array, each block copied into
         its place."""
+        self._addressable("host")
         t = self.dtype
         np_dtype = np.float32 if t == torch.float32 else np.int64 if t == torch.int64 else np.int32
         out = np.empty(self.shape, dtype=np_dtype)
@@ -225,12 +276,17 @@ class MeshArray:
             shape = (len(range(*key.indices(self.shape[0]))),) + self.shape[1:]
         else:
             raise TypeError(f"a MeshArray takes [None] or a leading slice, not {key!r}")
-        return MeshArray(self.mesh, shape, self.mode, [[b[key] for b in row] for row in self.blocks])
+        return MeshArray(self.mesh, shape, self.mode, _map_blocks(self.blocks, lambda b: b[key]))
 
     def row(self, r: int) -> "MeshArray":
         """Row ``r`` of the leading axis as a placed [S, W] array (views
         of the blocks)."""
-        return MeshArray(self.mesh, self.shape[1:], self.mode, [[b[r] for b in row] for row in self.blocks])
+        return MeshArray(self.mesh, self.shape[1:], self.mode, _map_blocks(self.blocks, lambda b: b[r]))
+
+
+def _map_blocks(blocks: list, fn) -> list:
+    """``fn`` of every held block, None where another rank holds it."""
+    return [[None if b is None else fn(b) for b in row] for row in blocks]
 
 
 def _cover(mesh: DeviceMesh, n_s: int, n_w: int, mode: str, i: int, j: int) -> tuple[int, int, int, int]:
@@ -255,6 +311,8 @@ def _block_positions(mesh: DeviceMesh, mode: str) -> "list[list[tuple[int, int]]
     """The positions that hold a block in ``mode``, as the blocks grid."""
     ns, nw = mesh.shape[AXIS_SHARDS], mesh.shape[AXIS_WORDS]
     if mode == "replicate":
+        if mesh.multiprocess:
+            raise ValueError("a mesh that spans processes places no replicated array: every rank would hold a copy")
         return [[(0, 0)]]
     if mode == "rows":
         return [[(i, 0)] for i in range(ns)]
@@ -262,25 +320,37 @@ def _block_positions(mesh: DeviceMesh, mode: str) -> "list[list[tuple[int, int]]
 
 
 def empty_like_placement(mesh: DeviceMesh, shape: tuple, mode: str, dtype=torch.int32) -> MeshArray:
-    """Uninitialized blocks for a global ``shape`` in ``mode``."""
+    """Uninitialized blocks for a global ``shape`` in ``mode``, for this
+    process's positions (None at another rank's)."""
     grid = []
     for row in _block_positions(mesh, mode):
         out = []
         for i, j in row:
+            if not mesh.owns(i):
+                out.append(None)
+                continue
             s_lo, s_hi, w_lo, w_hi = _cover(mesh, shape[-2], shape[-1], mode, i, j)
             out.append(torch.empty(tuple(shape[:-2]) + (s_hi - s_lo, w_hi - w_lo), dtype=dtype, device=mesh.grid[i][j]))
         grid.append(out)
     return MeshArray(mesh, shape, mode, grid)
 
 
-def place(mesh: DeviceMesh, arr, mode: str) -> MeshArray:
-    """A host array (numpy uint32/int32/f32, or a CPU tensor) placed in
-    ``mode``: each block is a contiguous copy of its slice, on its
-    position's device."""
+def _as_tensor(arr):
     if isinstance(arr, np.ndarray):
         if arr.dtype == np.uint32:
             arr = arr.view(np.int32)
         arr = torch.from_numpy(np.ascontiguousarray(arr))
+    return arr
+
+
+def place(mesh: DeviceMesh, arr, mode: str) -> MeshArray:
+    """A whole array (numpy uint32/int32/f32, or a tensor) placed in
+    ``mode``: each block is a contiguous copy of its slice, on its
+    position's device. On a mesh that spans processes every rank passes
+    the whole array and places its own blocks of it
+    (``MeshContext(mesh, multihost=True)`` places each rank's share
+    instead)."""
+    arr = _as_tensor(arr)
     out = empty_like_placement(mesh, tuple(arr.shape), mode, arr.dtype)
     for i, j, b in out.items():
         s_lo, s_hi, w_lo, w_hi = out.cover(i, j)
@@ -292,10 +362,17 @@ class MeshContext:
     """Serving-path placement over a (shards × words) mesh: the stack
     cache places the executor's stacked field arrays through it, and
     QueryCompiler attaches a MeshQueryEngine when it spans more than one
-    position. Processes with one card use no context (None)."""
+    position. Processes with one card use no context (None).
 
-    def __init__(self, mesh: DeviceMesh):
+    ``multihost``: the mesh spans processes, and each process places its
+    own share of a global array: its local ``[.., S_local, W]`` is the
+    slice of a global ``[.., S_local × processes, W]`` that its shard rows
+    cover, in rank order. Every process must then place the same shapes
+    in the same order (each placement is a collective)."""
+
+    def __init__(self, mesh: DeviceMesh, multihost: bool = False):
         self.mesh = mesh
+        self.multihost = multihost
 
     @classmethod
     def auto(cls, words_axis: int = 1, devices=None) -> "MeshContext | None":
@@ -326,28 +403,100 @@ class MeshContext:
             return "words"
         return "replicate"
 
+    def _check_uniform_s(self, shape: tuple) -> None:
+        """The global shape is ``S_local × processes``, coherent only when
+        every process places the same local shape: one all-gather of the
+        local shapes, on every placement. Never cached: a placement is a
+        collective, and a cache on one rank would skip the exchange the
+        others enter."""
+        import torch.distributed as dist
+
+        shapes = [tuple(shape)]
+        if dist.is_initialized():
+            shapes = [None] * dist.get_world_size()
+            dist.all_gather_object(shapes, tuple(shape))
+        counts = [s[-2] for s in shapes]
+        if len(set(counts)) != 1:
+            raise ValueError(
+                f"multi-host placement needs a uniform per-process shard count; got {counts} "
+                "— pad every process to the same S (empty shards are all-zero rows)"
+            )
+        if len(set(shapes)) != 1:
+            raise ValueError(f"multi-host placement needs one local shape on every process; got {shapes}")
+
+    def _place_share(self, arr) -> MeshArray:
+        """This process's share ``[.., S_local, W]`` → its blocks of the
+        global ``[.., S_local × processes, W]``, grid mode only (the
+        reference's ``_place``, pilosa_tpu/parallel/mesh.py:193-212)."""
+        arr = _as_tensor(arr)
+        self._check_uniform_s(tuple(arr.shape))
+        s, w = arr.shape[-2], arr.shape[-1]
+        s_global = s * self.mesh.n_processes
+        if self.mode_for(s_global, w) != "grid":
+            raise ValueError(
+                f"multi-host placement needs the shards axis sharded: global S={s_global} not "
+                f"divisible by mesh {self.mesh.shape[AXIS_SHARDS]} shard rows (or W={w} by "
+                f"{self.mesh.shape[AXIS_WORDS]} words)"
+            )
+        shape = tuple(arr.shape[:-2]) + (s_global, w)
+        out = empty_like_placement(self.mesh, shape, "grid", arr.dtype)
+        covers = [out.cover(i, j) for i, j, _b in out.items()]
+        lo, hi = min(c[0] for c in covers), max(c[1] for c in covers)
+        if hi - lo != s:
+            raise ValueError(
+                f"rank {self.mesh.rank}'s shard rows cover {hi - lo} global shards, not its {s}: "
+                "every process must offer the same number of devices"
+            )
+        for (i, j, b), (s_lo, s_hi, w_lo, w_hi) in zip(out.items(), covers):
+            b.copy_(arr[..., s_lo - lo : s_hi - lo, w_lo:w_hi])
+        return out
+
     def place_stack(self, stacked) -> MeshArray:
-        """[R, S, W] (or a [P, S, W] BSI block) → placed."""
+        """[R, S, W] (or a [P, S, W] BSI block) → placed; multi-host, S is
+        this process's shard count."""
+        if self.multihost:
+            return self._place_share(stacked)
         return place(self.mesh, stacked, self.mode_for(stacked.shape[-2], stacked.shape[-1]))
 
     def place_rows(self, arr) -> MeshArray:
-        """[S, W] → placed."""
+        """[S, W] → placed; multi-host, S is this process's shard count."""
+        if self.multihost:
+            return self._place_share(arr)
         return place(self.mesh, arr, self.mode_for(arr.shape[-2], arr.shape[-1]))
 
     def place_block(self, t: torch.Tensor) -> torch.Tensor:
         """Compressed container stores (tiered residency) stay whole on
         the lead device: their payloads hold global plane positions, so
         no block of them is a block of the plane."""
+        if self.multihost:
+            # the payloads are packed from this process's fragments: no
+            # other rank holds them, so they are no array of the mesh. The
+            # stack cache serves over-budget fields through the slots
+            # there (StackCache.residency_mode), so reaching here is a bug
+            raise ValueError(
+                "compressed container stores cannot be placed on a multi-host mesh "
+                "(process-local payloads are not replicable); over-budget fields use "
+                "the slot path there"
+            )
         return t.to(self.lead)
 
     def replicate(self, t: torch.Tensor) -> "dict[torch.device, torch.Tensor]":
-        """One copy of a small tensor on every distinct device."""
+        """One copy of a small tensor on every distinct device of this
+        process's positions."""
         out: dict = {}
-        for row in self.mesh.grid:
+        for i, row in enumerate(self.mesh.grid):
+            if not self.mesh.owns(i):
+                continue
             for d in row:
                 if d not in out:
                     out[d] = t.to(d)
         return out
+
+
+def _pick(parts: list, k: int) -> list:
+    """Output ``k`` of every block's tuple of partials, as a grid (None
+    at another rank's positions)."""
+    return [[None if p is None else p[k] for p in row] for row in parts]
 
 
 # ---------------------------------------------------------------- engine
@@ -376,6 +525,10 @@ class MeshQueryEngine:
         self.programs_built = 0
         self.calls: dict[str, int] = {}
         self.fallbacks = 0
+        # cross-process collectives run and the host seconds spent in
+        # them (from the partial on the host to the reduced value back)
+        self.collectives = 0
+        self.collective_s = 0.0
 
     @property
     def n_devices(self) -> int:
@@ -395,11 +548,15 @@ class MeshQueryEngine:
         return s_hi - s_lo, w_hi - w_lo
 
     def _psum_both(self, partials: "list[list[torch.Tensor]]") -> torch.Tensor:
-        """The reduction tree: copy each partial onto the lead device,
-        sum over the words axis first, then over the shards axis."""
+        """The reduction tree: copy each partial this process holds onto
+        the lead device, sum over the words axis first, then over the
+        shards axis; on a mesh that spans processes, then all-reduce the
+        sum over the group."""
         lead = self.mesh.lead
         rows = []
         for row in partials:
+            if row[0] is None:
+                continue  # another rank's shard row
             acc = row[0].to(lead)
             for p in row[1:]:
                 acc = acc + p.to(lead)
@@ -407,13 +564,44 @@ class MeshQueryEngine:
         total = rows[0]
         for r in rows[1:]:
             total = total + r
+        if self.mesh.multiprocess:
+            total = self._all_reduce(total)
         return total
 
     def _gather_all(self, partials: "list[list[torch.Tensor]]") -> torch.Tensor:
         """All-gather of per-block vectors onto the lead device, words
-        then shards: block (i, j)'s values land at position i * W + j."""
+        then shards: block (i, j)'s values land at position i * W + j.
+        Across processes every block's vector has one length (grid mode),
+        and the gather is an all-reduce of a zero-filled vector in which
+        each rank writes its own positions' slots."""
         lead = self.mesh.lead
-        return torch.cat([p.to(lead).reshape(-1) for row in partials for p in row])
+        if not self.mesh.multiprocess:
+            return torch.cat([p.to(lead).reshape(-1) for row in partials for p in row])
+        mine = [(i * len(row) + j, p) for i, row in enumerate(partials) for j, p in enumerate(row) if p is not None]
+        n = mine[0][1].numel()
+        out = torch.zeros(self.mesh.size * n, dtype=mine[0][1].dtype, device=lead)
+        for pos, p in mine:
+            out[pos * n : (pos + 1) * n] = p.to(lead).reshape(-1)
+        return self._all_reduce(out)
+
+    def _all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        """Sum ``t`` over the group. gloo reduces on the host: the partial
+        (counts, never planes) is copied to host memory, summed there and
+        copied back to the lead device, for a CUDA and a CPU mesh alike.
+        gloo also takes CUDA tensors (its all_reduce, all_gather and
+        broadcast did on an H100 with torch 2.11 + CUDA 12.8), by the same
+        copy inside; the explicit one keeps the collective's own time apart
+        from the kernels'."""
+        import torch.distributed as dist
+
+        host = t.cpu()  # waits for the kernels that made the partial
+        t0 = time.perf_counter()
+        dist.all_reduce(host, op=dist.ReduceOp.SUM)
+        out = host.to(self.mesh.lead)
+        with self._stats_lock:
+            self.collectives += 1
+            self.collective_s += time.perf_counter() - t0
+        return out
 
     def _build(self) -> None:
         with self._stats_lock:
@@ -431,13 +619,18 @@ class MeshQueryEngine:
         with self._stats_lock:
             calls = dict(self.calls)
             built, fallbacks = self.programs_built, self.fallbacks
-        return {
+            collectives, collective_s = self.collectives, self.collective_s
+        out = {
             "devices": self.n_devices,
             "meshShape": dict(self.mesh.shape),
             "programsBuilt": built,
             "calls": calls,
             "fallbacks": fallbacks,
         }
+        if self.mesh.multiprocess:
+            out.update(processes=self.mesh.n_processes, rank=self.mesh.rank,
+                       collectives=collectives, collectiveSeconds=collective_s)
+        return out
 
     def dispatch(self, name: str, run, *args):
         """Run one built program: counted for the snapshot and spanned
@@ -469,8 +662,10 @@ class MeshQueryEngine:
         return ops.PlannedFilter([a.blocks[i][j] for a in arrays], plan.leaves, plan.ops, plan.conds, sl, wl)
 
     def _each(self, fn) -> "list[list]":
+        """``fn(i, j)`` for every position this process holds, as a
+        blocks grid (None at another rank's positions)."""
         ns, nw = self.mesh.shape[AXIS_SHARDS], self.mesh.shape[AXIS_WORDS]
-        return [[fn(i, j) for j in range(nw)] for i in range(ns)]
+        return [[fn(i, j) if self.mesh.owns(i) else None for j in range(nw)] for i in range(ns)]
 
     # --------------------------------------- serving-path program builders
     def bitmap_tree(self, plan: BlockPlan, mode: str):
@@ -528,7 +723,7 @@ class MeshQueryEngine:
                 return ops.bsi_sum(slices.blocks[i][j], depth, filt[None] if isinstance(filt, torch.Tensor) else filt)
 
             parts = self._each(block)
-            return tuple(self._psum_both([[p[k] for p in row] for row in parts]) for k in range(3))
+            return tuple(self._psum_both(_pick(parts, k)) for k in range(3))
 
         return run
 
@@ -539,7 +734,7 @@ class MeshQueryEngine:
 
         def run(slices: MeshArray, depth: int, masks: MeshArray):
             parts = self._each(lambda i, j: ops.bsi_sum(slices.blocks[i][j], depth, masks.blocks[i][j]))
-            return tuple(self._psum_both([[p[k] for p in row] for row in parts]) for k in range(3))
+            return tuple(self._psum_both(_pick(parts, k)) for k in range(3))
 
         return run
 
@@ -557,8 +752,8 @@ class MeshQueryEngine:
             parts = self._each(
                 lambda i, j: ops.bsi_min_max(slices.blocks[i][j], depth, self._filter(fplan, i, j, mode), want_max)
             )
-            values = self._gather_all([[p[0] for p in row] for row in parts])
-            counts = self._gather_all([[p[1] for p in row] for row in parts])
+            values = self._gather_all(_pick(parts, 0))
+            counts = self._gather_all(_pick(parts, 1))
             return values, counts
 
         return run
@@ -587,7 +782,7 @@ class MeshQueryEngine:
                 return ops.gb_masks(masks.blocks[i][j], matrix.blocks[i][j], g_idx[dev], row_sel[dev])
 
             blocks = self._each(block)
-            p = blocks[0][0].shape[0]
+            p = next(b for row in blocks for b in row if b is not None).shape[0]
             return MeshArray(self.mesh, (p,) + tuple(masks.shape[1:]), mode, blocks)
 
         return run
@@ -663,6 +858,9 @@ class MeshQueryEngine:
         n_rows, m_rows = a.shape[0], b.shape[0]
         blocks = []
         for i, row in enumerate(a.blocks):
+            if not self.mesh.owns(i):
+                blocks.append([None])
+                continue
             if nw == 1:
                 blocks.append([similarity.pairwise(row[0], b.blocks[i][0], metric)])
                 continue
@@ -775,7 +973,7 @@ class MeshQueryEngine:
 
         def run(slices: MeshArray, filt: MeshArray):
             parts = self._each(lambda i, j: ops.bsi_sum(slices.blocks[i][j], depth, filt.blocks[i][j][None]))
-            pos, neg, n = (self._psum_both([[p[k] for p in row] for row in parts]) for k in range(3))
+            pos, neg, n = (self._psum_both(_pick(parts, k)) for k in range(3))
             return weigh_device(pos[0], neg[0]), n[0]
 
         return self.dispatch("bsi_sum", run, slices, filt)
@@ -798,8 +996,8 @@ class MeshQueryEngine:
             parts = self._each(
                 lambda i, j: ops.ingest_counts(matrix.blocks[i][j], delta.blocks[i][j], filt.blocks[i][j])
             )
-            counts = self._psum_both([[p[1] for p in row] for row in parts])
-            total = self._psum_both([[p[2] for p in row] for row in parts])
+            counts = self._psum_both(_pick(parts, 1))
+            total = self._psum_both(_pick(parts, 2))
             return matrix, counts, total
 
         return self.dispatch("ingest_and_aggregate", run, matrix, delta, filt)

@@ -7,9 +7,10 @@ HTTP API from the port's executor and kernels; ``device="cpu"`` runs the
 plain torch versions (the tests), on the event-loop listener. A config
 that asks for the cluster (``seeds``, ``coordinator``), for multi-process
 serving (``serving_processes``, ``shared_bind``, ``fd_pass_socket``,
-``supervisor_state``; ROADMAP.md A10), for a multi-host process group
-(``coordinator_address``; A13b-2) or for another listener
-(``serving_mode``) is refused at construction.
+``supervisor_state``; ROADMAP.md A10) or for another listener
+(``serving_mode``) is refused at construction. A config with
+``coordinator_address`` joins the multi-host process group in ``open``
+(parallel/multihost.py); the serving mesh stays this process's own.
 
 On a card, a fresh subprocess first proves that CUDA initializes
 (``_probe_device``). Until its verdict lands, queries and imports answer
@@ -64,11 +65,6 @@ def _refuse_unported(config: Config) -> None:
         raise ValueError(
             f"pilosa_tpu_torch serves on the event-loop listener only, not "
             f"serving-mode = {config.serving_mode!r}"
-        )
-    if config.coordinator_address:
-        raise ValueError(
-            "pilosa_tpu_torch serves one process: the multi-host process "
-            "group (coordinator-address) is not ported yet (ROADMAP.md A13b-2)"
         )
 
 
@@ -315,6 +311,18 @@ class Server:
         self.http.gate = self._query_gate
         self.http.gate_reason = self._gate_reason
         self.http.serve_background()
+        if self.config.coordinator_address:
+            # join the static process group once the listener serves
+            # (peers' health probes succeed while this waits for the
+            # group), before the device bring-up (the reference's
+            # server.py:293-303)
+            from pilosa_tpu_torch.parallel import multihost
+
+            multihost.init_distributed(
+                self.config.coordinator_address,
+                self.config.num_processes or None,
+                self.config.process_id if self.config.process_id >= 0 else None,
+            )
         # Device bring-up OFF-THREAD, even with the mesh disabled (the
         # probe protects EVERY first CUDA call, not just the mesh
         # attach): boot must not depend on the card. Schema, admin and
@@ -452,7 +460,11 @@ class Server:
     def _make_mesh_context(self):
         """Serving mesh over this process's cards: None with one card
         (parallel/mesh.py ``MeshContext.auto``), so one H100 serves on
-        ``cuda:0``."""
+        ``cuda:0``. Local even in a multi-host group: a program over a
+        mesh that spans processes is a collective every rank must enter,
+        and an HTTP query reaches one node only, so a global serving mesh
+        would hang the first query; queries across hosts wait for the
+        cluster layer (ROADMAP.md A10)."""
         from pilosa_tpu_torch.parallel.mesh import MeshContext
 
         return MeshContext.auto(words_axis=self.config.mesh_words_axis)

@@ -72,13 +72,16 @@ class Config:
     # probe gate keeps the first CUDA call off an unproven card; see
     # Server._query_gate). 0 = never wait, 503 immediately while probing.
     query_gate_wait: float = 60.0
-    # multi-host process group (the reference's jax.distributed group).
-    # Not ported (ROADMAP.md A13b-2): the port's Server refuses a config
-    # that sets coordinator_address, as it refuses seeds and coordinator
-    # (the cluster, ROADMAP.md A10).
+    # multi-host process group (torch.distributed on gloo; the
+    # reference's jax.distributed group). Setting coordinator_address
+    # makes Server.open() join it (parallel/multihost.py); the serving
+    # mesh stays this process's own. Recipe, on each host h of N:
+    #   coordinator_address = "host0:8476"
+    #   num_processes = N
+    #   process_id = h
     coordinator_address: str = ""
-    num_processes: int = 0
-    process_id: int = -1
+    num_processes: int = 0  # 0 = WORLD_SIZE from the environment
+    process_id: int = -1  # -1 = RANK from the environment
     # query routing (docs/query-routing.md): per-call host/device
     # routing by a calibrated cost model. "auto" compares estimated work
     # against the online crossover; "host"/"device"/"mesh" pin every

@@ -86,6 +86,68 @@ def test_serving_a_query_loads_no_jax_and_no_pilosa_tpu():
     assert "LOADED []" in out.stdout, out.stdout
 
 
+def test_python_m_server_loads_no_jax_and_stops_on_sigterm(tmp_path):
+    """``python -m pilosa_tpu_torch server --device cpu`` starts, says
+    where it listens and where queries run, answers a Count over HTTP,
+    and exits 0 on SIGTERM; ``-X importtime`` lists every module it
+    imported, and none is jax or pilosa_tpu."""
+    import json
+    import signal
+    import urllib.request
+
+    env = dict(os.environ, PILOSA_TPU_SHARD_WIDTH_EXP="16")
+    # the import-time log runs to hundreds of kB: a file, not a pipe
+    log = open(tmp_path / "stderr.txt", "w+")
+    proc = subprocess.Popen(
+        [sys.executable, "-X", "importtime", "-m", "pilosa_tpu_torch", "server", "--device", "cpu",
+         "--bind", "127.0.0.1:0", "--data-dir", str(tmp_path / "d")],
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=log, text=True,
+    )
+    try:
+        listening = proc.stdout.readline()
+        m = re.match(r"pilosa-tpu server listening on (http://127\.0\.0\.1:\d+)$", listening.strip())
+        assert m, listening
+        assert proc.stdout.readline().strip() == "device cpu: ready (cpu: no probe)"
+
+        def post(path, body):
+            req = urllib.request.Request(m.group(1) + path, data=body, method="POST")
+            with urllib.request.urlopen(req, timeout=30) as r:
+                return json.loads(r.read())
+
+        post("/index/i", b"{}")
+        post("/index/i/field/f", b"{}")
+        post("/index/i/query", b"Set(3, f=1) Set(70000, f=1) Set(3, f=2)")
+        assert post("/index/i/query", b"Count(Intersect(Row(f=1), Row(f=2)))") == {"results": [1]}
+        proc.send_signal(signal.SIGTERM)
+        proc.communicate(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+        log.seek(0)
+        err = log.read()
+        log.close()
+    assert proc.returncode == 0, err[-3000:]
+    imported = {ln.split("|")[-1].strip() for ln in err.splitlines() if ln.startswith("import time:")}
+    assert {"torch", "pilosa_tpu_torch.cli", "pilosa_tpu_torch.server.server"} <= imported
+    bad = sorted(n for n in imported if n in ("jax", "jaxlib", "pilosa_tpu") or n.startswith(("jax.", "jaxlib.", "pilosa_tpu.")))
+    assert bad == []
+
+
+def test_client_commands_load_no_torch():
+    """The client side of the CLI (``doctor`` here, against nothing)
+    imports neither torch nor the server runtime."""
+    code = (
+        "import sys\n"
+        "from pilosa_tpu_torch import cli\n"
+        "rc = cli.main(['doctor', '--host', '127.0.0.1:9', '--timeout', '0.5', '--compact'])\n"
+        "print('RC', rc, sorted(m for m in sys.modules if m == 'torch' or m.startswith(('torch.', 'pilosa_tpu_torch.server', 'jax', 'pilosa_tpu.'))))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "RC 1 []" in out.stdout, out.stdout[-2000:]
+
+
 _IMPORT = re.compile(r"^\s*(import|from)\s+(jax|pilosa_tpu)(\.|\s|$)")
 
 
@@ -107,6 +169,8 @@ def test_no_source_line_imports_jax_or_pilosa_tpu():
         "pilosa_tpu_torch/server/server.py", "pilosa_tpu_torch/server/http.py",
         "pilosa_tpu_torch/server/eventloop.py", "pilosa_tpu_torch/encoding/pilosa_pb2.py",
         "pilosa_tpu_torch/utils/config.py", "pilosa_tpu_torch/utils/probecache.py",
+        "pilosa_tpu_torch/cli.py", "pilosa_tpu_torch/__main__.py", "pilosa_tpu_torch/loader.py",
+        "pilosa_tpu_torch/parallel/multihost.py", "pilosa_tpu_torch/parallel/movement.py",
     } <= scanned
     assert offenders == []
 
@@ -117,7 +181,9 @@ def test_chip_smoke_rehearses_on_the_cpu(capsys):
     residency path (over a lowered budget), similarity path and kernel
     comparisons, the fused-filter phases, the mesh path on eight CPU
     positions in both layouts, the graft step and the mesh programs of
-    dryrun_multichip, without the card lines or the final ok line."""
+    dryrun_multichip, the CLI's server fed through ``import --roaring``
+    and the loader, and the two-rank gloo mesh, without the card lines
+    or the final ok line."""
     import json
 
     sys.path.insert(0, REPO)
@@ -130,7 +196,8 @@ def test_chip_smoke_rehearses_on_the_cpu(capsys):
     torch.set_num_threads(1)
     try:
         assert chip_smoke.main(
-            device="cpu", n_shards=64, taxi_shards=16, budget=32 << 20, sim_rows=5000, sim_block=300
+            device="cpu", n_shards=64, taxi_shards=16, budget=32 << 20, sim_rows=5000, sim_block=300,
+            cli_records=20_000, cli_shards=8, cli_bulk_bits=200_000,
         ) == 0
     finally:
         torch.set_num_threads(threads)
@@ -158,7 +225,7 @@ def test_chip_smoke_rehearses_on_the_cpu(capsys):
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms"}
     assert all(keys <= set(k) for k in kernels)
-    paths = {"main", "serving", "taxi", "residency", "similarity", "mesh", "graft", "mesh_programs"}
+    paths = {"main", "serving", "taxi", "residency", "similarity", "mesh", "graft", "mesh_programs", "cli", "multihost"}
     assert {k["launches_by_path"].keys() == paths for k in kernels} == {True}
     # K4's grouped mode has entries of its own: 16 and 32 masks, per block
     assert [k["path"] for k in kernels if k["name"] == "bsi_sum" and (k["shape"] or "").startswith("grouped")] == [
@@ -178,8 +245,10 @@ def test_chip_smoke_rehearses_on_the_cpu(capsys):
     # Shift, 4 Counts around the Set and Clear and their line, the taxi's
     # 13, its fused phase and the level-synchronous GroupBy (2 lines), 4
     # searches, 3 all-pairs blocks; the graft step; top_rows of one
-    # fragment; per layout, the five mesh programs of dryrun_multichip
+    # fragment; per layout, the five mesh programs of dryrun_multichip;
+    # the CLI's server, its two loads, 4 queries, the Count after a Set
+    # and SIGTERM; the six programs on two ranks
     mesh_layout = 10 + 1 + 1 + 1 + 4 + 1 + 13 + 1 + 2 + 4 + 3
     assert sum(line.startswith("ok  ") for line in lines) == (
-        8 + 2 + 1 + 2 + 12 + 3 + 13 + 1 + 8 + 4 + 1 + 2 + 3 + 4 + 2 * mesh_layout + 1 + 1 + 2 * 5)
+        8 + 2 + 1 + 2 + 12 + 3 + 13 + 1 + 8 + 4 + 1 + 2 + 3 + 4 + 2 * mesh_layout + 1 + 1 + 2 * 5 + 9 + 6)
     assert not any(line.startswith('{"ok"') for line in lines)

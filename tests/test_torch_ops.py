@@ -68,8 +68,21 @@ def test_matrix_filter_counts_matches_reference(rng):
 
 @pytest.mark.parametrize("width", [0, 1, 31, 32, 33, 100, 32 * 7])
 def test_column_mask_matches_reference(width):
-    got = ops.column_mask(width, 8).numpy().view(np.uint32)
+    got = ops.column_mask(width, 8, device="cpu").numpy().view(np.uint32)
     assert np.array_equal(got, np.asarray(ref_ops.column_mask(width, 8)))
+
+
+def test_column_mask_defaults_to_the_card():
+    """Like every public op, column_mask runs on the card unless the CPU
+    is asked for: without CUDA the default raises, as Server's does."""
+    if torch.cuda.is_available():
+        assert ops.column_mask(33, 8).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            ops.column_mask(33, 8)
+    got = ops.column_mask(33, 8, device="cpu")
+    assert got.device.type == "cpu" and got.dtype == torch.int32
+    assert np.array_equal(got.numpy().view(np.uint32), np.asarray(ref_ops.column_mask(33, 8)))
 
 
 def test_candidate_counts_matches_reference(rng):

@@ -370,7 +370,6 @@ def test_server_without_a_card_raises(tmp_path):
 @pytest.mark.parametrize(
     "kw,roadmap",
     [({"seeds": ["http://127.0.0.1:1"]}, "A10"), ({"coordinator": True}, "A10"),
-     ({"coordinator_address": "127.0.0.1:8476"}, "A13b-2"),
      ({"serving_processes": 2}, "serving-processes.*A10"),
      ({"shared_bind": "127.0.0.1:10101"}, "shared-bind.*A10"),
      ({"fd_pass_socket": "/tmp/pass.sock"}, "fd-pass-socket.*A10"),
