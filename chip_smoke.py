@@ -94,7 +94,8 @@ Run from the root of a checkout. In order:
      Count of an Intersect, TopN, Counts on the bulk field, a Set and
      the Count again, each against numpy, with the K1 count, K2 rows
      and K3 delta launches they must make; the load rates, the first
-     Count after the loads and the warm Count; exit 0 on SIGTERM;
+     Count after the loads, the warm Count and the q/s of 8 keep-alive
+     clients; exit 0 on SIGTERM;
    - the multihost phase (B16m): the one-process 4x2 mesh on 8
      positions of the card, then two gloo ranks (4 positions each on
      ``cuda:0``, each with half the stack budget) making one 4x2 grid
@@ -104,6 +105,24 @@ Run from the root of a checkout. In order:
      equal to each other, to numpy and to the one-process mesh, each
      rank's launches exact, each program's sync p50 with its
      all-reduce's share;
+   - the cluster phase (A10): three ``Server`` nodes in this process on
+     127.0.0.1 with seeds, ``replica_n = 2``, each with a third of 70 %
+     of the card as its stack budget, the serving holder's data (10,240
+     shards x 8 rows and the int field v) injected into each shard's two
+     owners; over HTTP to node 0, then node 1, the headline Count, TopN
+     (n=5 and ids=), Sum, Min and a filtered GroupBy, a Set read back
+     from each replica; node 2 closed and every answer again from the
+     replicas; 8 keep-alive clients whose legs coalesce (fewer waves
+     than legs), all against numpy with the kernels each query must
+     launch on some node; the HTTP p50s beside the serving phase's, the
+     stacks and bytes of each node, the first query after the failover;
+   - the fleet phase (A10): ``python -m pilosa_tpu_torch server
+     --processes 3 --replica-n 2`` on the card, the cli phase's CSV
+     through ``import --roaring`` against the public port, config8's mix
+     (a Count of a Union, TopN(n=10), GroupBy) against numpy, 8
+     keep-alive clients, SIGKILL of child 1 (each answer meanwhile exact
+     or an error), its restart, the mix again, each child's stack budget
+     (70 % / 3 of the card) and its launches printed as SIGTERM ends it;
 3. each kernel against its plain torch version on the card at its
    path's shapes (all-ones and bit-31 words, rows -1 and >= R, _OOB
    delta entries, an empty Union(); BSI constants 0, negative and
@@ -2797,6 +2816,57 @@ S_VMAX = 63  # the serving holder's int field v: values 0-63, depth 6
 S_CONDS = 17  # one past K1's condition table
 
 
+def shm_dir() -> "str | None":
+    """/dev/shm where the machine has it (a tmpfs: no fsync reaches a
+    disk), else None: the system's temp dir."""
+    return "/dev/shm" if os.path.isdir("/dev/shm") and os.access("/dev/shm", os.W_OK) else None
+
+
+class serving_data:  # noqa: N801 — a record of arrays and its numpy answers
+    """The serving holder's data beside the main cell's blocks: an int
+    field v (values 0-63, half the columns) per block, the existence
+    row, and the numpy answers over ``n_shards`` shards cycling the
+    blocks (block g of shard s is s % G)."""
+
+    def __init__(self, blocks: list, n_shards: int):
+        from pilosa_tpu_torch.shardwidth import SHARD_WIDTH, WORDS_PER_SHARD
+
+        self.blocks = blocks
+        self.mult = np.bincount(np.arange(n_shards) % G, minlength=G)
+        rng = np.random.default_rng(23)
+        self.vals = [rng.integers(0, S_VMAX + 1, SHARD_WIDTH) for _ in range(G)]
+        self.has = [rng.random(SHARD_WIDTH) < 0.5 for _ in range(G)]
+        self.depth = S_VMAX.bit_length()
+        self.bsi = []
+        for g in range(G):
+            bits = np.zeros((8, SHARD_WIDTH), dtype=bool)
+            bits[0] = self.has[g]
+            for k in range(self.depth):
+                bits[2 + k] = self.has[g] & (((self.vals[g] >> k) & 1) == 1)
+            self.bsi.append(pack(bits))
+        self.exists = []
+        for g in range(G):
+            ex = np.zeros((R_PAD, WORDS_PER_SHARD), np.uint32)
+            ex[0] = np.bitwise_or.reduce(blocks[g], axis=0) | self.bsi[g][0]
+            self.exists.append(ex)
+
+    def vmask(self, g: int, pred) -> np.ndarray:
+        return pack(self.has[g] & pred(self.vals[g]))
+
+    def expect(self, fn) -> int:
+        return sum(int(self.mult[g]) * int(np.bitwise_count(fn(g)).sum()) for g in range(G) if self.mult[g])
+
+    def expect_topn(self, fn, n: int, ids=None) -> list:
+        pairs = [(r, self.expect(lambda g, r=r: self.blocks[g][r] & fn(g)))
+                 for r in (range(R_PAD) if ids is None else [i for i in ids if i < R_PAD])]
+        pairs = sorted((rc for rc in pairs if rc[1]), key=lambda rc: (-rc[1], rc[0]))
+        return [{"id": r, "count": c} for r, c in pairs[:n]]
+
+    def expect_sum(self) -> dict:
+        return {"value": sum(int(self.mult[g]) * int(self.vals[g][self.has[g]].sum()) for g in range(G)),
+                "count": sum(int(self.mult[g]) * int(self.has[g].sum()) for g in range(G))}
+
+
 def serving_path(torch, device: str, main: dict) -> tuple:
     """The HTTP server on the card: ``Server(config, device)`` on a temp
     data dir and 127.0.0.1:0, the main path's 64 blocks injected into
@@ -2829,38 +2899,9 @@ def serving_path(torch, device: str, main: dict) -> tuple:
     blocks, shards = main["blocks"], main["shards"]
     n_shards = len(shards)
     write_shard = n_shards - 1
-    mult = np.bincount(np.arange(n_shards) % G, minlength=G)
-    rng = np.random.default_rng(23)
-    vals = [rng.integers(0, S_VMAX + 1, SHARD_WIDTH) for _ in range(G)]
-    has = [rng.random(SHARD_WIDTH) < 0.5 for _ in range(G)]
-    depth = S_VMAX.bit_length()
-    bsi = []
-    for g in range(G):
-        bits = np.zeros((8, SHARD_WIDTH), dtype=bool)
-        bits[0] = has[g]
-        for k in range(depth):
-            bits[2 + k] = has[g] & (((vals[g] >> k) & 1) == 1)
-        bsi.append(pack(bits))
-    exists = []
-    for g in range(G):
-        ex = np.zeros((R_PAD, W), np.uint32)
-        ex[0] = np.bitwise_or.reduce(blocks[g], axis=0) | bsi[g][0]
-        exists.append(ex)
-
-    def vmask(g: int, pred) -> np.ndarray:
-        return pack(has[g] & pred(vals[g]))
-
-    def expect(fn) -> int:
-        return sum(int(mult[g]) * int(np.bitwise_count(fn(g)).sum()) for g in range(G) if mult[g])
-
-    def expect_topn(fn, n: int) -> list:
-        pairs = [(r, expect(lambda g, r=r: blocks[g][r] & fn(g))) for r in range(R_PAD)]
-        pairs = sorted((rc for rc in pairs if rc[1]), key=lambda rc: (-rc[1], rc[0]))
-        return [{"id": r, "count": c} for r, c in pairs[:n]]
-
-    def expect_sum() -> dict:
-        return {"value": sum(int(mult[g]) * int(vals[g][has[g]].sum()) for g in range(G)),
-                "count": sum(int(mult[g]) * int(has[g].sum()) for g in range(G))}
+    sd = serving_data(blocks, n_shards)
+    vals, has, depth, bsi, exists = sd.vals, sd.has, sd.depth, sd.bsi, sd.exists
+    vmask, expect, expect_topn, expect_sum = sd.vmask, sd.expect, sd.expect_topn, sd.expect_sum
 
     deep = "Row(f=1)"
     for _ in range(33):
@@ -2877,7 +2918,10 @@ def serving_path(torch, device: str, main: dict) -> tuple:
     probe_cache = tempfile.TemporaryDirectory()
     cache_env = os.environ.get("PILOSA_TPU_TORCH_PROBE_CACHE")
     os.environ["PILOSA_TPU_TORCH_PROBE_CACHE"] = os.path.join(probe_cache.name, "device_probe.json")
-    data_dir = tempfile.TemporaryDirectory()
+    # in memory where the machine has a tmpfs: the injection creates
+    # 30,720 fragments, each an empty snapshot written with two fsyncs
+    # (over 2 minutes on a disk), which is loading, not what this measures
+    data_dir = tempfile.TemporaryDirectory(dir=shm_dir())
     times = {}
     t0 = time.perf_counter()
     srv = Server(Config(bind="127.0.0.1:0", data_dir=data_dir.name, route_mode="device",
@@ -3040,6 +3084,8 @@ def serving_path(torch, device: str, main: dict) -> tuple:
     for pql, key in ((head, "count"), ("TopN(f, n=5)", "topn")):
         times[f"http_{key}_p50_ms"] = p50_ms(lambda pql=pql: query(pql), 20)
         times[f"api_{key}_p50_ms"] = p50_ms(lambda pql=pql: srv.api.query("bench", pql), 20)
+    # the cluster phase prints its p50s beside these
+    main["serving_p50"] = {"count": times["http_count_p50_ms"], "topn": times["http_topn_p50_ms"]}
     want_head = expect(lambda g: blocks[g][1] & blocks[g][2])
     errors = []
 
@@ -3115,6 +3161,23 @@ CLI_CHILD = (
     "print('MODES ' + json.dumps({n: k.modes for n, k in _cuda.KERNELS.items() if k.modes}), flush=True)\n"
     "sys.exit(rc)\n"
 )
+
+
+def cli_data(records: int, shards: int) -> tuple:
+    """The cli phase's records, rows 1-2 over ``shards`` shards, and the
+    generator that made them (the bulk load draws on from it)."""
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+
+    rng = np.random.default_rng(CLI_SEED)
+    rows = rng.integers(1, 3, records).astype(np.uint64)
+    cols = rng.integers(0, shards * SHARD_WIDTH, records).astype(np.uint64)
+    return rng, rows, cols
+
+
+def write_csv(path: str, rows: np.ndarray, cols: np.ndarray) -> None:
+    with open(path, "w") as f:
+        f.write("\n".join(f"{r},{c}" for r, c in zip(rows.tolist(), cols.tolist())))
+        f.write("\n")
 
 
 def _lines(proc):
@@ -3206,14 +3269,10 @@ def cli_path(torch, device: str, records: int = CLI_RECORDS, shards: int = CLI_S
             return post("/index/cli/query", pql.encode())["results"][0]
 
         # ---------------------------------------------- the CSV, through the CLI
-        rng = np.random.default_rng(CLI_SEED)
-        rows = rng.integers(1, 3, records).astype(np.uint64)
-        cols = rng.integers(0, shards * SHARD_WIDTH, records).astype(np.uint64)
+        rng, rows, cols = cli_data(records, shards)
         csv = os.path.join(tmp.name, "records.csv")
         t0 = time.perf_counter()
-        with open(csv, "w") as f:
-            f.write("\n".join(f"{r},{c}" for r, c in zip(rows.tolist(), cols.tolist())))
-            f.write("\n")
+        write_csv(csv, rows, cols)
         times["csv_write_s"] = time.perf_counter() - t0
         out = io.StringIO()
         t0 = time.perf_counter()
@@ -3263,6 +3322,37 @@ def cli_path(torch, device: str, records: int = CLI_RECORDS, shards: int = CLI_S
             lat.append(time.perf_counter() - t0)
             n_counts += 1
         times["warm_count_p50_ms"] = float(np.median(lat)) * 1e3
+        # 8 keep-alive clients, 8 Counts each: the one server's q/s, which
+        # the fleet phase's three processes stand beside
+        import http.client
+        import threading
+
+        errors = []
+
+        def client(n: int) -> None:
+            c = http.client.HTTPConnection("127.0.0.1", int(host.rsplit(":", 1)[1]), timeout=600)
+            try:
+                for _ in range(n):
+                    c.request("POST", "/index/cli/query", body=head.encode())
+                    r = c.getresponse()
+                    out = json.loads(r.read())
+                    if r.status != 200 or out["results"] != [want]:
+                        errors.append((r.status, out))
+            finally:
+                c.close()
+
+        threads = [threading.Thread(target=client, args=(8,)) for _ in range(8)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        times["http_count_8_clients_qps"] = 64 / (time.perf_counter() - t0)
+        # identical concurrent Counts share one execution (the wave
+        # scheduler's single flight): 1 to 64 K1 launches
+        n_burst = 64
+        if errors:
+            raise AssertionError(f"cli: concurrent Counts: {errors[:3]}")
         top = sorted(((1, int(u1.size)), (2, int(u2.size))), key=lambda rc: (-rc[1], rc[0]))
         got = query("TopN(f, n=5)")
         n_topn += 1
@@ -3311,10 +3401,11 @@ def cli_path(torch, device: str, records: int = CLI_RECORDS, shards: int = CLI_S
     log("launches on the cli path by mode:", json.dumps(modes))
     # each Count one K1 count, the TopN one K2 rows, the Set one K3 delta
     # on the resident stack before the Count that follows it
-    if on_card and (modes.get("tree_eval", {}).get("count") != n_counts or modes.get("row_counts", {}).get("rows") != n_topn
+    k1_count = modes.get("tree_eval", {}).get("count", 0)
+    if on_card and (not n_counts < k1_count <= n_counts + n_burst or modes.get("row_counts", {}).get("rows") != n_topn
                     or modes.get("stack_delta", {}).get("delta", 0) < 1):
-        raise AssertionError(f"cli: the queries did not launch their kernels ({n_counts} K1 count, "
-                             f"{n_topn} K2 rows, a K3 delta): {modes}")
+        raise AssertionError(f"cli: the queries did not launch their kernels ({n_counts} K1 count and 1-{n_burst} "
+                             f"for the 8 clients, {n_topn} K2 rows, a K3 delta): {modes}")
     log("cli times:", json.dumps(times))
     tmp.cleanup()
     return {}, launches
@@ -3566,6 +3657,620 @@ def multihost_path(torch, device: str, n_shards: int = N_SHARDS) -> tuple:
         log(f"sync p50 {name}: one process 4x2 {one_p50[name]:.3f} ms; two ranks {p50s[0]:.3f} / {p50s[1]:.3f} ms, "
             f"all-reduce {shares[0]:.0%} / {shares[1]:.0%} of it")
     log("multihost times:", json.dumps(times))
+    return {}, launches
+
+
+# ------------------------------------------------------------- the cluster
+CL_NODES = 3
+CL_REPLICAS = 2
+CL_CLIENTS = 8  # concurrent keep-alive clients of one coordinator, 8 Counts each
+
+
+def free_ports(n: int) -> list:
+    import socket
+
+    socks = [socket.socket() for _ in range(n)]
+    for s in socks:
+        s.bind(("127.0.0.1", 0))
+    ports = [s.getsockname()[1] for s in socks]
+    for s in socks:
+        s.close()
+    return ports
+
+
+class http_node:  # noqa: N801 — a keep-alive JSON client of one node
+    def __init__(self, port: int):
+        import http.client
+
+        self.port = port
+        self.conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+
+    def call(self, method: str, path: str, body=None) -> tuple:
+        data = body if isinstance(body, (bytes, type(None))) else json.dumps(body).encode()
+        try:
+            self.conn.request(method, path, body=data)
+            resp = self.conn.getresponse()
+        except (ConnectionError, OSError):
+            # the front end closed an idle keep-alive connection: once more
+            self.conn.close()
+            self.conn.request(method, path, body=data)
+            resp = self.conn.getresponse()
+        return resp.status, json.loads(resp.read() or b"{}")
+
+    def ok(self, method: str, path: str, body=None):
+        status, out = self.call(method, path, body)
+        if status != 200:
+            raise AssertionError(f"{method} 127.0.0.1:{self.port}{path}: {status} {json.dumps(out)[:300]}")
+        return out
+
+    def close(self) -> None:
+        self.conn.close()
+
+
+def cluster_path(torch, device: str, main: dict) -> tuple:
+    """The cluster layer on the card: three ``Server(config, device)``
+    nodes in this process on 127.0.0.1, seeds, ``replica_n = 2``, each
+    with a third of 70 % of the card as its stack budget. The serving
+    holder's data (the main cell's 64 blocks cycled over its shards, R 8,
+    and the int field v) is injected into each node's holder for the
+    shards that node owns (the port's Topology places them); the nodes
+    learn each other's shards by heartbeat. Over HTTP, to node 0 and then
+    to node 1 as the coordinator: the headline Count, TopN (n=5, and the
+    ids= recount), Sum, Min, a filtered GroupBy, every answer against
+    numpy with the kernels it must launch (all nodes' counts, zeroed just
+    before); a Set, then the Count of its row read from each replica over
+    /internal/query. Node 2 closes: every answer again, from the
+    replicas. Then 8 keep-alive clients against node 0, whose remote
+    legs the scheduler coalesces (fewer waves than legs). Prints the HTTP
+    p50s beside the serving phase's, the stacks and bytes each node built,
+    and the first query's time after the failover. → ({}, the path's
+    launches)."""
+    import tempfile
+    import threading
+
+    from pilosa_tpu_torch.core import VIEW_BSI
+    from pilosa_tpu_torch.executor import compile as query_compile
+    from pilosa_tpu_torch.ops import _cuda
+    from pilosa_tpu_torch.parallel.client import InternalClient
+    from pilosa_tpu_torch.server import Server
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+    from pilosa_tpu_torch.utils.config import Config
+
+    on_card = device == "cuda"
+    blocks, shards = main["blocks"], main["shards"]
+    n_shards = len(shards)
+    write_shard = n_shards - 1
+    sd = serving_data(blocks, n_shards)
+    times, stacks_log = {}, {}
+    # the stack budget: a third of 70 % of the card for each node. Each
+    # node holds 2/3 of the shards; as coordinator it serves all it holds
+    # (f: 8 rows x 2/3 x 10 GiB = 6.7 GiB, v the same), and a hashed half
+    # of the other third for another coordinator's legs (1.7 GiB a field)
+    budget = query_compile.card_budget(torch.cuda.mem_get_info()[1]) // CL_NODES if on_card else None
+    ports = free_ports(CL_NODES)
+    seeds = [f"http://127.0.0.1:{p}" for p in ports]
+    # the data dirs in memory, as the serving phase's: the nodes create
+    # ~41,000 fragments
+    shm = shm_dir()
+    tmp = tempfile.TemporaryDirectory(dir=shm)
+    nodes = []
+    launches = {n: 0 for n in _cuda.KERNELS}
+    by_mode = {}
+
+    def count(made: dict) -> None:
+        for n, modes in made.items():
+            launches[n] += sum(modes.values())
+            for m, c in modes.items():
+                by_mode.setdefault(n, {})[m] = by_mode.get(n, {}).get(m, 0) + c
+
+    try:
+        t0 = time.perf_counter()
+        for i, p in enumerate(ports):
+            cfg = Config(bind=f"127.0.0.1:{p}", data_dir=os.path.join(tmp.name, f"node{i}"), seeds=seeds,
+                         replica_n=CL_REPLICAS, coordinator=(i == 0), anti_entropy_interval=0,
+                         route_mode="device", result_cache_mode="off", device_stack_budget_bytes=budget or 0)
+            nodes.append(Server(cfg, device=device))
+            nodes[-1].open()
+        for srv in nodes:
+            srv.cluster._heartbeat_once()
+            if not srv.wait_mesh(600) or not srv.device_verdict[0]:
+                raise AssertionError(f"cluster: a node's device probe failed: {srv.device_verdict}")
+        times["open_s"] = time.perf_counter() - t0
+        clients = [http_node(p) for p in ports]
+        c0 = clients[0]
+        c0.ok("POST", "/index/bench", {"options": {"trackExistence": True}})
+        c0.ok("POST", "/index/bench/field/f", {"options": {}})
+        c0.ok("POST", "/index/bench/field/v", {"options": {"type": "int", "min": 0, "max": S_VMAX}})
+
+        # ------------------------------------------ data, on its owners
+        t0 = time.perf_counter()
+        owners = {s: [n.id for n in nodes[0].cluster.shard_nodes("bench", s)] for s in shards}
+        held = {}
+
+        def inject(views: list, fview, s: int) -> None:
+            for view, src in views:
+                frag = view.create_fragment_if_not_exists(s)
+                if s == write_shard:
+                    # the Set lands here: true roaring storage
+                    r, c = np.nonzero(np.unpackbits(src[s % G].view(np.uint8), axis=1, bitorder="little"))
+                    frag.union_positions(r.astype(np.uint64) * SHARD_WIDTH + c.astype(np.uint64))
+                    continue
+                frag._np_matrix = src[s % G]
+                frag._all_dirty = False
+                if view is fview:
+                    # the rows that Rows(f) finds in a fragment's storage
+                    frag._row_ids_cache = (frag.version, tuple(r for r in range(R_PAD) if src[s % G][r].any()))
+
+        for srv in nodes:
+            me = srv.cluster.me.id
+            idx = srv.holder.index("bench")
+            # f and v; no query here reads the existence field
+            fview = idx.field("f").create_view_if_not_exists("standard")
+            views = [(fview, blocks), (idx.field("v").create_view_if_not_exists(VIEW_BSI), sd.bsi)]
+            mine = [s for s in shards if me in owners[s]]
+            held[me] = len(mine)
+            for s in mine:
+                inject(views, fview, s)
+        for srv in nodes:
+            srv.cluster._heartbeat_once()  # each learns the others' shards
+        for srv in nodes:
+            if srv.cluster.global_shards("bench") != shards:
+                raise AssertionError(f"cluster: {srv.cluster.me.id} sees {len(srv.cluster.global_shards('bench'))} shards")
+        times["inject_s"] = time.perf_counter() - t0
+        log(f"cluster: {CL_NODES} nodes open in {times['open_s']:.1f} s, their fragments injected in "
+            f"{times['inject_s']:.1f} s (data dirs under {shm or tempfile.gettempdir()})")
+        if sum(held.values()) != CL_REPLICAS * n_shards:
+            raise AssertionError(f"cluster: shards held {held}, want {CL_REPLICAS} x {n_shards}")
+        log(f"ok  cluster: {CL_NODES} nodes, replica_n {CL_REPLICAS}, shards held {json.dumps(held)}, "
+            f"stack budget {budget} bytes a node")
+
+        # ------------------------------------------ queries, with their answers
+        head = "Count(Intersect(Row(f=1), Row(f=2)))"
+        want_head = sd.expect(lambda g: blocks[g][1] & blocks[g][2])
+        v_min = min(int(sd.vals[g][sd.has[g]].min()) for g in range(G) if sd.mult[g])
+        want_min = {"value": v_min, "count": sd.expect(lambda g: sd.vmask(g, lambda v: v == v_min))}
+        gb = [{"group": [{"field": "f", "rowID": r}], "count": c}
+              for r, c in ((r, sd.expect(lambda g, r=r: blocks[g][r] & sd.vmask(g, lambda v: v > 31)))
+                           for r in range(R_PAD)) if c][:5]
+        n_rows1 = sd.expect(lambda g: blocks[g][1])
+
+        def topn_want(n: int, ids=None, set_bit: int = 0) -> list:
+            """TopN's answer; ``set_bit`` 1 after the Set gave row 1 a bit
+            at a column in no other row and without a value of v."""
+            pairs = [(r, sd.expect(lambda g, r=r: blocks[g][r]) + (set_bit if r == 1 else 0))
+                     for r in (range(R_PAD) if ids is None else [i for i in ids if i < R_PAD])]
+            pairs.sort(key=lambda rc: (-rc[1], rc[0]))
+            return [{"id": r, "count": c} for r, c in pairs if c][:n]
+
+        def make_checks(set_bit: int = 0) -> list:
+            # (pql, numpy, {kernel: {mode (None: any): at least}} over all nodes)
+            return [
+                (head, want_head, {"tree_eval": {"count": 1}}),
+                ("TopN(f, n=5)", topn_want(5, set_bit=set_bit), {"row_counts": {"rows": 1}}),
+                ("TopN(f, ids=[1, 3, 5, 9], n=2)", topn_want(2, [1, 3, 5, 9], set_bit), {"row_counts": {"rows ids": 1}}),
+                ("Sum(field=v)", sd.expect_sum(), {"bsi_sum": {None: 1}}),
+                ("Min(field=v)", want_min, {"bsi_minmax": {None: 1}}),
+                ("GroupBy(Rows(f), filter=Row(v > 31), limit=5)", gb,
+                 {"gb_counts": {None: 1}, "tree_eval": {"words+cmp": 1}}),
+            ]
+
+        checks = make_checks()
+
+        def reset():
+            for k in _cuda.KERNELS.values():
+                k.reset()
+
+        def served(client, pql: str, want, must: dict, tag: str) -> dict:
+            """One query over HTTP against numpy; → its wall ms and launches
+            by kernel and mode."""
+            reset()
+            t0 = time.perf_counter()
+            got = client.ok("POST", "/index/bench/query", pql.encode())["results"][-1]
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            made = kernel_modes(torch)
+            count(made)
+            if got != want:
+                raise AssertionError(f"cluster {tag}: {pql}: {json.dumps(got)[:300]} != numpy {json.dumps(want)[:300]}")
+            short = {n: m for n, m in made.items() if m}
+            log(f"ok  cluster {tag}: {pql[:50]}  -> {json.dumps(got)[:60]}  {wall_ms:.3f} ms  launches {json.dumps(short)}")
+            if on_card:
+                for n, modes in must.items():
+                    for m, least in modes.items():
+                        if (sum(made[n].values()) if m is None else made[n].get(m, 0)) < least:
+                            raise AssertionError(f"cluster {tag}: {pql} launched {short}, not {n} {m} x{least}")
+            return {"ms": wall_ms, "launches": made}
+
+        def snap(label: str) -> None:
+            stacks_log[label] = {
+                srv.cluster.me.id: {k: srv.api.executor.compiler.stacks.stats_snapshot()[k]
+                                    for k in ("entries", "residentBytes", "fullRestacks", "deltaUpdates", "budgetBytes")}
+                for srv in nodes if not srv._closed}
+
+        first_ms = {}
+        for i in (0, 1):
+            for pql, want, must in checks:
+                ms = served(clients[i], pql, want, must, f"via node {i}")["ms"]
+                first_ms.setdefault(f"node{i}", {})[pql[:20]] = round(ms, 3)
+            snap(f"after node {i} coordinated")
+        times["first_query_ms"] = first_ms
+
+        # a Set in the write shard, at a column in no row of f: both
+        # replicas apply it, and each one's own Count of the shard has it
+        g_w = write_shard % G
+        free = np.flatnonzero(np.unpackbits(sd.exists[g_w][0].view(np.uint8), bitorder="little") == 0)
+        col = write_shard * SHARD_WIDTH + int(free[0])
+        served(clients[1], f"Set({col}, f=1)", True, {}, "via node 1")
+        want_w = int(np.bitwise_count(blocks[g_w][1]).sum()) + 1
+        reset()
+        peer = InternalClient()  # the /internal/ routes answer in frames
+        for owner in owners[write_shard]:
+            uri = next(srv.uri for srv in nodes if srv.cluster.me.id == owner)
+            got = peer.query_node(uri, "bench", "Count(Row(f=1))", [write_shard])
+            if got != [want_w]:
+                raise AssertionError(f"cluster: replica {owner} counts {got} in shard {write_shard}, not {want_w}")
+        peer.close()
+        made = kernel_modes(torch)
+        count(made)
+        log(f"ok  cluster: Set({col}, f=1) read back from replicas {owners[write_shard]}: {want_w} each, "
+            f"launches {json.dumps({n: m for n, m in made.items() if m})}")
+        # the Counts through the coordinators find the write shard in the
+        # stacks they built before the Set: K3 takes the delta
+        deltas = 0
+        for i in (0, 1, 2):
+            made = served(clients[i], "Count(Row(f=1))", n_rows1 + 1, {"tree_eval": {"count": 1}},
+                          f"via node {i}")["launches"]
+            deltas += sum(made["stack_delta"].values())
+        if on_card and deltas < 1:
+            raise AssertionError("cluster: the Counts after the Set took no K3 delta")
+        snap("after the Set")
+
+        # ------------------------------------------ latencies, three nodes
+        def p50_ms(fn, reps: int = 20) -> float:
+            lat = []
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                fn()
+                lat.append(time.perf_counter() - t0)
+            return float(np.median(lat)) * 1e3
+
+        for pql, key in ((head, "count"), ("TopN(f, n=5)", "topn")):
+            times[f"http_{key}_p50_ms"] = p50_ms(lambda pql=pql: c0.ok("POST", "/index/bench/query", pql.encode()))
+            times[f"serving_http_{key}_p50_ms (one node)"] = main.get("serving_p50", {}).get(key)
+
+        # the coordinator's host work that grows with the shards: each
+        # query routes every shard to a node (_pick_read_node), in Python
+        c0_cluster = nodes[0].cluster
+        t0 = time.perf_counter()
+        holdings = c0_cluster._read_holdings("bench")
+        for s in shards:
+            c0_cluster._pick_read_node("bench", s, holdings)
+        times["route_every_shard_ms (node 0, host)"] = (time.perf_counter() - t0) * 1e3
+
+        # ------------------------------------------ failover: node 2 goes
+        nodes[2].close()
+        clients[2].close()
+        for srv in nodes[:2]:
+            srv.cluster._heartbeat_once()
+        # node 0 serves every query again (its legs for node 2's shards now
+        # go to node 1, which stacks them first); node 1 the Counts
+        times["first_count_after_failover_ms"] = served(
+            c0, head, want_head, {"tree_eval": {"count": 1}}, "via node 0 after node 2 closed")["ms"]
+        for pql, want, must in make_checks(set_bit=1)[1:] + [("Count(Row(f=1))", n_rows1 + 1, {"tree_eval": {"count": 1}})]:
+            served(c0, pql, want, must, "via node 0 after node 2 closed")
+        times["node1_first_count_after_failover_ms"] = served(
+            clients[1], head, want_head, {"tree_eval": {"count": 1}}, "via node 1 after node 2 closed")["ms"]
+        served(clients[1], "Count(Row(f=1))", n_rows1 + 1, {"tree_eval": {"count": 1}}, "via node 1 after node 2 closed")
+        snap("after the failover")
+
+        # ------------------------------------------ 8 clients, one coordinator
+        scheds = [srv.api.scheduler for srv in nodes[:2]]
+
+        def legs(sc) -> int:
+            return sc.batched_queries + sc.deduped_queries + sc.direct_queries
+
+        before = [(sc.waves, legs(sc)) for sc in scheds]
+        errors = []
+
+        def client(n: int) -> None:
+            c = http_node(ports[0])
+            try:
+                for _ in range(n):
+                    status, out = c.call("POST", "/index/bench/query", head.encode())
+                    if status != 200 or out.get("results") != [want_head]:
+                        errors.append((status, out))
+            finally:
+                c.close()
+
+        reset()
+        threads = [threading.Thread(target=client, args=(8,)) for _ in range(CL_CLIENTS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        times["http_count_8_clients_qps"] = 8 * CL_CLIENTS / (time.perf_counter() - t0)
+        count(kernel_modes(torch))
+        if errors:
+            raise AssertionError(f"cluster: concurrent Counts: {errors[:3]}")
+        coalesce = {f"node{i}": {"waves": sc.waves - w, "legs": legs(sc) - q}
+                    for i, (sc, (w, q)) in enumerate(zip(scheds, before))}
+        times["coalescing"] = coalesce
+        total_w = sum(v["waves"] for v in coalesce.values())
+        total_l = sum(v["legs"] for v in coalesce.values())
+        log(f"ok  cluster: {8 * CL_CLIENTS} Counts from {CL_CLIENTS} clients, waves vs legs {json.dumps(coalesce)}")
+        if not total_w < total_l:
+            raise AssertionError(f"cluster: the legs were not coalesced: {coalesce}")
+        log("cluster stacks by node:", json.dumps(stacks_log))
+        log("cluster times:", json.dumps(times))
+        log("launches on the cluster path (all nodes):", json.dumps(launches))
+        log("launches on the cluster path by mode:", json.dumps(by_mode))
+        for c in clients[:2]:
+            c.close()
+    finally:
+        for srv in nodes:
+            if not srv._closed:
+                srv.cluster.close()
+        for srv in nodes:
+            if not srv._closed:
+                srv.close()
+        query_compile.set_stack_budget(None)
+        tmp.cleanup()
+    return {}, launches
+
+
+# ---------------------------------------------------------------- the fleet
+FLEET_PROCESSES = 3
+FLEET_REPLICAS = 2
+FLEET_CLIENTS = 8  # keep-alive clients of the public port, 8 Counts each
+
+
+def fleet_path(torch, device: str, records: int = CLI_RECORDS, shards: int = CLI_SHARDS) -> tuple:
+    """Multi-process serving on one card, as users start it: ``python -m
+    pilosa_tpu_torch server --processes 3 --replica-n 2 --device D``, a
+    supervisor (no torch in it) whose three children each open the card
+    and share the public port (reuseport or fd-pass, as its probe
+    decides). The cli phase's CSV of ``records`` records through
+    ``import --roaring --create`` against the public port; config8's mix
+    (a Count of a Union, TopN(n=10), GroupBy) against numpy, and 8
+    keep-alive clients' q/s; SIGKILL of child 1 while a client keeps
+    asking (each answer exact or an error, never a partial count), the
+    supervisor's restart (``restarts`` = 1 in its state file) and the
+    same answers after it. Each child's resident stack bytes from
+    /debug/vars, then SIGTERM: each child prints its kernels' launches
+    as it exits. → ({}, the children's launches, summed)."""
+    import contextlib
+    import io
+    import signal
+    import tempfile
+    import threading
+    import urllib.error
+    import urllib.request
+
+    from pilosa_tpu_torch import cli
+    from pilosa_tpu_torch.ops import _cuda
+
+    on_card = device == "cuda"
+    tmp = tempfile.TemporaryDirectory()
+    cfg = os.path.join(tmp.name, "server.toml")
+    with open(cfg, "w") as f:
+        f.write('route-mode = "device"\nresult-cache-mode = "off"\n')
+    env = dict(os.environ, PILOSA_TPU_TORCH_PROBE_CACHE=os.path.join(tmp.name, "device_probe.json"))
+    data = os.path.join(tmp.name, "fleet")
+    state_path = os.path.join(data, "supervisor.json")
+    (port,) = free_ports(1)
+    uri, host = f"http://127.0.0.1:{port}", f"127.0.0.1:{port}"
+    times = {}
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "pilosa_tpu_torch", "server", "--processes", str(FLEET_PROCESSES),
+         "--replica-n", str(FLEET_REPLICAS), "--device", device, "--bind", host, "--data-dir", data,
+         "--config", cfg],
+        cwd=os.path.dirname(os.path.abspath(__file__)), env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True,
+    )
+    # the children share one pipe, so a line may carry another's bytes:
+    # the patterns are not anchored at the line's ends
+    verdict = r"device (\S+): (ready|FAILED) \(([^)]*)\)"
+
+    def wait_verdicts(total: int) -> None:
+        """Until ``total`` children have printed their device verdict (the
+        lines may come before the supervisor's own)."""
+        while True:
+            found = [m for m in (re.search(verdict, ln) for ln in seen) if m]
+            bad = [m.group(0) for m in found if m.group(2) != "ready"]
+            if bad:
+                raise AssertionError(f"fleet: a child's device probe failed: {bad}")
+            if len(found) >= total:
+                return
+            _wait_line(q, verdict, 600, seen)
+
+    def state() -> dict:
+        with open(state_path) as fh:
+            return json.load(fh)
+
+    def post(path: str, body: bytes, timeout: float = 600):
+        req = urllib.request.Request(uri + path, data=body, method="POST")
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return json.loads(r.read())
+
+    def query(pql: str):
+        return post("/index/cli/query", pql.encode())["results"][0]
+
+    rest = []
+    try:
+        q, seen = _lines(proc), []
+        m = _wait_line(q, r"pilosa-tpu supervisor: (\d+) processes serving (\S+) \(([a-z-]+)\)", 600, seen)
+        times["fleet_ready_s"] = time.perf_counter() - t0
+        wait_verdicts(FLEET_PROCESSES)
+        times["fleet_ready_and_probed_s"] = time.perf_counter() - t0
+        mode = m.group(3)
+        st = state()
+        log(f"ok  fleet: {m.group(1)} children on {device}, the public port shared by {mode}, "
+            f"pids {[p['pid'] for p in st['processes']]}")
+        if st.get("device") != device or not all(p["ready"] for p in st["processes"]):
+            raise AssertionError(f"fleet: the state file says {st}")
+
+        # ------------------------------------- the CSV, through the public port
+        rng, rows, cols = cli_data(records, shards)
+        del rng
+        csv = os.path.join(tmp.name, "records.csv")
+        write_csv(csv, rows, cols)
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(["import", csv, "--roaring", "--create", "--host", host, "-i", "cli", "-f", "f",
+                           "--batch-size", str(records)])
+        times["csv_import_s"] = time.perf_counter() - t0
+        times["csv_import_records_per_s"] = records / times["csv_import_s"]
+        said = out.getvalue().strip()
+        u1, u2 = np.unique(cols[rows == 1]), np.unique(cols[rows == 2])
+        m = re.match(r"imported (\d+) bits into cli/f via (\d+) roaring frames in \S+s \((\S+) Mbit/s", said)
+        if rc != 0 or not m or int(m.group(1)) != u1.size + u2.size:
+            raise AssertionError(f"fleet import: rc {rc}, {said!r}, want {u1.size + u2.size} bits")
+        times["csv_import_mbit_s (the CLI's own figure)"] = float(m.group(3))
+        log(f"ok  fleet: import --roaring --create of {records} records  -> {said}")
+
+        # ------------------------------------------------------ config8's mix
+        top = sorted(((1, int(u1.size)), (2, int(u2.size))), key=lambda rc: (-rc[1], rc[0]))
+        mix = [
+            ("Count(Union(Row(f=1), Row(f=2)))", int(np.union1d(u1, u2).size)),
+            ("TopN(f, n=10)", [{"id": r, "count": c} for r, c in top]),
+            ("GroupBy(Rows(f))", [{"group": [{"field": "f", "rowID": r}], "count": int(u.size)}
+                                  for r, u in ((1, u1), (2, u2))]),
+        ]
+
+        def check_mix(tag: str, reps: int = 4) -> dict:
+            lat = {}
+            for pql, want in mix:
+                for _ in range(reps):  # fresh connections: the children take turns
+                    t1 = time.perf_counter()
+                    got = query(pql)
+                    lat.setdefault(pql, []).append((time.perf_counter() - t1) * 1e3)
+                    if got != want:
+                        raise AssertionError(f"fleet {tag}: {pql}: {json.dumps(got)[:200]} != numpy {json.dumps(want)[:200]}")
+                log(f"ok  fleet{' ' + tag if tag else ''}: {pql}  -> {json.dumps(got)[:80]}")
+            return {pql[:20]: round(float(np.median(v)), 3) for pql, v in lat.items()}
+
+        times["mix_p50_ms"] = check_mix("")
+        head, want_head = mix[0]
+        errors = []
+
+        def client(n: int) -> None:
+            import http.client
+
+            c = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+            try:
+                for _ in range(n):
+                    c.request("POST", "/index/cli/query", body=head.encode())
+                    r = c.getresponse()
+                    got = json.loads(r.read())
+                    if r.status != 200 or got["results"] != [want_head]:
+                        errors.append((r.status, got))
+            finally:
+                c.close()
+
+        threads = [threading.Thread(target=client, args=(8,)) for _ in range(FLEET_CLIENTS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        times["http_count_8_clients_qps"] = 8 * FLEET_CLIENTS / (time.perf_counter() - t0)
+        if errors:
+            raise AssertionError(f"fleet: concurrent Counts: {errors[:3]}")
+
+        # --------------------------------------------- SIGKILL of child 1
+        victim = state()["processes"][1]
+        stop, answers = threading.Event(), {"exact": 0, "errors": 0}
+        wrong = []
+
+        def ask() -> None:
+            while not stop.is_set():
+                try:
+                    got = post("/index/cli/query", head.encode(), timeout=60)["results"][0]
+                    if got == want_head:
+                        answers["exact"] += 1
+                    else:
+                        wrong.append(got)
+                except (urllib.error.URLError, OSError, ValueError):
+                    answers["errors"] += 1
+                time.sleep(0.05)
+
+        asker = threading.Thread(target=ask)
+        asker.start()
+        t0 = time.perf_counter()
+        os.kill(victim["pid"], signal.SIGKILL)
+        try:
+            deadline = time.monotonic() + 600
+            while True:
+                p1 = state()["processes"][1]
+                if p1["restarts"] >= 1 and p1["ready"] and p1["pid"] != victim["pid"]:
+                    break
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"fleet: child 1 not restarted: {p1}")
+                time.sleep(0.2)
+            times["restart_ready_s"] = time.perf_counter() - t0
+            wait_verdicts(FLEET_PROCESSES + 1)
+            times["restart_ready_and_probed_s"] = time.perf_counter() - t0
+        finally:
+            stop.set()
+            asker.join()
+        times["kill_window_answers"] = dict(answers)
+        if wrong:
+            raise AssertionError(f"fleet: partial answers while child 1 restarted: {wrong[:5]} != {want_head}")
+        st = state()
+        if [p["restarts"] for p in st["processes"]] != [0, 1, 0] or st["processes"][1]["lastExitCode"] != -9:
+            raise AssertionError(f"fleet: the state file after the restart: {st['processes']}")
+        log(f"ok  fleet: SIGKILL of child 1 (pid {victim['pid']}) -> restarted as pid {st['processes'][1]['pid']} "
+            f"in {times['restart_ready_s']:.1f} s; meanwhile {json.dumps(answers)} (no partial count)")
+        times["mix_p50_ms_after_restart"] = check_mix("after the restart")
+
+        resident = {}
+        for p in st["processes"]:
+            with urllib.request.urlopen(p["uri"] + "/debug/vars", timeout=60) as r:
+                sc = json.loads(r.read())["stackCache"]
+            resident[f"child{p['index']}"] = {k: sc[k] for k in ("entries", "residentBytes", "budgetBytes", "fullRestacks")}
+        times["stacks_by_child"] = resident
+        if on_card:
+            want_budget = int(torch.cuda.mem_get_info()[1] * 0.7) // FLEET_PROCESSES
+            if any(v["budgetBytes"] != want_budget for v in resident.values()):
+                raise AssertionError(f"fleet: a child's stack budget is not 70 % / {FLEET_PROCESSES} of the card "
+                                     f"({want_budget}): {resident}")
+    finally:
+        if proc.poll() is None:
+            proc.send_signal(signal.SIGTERM)
+        try:
+            proc.wait(timeout=180)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            raise
+    while True:
+        line = q.get(timeout=60)
+        if line is None:
+            break
+        rest.append(line)
+    if proc.returncode != 0:
+        raise AssertionError(f"fleet: the supervisor exited {proc.returncode} on SIGTERM: {(seen + rest)[-20:]}")
+    tag = "kernel launches "
+    reports = [json.JSONDecoder().raw_decode(ln[ln.index(tag) + len(tag):])[0] for ln in rest if tag in ln]
+    if len(reports) != FLEET_PROCESSES:
+        raise AssertionError(f"fleet: {len(reports)} children reported their launches: {rest[-20:]}")
+    launches = {n: sum(r.get(n, {}).get("launches", 0) for r in reports) for n in _cuda.KERNELS}
+    modes = {}
+    for r in reports:
+        for n, v in r.items():
+            for m_, c in v["modes"].items():
+                modes.setdefault(n, {})[m_] = modes.get(n, {}).get(m_, 0) + c
+    log("ok  fleet: SIGTERM  -> the supervisor drained its children and exited 0")
+    log("launches by child (child 1 after its restart):", json.dumps(reports))
+    log("launches on the fleet path (the children's, summed):", json.dumps(launches))
+    log("launches on the fleet path by mode:", json.dumps(modes))
+    if on_card and (modes.get("tree_eval", {}).get("count", 0) < 1 or modes.get("row_counts", {}).get("rows", 0) < 1
+                    or launches["gb_counts"] < 1):
+        raise AssertionError(f"fleet: the mix did not launch K1 count, K2 rows and K6: {modes}")
+    log("fleet times:", json.dumps(times))
+    tmp.cleanup()
     return {}, launches
 
 
@@ -4019,27 +4724,41 @@ def main(
         log("times:", json.dumps(times))
         results = {"tree_eval": k1, "row_counts": k2, "stack_delta": k3, "shift_words": k7, "row_counts_tree": k2t}
         return {name: (errs[name], t) for name, t in results.items()}, launches, mesh_ctx
+    # each phase's wall time, setup included, for the script's time budget
+    wall, lap_t0 = {}, [time.perf_counter()]
+
+    def lap(name: str) -> None:
+        now = time.perf_counter()
+        wall[name] = round(now - lap_t0[0], 1)
+        lap_t0[0] = now
+
     main_results, main_launches, main_ctx = main_path()
+    lap("main")
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
     serve_results, serve_launches = serving_path(torch, device, main_ctx)
+    lap("serving")
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
     taxi_results, taxi_launches, taxi = taxi_path(torch, device, taxi_shards)
     # the mesh path's share of the taxi holder (the residency path drops its API)
     taxi_ctx = {k: taxi[k] for k in ("holder", "index", "checks", "answers", "depth", "p50", "fused")}
+    lap("taxi")
     res_results, res_launches = residency_path(torch, device, taxi, budget)
+    lap("residency")
     del taxi
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
     sim_results, sim_launches = similarity_path(torch, device, sim_rows, sim_block)
+    lap("similarity")
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
     mesh_results, mesh_launches = mesh_path(torch, device, main_ctx, taxi_ctx, sim_block)
+    lap("mesh")
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
@@ -4047,19 +4766,38 @@ def main(
     # copy for the plain version) and its mesh programs ~23 GB of placement
     # a layout: both run after the mesh path has freed its stacks
     graft_results, graft_launches, graft = graft_path(torch, device, main_ctx)
+    lap("graft")
     prog_results, prog_launches = mesh_programs_path(torch, device, graft, main_ctx, taxi_ctx)
+    lap("mesh_programs")
+    # the cluster phase's share: the blocks (64 MiB on the host) and the shards
+    cluster_ctx = {k: main_ctx[k] for k in ("blocks", "shards", "serving_p50") if k in main_ctx}
     del main_ctx, taxi_ctx, graft
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
     cli_results, cli_launches = cli_path(torch, device, cli_records, cli_shards, cli_bulk_bits)
+    lap("cli")
     mh_results, mh_launches = multihost_path(torch, device, N_SHARDS)
+    lap("multihost")
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    cl_results, cl_launches = cluster_path(torch, device, cluster_ctx)
+    lap("cluster")
+    del cluster_ctx
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    fleet_results, fleet_launches = fleet_path(torch, device, cli_records, cli_shards)
+    lap("fleet")
+    log("phase wall times (s):", json.dumps(wall))
     paths = (("main", main_results, main_launches), ("serving", serve_results, serve_launches),
              ("taxi", taxi_results, taxi_launches),
              ("residency", res_results, res_launches), ("similarity", sim_results, sim_launches),
              ("mesh", mesh_results, mesh_launches), ("graft", graft_results, graft_launches),
              ("mesh_programs", prog_results, prog_launches), ("cli", cli_results, cli_launches),
-             ("multihost", mh_results, mh_launches))
+             ("multihost", mh_results, mh_launches), ("cluster", cl_results, cl_launches),
+             ("fleet", fleet_results, fleet_launches))
     # a result's key is the kernel's name, then (for a second entry of
     # one kernel) what it times
     kernels = [

@@ -7,15 +7,15 @@ subcommands, flags and output, for the port:
 
 ``server`` runs on the CUDA card unless given ``--device cpu`` (the plain
 torch versions of the kernels); no config key or environment variable
-selects the device. It serves one process: ``--processes`` above 1,
-``--seeds`` and ``--coordinator`` need the cluster layer and the
-supervisor (ROADMAP.md A10) and exit non-zero. A config with
-``coordinator-address`` joins the multi-host process group when the
-server opens (parallel/multihost.py).
+selects the device. ``--seeds`` and ``--coordinator`` start a cluster
+node (parallel/cluster.py); ``--processes N`` above 1 runs a supervisor
+(server/supervisor.py) of N child servers on the same device, sharing
+the public port. A config with ``coordinator-address`` joins the
+multi-host process group when the server opens (parallel/multihost.py).
 
 The client commands (``import``, ``export``, ``explain``, ``replay``,
-``backup``, ``restore``, ``doctor``) speak HTTP and import neither torch
-nor the server runtime.
+``backup``, ``restore``, ``doctor``) and the supervisor's parent speak
+HTTP and import neither torch nor the server runtime.
 """
 
 from __future__ import annotations
@@ -30,14 +30,6 @@ import urllib.error
 import urllib.request
 
 import numpy as np
-
-# the refusal of the options that need the cluster layer
-_A10 = (
-    "pilosa_tpu_torch serves one process: multi-process serving (--processes), "
-    "--seeds and --coordinator come with the cluster layer and the supervisor "
-    "(ROADMAP.md A10)"
-)
-
 
 def _base_uri(host: str) -> str:
     """--host accepts `host:port` (http) or a scheme-qualified URI
@@ -127,10 +119,28 @@ def cmd_server(args) -> int:
             "tls_skip_verify": args.tls_skip_verify or None,
         },
     )
-    if cfg.serving_processes > 1 or cfg.seeds or cfg.coordinator:
-        # before any torch import: the refusal answers at once
-        print(_A10, file=sys.stderr)
-        return 2
+    if cfg.serving_processes > 1:
+        # multi-process serving (docs/multiprocess.md): the parent is a
+        # SUPERVISOR — spawn/watch/drain N child servers sharing the
+        # public port, each on --device. Deliberately before any torch
+        # import: the parent is a lifecycle manager and must hold no
+        # CUDA context (the children each pay their own). CLI flags
+        # that override the config file travel to children as env
+        # (argv keeps only per-child bind/data-dir/config/device).
+        from pilosa_tpu_torch.server.supervisor import Supervisor
+
+        passthrough = {}
+        for key in ("tls_certificate", "tls_key"):
+            value = getattr(args, key)
+            if value is not None:
+                passthrough[key] = value
+        if args.tls_skip_verify:
+            passthrough["tls_skip_verify"] = "1"
+        sup = Supervisor(
+            cfg, config_path=args.config, argv_overrides=passthrough,
+            device=args.device,
+        )
+        return sup.run_forever()
     import threading
 
     from pilosa_tpu_torch.server import Server
@@ -174,6 +184,16 @@ def cmd_server(args) -> int:
             except OSError as e:
                 print(f"cpu profile write failed: {e}", flush=True)
         srv.close()
+        # what this server ran on its device: each kernel's launches by
+        # mode (all 0 on the CPU, where the plain versions run)
+        from pilosa_tpu_torch.ops import _cuda
+
+        # one write: the children of a fleet share their parent's stdout
+        sys.stdout.write("kernel launches " + json.dumps({
+            n: {"launches": k.launches, "modes": k.modes}
+            for n, k in _cuda.KERNELS.items() if k.launches
+        }) + "\n")
+        sys.stdout.flush()
     return 0
 
 
@@ -759,9 +779,10 @@ def cmd_inspect(args) -> int:
 
 
 def main(argv: list[str] | None = None) -> int:
-    # torch is imported by cmd_server alone: the client commands never
-    # load it, so `python -m pilosa_tpu_torch doctor` answers in
-    # milliseconds
+    # torch is imported by cmd_server's solo path alone: the client
+    # commands and the supervisor's parent never load it, so
+    # `python -m pilosa_tpu_torch doctor` answers in milliseconds and
+    # the supervisor holds no CUDA context
     p = argparse.ArgumentParser(prog="pilosa-tpu")
     sub = p.add_subparsers(dest="cmd", required=True)
 
@@ -777,8 +798,9 @@ def main(argv: list[str] | None = None) -> int:
         type=int,
         default=None,
         metavar="N",
-        help="multi-process serving (config serving-processes): only 1 "
-             "until the supervisor is ported (ROADMAP.md A10)",
+        help="multi-process serving (config serving-processes): run N "
+             "shard-owning child servers on --device sharing the public "
+             "port via SO_REUSEPORT (docs/multiprocess.md)",
     )
     s.add_argument(
         "--device",

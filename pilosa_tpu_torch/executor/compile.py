@@ -199,6 +199,8 @@ def _upload_placed(view, shards: list[int], rows: int, mesh_ctx):
 # explicit budget installed from config (device-stack-budget-bytes);
 # wins over the env var and the card's memory
 _budget_override: list[int] = []
+# processes sharing this card (set_card_share): 1 outside a fleet
+_card_share: list[int] = [1]
 
 
 def set_stack_budget(n: int | None) -> None:
@@ -209,6 +211,20 @@ def set_stack_budget(n: int | None) -> None:
     _budget_override.clear()
     if n:
         _budget_override.append(int(n))
+
+
+def set_card_share(n: int) -> None:
+    """Divide the default budget (70% of the card) among ``n`` processes
+    that share the card: the children of a supervised fleet (server/
+    supervisor.py) each take 1/n. A configured or env budget is not
+    divided."""
+    _card_share[0] = max(1, int(n))
+
+
+def card_budget(total_bytes: int) -> int:
+    """The default budget on a card of ``total_bytes``: 70% of it,
+    divided among the processes that share it (set_card_share)."""
+    return int(total_bytes * 0.7) // _card_share[0]
 
 
 def stack_budget_if_resolved() -> int | None:
@@ -252,7 +268,8 @@ class StackCache:
     # device-bytes cap for the resident stacks, aggregate. Resolution
     # order: the configured budget (set_stack_budget) →
     # PILOSA_TPU_STACK_BUDGET env → 70% of the card's memory
-    # (torch.cuda.mem_get_info) → 2 GiB on the CPU. Tests monkeypatch
+    # (torch.cuda.mem_get_info), divided among the processes that share
+    # the card (set_card_share) → 2 GiB on the CPU. Tests monkeypatch
     # the class attribute with a plain int, which shadows the property.
     @property
     def STACK_BYTES_BUDGET(self) -> int:  # noqa: N802 — the reference's name
@@ -261,7 +278,7 @@ class StackCache:
             if resolved:
                 self._budget = resolved
             elif self.device.type == "cuda":
-                self._budget = int(torch.cuda.mem_get_info(self.device)[1] * 0.7)
+                self._budget = card_budget(torch.cuda.mem_get_info(self.device)[1])
             else:
                 self._budget = 2 << 30
         return self._budget

@@ -233,6 +233,12 @@ class WaveScheduler:
         self.batched_queries = 0
         self.deduped_queries = 0
         self.direct_queries = 0
+        # lazy pool for execute_many's DIRECT (host-routed) entries:
+        # the multi-query RPC coalesces legs before the remote routing
+        # decision is known, so host-routed legs that used to arrive as
+        # N parallel /internal/query requests must not serialize on the
+        # one batch-handler thread
+        self._direct_pool = None
 
     # ------------------------------------------------------------- entry
     def execute(
@@ -289,10 +295,117 @@ class WaveScheduler:
             raise item.error
         return item.results  # type: ignore[return-value]
 
+    def execute_many(
+        self,
+        requests: "list[tuple[str, str | list[Call], list[int] | None, tuple | None]]",
+    ) -> list[Any]:
+        """Execute several independent queries as ONE enqueue — the
+        multi-query /internal RPC hands its coalesced legs here so they
+        share a single device readback wave on this node too.  Each
+        request is ``(index, query, shards, trace_ctx)``; the trace
+        context (one per leg, propagated in the RPC body) replaces the
+        submitter-thread capture ``execute()`` does.  Returns one
+        element per request: the result list, or the exception that
+        query raised (per-entry error isolation — callers must answer
+        every leg)."""
+        executor = self._executor_fn()
+        out: list[Any] = [None] * len(requests)
+        wave_items: list[tuple[int, _WorkItem]] = []
+        futures: list[tuple[int, Any]] = []
+
+        def run_direct(index, calls, shards, ctx, routes=None):
+            try:
+                dctx = ctx or (None, None)
+                with GLOBAL_TRACER.detached(dctx[0], dctx[1]):
+                    return executor.execute(
+                        index, calls, shards=shards, routes=routes
+                    )
+            except Exception as exc:  # noqa: BLE001 — per-entry
+                # isolation: the exception IS this slot's answer
+                return exc
+
+        for i, (index, query, shards, ctx) in enumerate(requests):
+            try:
+                calls = parse(query) if isinstance(query, str) else query
+                batchable, _routes = self._batchable(
+                    executor, index, calls, shards
+                )
+                idx = executor.holder.index(index) if batchable else None
+                if not batchable or idx is None:
+                    with self._lock:
+                        self.direct_queries += 1
+                    if len(requests) == 1:
+                        out[i] = run_direct(index, calls, shards, ctx, _routes)
+                    else:
+                        # concurrent: these entries were independent
+                        # RPCs before leg coalescing merged them into
+                        # one envelope — they must stay parallel here
+                        # (numpy and torch release the GIL)
+                        futures.append(
+                            (
+                                i,
+                                self._pool().submit(
+                                    run_direct,
+                                    index,
+                                    calls,
+                                    shards,
+                                    ctx,
+                                    _routes,
+                                ),
+                            )
+                        )
+                    continue
+                item = _WorkItem(index, calls, shards, routes=_routes)
+                item.key = dedup_key(index, calls, shards, idx)
+                item.trace_ctx = ctx
+                wave_items.append((i, item))
+            except Exception as e:  # noqa: BLE001 — per-entry isolation:
+                # a parse/validation failure answers its own slot only
+                out[i] = e
+        if wave_items:
+            deduped = 0
+            with self._cond:
+                for _i, item in wave_items:
+                    prime = self._inflight.get(item.key)
+                    if prime is not None and not prime.sealed:
+                        prime.followers.append(item)
+                        self.deduped_queries += 1
+                        deduped += 1
+                    else:
+                        self._inflight[item.key] = item
+                        self._queue.append(item)
+                self._cond.notify_all()
+            if deduped and self.stats is not None:
+                self.stats.count("queries_deduped", deduped)
+            for i, item in wave_items:
+                self._await(item)
+                out[i] = item.error if item.error is not None else item.results
+        for i, fut in futures:
+            out[i] = fut.result()  # run_direct never raises
+        return out
+
+    def _pool(self):
+        if self._direct_pool is None:
+            with self._lock:
+                if self._direct_pool is None:
+                    from concurrent.futures import ThreadPoolExecutor
+
+                    # sized to the leg batcher's MAX_LEGS (64): a full
+                    # coalesced envelope of host-routed legs ran as 64
+                    # parallel handler threads pre-batching and must
+                    # not queue behind a smaller pool here
+                    self._direct_pool = ThreadPoolExecutor(
+                        max_workers=64, thread_name_prefix="batch-direct"
+                    )
+        return self._direct_pool
+
     def close(self) -> None:
-        """Nothing to release: the reference's pool for execute_many's
-        host-routed legs comes with the cluster's /internal routes
-        (ROADMAP.md A10). Server.close calls this, as the reference's."""
+        """Release the direct-entry pool (Server.close reaches here;
+        embedded multi-server rigs must not leak 64 idle threads per
+        scheduler that ever served a mixed batch envelope)."""
+        pool = self._direct_pool
+        if pool is not None:
+            pool.shutdown(wait=False)
 
     # ------------------------------------------------------ wave harness
     def _batchable(

@@ -2,10 +2,9 @@
 
 Every behavior in docs/fault-tolerance.md — retry-then-succeed, replica
 failover, breaker trips, deadline exhaustion — is testable without real
-network chaos: a ``FaultInjector`` holds seeded, rule-based faults, which
-the reference's ``FaultInjectingClient`` (an ``InternalClient`` subclass,
-ported with the cluster: ROADMAP.md A10) consults at the single transport
-chokepoint before any bytes move.
+network chaos: a ``FaultInjector`` holds seeded, rule-based faults and
+``FaultInjectingClient`` (an ``InternalClient`` subclass) consults them
+at the single transport chokepoint (``_request``) before any bytes move.
 Faults therefore surface to callers exactly like real failures do (as
 ``PeerError`` with a status, or as added latency), underneath the retry
 and breaker layers in ``parallel/resilience.py``.
@@ -46,7 +45,7 @@ import signal
 import threading
 import time
 
-from pilosa_tpu_torch.parallel.client import PeerError
+from pilosa_tpu_torch.parallel.client import InternalClient, PeerError
 
 _ACTIONS = ("drop", "delay", "http", "blackhole")
 
@@ -437,3 +436,23 @@ class FSFaultInjector:
         the file, exactly like a kill mid-write leaves them)."""
         rule = getattr(self._torn_local, "rule", None)
         self._die(rule.then if rule is not None else "crash", op, path)
+
+
+class FaultInjectingClient(InternalClient):
+    """InternalClient with the injector consulted at the transport
+    chokepoint.  ``injector=None`` behaves exactly like the base class
+    (and is what standalone/non-cluster servers get)."""
+
+    def __init__(self, timeout: float = 30.0, skip_verify: bool = False,
+                 injector: FaultInjector | None = None):
+        super().__init__(timeout=timeout, skip_verify=skip_verify)
+        self.injector = injector
+
+    def _request(self, method, uri, path, body=None, timeout=None,
+                 content_type="application/json"):
+        inj = self.injector
+        if inj is not None:
+            inj.before_request(method, uri, path)
+        return super()._request(
+            method, uri, path, body, timeout=timeout, content_type=content_type
+        )

@@ -1,7 +1,7 @@
 """Movement admission lane (docs/resize.md). Reference:
-pilosa_tpu/parallel/movement.py. ``fragment_checksum`` serves the CLI's
-``backup`` and ``restore`` now; the lane and its meter wait for the
-cluster layer (ROADMAP.md A10).
+pilosa_tpu/parallel/movement.py. The cluster (parallel/cluster.py) moves
+fragments through the lane; ``fragment_checksum`` also serves the CLI's
+``backup`` and ``restore``.
 
 Every bulk data-movement path — rebalance pulls, anti-entropy handoff
 pushes, restore adopts — moves whole fragments as serialized roaring

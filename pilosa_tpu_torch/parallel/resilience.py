@@ -551,3 +551,26 @@ def deadline_from_header(value: "str | None") -> Deadline | None:
         return Deadline(max(0.0, float(value) / 1e3))
     except ValueError:
         return None
+
+
+def make_resilient_client(config, stats=None, injector=None):
+    """Build the full node→node client chain from config:
+    InternalClient transport → fault injection (always present so the
+    debug route can arm rules at runtime) → retry/breaker wrapper."""
+    from pilosa_tpu_torch.parallel.faultinject import FaultInjectingClient
+
+    inner = FaultInjectingClient(
+        skip_verify=config.tls_skip_verify, injector=injector
+    )
+    policy = RetryPolicy(
+        retries=config.rpc_retries,
+        base_s=config.rpc_backoff_base_ms / 1e3,
+        cap_s=config.rpc_backoff_cap_ms / 1e3,
+    )
+    breakers = BreakerRegistry(
+        enabled=config.breaker_enabled,
+        threshold=config.breaker_failure_threshold,
+        cooldown_s=config.breaker_cooldown_ms / 1e3,
+        stats=stats,
+    )
+    return ResilientClient(inner, breakers, policy, stats=stats)

@@ -3,9 +3,9 @@
 Reference: pilosa_tpu/server/api.py (after api.go: Query, CreateIndex/
 Field, DeleteIndex/Field, Import, ImportValue, ImportRoaring, Schema,
 ApplySchema, ExportCSV, ShardNodes, Hosts, State, Info). Serialization
-of results to JSON lives here so transport layers stay thin. The port
-serves one node: the cluster layer is not ported (ROADMAP.md A10), so
-the cluster surfaces answer for a single node.
+of results to JSON lives here so transport layers stay thin. A server
+with seeds attaches its ``parallel.cluster.Cluster`` as ``api.cluster``;
+the cluster surfaces then answer for the whole cluster.
 """
 
 from __future__ import annotations
@@ -90,6 +90,7 @@ class API:
         self,
         holder: Holder,
         device=None,
+        cluster=None,
         stats=None,
         mesh_ctx=None,
         max_writes: int = 5000,
@@ -106,6 +107,7 @@ class API:
         there are two or more); the device is then the mesh's lead.
         ``route_mode`` pins the router (auto/host/device/mesh)."""
         self.holder = holder
+        self.cluster = cluster  # None ⇒ single-node
         self.max_writes = max_writes
         self.stats = stats
         if mesh_ctx == "auto":
@@ -205,6 +207,14 @@ class API:
             # schema application changes what keys/fields resolve —
             # every named index's cached results are stale generations
             self._invalidate_results(idx_def["name"])
+        if self.cluster is not None:
+            # a keyed store learned AFTER this node's promotion fence was
+            # stamped would allocate from an empty counter (the fence
+            # pulled nothing for a store it didn't know existed) — any
+            # schema application invalidates the fence; re-fencing on the
+            # next allocation is cheap
+            with self.cluster._translate_fence_lock:
+                self.cluster._translate_fence_ok = False
 
     # -------------------------------------------------------------- query
     def check_write_limit(self, n: int, what: str) -> None:
@@ -225,7 +235,9 @@ class API:
         calls = parse(pql) if isinstance(pql, str) else pql
         n_writes = self.count_query_writes(calls)
         self.check_write_limit(n_writes, "query")
-        if self.stats is not None:
+        if self.stats is not None and self.cluster is None:
+            # single-node served-query counter; clustered serving counts
+            # per fan-out leg in parallel/cluster.py instead
             self.stats.count("queries_served", tags={"path": "local"})
         # read queries consult the result cache BEFORE execution: the
         # key embeds the index's current mutation stamp, so a hit is a
@@ -620,19 +632,23 @@ class API:
             out["diagnostics"] = self.diagnostics.snapshot()
         return out
 
-    # The port serves one node (ROADMAP.md A10 ports the cluster): the
-    # cluster surfaces answer as the reference's do without a cluster.
     def state(self) -> str:
-        return "NORMAL"
+        return self.cluster.state if self.cluster is not None else "NORMAL"
 
     def hosts(self) -> list[dict]:
+        if self.cluster is not None:
+            return [n.to_json() for n in self.cluster.nodes]
         return [{"id": "local", "uri": "", "isCoordinator": True}]
 
     def topology_epoch(self) -> int:
-        return 0
+        return self.cluster.topology.epoch if self.cluster is not None else 0
 
     def translate_pending(self) -> bool:
-        return False
+        return (
+            self.cluster._translate_reconcile_pending
+            if self.cluster is not None
+            else False
+        )
 
     def node_inventories(self) -> dict:
         return {
@@ -641,6 +657,8 @@ class API:
         }
 
     def shard_nodes(self, index: str, shard: int) -> list[dict]:
+        if self.cluster is not None:
+            return [n.to_json() for n in self.cluster.shard_nodes(index, shard)]
         return self.hosts()
 
     # ------------------------------------------------------------ helpers

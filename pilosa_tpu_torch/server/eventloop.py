@@ -32,6 +32,7 @@ sanctioned hand-off to blocking code.
 
 from __future__ import annotations
 
+import array
 import asyncio
 import io
 import os
@@ -131,7 +132,7 @@ class _BufferedHandler(Handler):
 
     The event loop owns the real socket; a worker thread runs this shim,
     which re-parses the raw request through ``BaseHTTPRequestHandler``
-    machinery (one parser for every request) and
+    machinery (one parser, identical semantics to the threaded path) and
     dispatches through the unchanged ``Handler`` route table.  The
     response accumulates in ``wfile`` (a BytesIO) for the loop to write
     back; ``close_connection`` reports the keep-alive decision."""
@@ -156,7 +157,7 @@ class _BufferedHandler(Handler):
         # monotonic instant the request HEAD started arriving: the
         # workload capture stamps records with it so replayed arrival
         # spacing reflects offered load, not settle times
-        # (docs/workload.md)
+        # (docs/workload.md; None on the threaded listener)
         self.arrival_monotonic = arrival
         self.close_connection = True
         self.requestline = ""
@@ -190,10 +191,12 @@ class _BufferedHandler(Handler):
 class EventHTTPServer(_ServerCore):
     """HTTP front end bound to an API façade — the event-driven default.
 
-    The ``query_router`` / ``import_router`` hooks, ``extra_routes``,
-    ``ssl_context`` and ``serve_background``/``shutdown``/``server_close``
-    are what the runtime Server wires; the listener internals are an
-    asyncio loop on one background thread."""
+    Same attribute surface as the legacy ``ThreadedHTTPServer``
+    (``query_router`` / ``import_router`` hooks, ``extra_routes``,
+    ``ssl_context``, ``serve_background``/``shutdown``/``server_close``)
+    so the runtime Server and the cluster layer wire either
+    interchangeably; the listener internals are an asyncio loop on one
+    background thread."""
 
     def __init__(self, addr: tuple[str, int], api, stats: StatsClient | None = None):
         # bind in the constructor (like socketserver) so server_address
@@ -227,6 +230,18 @@ class EventHTTPServer(_ServerCore):
         self._conn_count = 0
         self._started = threading.Event()
         self._closed = False
+        # multi-process serving (docs/multiprocess.md): extra listeners
+        # added AFTER boot — the SO_REUSEPORT shared public socket a
+        # supervised child binds once its cluster join completes — and
+        # the accept-and-pass adoption plumbing for the fallback mode.
+        # ``shared_listener`` is the /debug/vars serving-snapshot
+        # surface naming which sharing mode is active.
+        self._extra_sockets: list[socket.socket] = []
+        self._extra_servers: list[asyncio.AbstractServer] = []
+        self._fd_listener: socket.socket | None = None
+        self._fd_path: str | None = None
+        self._fd_conns: set[socket.socket] = set()
+        self.shared_listener: dict | None = None
 
     # ------------------------------------------------------------ lifecycle
     def serve_background(self) -> threading.Thread:
@@ -255,6 +270,11 @@ class EventHTTPServer(_ServerCore):
             self.socket.close()
         except OSError:
             pass
+        for sock in self._extra_sockets:
+            try:
+                sock.close()
+            except OSError:
+                pass
         if self._pool is not None:
             self._pool.shutdown(wait=False)
 
@@ -340,11 +360,194 @@ class EventHTTPServer(_ServerCore):
                 lag_probe.cancel()
             sweeper.cancel()
             server.close()
-            await server.wait_closed()
+            for extra in self._extra_servers:
+                extra.close()
+            self._close_fd_plumbing(loop)
+            # end the open connections BEFORE waiting on the listeners:
+            # Server.wait_closed also waits for every accepted
+            # connection, so a peer's idle keep-alive socket would hold
+            # shutdown for up to keepalive-idle-s
             for t in list(self._conn_tasks):
                 t.cancel()
             if self._conn_tasks:
                 await asyncio.gather(*self._conn_tasks, return_exceptions=True)
+            await server.wait_closed()
+            if self._extra_servers:
+                await asyncio.gather(
+                    *(s.wait_closed() for s in self._extra_servers),
+                    return_exceptions=True,
+                )
+
+    # ------------------------------------------------- shared public port
+    def add_shared_listener(self, host: str, port: int) -> None:
+        """Bind an ADDITIONAL public (host, port) with SO_REUSEPORT and
+        serve it with the same per-connection coroutine as the primary
+        socket (docs/multiprocess.md).  Called by Server.open AFTER the
+        cluster join completes — readiness gating: the kernel only
+        balances new connections across sockets that exist, so this
+        child joins the shared-port group exactly when it can serve its
+        shard subset.  Thread-safe; requires the loop to be running."""
+        loop = self._loop
+        if loop is None or not loop.is_running():
+            raise RuntimeError("add_shared_listener requires a running loop")
+        sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        try:
+            sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEPORT, 1)
+            sock.bind((host, port))
+            sock.listen(LISTEN_BACKLOG)
+            sock.setblocking(False)
+        except OSError:
+            sock.close()
+            raise
+        fut = asyncio.run_coroutine_threadsafe(self._start_extra(sock), loop)
+        fut.result(timeout=10.0)
+        self._extra_sockets.append(sock)
+        self.shared_listener = {
+            "mode": "reuseport",
+            "bind": f"{host}:{port}",
+        }
+
+    async def _start_extra(self, sock: socket.socket) -> None:
+        kwargs: dict = {}
+        if self.ssl_context is not None:
+            kwargs["ssl"] = self.ssl_context
+            kwargs["ssl_handshake_timeout"] = (
+                self.request_read_timeout_s or None
+            )
+        server = await asyncio.start_server(
+            self._handle_conn,
+            sock=sock,
+            limit=STREAM_BUFFER_BYTES,
+            backlog=LISTEN_BACKLOG,
+            **kwargs,
+        )
+        self._extra_servers.append(server)
+
+    def add_fd_listener(self, path: str) -> None:
+        """Adopt supervisor-passed public connections — the fallback
+        when SO_REUSEPORT is unavailable (docs/multiprocess.md): listen
+        on a unix socket where the accept-and-pass parent ships each
+        accepted fd via SCM_RIGHTS; every delivered fd becomes an
+        ordinary ``_handle_conn`` connection on this loop.  Thread-safe;
+        requires the loop to be running."""
+        loop = self._loop
+        if loop is None or not loop.is_running():
+            raise RuntimeError("add_fd_listener requires a running loop")
+        try:
+            os.unlink(path)
+        except OSError:
+            pass
+        lsock = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+        lsock.bind(path)
+        lsock.listen(8)
+        lsock.setblocking(False)
+        self._fd_listener = lsock
+        self._fd_path = path
+        loop.call_soon_threadsafe(
+            loop.add_reader, lsock.fileno(), self._fd_accept, lsock
+        )
+        self.shared_listener = {"mode": "fd-pass", "bind": path}
+
+    def _fd_accept(self, lsock: socket.socket) -> None:
+        # loop-thread reader callback: non-blocking accept of a
+        # supervisor control connection (one per parent, reconnected
+        # after a parent restart); fds arrive on it via _fd_recv
+        try:
+            conn, _ = lsock.accept()
+        except (BlockingIOError, InterruptedError, OSError):
+            return
+        conn.setblocking(False)
+        self._fd_conns.add(conn)
+        assert self._loop is not None
+        self._loop.add_reader(conn.fileno(), self._fd_recv, conn)
+
+    def _fd_recv(self, conn: socket.socket) -> None:
+        # loop-thread reader callback: drain one SCM_RIGHTS message and
+        # adopt every delivered fd as a served connection
+        try:
+            msg, ancdata, _flags, _addr = conn.recvmsg(
+                1, socket.CMSG_LEN(16 * array.array("i").itemsize)
+            )
+        except (BlockingIOError, InterruptedError):
+            return
+        except OSError:
+            msg, ancdata = b"", []
+        fds: list[int] = []
+        for level, ctype, data in ancdata:
+            if level == socket.SOL_SOCKET and ctype == socket.SCM_RIGHTS:
+                usable = len(data) - (len(data) % array.array("i").itemsize)
+                fds.extend(array.array("i", data[:usable]))
+        if not msg and not fds:
+            # parent hung up (restarting or draining): retire the
+            # control connection; a new parent reconnects on the path
+            assert self._loop is not None
+            self._loop.remove_reader(conn.fileno())
+            self._fd_conns.discard(conn)
+            conn.close()
+            return
+        for fd in fds:
+            try:
+                csock = socket.socket(fileno=fd)
+                csock.setblocking(False)
+            except OSError:
+                try:
+                    os.close(fd)
+                except OSError:
+                    pass
+                continue
+            self.stats.count("connections_adopted")
+            asyncio.ensure_future(self._adopt(csock))
+
+    async def _adopt(self, csock: socket.socket) -> None:
+        """Turn one passed fd into a served connection: the stream
+        protocol invokes ``_handle_conn`` exactly as the primary
+        listener's accepts do (TLS handshake included when configured,
+        since the parent passes the raw TCP fd)."""
+        assert self._loop is not None
+        try:
+            reader = asyncio.StreamReader(
+                limit=STREAM_BUFFER_BYTES, loop=self._loop
+            )
+            protocol = asyncio.StreamReaderProtocol(
+                reader, self._handle_conn, loop=self._loop
+            )
+            kwargs: dict = {}
+            if self.ssl_context is not None:
+                kwargs["ssl"] = self.ssl_context
+            await self._loop.connect_accepted_socket(
+                lambda: protocol, csock, **kwargs
+            )
+        except Exception as e:  # pilosa: allow(broad-except) — one bad
+            # fd must not kill the adoption path for every later one;
+            # logger lock is loop_safe + bounded, exceptional by
+            # construction
+            self.log(f"fd adoption failed: {e!r}")  # pilosa: allow(loop-purity)
+            try:
+                csock.close()
+            except OSError:
+                pass
+
+    def _close_fd_plumbing(self, loop) -> None:
+        for conn in list(self._fd_conns):
+            try:
+                loop.remove_reader(conn.fileno())
+                conn.close()
+            except OSError:
+                pass
+        self._fd_conns.clear()
+        if self._fd_listener is not None:
+            try:
+                loop.remove_reader(self._fd_listener.fileno())
+                self._fd_listener.close()
+            except OSError:
+                pass
+            self._fd_listener = None
+        if self._fd_path is not None:
+            try:
+                os.unlink(self._fd_path)
+            except OSError:
+                pass
+            self._fd_path = None
 
     async def _sweep_slow_clients(self) -> None:
         """The slow-client watchdog: one periodic pass over open
@@ -433,9 +636,11 @@ class EventHTTPServer(_ServerCore):
             "connectionsOpen": self._conn_count,
             "maxConnections": self.max_connections,
             "admission": adm,
-            # the reference's public-port sharing mode: one process
-            # serves alone until the supervisor is ported (ROADMAP A10)
-            "sharedListener": {"mode": "none"},
+            # multi-process serving (docs/multiprocess.md): which
+            # public-port sharing mode this process participates in —
+            # {"mode": "reuseport"|"fd-pass", "bind": ...}, or
+            # {"mode": "none"} for an ordinary solo listener
+            "sharedListener": self.shared_listener or {"mode": "none"},
         }
 
     def _set_conn_gauge(self) -> None:
@@ -509,8 +714,8 @@ class EventHTTPServer(_ServerCore):
                 # the budget clock starts NOW — admission-queue wait and
                 # body-read time both spend it (acceptance: a query that
                 # exhausts its budget while queued never executes).
-                # QUERY class only: the deadline governs query routes
-                # alone (_query_context), so an
+                # QUERY class only: on the threaded path the deadline
+                # governed query routes alone (_query_context), so an
                 # import or /status probe queued past query-timeout-ms
                 # must not start 504ing — a busy-but-alive node's
                 # heartbeats dying at admission is the dead-marking the

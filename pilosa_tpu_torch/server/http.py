@@ -29,7 +29,7 @@ import re
 import threading
 import time
 from datetime import datetime, timezone
-from http.server import BaseHTTPRequestHandler
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qs, urlparse
 
 from pilosa_tpu_torch import __version__, encoding
@@ -1060,18 +1060,37 @@ class Handler(BaseHTTPRequestHandler):
         )
 
     def h_debug_processes(self) -> None:
-        """The reference's multi-process fleet view (docs/multiprocess.md)
-        on an unsupervised node: each node's LIVE ``/debug/saturation``
-        verdict, the local one for a node with no URI (the supervisor
-        that would add parent metadata is not ported: ROADMAP A10).
-        ``?window=S`` forwards to each saturation report (default 60)."""
+        """The multi-process fleet view (docs/multiprocess.md): the
+        supervisor's state file (sharing mode, child pids, restart
+        counts) stitched with every co-resident process's LIVE
+        ``/debug/saturation`` verdict fetched over localhost.  Served
+        by every child, so a client hitting the shared public port gets
+        the whole fleet no matter which process the kernel picked; on
+        an unsupervised node the view degrades to per-cluster-node
+        verdicts (same stitch, no parent metadata).  ``?window=S``
+        forwards to each saturation report (default 60)."""
         window = self.query_params.get("window", ["60"])[0]
         float(window)  # validate before forwarding into the fleet
         out: dict = {"supervised": False, "processes": []}
-        members = [
-            {"uri": n.get("uri"), "id": n.get("id")}
-            for n in self.api.hosts()
-        ]
+        state = None
+        state_path = getattr(self.server, "supervisor_state_path", None)
+        if state_path:
+            try:
+                with open(state_path) as f:
+                    state = json.load(f)
+            except (OSError, ValueError) as e:
+                out["stateError"] = repr(e)
+        if state:
+            out["supervised"] = True
+            for key in ("mode", "publicBind", "publicUri", "parentPid"):
+                if key in state:
+                    out[key] = state[key]
+            members = state.get("processes", [])
+        else:
+            members = [
+                {"uri": n.get("uri"), "id": n.get("id")}
+                for n in self.api.hosts()
+            ]
         for m in members:
             row = {
                 k: m[k]
@@ -1636,6 +1655,10 @@ class _ServerCore:
         # structured JSON access log (config access-log-format=json);
         # off by default — the access-log emitter checks this flag
         self.access_log_json = False
+        # multi-process fleet state (docs/multiprocess.md): the runtime
+        # Server points this at the supervisor's state file so GET
+        # /debug/processes can stitch the fleet; None = unsupervised
+        self.supervisor_state_path = None
         self.extra_routes: dict = {}
         # sync queries land in the API façade, which hands them to the
         # cross-query wave scheduler (api.scheduler) instead of calling
@@ -1680,6 +1703,73 @@ class _ServerCore:
                     fn(handler, *match.groups())
                     return True
         return False
+
+    def serving_snapshot(self) -> dict:
+        """Serving-front-end state for /debug/vars (docs/serving.md);
+        the event-driven listener overrides with live admission state."""
+        return {"mode": "threaded"}
+
+
+class ThreadedHTTPServer(_ServerCore, ThreadingHTTPServer):
+    """Legacy thread-per-request front end (config serving-mode =
+    "threaded"): one OS thread parks per in-flight request, so cheap
+    queries regress under fan-in and connect storms exhaust the accept
+    backlog.  Kept as a rollback path and as the latency baseline the
+    event-driven front end is measured against; it has no admission control — do not put it in
+    front of high-fan-in traffic."""
+
+    daemon_threads = True
+
+    def handle_error(self, request, client_address):
+        import sys
+
+        exc = sys.exc_info()[1]
+        if isinstance(
+            exc,
+            (ConnectionResetError, BrokenPipeError, TimeoutError,
+             ConnectionAbortedError),
+        ):
+            return  # routine client teardown, not a server fault
+        if self.ssl_context is not None:
+            import ssl
+
+            if isinstance(exc, ssl.SSLError):
+                # failed/aborted client handshake (plaintext speaker on
+                # the TLS port, cert rejected by a strict client): the
+                # client's problem, logged by the client — a per-event
+                # server traceback would spray the log under portscans
+                return
+        super().handle_error(request, client_address)
+
+    def __init__(self, addr: tuple[str, int], api, stats: StatsClient | None = None):
+        super().__init__(addr, Handler)
+        self._init_core(api, stats)
+
+    def get_request(self):
+        """Accept, then wrap per-connection for TLS with the handshake
+        DEFERRED (do_handshake_on_connect=False): get_request runs on the
+        single accept thread, so an inline handshake would let one stalled
+        client (TCP open, no ClientHello) wedge every other request; the
+        deferred handshake happens on first recv in the handler's thread."""
+        sock, addr = super().get_request()
+        if self.ssl_context is not None:
+            sock = self.ssl_context.wrap_socket(
+                sock, server_side=True, do_handshake_on_connect=False
+            )
+        return sock, addr
+
+    def process_request_thread(self, request, client_address):
+        # name the per-connection thread so profiler samples attribute
+        # to the listener subsystem instead of "Thread-12"
+        threading.current_thread().name = "http-threaded-conn"
+        super().process_request_thread(request, client_address)
+
+    def serve_background(self) -> threading.Thread:
+        t = threading.Thread(
+            target=self.serve_forever, daemon=True, name="http-accept"
+        )
+        t.start()
+        return t
 
 
 # the default front end: the asyncio accept/read/write loop with

@@ -1,14 +1,15 @@
 """Server runtime: lifecycle wiring of holder, API, HTTP, background loops.
 
 Reference: pilosa_tpu/server/server.py (after server.go: Server, Open,
-monitorRuntime). The port serves one node on one
-torch device: ``Server(config, device="cuda")`` answers the reference's
-HTTP API from the port's executor and kernels; ``device="cpu"`` runs the
-plain torch versions (the tests), on the event-loop listener. A config
-that asks for the cluster (``seeds``, ``coordinator``), for multi-process
-serving (``serving_processes``, ``shared_bind``, ``fd_pass_socket``,
-``supervisor_state``; ROADMAP.md A10) or for another listener
-(``serving_mode``) is refused at construction. A config with
+anti-entropy ticker, monitorRuntime). ``Server(config, device="cuda")``
+answers the reference's HTTP API from the port's executor and kernels on
+one torch device; ``device="cpu"`` runs the plain torch versions (the
+tests). Single-node by default; seeds or ``coordinator`` in the config
+attach the cluster layer (parallel/cluster.py), which swaps in
+scatter-gather routers and the /internal/* data-plane routes, each node
+answering its legs on its own device. A supervised child (server/
+supervisor.py) joins the shared public port after its cluster join and
+takes its share of the card's stack budget. A config with
 ``coordinator_address`` joins the multi-host process group in ``open``
 (parallel/multihost.py); the serving mesh stays this process's own.
 
@@ -21,6 +22,7 @@ process to the CPU: the caller chooses the device.
 
 from __future__ import annotations
 
+import json
 import os
 import threading
 import time
@@ -30,7 +32,7 @@ import torch
 from pilosa_tpu_torch.core import Holder
 from pilosa_tpu_torch.ops import resolve_device
 from pilosa_tpu_torch.server.api import API
-from pilosa_tpu_torch.server.http import HTTPServer
+from pilosa_tpu_torch.server.http import HTTPServer, ThreadedHTTPServer
 from pilosa_tpu_torch.utils.config import Config
 
 # the probe's child: the first CUDA context and one launch on the card
@@ -43,29 +45,18 @@ _DEVICE_PROBE: "tuple[bool, str] | None" = None
 _MESH_ATTACH_WARNED = False
 
 
-def _refuse_unported(config: Config) -> None:
-    if config.seeds or config.coordinator:
-        raise ValueError(
-            "pilosa_tpu_torch serves one node: the cluster layer (seeds, "
-            "coordinator) is not ported yet (ROADMAP.md A10)"
-        )
-    multi = {
-        "serving-processes": config.serving_processes != 1,
-        "shared-bind": bool(config.shared_bind),
-        "fd-pass-socket": bool(config.fd_pass_socket),
-        "supervisor-state": bool(config.supervisor_state),
-    }
-    if any(multi.values()):
-        raise ValueError(
-            "pilosa_tpu_torch serves in one process: multi-process serving "
-            f"({', '.join(k for k, on in multi.items() if on)}) comes with "
-            "the supervisor (ROADMAP.md A10)"
-        )
-    if config.serving_mode != "event":
-        raise ValueError(
-            f"pilosa_tpu_torch serves on the event-loop listener only, not "
-            f"serving-mode = {config.serving_mode!r}"
-        )
+def _fleet_size(config: Config) -> int:
+    """How many serving processes share this process's card: the
+    supervisor's state file lists its children (all on one device, the
+    parent's ``--device``); 1 for a process that is not supervised or
+    whose state file cannot be read."""
+    if not config.supervisor_state:
+        return 1
+    try:
+        with open(os.path.expanduser(config.supervisor_state)) as f:
+            return max(1, len(json.load(f).get("processes", [])))
+    except (OSError, ValueError, AttributeError):
+        return 1
 
 
 class Server:
@@ -74,7 +65,6 @@ class Server:
         raises without a card) or ``"cpu"`` for the plain torch
         versions. There is no config knob for it."""
         self.config = config or Config()
-        _refuse_unported(self.config)
         dev = torch.device(device)
         if dev.type == "cuda" and dev.index is None:
             # an explicit index: resolving the current device would make
@@ -106,10 +96,11 @@ class Server:
             load_min_fragments=self.config.holder_load_min_fragments,
             stats=self.stats,
         )
-        self.cluster = None  # one node (ROADMAP.md A10)
+        self.cluster = None
         # deterministic fault injection (docs/fault-tolerance.md):
         # always constructed — zero cost unarmed — so the /debug/faults
-        # route can arm rules on a live node
+        # route can arm rules on a live node; the cluster's outgoing
+        # client chain consults this same instance
         from pilosa_tpu_torch.parallel.faultinject import FaultInjector, FSFaultInjector
 
         self.fault_injector = FaultInjector.from_config(self.config)
@@ -130,6 +121,10 @@ class Server:
         query_compile.set_stack_budget(
             self.config.device_stack_budget_bytes or None
         )
+        # the N children of a supervised fleet share one card: each
+        # default budget is 1/N of the one-process default (a configured
+        # budget wins); unconditional for the same reason as above
+        query_compile.set_card_share(_fleet_size(self.config))
         # per-call host/device cost router (docs/query-routing.md),
         # seeded from config; the SAME router instance survives the
         # late mesh attach so its calibration carries over
@@ -163,6 +158,7 @@ class Server:
         self.http: HTTPServer | None = None
         self.profiler = None
         self.diagnostics = None
+        self._anti_entropy_timer: threading.Timer | None = None
         self._closed = False
         self._mesh_attach_thread: threading.Thread | None = None
         # set when the attach thread has finished (probe verdict and
@@ -180,8 +176,23 @@ class Server:
         self.probe_seconds: float | None = None
 
     def open(self) -> None:
-        """holder load → HTTP up → device probe and mesh attach (off
-        the thread) → background loops (reference: Server.Open)."""
+        """holder load → HTTP up → cluster join → device probe and mesh
+        attach (off the thread) → background loops (reference:
+        Server.Open). The listener must serve BEFORE the cluster join:
+        a peer that probed a bound-but-not-serving node would hang in
+        the accept backlog for the full client timeout instead of
+        getting an instant connection-refused — concurrent cold starts
+        then stack 30s timeouts on each other."""
+        if (
+            self.config.shared_bind or self.config.fd_pass_socket
+        ) and self.config.serving_mode == "threaded":
+            # refuse BEFORE any background thread starts: a misconfig
+            # raising mid-open would leak profiler/saturation threads
+            raise ValueError(
+                "multi-process serving (shared-bind / fd-pass-socket) "
+                "requires serving-mode = \"event\" — the threaded "
+                "listener has no shared-listener support"
+            )
         if self.fs_fault_injector.armed:
             # before holder.open(): crash-recovery rehearsals target the
             # load path (snapshot reads, torn-tail truncation) too
@@ -189,22 +200,30 @@ class Server:
 
             durable.install_fs_hook(self.fs_fault_injector)
         self.holder.open()
-        # the event-driven front end (docs/serving.md)
-        self.http = HTTPServer(
+        # event-driven front end by default (docs/serving.md); the
+        # thread-per-request listener stays as a rollback knob and as
+        # the latency baseline the event loop is measured against
+        server_cls = (
+            ThreadedHTTPServer
+            if self.config.serving_mode == "threaded"
+            else HTTPServer
+        )
+        self.http = server_cls(
             (self.config.host, self.config.port), self.api, stats=self.stats
         )
-        # admission/backpressure knobs (docs/serving.md): these
-        # replace the old fixed request_queue_size accept backlog
-        self.http.max_connections = self.config.max_connections
-        self.http.admission_queue_depth = self.config.admission_queue_depth
-        self.http.keepalive_idle_s = self.config.keepalive_idle_s
-        self.http.request_read_timeout_s = self.config.request_read_timeout_s
-        self.http.worker_threads = self.config.http_worker_threads
-        # write-class backpressure tied to compaction debt
-        # (docs/durability.md): past the limit, imports get 429 +
-        # Retry-After instead of growing ops logs without bound
-        self.http.compaction_max_debt = self.config.compaction_max_debt
-        self.http.compaction_debt = self.holder.compactor.debt
+        if server_cls is HTTPServer:
+            # admission/backpressure knobs (docs/serving.md): these
+            # replace the old fixed request_queue_size accept backlog
+            self.http.max_connections = self.config.max_connections
+            self.http.admission_queue_depth = self.config.admission_queue_depth
+            self.http.keepalive_idle_s = self.config.keepalive_idle_s
+            self.http.request_read_timeout_s = self.config.request_read_timeout_s
+            self.http.worker_threads = self.config.http_worker_threads
+            # write-class backpressure tied to compaction debt
+            # (docs/durability.md): past the limit, imports get 429 +
+            # Retry-After instead of growing ops logs without bound
+            self.http.compaction_max_debt = self.config.compaction_max_debt
+            self.http.compaction_debt = self.holder.compactor.debt
         if self.config.tls_certificate:
             # serve HTTPS (reference: tls.certificate/tls.key). The context
             # is handed to the listener, which wraps each accepted
@@ -310,6 +329,22 @@ class Server:
         self.http.log = self.logger.log
         self.http.gate = self._query_gate
         self.http.gate_reason = self._gate_reason
+        # multi-process fleet state (docs/multiprocess.md): a supervised
+        # child reads the supervisor's state file to serve the stitched
+        # GET /debug/processes view
+        self.http.supervisor_state_path = (
+            os.path.expanduser(self.config.supervisor_state)
+            if self.config.supervisor_state
+            else None
+        )
+        if self.config.seeds or self.config.coordinator:
+            from pilosa_tpu_torch.parallel.cluster import Cluster
+
+            self.cluster = Cluster(self)
+            self.api.cluster = self.cluster
+            # routes/routers must be live before the first request or a
+            # client could be silently served local-only (and peers 404)
+            self.cluster.attach()
         self.http.serve_background()
         if self.config.coordinator_address:
             # join the static process group once the listener serves
@@ -336,6 +371,32 @@ class Server:
         )
         t.start()
         self._mesh_attach_thread = t
+        if self.cluster is not None:
+            # the join waits for the cluster, not for the card: a node's
+            # queries answer 503 until its own verdict lands, and its
+            # peers fail those legs over meanwhile (parallel/cluster.py)
+            self.cluster.join()
+        # multi-process serving (docs/multiprocess.md): join the shared
+        # public port only NOW — after the cluster join has completed —
+        # so the kernel (reuseport) or the parent (fd-pass) never routes
+        # a public connection to a child that cannot serve its shard
+        # subset yet (readiness gating before the port is announced)
+        if self.config.shared_bind:
+            host, _, port = self.config.shared_bind.rpartition(":")
+            self.http.add_shared_listener(host, int(port))
+            self.logger.log(
+                "shared public listener bound via SO_REUSEPORT on "
+                f"{self.config.shared_bind}"
+            )
+        if self.config.fd_pass_socket:
+            self.http.add_fd_listener(
+                os.path.expanduser(self.config.fd_pass_socket)
+            )
+            self.logger.log(
+                "adopting accept-and-pass connections from "
+                f"{self.config.fd_pass_socket}"
+            )
+        self._schedule_anti_entropy()
         from pilosa_tpu_torch.server.diagnostics import DiagnosticsCollector
 
         self.diagnostics = DiagnosticsCollector(self)
@@ -463,11 +524,29 @@ class Server:
         ``cuda:0``. Local even in a multi-host group: a program over a
         mesh that spans processes is a collective every rank must enter,
         and an HTTP query reaches one node only, so a global serving mesh
-        would hang the first query; queries across hosts wait for the
-        cluster layer (ROADMAP.md A10)."""
+        would hang the first query; queries across hosts scatter-gather
+        through the cluster layer (parallel/cluster.py), each node
+        reducing on its own device."""
         from pilosa_tpu_torch.parallel.mesh import MeshContext
 
         return MeshContext.auto(words_axis=self.config.mesh_words_axis)
+
+    def _schedule_anti_entropy(self) -> None:
+        interval = self.config.anti_entropy_interval
+        if interval <= 0 or self._closed:
+            return
+
+        def tick():
+            try:
+                if self.cluster is not None:
+                    self.cluster.sync_holder()
+            finally:
+                self._schedule_anti_entropy()
+
+        self._anti_entropy_timer = threading.Timer(interval, tick)
+        self._anti_entropy_timer.daemon = True
+        self._anti_entropy_timer.name = "anti-entropy"
+        self._anti_entropy_timer.start()
 
     @property
     def port(self) -> int:
@@ -488,6 +567,10 @@ class Server:
             t.join(timeout=10.0)
         if self.diagnostics is not None:
             self.diagnostics.close()
+        if self._anti_entropy_timer is not None:
+            self._anti_entropy_timer.cancel()
+        if self.cluster is not None:
+            self.cluster.close()
         self.api.scheduler.close()
         if self.profiler is not None:
             self.profiler.stop()

@@ -31,8 +31,9 @@ class Config:
     diagnostics_interval: float = 3600.0  # snapshot period; 0 disables
     # serving front end (docs/serving.md): "event" = the asyncio
     # accept/read/write loop with keep-alive multiplexing and bounded
-    # admission, the only one the port serves (the reference's
-    # "threaded" listener is refused)
+    # admission (the default); "threaded" = the thread-per-request
+    # listener (rollback / latency-baseline only — no admission
+    # control)
     serving_mode: str = "event"
     # open-connection cap for the event front end (0 = unlimited);
     # connections past it get 503 + Retry-After at accept
@@ -267,18 +268,33 @@ class Config:
     # (method, route, status, latency, bytes, trace id, fingerprint)
     # to the server log sink; "" disables (the default)
     access_log_format: str = ""
-    # multi-process serving (docs/multiprocess.md): the reference's
-    # supervisor of N child servers sharing the public port, and its
-    # plumbing into each child. The port serves in one process until
-    # the supervisor is ported (ROADMAP.md A10): Server refuses
-    # serving_processes != 1 and any of the three paths below.
+    # multi-process serving (docs/multiprocess.md): N > 1 turns
+    # `pilosa_tpu_torch server` into a SUPERVISOR that spawns N child server
+    # processes sharing the public port via SO_REUSEPORT (accept-and-
+    # pass fallback where the option is missing), each child owning a
+    # disjoint shard subset through ordinary cluster membership over
+    # localhost — the one-process GIL/worker-pool ceiling becomes
+    # horizontal headroom. 1 (the default) serves in-process as before.
     serving_processes: int = 1
-    # an extra public host:port a child binds with SO_REUSEPORT
+    # supervisor→child plumbing (the supervisor sets these for its
+    # children; operators only need them for hand-built topologies):
+    # an EXTRA public host:port this child binds with SO_REUSEPORT once
+    # its cluster join completes — readiness gating: the shared port
+    # never routes to a child that cannot serve its shard subset yet
     shared_bind: str = ""
-    # unix socket where an accept-and-pass parent delivers connections
+    # unix-socket path where an accept-and-pass parent delivers
+    # accepted public connections as SCM_RIGHTS fds; the child adopts
+    # each into its event loop (the no-SO_REUSEPORT fallback)
     fd_pass_socket: str = ""
-    # the supervisor's fleet-state JSON
+    # path of the supervisor's fleet-state JSON (listener mode, child
+    # pids, restart counts) — children read it to serve the stitched
+    # GET /debug/processes fleet view
     supervisor_state: str = ""
+    # restart-on-crash backoff: the first respawn of a crashed child
+    # waits base seconds, doubling per consecutive crash up to max
+    # (a child that stays up resets the streak)
+    supervisor_restart_backoff_s: float = 0.5
+    supervisor_restart_backoff_max_s: float = 10.0
     # metrics
     metric_service: str = "prometheus"  # prometheus | statsd | none
     statsd_host: str = ""  # host:port for metric_service = "statsd"
@@ -440,6 +456,8 @@ def config_template() -> str:
         'shared-bind = ""\n'
         'fd-pass-socket = ""\n'
         'supervisor-state = ""\n'
+        "supervisor-restart-backoff-s = 0.5\n"
+        "supervisor-restart-backoff-max-s = 10.0\n"
         'metric-service = "prometheus"\n'
         'statsd-host = ""\n'
         'tls-certificate = ""\n'

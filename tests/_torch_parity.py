@@ -12,6 +12,33 @@ import numpy as np
 N_SHARDS = 3
 
 
+def fill_data(seed: int = 7) -> dict:
+    """The bits of ``fill``'s index "i": {"f": (rows, cols), "g": (rows,
+    cols), "t": (rows, cols, datetimes), "v": (cols, values)}, each an
+    array (or list) in import order, for a holder or for HTTP imports."""
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+
+    rng = np.random.default_rng(seed)
+    n_cols = N_SHARDS * SHARD_WIDTH
+    cols = rng.integers(0, n_cols, 4000).astype(np.uint64)
+    rows = rng.integers(0, 5, 4000).astype(np.uint64)
+    full = np.arange(SHARD_WIDTH, dtype=np.uint64)
+    high = np.arange(SHARD_WIDTH + 31, 2 * SHARD_WIDTH, 32, dtype=np.uint64)
+    f = (
+        np.concatenate([rows, np.full(full.size, 5, np.uint64), np.full(high.size, 4, np.uint64)]),
+        np.concatenate([cols, full, high]),
+    )
+    gcols = rng.integers(0, n_cols, 1500).astype(np.uint64)
+    g = (rng.integers(0, 3, 1500).astype(np.uint64), gcols)
+    tcols = rng.integers(0, n_cols, 600).astype(np.uint64)
+    days = rng.integers(0, 700, 600)
+    stamps = [datetime(2020, 1, 1) + timedelta(days=int(d), hours=5) for d in days]
+    t = (rng.integers(0, 3, 600).astype(np.uint64), tcols, stamps)
+    vcols = rng.choice(n_cols, 500, replace=False).astype(np.uint64)
+    v = (vcols, rng.integers(-1000, 1001, 500).astype(np.int64))
+    return {"f": f, "g": g, "t": t, "v": v}
+
+
 def fill(core, holder, seed: int = 7):
     """Index "i" with existence tracking and fields:
 
@@ -22,34 +49,18 @@ def fill(core, holder, seed: int = 7):
     t   time, quantum YMD, rows 0-2 over 2020-2021
     v   int in [-1000, 1000]
     """
-    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
-
-    rng = np.random.default_rng(seed)
+    d = fill_data(seed)
     idx = holder.create_index("i")
-    n_cols = N_SHARDS * SHARD_WIDTH
-    f = idx.create_field("f")
-    cols = rng.integers(0, n_cols, 4000).astype(np.uint64)
-    rows = rng.integers(0, 5, 4000).astype(np.uint64)
-    full = np.arange(SHARD_WIDTH, dtype=np.uint64)
-    high = np.arange(SHARD_WIDTH + 31, 2 * SHARD_WIDTH, 32, dtype=np.uint64)
-    f.import_bulk(
-        np.concatenate([rows, np.full(full.size, 5, np.uint64), np.full(high.size, 4, np.uint64)]),
-        np.concatenate([cols, full, high]),
-    )
-    g = idx.create_field("g")
-    gcols = rng.integers(0, n_cols, 1500).astype(np.uint64)
-    g.import_bulk(rng.integers(0, 3, 1500).astype(np.uint64), gcols)
+    idx.create_field("f").import_bulk(*d["f"])
+    idx.create_field("g").import_bulk(*d["g"])
     t = idx.create_field("t", core.FieldOptions(field_type="time", time_quantum="YMD"))
-    tcols = rng.integers(0, n_cols, 600).astype(np.uint64)
-    days = rng.integers(0, 700, 600)
-    stamps = [datetime(2020, 1, 1) + timedelta(days=int(d), hours=5) for d in days]
-    t.import_bulk(rng.integers(0, 3, 600).astype(np.uint64), tcols, timestamps=stamps)
+    trows, tcols, stamps = d["t"]
+    t.import_bulk(trows, tcols, timestamps=stamps)
     v = idx.create_field(
         "v", core.FieldOptions(field_type="int", min=-1000, max=1000, has_range=True)
     )
-    vcols = rng.choice(n_cols, 500, replace=False).astype(np.uint64)
-    v.import_values(vcols, rng.integers(-1000, 1001, 500).astype(np.int64))
-    idx.mark_columns_exist(np.concatenate([cols, full, high, gcols, tcols, vcols]))
+    v.import_values(*d["v"])
+    idx.mark_columns_exist(np.concatenate([d["f"][1], d["g"][1], tcols, d["v"][0]]))
     return idx
 
 

@@ -4,11 +4,13 @@ reference's, on the CPU.
 Counterparts of tests/test_cli.py, each run twice on the same input: the
 port's CLI against the port's ``Server(device="cpu")``, and the
 reference's CLI against the reference ``Server``; the outputs must
-agree. Then what the port adds or refuses: ``--device``, the
-``--processes``/``--seeds``/``--coordinator`` refusal, the loader's
-frames and bulk load, and backup/restore with ``fragment_checksum``.
+agree. Then what the port adds: ``--device``, ``--processes``/
+``--seeds``/``--coordinator`` starting a supervisor or a cluster node,
+the loader's frames and bulk load, and backup/restore of a cluster with
+``fragment_checksum``.
 """
 
+import json
 import re
 import tarfile
 
@@ -27,7 +29,6 @@ from pilosa_tpu_torch.server import Server
 from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
 from pilosa_tpu_torch.utils.config import Config, load_config
 
-SUPERVISOR_KEYS = ("supervisor-restart-backoff-s", "supervisor-restart-backoff-max-s")
 
 
 def _open(cls, config_cls, path, **kw):
@@ -111,13 +112,9 @@ def test_cli_check_and_inspect(tmp_path, capsys):
     assert "OK (3 bits" in outs[1][1] and "CORRUPT" in outs[1][1] and "bits: 3" in outs[1][1]
 
 
-def _drop_supervisor_keys(text: str) -> str:
-    return "".join(ln for ln in text.splitlines(True) if not ln.startswith(SUPERVISOR_KEYS))
-
-
 def test_cli_config(tmp_path, capsys):
     """config --generate, generate-config and config --config: the
-    reference's text, less the supervisor's two keys (ROADMAP.md A10)."""
+    reference's text, the supervisor's restart backoff keys included."""
     cfg_file = tmp_path / "c.toml"
     cfg_file.write_text('bind = "0.0.0.0:9999"\nreplica-n = 3\ncoordinator-address = "10.0.0.1:8476"\n')
     for argv in (["config", "--generate"], ["generate-config"], ["config", "--config", str(cfg_file)]):
@@ -126,7 +123,7 @@ def test_cli_config(tmp_path, capsys):
         want = capsys.readouterr().out
         assert cli.main(list(argv)) == 0
         got = capsys.readouterr().out
-        assert got == _drop_supervisor_keys(want) and got != want
+        assert got == want and "supervisor-restart-backoff-max-s = 10.0" in got
     assert 'bind = "0.0.0.0:9999"' in got and "replica-n = 3" in got and 'coordinator-address = "10.0.0.1:8476"' in got
 
 
@@ -208,12 +205,60 @@ def test_server_runs_on_the_card_unless_told(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [["--processes", "2"], ["--seeds", "http://127.0.0.1:1"], ["--coordinator"]])
-def test_server_refuses_the_cluster_options(tmp_path, capsys, flags):
-    """Multi-process serving and the cluster options exit non-zero and
-    name ROADMAP.md A10, before any server or supervisor starts."""
-    assert cli.main(["server", "--device", "cpu", "--data-dir", str(tmp_path / "d")] + flags) == 2
-    assert "ROADMAP.md A10" in capsys.readouterr().err
-    assert not (tmp_path / "d").exists()
+def test_server_refuses_the_cluster_options(tmp_path, flags):
+    """The options that the port refused before it had a cluster layer
+    and a supervisor start a server that answers: a supervisor of two
+    children sharing the public port, a cluster node (its seed list
+    names itself) and a one-node coordinator. SIGTERM ends each with 0."""
+    import os
+    import signal
+    import subprocess
+    import sys
+    import time
+    import urllib.request
+
+    (port,) = _free_ports(1)
+    flags = [f"http://127.0.0.1:{port}" if f.startswith("http://") else f for f in flags]
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""), OMP_NUM_THREADS="1")
+    log = tmp_path / "server.log"
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "pilosa_tpu_torch", "server", "--device", "cpu", "--bind", f"127.0.0.1:{port}",
+         "--data-dir", str(tmp_path / "d"), "--replica-n", "1"] + flags,
+        env=env, stdout=open(log, "w"), stderr=subprocess.STDOUT,
+    )
+    ready = "processes serving" if "--processes" in flags else "device cpu: ready"
+    try:
+        deadline = time.monotonic() + 120
+        while ready not in log.read_text():
+            assert proc.poll() is None and time.monotonic() < deadline, log.read_text()
+            time.sleep(0.2)
+
+        def post(path, body):
+            req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=body, method="POST")
+            with urllib.request.urlopen(req, timeout=60) as r:
+                return json.loads(r.read())
+
+        post("/index/i", b"{}")
+        post("/index/i/field/f", b"{}")
+        post("/index/i/field/f/import", json.dumps({"rowIDs": [1, 1, 1], "columnIDs": [3, SHARD_WIDTH + 3, 5 * SHARD_WIDTH]}).encode())
+        assert post("/index/i/query", b"Count(Row(f=1))") == {"results": [3]}
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(60)
+    assert rc == 0, log.read_text()
+
+
+def _free_ports(n):
+    import socket
+
+    socks = [socket.socket() for _ in range(n)]
+    for s in socks:
+        s.bind(("127.0.0.1", 0))
+    ports = [s.getsockname()[1] for s in socks]
+    for s in socks:
+        s.close()
+    return ports
 
 
 def _bits(seed: int, n: int, shards: int, rows: int):
@@ -266,37 +311,49 @@ def test_bulk_load_and_import_roaring_give_the_references_counts(servers, tmp_pa
 
 
 def test_backup_restore_roundtrip(servers, tmp_path, capsys):
-    """``backup`` needs a cluster member's /internal/ routes (ROADMAP.md
-    A10), so both CLIs back up a one-node reference cluster; the tars
-    hold the same bytes, each frame's ``fragment_checksum`` is the
-    reference's, and ``restore`` into each solo server gives the source's
-    Counts and export."""
-    import socket
+    """Each CLI backs up a two-node cluster of its own package (each
+    node a replica of every shard, so the schema dump's shard list does
+    not depend on placement), loaded with the same bits through the bulk
+    lane; the tars hold the same
+    bytes, each frame's ``fragment_checksum`` is the reference's, and
+    ``restore`` into each solo server gives the source's Counts and
+    export."""
+    import urllib.request
 
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        p = s.getsockname()[1]
-    src = RefServer(RefConfig(bind=f"127.0.0.1:{p}", data_dir=str(tmp_path / "src"), seeds=[f"http://127.0.0.1:{p}"],
-                              coordinator=True, anti_entropy_interval=0, result_cache_mode="off"))
-    src.open()
+    rows, cols = _bits(8, 5_000, 4, 3)
+    tars, counts, clusters = {}, {}, []
     try:
-        src.cluster._heartbeat_once()
-        rows, cols = _bits(8, 5_000, 4, 3)
-        uri = f"http://127.0.0.1:{p}"
-        import urllib.request
-
-        for path, body in (("/index/bk", b"{}"), ("/index/bk/field/f", b"{}")):
-            urllib.request.urlopen(urllib.request.Request(uri + path, data=body, method="POST"), timeout=30).read()
-        ref_loader.bulk_load(uri, "bk", "f", rows, cols)
-        tars = {}
-        for name, main in (("ref", ref_cli.main), ("port", cli.main)):
+        for name, main, srv_cls, cfg_cls, load in (("ref", ref_cli.main, RefServer, RefConfig, ref_loader),
+                                                   ("port", cli.main, Server, Config, loader)):
+            ports = _free_ports(2)
+            seeds = [f"http://127.0.0.1:{p}" for p in ports]
+            nodes = []
+            for i, p in enumerate(ports):
+                cfg = cfg_cls(bind=f"127.0.0.1:{p}", data_dir=str(tmp_path / f"{name}{i}"), seeds=seeds,
+                              coordinator=(i == 0), replica_n=2, anti_entropy_interval=0, result_cache_mode="off",
+                              profiler_enabled=False, diagnostics_interval=0)
+                nodes.append(srv_cls(cfg, device="cpu") if srv_cls is Server else srv_cls(cfg))
+                nodes[-1].open()
+                clusters.append(nodes[-1])
+            for n in nodes:
+                n.cluster._heartbeat_once()
+            for path, body in (("/index/bk", b"{}"), ("/index/bk/field/f", b"{}")):
+                urllib.request.urlopen(urllib.request.Request(seeds[0] + path, data=body, method="POST"), timeout=30).read()
+            load.bulk_load(seeds[1], "bk", "f", rows, cols)
+            assert all(n.holder.index("bk").available_shards() for n in nodes)
             tars[name] = tmp_path / f"{name}.tar"
             capsys.readouterr()
-            assert main(["backup", "--host", f"127.0.0.1:{p}", "-i", "bk", "-o", str(tars[name])]) == 0
+            assert main(["backup", "--host", f"127.0.0.1:{ports[1]}", "-i", "bk", "-o", str(tars[name])]) == 0
             assert "fragments" in capsys.readouterr().out
-        src_counts = [query(src, "bk", f"Count(Row(f={r}))") for r in range(3)]
+            counts[name] = [query(nodes[0], "bk", f"Count(Row(f={r}))") for r in range(3)]
     finally:
-        src.close()
+        for n in clusters:
+            n.cluster.close()
+            n.cluster.client.close()
+        for n in clusters:
+            n.close()
+    assert counts["ref"] == counts["port"]
+    src_counts = counts["port"]
     members = {}
     for name, path in tars.items():
         with tarfile.open(path) as tar:

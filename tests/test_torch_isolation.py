@@ -171,6 +171,8 @@ def test_no_source_line_imports_jax_or_pilosa_tpu():
         "pilosa_tpu_torch/utils/config.py", "pilosa_tpu_torch/utils/probecache.py",
         "pilosa_tpu_torch/cli.py", "pilosa_tpu_torch/__main__.py", "pilosa_tpu_torch/loader.py",
         "pilosa_tpu_torch/parallel/multihost.py", "pilosa_tpu_torch/parallel/movement.py",
+        "pilosa_tpu_torch/parallel/cluster.py", "pilosa_tpu_torch/parallel/client.py",
+        "pilosa_tpu_torch/server/supervisor.py",
     } <= scanned
     assert offenders == []
 
@@ -182,8 +184,9 @@ def test_chip_smoke_rehearses_on_the_cpu(capsys):
     comparisons, the fused-filter phases, the mesh path on eight CPU
     positions in both layouts, the graft step and the mesh programs of
     dryrun_multichip, the CLI's server fed through ``import --roaring``
-    and the loader, and the two-rank gloo mesh, without the card lines
-    or the final ok line."""
+    and the loader, the two-rank gloo mesh, the three-node cluster and
+    the supervised fleet of three, without the card lines or the final
+    ok line."""
     import json
 
     sys.path.insert(0, REPO)
@@ -225,7 +228,8 @@ def test_chip_smoke_rehearses_on_the_cpu(capsys):
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms"}
     assert all(keys <= set(k) for k in kernels)
-    paths = {"main", "serving", "taxi", "residency", "similarity", "mesh", "graft", "mesh_programs", "cli", "multihost"}
+    paths = {"main", "serving", "taxi", "residency", "similarity", "mesh", "graft", "mesh_programs", "cli", "multihost",
+             "cluster", "fleet"}
     assert {k["launches_by_path"].keys() == paths for k in kernels} == {True}
     # K4's grouped mode has entries of its own: 16 and 32 masks, per block
     assert [k["path"] for k in kernels if k["name"] == "bsi_sum" and (k["shape"] or "").startswith("grouped")] == [
@@ -247,8 +251,15 @@ def test_chip_smoke_rehearses_on_the_cpu(capsys):
     # searches, 3 all-pairs blocks; the graft step; top_rows of one
     # fragment; per layout, the five mesh programs of dryrun_multichip;
     # the CLI's server, its two loads, 4 queries, the Count after a Set
-    # and SIGTERM; the six programs on two ranks
+    # and SIGTERM; the six programs on two ranks; the cluster's nodes,
+    # 6 queries through each of two coordinators, the Set, its read-back
+    # from the replicas, 3 Counts, 9 queries after the failover and the
+    # 8 clients; the fleet's start, its import, the mix before and after
+    # child 1's restart (3 each), the restart and SIGTERM
     mesh_layout = 10 + 1 + 1 + 1 + 4 + 1 + 13 + 1 + 2 + 4 + 3
+    cluster = 1 + 2 * 6 + 1 + 1 + 3 + 9 + 1
+    fleet = 1 + 1 + 3 + 1 + 3 + 1
     assert sum(line.startswith("ok  ") for line in lines) == (
-        8 + 2 + 1 + 2 + 12 + 3 + 13 + 1 + 8 + 4 + 1 + 2 + 3 + 4 + 2 * mesh_layout + 1 + 1 + 2 * 5 + 9 + 6)
+        8 + 2 + 1 + 2 + 12 + 3 + 13 + 1 + 8 + 4 + 1 + 2 + 3 + 4 + 2 * mesh_layout + 1 + 1 + 2 * 5 + 9 + 6
+        + cluster + fleet)
     assert not any(line.startswith('{"ok"') for line in lines)

@@ -368,17 +368,43 @@ def test_server_without_a_card_raises(tmp_path):
 
 
 @pytest.mark.parametrize(
-    "kw,roadmap",
-    [({"seeds": ["http://127.0.0.1:1"]}, "A10"), ({"coordinator": True}, "A10"),
-     ({"serving_processes": 2}, "serving-processes.*A10"),
-     ({"shared_bind": "127.0.0.1:10101"}, "shared-bind.*A10"),
-     ({"fd_pass_socket": "/tmp/pass.sock"}, "fd-pass-socket.*A10"),
-     ({"supervisor_state": "/tmp/fleet.json"}, "supervisor-state.*A10"),
-     ({"serving_mode": "threaded"}, "event-loop listener only")],
+    "kw",
+    [{"seeds": "self"}, {"coordinator": True}, {"serving_processes": 2}, {"shared_bind": "free"},
+     {"fd_pass_socket": "pass.sock"}, {"supervisor_state": "fleet.json"}, {"serving_mode": "threaded"}],
 )
-def test_cluster_and_multihost_configs_are_refused(tmp_path, kw, roadmap):
-    with pytest.raises(ValueError, match=roadmap):
-        Server(_config(Config, tmp_path / "d", **kw), device="cpu")
+def test_cluster_and_multihost_configs_are_refused(tmp_path, kw):
+    """The configs that the port refused before it had a cluster layer and
+    a supervisor now open and answer: a one-node cluster (its own seed,
+    or the coordinator), a config that asks for several processes (the
+    CLI's supervisor reads it; a Server serves as one of them), the
+    shared reuseport and the fd-passed listeners, a supervisor's state
+    file that does not exist yet, and the threaded listener."""
+    import socket
+
+    def free_port():
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            return sock.getsockname()[1]
+
+    (key, value), = kw.items()
+    port, free = free_port(), free_port()
+    value = {"self": [f"http://127.0.0.1:{port}"], "free": f"127.0.0.1:{free}",
+             "pass.sock": str(tmp_path / "pass.sock"), "fleet.json": str(tmp_path / "fleet.json")}.get(value, value)
+    cfg = _config(Config, tmp_path / "d", **{key: value})
+    cfg.bind = f"127.0.0.1:{port}"
+    srv = Server(cfg, device="cpu")
+    srv.open()
+    try:
+        assert srv.wait_mesh(60)
+        assert (srv.cluster is not None) == (key in ("seeds", "coordinator"))
+        assert call(srv, "POST", "/index/i", {})[0] == 200
+        assert call(srv, "POST", "/index/i/field/f", {})[0] == 200
+        assert call(srv, "POST", "/index/i/query", b"Set(3, f=1) Set(70000, f=1)")[0] == 200
+        assert call(srv, "POST", "/index/i/query", b"Count(Row(f=1))")[:2] == (200, {"results": [2]})
+        if key == "shared_bind":
+            assert json.loads(urllib.request.urlopen(f"http://127.0.0.1:{free}/status", timeout=30).read())["state"] == "NORMAL"
+    finally:
+        srv.close()
 
 
 @pytest.mark.parametrize(
