@@ -88,9 +88,10 @@ Run from the root of a checkout. In order:
    - the cli phase: the port as users start it, the CLI's ``server``
      (``python -m pilosa_tpu_torch server``'s ``main``, in a child that
      prints the kernels' launch counts when SIGTERM ends it) on the
-     card; ``import --roaring --create`` of a CSV of 10,000,000
+     card; ``import --roaring --create`` of a CSV of 2,000,000
      rowID,columnID records (rows 1-2 over 1,024 shards) and
-     ``loader.bulk_load`` of 100,952,666 bits from numpy; over HTTP a
+     ``loader.bulk_load`` of 10,095,267 bits over 128 shards from
+     numpy; over HTTP a
      Count of an Intersect, TopN, Counts on the bulk field, a Set and
      the Count again, each against numpy, with the K1 count, K2 rows
      and K3 delta launches they must make; the load rates, the first
@@ -161,6 +162,7 @@ Any failure raises, and the script then exits non-zero without the last
 line. It needs one CUDA card; without one it exits 1 at once.
 """
 
+import errno
 import gc
 import json
 import os
@@ -3145,9 +3147,19 @@ def serving_path(torch, device: str, main: dict) -> tuple:
 
 
 # ---------------------------------------------------------------- the CLI
-CLI_RECORDS = 10_000_000  # rowID,columnID records of the CSV import
+# the cli and fleet phases' depth, cut to keep the script within half its
+# time limit: 10,000,000 records and 100,952,666 bits (BENCH_INGEST_r14.json's
+# bulk line) over 1,024 shards took 159 s of the cli phase, 78 s of them in
+# the bulk load. A frame (one a shard) costs the server 60-90 ms whatever
+# its bits: a tenth of the bits over 1,024 shards still took 63 s, so the
+# bulk load's cut is in shards too. The CSV keeps its 1,024 shards, and
+# with them the fleet's: 2,000,000 records still put ~1,000 bits of each
+# row in every shard, so every node and child holds and stacks the same
+# shards as at 10,000,000; only the parse and the import's bytes shrink
+CLI_RECORDS = 2_000_000  # rowID,columnID records of the CSV import
 CLI_SHARDS = 1024
-CLI_BULK_BITS = 100_952_666  # BENCH_INGEST_r14.json's bulk line
+CLI_BULK_BITS = 10_095_267  # a tenth of BENCH_INGEST_r14.json's bulk line
+CLI_BULK_SHARDS = 128
 CLI_BULK_ROWS = 16  # bench_all.py's bulk ingest rows
 CLI_SEED = 21
 # the server child: the CLI's own entry, and the kernels' launch counts
@@ -3221,7 +3233,8 @@ def cli_path(torch, device: str, records: int = CLI_RECORDS, shards: int = CLI_S
     127.0.0.1 and a temp data dir, on ``--device``; ``import --roaring
     --create`` of a CSV of ``records`` rowID,columnID records (rows 1-2
     over ``shards`` shards); ``loader.bulk_load`` of ``bulk_bits`` bits
-    from numpy (rows 0-15, bench_all.py's bulk recipe); over HTTP a
+    from numpy (rows 0-15, bench_all.py's bulk recipe, over at most
+    CLI_BULK_SHARDS shards); over HTTP a
     Count of an Intersect, TopN, Counts on the bulk field, a Set and the
     Count again, each answer against numpy; the kernels the queries must
     launch, the load rates, the first Count after the import and the
@@ -3295,7 +3308,7 @@ def cli_path(torch, device: str, records: int = CLI_RECORDS, shards: int = CLI_S
         # ----------------------------------------------- numpy, through the loader
         post("/index/cli/field/bulk", b"{}")
         b_rows = rng.integers(0, CLI_BULK_ROWS, bulk_bits).astype(np.uint64)
-        b_cols = rng.integers(0, shards * SHARD_WIDTH, bulk_bits).astype(np.uint64)
+        b_cols = rng.integers(0, min(shards, CLI_BULK_SHARDS) * SHARD_WIDTH, bulk_bits).astype(np.uint64)
         stats = loader.bulk_load(uri, "cli", "bulk", b_rows, b_cols, pipeline=3, batch_bits=bulk_bits)
         times["bulk_load"] = {k: stats[k] for k in ("bits", "posts", "seconds", "mbitSetPerS", "backoffs429")}
         log(f"ok  cli: loader.bulk_load of {bulk_bits} bits  -> {stats['bits']} bits set, {stats['mbitSetPerS']} Mbit/s")
@@ -3551,6 +3564,13 @@ def multihost_rank(rank: str, port: str, device: str, n_shards: str, budget: str
         "modes": {n: k.modes for n, k in _cuda.KERNELS.items() if k.modes},
         "peak_gb": torch.cuda.max_memory_allocated() / 1e9 if device == "cuda" else None,
     }), flush=True)
+    # leave the group together: a rank that exits while its peer still
+    # talks to it can abort in gloo's teardown ("terminate called without
+    # an active exception", seen beside a loaded host's other work)
+    import torch.distributed as dist
+
+    dist.barrier()
+    dist.destroy_process_group()
 
 
 def multihost_path(torch, device: str, n_shards: int = N_SHARDS) -> tuple:
@@ -3666,6 +3686,13 @@ CL_REPLICAS = 2
 CL_CLIENTS = 8  # concurrent keep-alive clients of one coordinator, 8 Counts each
 
 
+# tries at starting the servers of a phase on fresh ports when a port
+# was taken between free_ports and the server's bind (EADDRINUSE)
+BIND_ATTEMPTS = 4
+# how long a phase waits on one HTTP answer or one line of a child's output
+WAIT_S = 600
+
+
 def free_ports(n: int) -> list:
     import socket
 
@@ -3747,8 +3774,6 @@ def cluster_path(torch, device: str, main: dict) -> tuple:
     # (f: 8 rows x 2/3 x 10 GiB = 6.7 GiB, v the same), and a hashed half
     # of the other third for another coordinator's legs (1.7 GiB a field)
     budget = query_compile.card_budget(torch.cuda.mem_get_info()[1]) // CL_NODES if on_card else None
-    ports = free_ports(CL_NODES)
-    seeds = [f"http://127.0.0.1:{p}" for p in ports]
     # the data dirs in memory, as the serving phase's: the nodes create
     # ~41,000 fragments
     shm = shm_dir()
@@ -3763,14 +3788,35 @@ def cluster_path(torch, device: str, main: dict) -> tuple:
             for m, c in modes.items():
                 by_mode.setdefault(n, {})[m] = by_mode.get(n, {}).get(m, 0) + c
 
+    def close_nodes() -> None:
+        for srv in nodes:
+            if not srv._closed and srv.cluster is not None:
+                srv.cluster.close()
+        for srv in nodes:
+            if not srv._closed:
+                srv.close()
+
     try:
         t0 = time.perf_counter()
-        for i, p in enumerate(ports):
-            cfg = Config(bind=f"127.0.0.1:{p}", data_dir=os.path.join(tmp.name, f"node{i}"), seeds=seeds,
-                         replica_n=CL_REPLICAS, coordinator=(i == 0), anti_entropy_interval=0,
-                         route_mode="device", result_cache_mode="off", device_stack_budget_bytes=budget or 0)
-            nodes.append(Server(cfg, device=device))
-            nodes[-1].open()
+        for attempt in range(BIND_ATTEMPTS):
+            ports = free_ports(CL_NODES)
+            seeds = [f"http://127.0.0.1:{p}" for p in ports]
+            try:
+                for i, p in enumerate(ports):
+                    cfg = Config(bind=f"127.0.0.1:{p}", data_dir=os.path.join(tmp.name, f"try{attempt}", f"node{i}"),
+                                 seeds=seeds, replica_n=CL_REPLICAS, coordinator=(i == 0), anti_entropy_interval=0,
+                                 route_mode="device", result_cache_mode="off",
+                                 device_stack_budget_bytes=budget or 0)
+                    nodes.append(Server(cfg, device=device))
+                    nodes[-1].open()
+                break
+            except OSError as e:
+                # a port was taken before its node bound it: all again
+                if e.errno != errno.EADDRINUSE or attempt + 1 == BIND_ATTEMPTS:
+                    raise
+                log(f"cluster: {e}; the nodes start again on new ports")
+                close_nodes()
+                nodes.clear()
         for srv in nodes:
             srv.cluster._heartbeat_once()
             if not srv.wait_mesh(600) or not srv.device_verdict[0]:
@@ -4007,12 +4053,7 @@ def cluster_path(torch, device: str, main: dict) -> tuple:
         for c in clients[:2]:
             c.close()
     finally:
-        for srv in nodes:
-            if not srv._closed:
-                srv.cluster.close()
-        for srv in nodes:
-            if not srv._closed:
-                srv.close()
+        close_nodes()
         query_compile.set_stack_budget(None)
         tmp.cleanup()
     return {}, launches
@@ -4056,18 +4097,9 @@ def fleet_path(torch, device: str, records: int = CLI_RECORDS, shards: int = CLI
         f.write('route-mode = "device"\nresult-cache-mode = "off"\n')
     env = dict(os.environ, PILOSA_TPU_TORCH_PROBE_CACHE=os.path.join(tmp.name, "device_probe.json"))
     data = os.path.join(tmp.name, "fleet")
-    state_path = os.path.join(data, "supervisor.json")
-    (port,) = free_ports(1)
-    uri, host = f"http://127.0.0.1:{port}", f"127.0.0.1:{port}"
     times = {}
-    t0 = time.perf_counter()
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "pilosa_tpu_torch", "server", "--processes", str(FLEET_PROCESSES),
-         "--replica-n", str(FLEET_REPLICAS), "--device", device, "--bind", host, "--data-dir", data,
-         "--config", cfg],
-        cwd=os.path.dirname(os.path.abspath(__file__)), env=env, stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True,
-    )
+    serving = r"pilosa-tpu supervisor: (\d+) processes serving (\S+) \(([a-z-]+)\)"
+    boot_exit = r"supervisor: child \d+ exited \S+ during boot"
     # the children share one pipe, so a line may carry another's bytes:
     # the patterns are not anchored at the line's ends
     verdict = r"device (\S+): (ready|FAILED) \(([^)]*)\)"
@@ -4076,19 +4108,19 @@ def fleet_path(torch, device: str, records: int = CLI_RECORDS, shards: int = CLI
         """Until ``total`` children have printed their device verdict (the
         lines may come before the supervisor's own)."""
         while True:
-            found = [m for m in (re.search(verdict, ln) for ln in seen) if m]
+            found = [m for ln in seen for m in re.finditer(verdict, ln)]
             bad = [m.group(0) for m in found if m.group(2) != "ready"]
             if bad:
                 raise AssertionError(f"fleet: a child's device probe failed: {bad}")
             if len(found) >= total:
                 return
-            _wait_line(q, verdict, 600, seen)
+            _wait_line(q, verdict, WAIT_S, seen)
 
     def state() -> dict:
         with open(state_path) as fh:
             return json.load(fh)
 
-    def post(path: str, body: bytes, timeout: float = 600):
+    def post(path: str, body: bytes, timeout: float = WAIT_S):
         req = urllib.request.Request(uri + path, data=body, method="POST")
         with urllib.request.urlopen(req, timeout=timeout) as r:
             return json.loads(r.read())
@@ -4097,9 +4129,37 @@ def fleet_path(torch, device: str, records: int = CLI_RECORDS, shards: int = CLI
         return post("/index/cli/query", pql.encode())["results"][0]
 
     rest = []
+    proc = None
     try:
-        q, seen = _lines(proc), []
-        m = _wait_line(q, r"pilosa-tpu supervisor: (\d+) processes serving (\S+) \(([a-z-]+)\)", 600, seen)
+        for attempt in range(BIND_ATTEMPTS):
+            (port,) = free_ports(1)
+            uri, host = f"http://127.0.0.1:{port}", f"127.0.0.1:{port}"
+            t0 = time.perf_counter()
+            # a session of its own: the supervisor and its children are one
+            # process group, which the phase can end whole
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "pilosa_tpu_torch", "server", "--processes", str(FLEET_PROCESSES),
+                 "--replica-n", str(FLEET_REPLICAS), "--device", device, "--bind", host, "--data-dir",
+                 os.path.join(data, f"try{attempt}"), "--config", cfg],
+                cwd=os.path.dirname(os.path.abspath(__file__)), env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True, start_new_session=True,
+            )
+            q, seen = _lines(proc), []
+            try:
+                m = _wait_line(q, f"{serving}|{boot_exit}", WAIT_S, seen)
+                if m.group(1) is not None:
+                    break
+                failed = m.group(0)
+            except AssertionError as e:
+                failed = str(e)
+            # a port was taken before its server bound it (the public port,
+            # or a child's own): the fleet starts again on new ports
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+            if attempt + 1 == BIND_ATTEMPTS or not any("Address already in use" in ln for ln in seen):
+                raise AssertionError(f"fleet: the supervisor did not start: {failed}: {seen[-20:]}")
+            log(f"fleet: a port was taken ({failed[:100]}); the fleet starts again on new ports")
+        state_path = os.path.join(data, f"try{attempt}", "supervisor.json")
         times["fleet_ready_s"] = time.perf_counter() - t0
         wait_verdicts(FLEET_PROCESSES)
         times["fleet_ready_and_probed_s"] = time.perf_counter() - t0
@@ -4187,6 +4247,7 @@ def fleet_path(torch, device: str, records: int = CLI_RECORDS, shards: int = CLI
         def ask() -> None:
             while not stop.is_set():
                 try:
+                    # short: an error is an allowed answer in this window
                     got = post("/index/cli/query", head.encode(), timeout=60)["results"][0]
                     if got == want_head:
                         answers["exact"] += 1
@@ -4227,7 +4288,7 @@ def fleet_path(torch, device: str, records: int = CLI_RECORDS, shards: int = CLI
 
         resident = {}
         for p in st["processes"]:
-            with urllib.request.urlopen(p["uri"] + "/debug/vars", timeout=60) as r:
+            with urllib.request.urlopen(p["uri"] + "/debug/vars", timeout=WAIT_S) as r:
                 sc = json.loads(r.read())["stackCache"]
             resident[f"child{p['index']}"] = {k: sc[k] for k in ("entries", "residentBytes", "budgetBytes", "fullRestacks")}
         times["stacks_by_child"] = resident
@@ -4237,16 +4298,21 @@ def fleet_path(torch, device: str, records: int = CLI_RECORDS, shards: int = CLI
                 raise AssertionError(f"fleet: a child's stack budget is not 70 % / {FLEET_PROCESSES} of the card "
                                      f"({want_budget}): {resident}")
     finally:
-        if proc.poll() is None:
-            proc.send_signal(signal.SIGTERM)
-        try:
-            proc.wait(timeout=180)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            proc.wait()
-            raise
+        if proc is not None:
+            if proc.poll() is None:
+                proc.send_signal(signal.SIGTERM)
+            try:
+                proc.wait(timeout=180)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+                raise
+            finally:
+                # whatever of the group outlived the supervisor
+                with contextlib.suppress(ProcessLookupError):
+                    os.killpg(proc.pid, signal.SIGKILL)
     while True:
-        line = q.get(timeout=60)
+        line = q.get(timeout=WAIT_S)
         if line is None:
             break
         rest.append(line)

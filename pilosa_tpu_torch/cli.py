@@ -147,13 +147,18 @@ def cmd_server(args) -> int:
 
     srv = Server(cfg, device=args.device)
     srv.open()
-    print(f"pilosa-tpu server listening on {srv.uri}", flush=True)
+    # each line in one write: the children of a fleet share their
+    # parent's stdout, and print() writes the text and its newline apart,
+    # so two children's lines could run together
+    sys.stdout.write(f"pilosa-tpu server listening on {srv.uri}\n")
+    sys.stdout.flush()
 
     def report_device() -> None:
         # the probe runs off the thread: say once where queries will run
         if srv.wait_mesh(None):
             ok, reason = srv.device_verdict
-            print(f"device {srv.device}: {'ready' if ok else 'FAILED'} ({reason})", flush=True)
+            sys.stdout.write(f"device {srv.device}: {'ready' if ok else 'FAILED'} ({reason})\n")
+            sys.stdout.flush()
 
     threading.Thread(target=report_device, daemon=True, name="device-verdict").start()
     profiler = None
@@ -188,7 +193,7 @@ def cmd_server(args) -> int:
         # mode (all 0 on the CPU, where the plain versions run)
         from pilosa_tpu_torch.ops import _cuda
 
-        # one write: the children of a fleet share their parent's stdout
+        # one write, as the listening and device lines
         sys.stdout.write("kernel launches " + json.dumps({
             n: {"launches": k.launches, "modes": k.modes}
             for n, k in _cuda.KERNELS.items() if k.launches

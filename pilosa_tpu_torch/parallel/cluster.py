@@ -70,6 +70,19 @@ GATE_FAILED = "failed its probe"
 HEARTBEAT_INTERVAL = 2.0
 
 
+# the least time a node may hear from no peer before it stops
+# coordinating queries; a peer counts as down after twice its lease
+# (Cluster.__init__)
+LEASE_S = 15.0
+
+
+def _refused(err: PeerError) -> bool:
+    """The peer refused the connection: nothing listens at its address,
+    so it serves no query. A timeout or a reset proves no such thing —
+    under load a live peer's /status probe times out."""
+    return isinstance(err.__cause__, ConnectionRefusedError)
+
+
 class RebalanceInFlightError(RuntimeError):
     """A topology change raced an in-flight rebalance pull. Racing the
     pull can drop the only holder of shards it is still fetching, so
@@ -320,6 +333,23 @@ class Cluster:
     def __init__(self, server):
         self.server = server
         self.config = server.config
+        # liveness by time, unlike the reference, which dead-marks a peer
+        # at its first failed /status probe and then leaves it out of
+        # writes and shard announces: under load a serving peer's probe
+        # times out, and that peer went on answering reads from a stale
+        # view of the shards (C5). A write or an announce leaves a peer
+        # out only when it refuses that very request (nothing listens
+        # there) or has answered no probe for down_after_s (it counts as
+        # down: _may_serve). A node that has heard from no peer
+        # (an answer or a refusal) for lease_s coordinates no query
+        # (_check_ready). lease_s is longer than a heartbeat period and
+        # a probe timeout, and down_after_s twice it, so a node that is
+        # cut off stops answering from what it knows before the nodes
+        # that count it down write without it.
+        interval = getattr(self.config, "heartbeat_interval", HEARTBEAT_INTERVAL)
+        self.lease_s = max(LEASE_S, 3 * interval)
+        self.down_after_s = 2 * self.lease_s
+        self._heard: dict[str, float] = {}  # node id -> last answer or refusal
         # the resilient RPC chain (docs/fault-tolerance.md): transport →
         # fault injection (armed via config or /debug/faults) → retry +
         # per-peer circuit breakers. Every data-plane call site below
@@ -360,6 +390,13 @@ class Cluster:
         # going down surfaces as ShardUnavailableError at routing instead
         # of a silently partial result
         self._peer_shards: dict[tuple[str, str], set[int]] = {}
+        # shards of each index whose holders THIS node has announced to
+        # every peer that may serve reads (_tell_peers). A write of a
+        # shard outside it announces before it is acknowledged, whether
+        # or not the shard is already in _known_shards: a shard can be
+        # known here while a peer was never told of it (an earlier
+        # writer's announce missed that peer and failed its write)
+        self._told_shards: dict[str, set[int]] = {}
         # guards MERGE-and-assign updates of the two shard caches (two
         # concurrent announces/imports would lose one side's update in a
         # get|set race, transiently breaking read-your-writes). Readers
@@ -614,6 +651,16 @@ class Cluster:
             raise ShardUnavailableError(
                 "cluster state STARTING; retry when the node has joined"
             )
+        peers = self._peers(alive_only=False)
+        if peers:
+            quiet = time.monotonic() - max(self._heard_at(n) for n in peers)
+            if quiet > self.lease_s:
+                raise ShardUnavailableError(
+                    f"this node has heard from no peer for {quiet:.1f} s "
+                    f"(lease {self.lease_s:.0f} s): it may be cut off, and "
+                    "the others may write without it; it coordinates no "
+                    "query until a peer answers"
+                )
 
     def close(self) -> None:
         self._closed = True
@@ -644,19 +691,19 @@ class Cluster:
             if n.id != self.me.id and (n.alive or not alive_only)
         ]
 
-    def _probe_peers(self, peers: list[Node]) -> list[dict | None]:
+    def _probe_peers(self, peers: list[Node]) -> list[dict | PeerError]:
         """Concurrent /status sweep (bounded thread fan-out): one hung
         peer used to delay dead-marking every peer behind it by up to
         its full 5s probe timeout — serially, a heartbeat over P peers
         with one wedged could stretch to P×5s. Probes overlap; results
-        come back aligned with ``peers`` (None = unreachable). All
-        topology/inventory mutation stays on the heartbeat thread."""
+        come back aligned with ``peers`` (the PeerError = unreachable).
+        All topology/inventory mutation stays on the heartbeat thread."""
 
-        def probe(node: Node) -> dict | None:
+        def probe(node: Node) -> dict | PeerError:
             try:
-                return self.client.status(node.uri, timeout=5.0)
-            except PeerError:
-                return None
+                return self._probe(node)
+            except PeerError as e:
+                return e
 
         if len(peers) <= 1:
             return [probe(n) for n in peers]
@@ -665,7 +712,7 @@ class Cluster:
         except RuntimeError:
             # close() shut the pool down while this tick was in flight:
             # report everything unreachable; no further ticks schedule
-            return [None] * len(peers)
+            return [PeerError(n.uri, "cluster closed") for n in peers]
 
     def _heartbeat_once(self) -> None:
         degraded = False
@@ -684,8 +731,10 @@ class Cluster:
             # snapshot entries are skipped rather than wiped
         peers = self._peers(alive_only=False)
         for n, st in zip(peers, self._probe_peers(peers)):
-            if st is None:
-                n.alive = False
+            if isinstance(st, PeerError):
+                # one probe that failed without a refusal does not
+                # dead-mark (see __init__)
+                n.alive = not _refused(st) and self._may_serve(n)
                 degraded = True
                 continue
             n.alive = True
@@ -870,18 +919,48 @@ class Cluster:
     def shard_nodes(self, index: str, shard: int) -> list[Node]:
         return self.topology.shard_nodes(index, shard)
 
+    def _probe(self, node: Node, timeout: float = 5.0) -> dict:
+        """``GET /status`` of a peer, noting when it last answered or
+        refused (``_may_serve``, the lease in ``_check_ready``)."""
+        try:
+            st = self.client.status(node.uri, timeout=timeout)
+        except PeerError as e:
+            if _refused(e):
+                self._heard[node.id] = time.monotonic()
+            raise
+        self._heard[node.id] = time.monotonic()
+        return st
+
+    def _heard_at(self, node: Node) -> float:
+        # a node not probed yet counts as heard when first asked about
+        return self._heard.setdefault(node.id, time.monotonic())
+
+    def _may_serve(self, node: Node) -> bool:
+        """The node may be coordinating queries: it is this node, or it
+        has answered or refused a probe within down_after_s. A refusal
+        is no lasting proof (the peer may have started since), so
+        writes and announces still try such a peer, and only a refusal
+        of that very request leaves it out; a peer silent for longer
+        counts as down, and they skip it."""
+        return node.id == self.me.id or (
+            time.monotonic() - self._heard_at(node) < self.down_after_s
+        )
+
     def _probe_alive(self, node: Node) -> bool:
         """Current liveness for WRITES; re-probes a dead-marked peer once
         so a write never relies on a stale heartbeat (a skipped owner
-        means silent data loss)."""
+        means silent data loss). Unlike the reference, an owner that may
+        still serve (``_may_serve``) is written to whatever the probe
+        says unless it refused, and the write fails if it cannot land
+        there."""
         if node.id == self.me.id or node.alive:
             return True
         try:
-            self.client.status(node.uri, timeout=5.0)
-            node.alive = True
-        except PeerError:
-            node.alive = False
-        return node.alive
+            self._probe(node)
+        except PeerError as e:
+            return not _refused(e) and self._may_serve(node)
+        node.alive = True
+        return True
 
     def _alive_for_read(self, node: Node) -> bool:
         """Heartbeat-state liveness for READ routing — no synchronous
@@ -1270,6 +1349,7 @@ class Cluster:
         never existed."""
         with self._shard_cache_lock:
             self._known_shards.pop(index, None)
+            self._told_shards.pop(index, None)
             for key in [k for k in self._peer_shards if k[1] == index]:
                 self._peer_shards.pop(key, None)
             # drop the announce stamps too: a stale stamp on a recreated
@@ -1319,23 +1399,74 @@ class Cluster:
 
     def _announce_shards(
         self, index: str, entries: dict[str, list[int]], replace: bool = False
-    ) -> None:
+    ) -> list[str]:
         """Tell every peer which nodes (by URI) now hold which shards of
         an index, and apply the same update locally. ``replace`` swaps
         the node's whole inventory (pull/handoff transitions); otherwise
-        shards accumulate (imports). A failed send self-repairs at the
-        peer's next heartbeat refresh."""
+        shards accumulate (imports). Returns the peers that may serve
+        but were not told (each as "id: error"): a write refuses its
+        ack for them (``_tell_peers``); after a pull or a handoff they
+        learn the inventory at their next heartbeat.
+
+        Unlike the reference, which tells only the peers its heartbeat
+        holds alive and drops a failed send, every peer that may serve
+        (``_may_serve``) is told: untold, such a peer fans a read out
+        over the shards it knows and answers a partial count until its
+        next heartbeat. A peer that refuses this request is not
+        listening; it learns every holder's inventory in ``join``."""
         payload: dict = {"index": index, "entries": entries}
         if replace:
             payload["replace"] = True
         self._apply_shard_entries(payload)
-        for n in self._peers():
-            try:
-                self.client._json(
-                    "POST", n.uri, "/internal/shards/announce", payload
-                )
-            except PeerError:
-                pass
+        missed: list[str] = []
+        for n in self._peers(alive_only=False):
+            if not self._may_serve(n):
+                continue
+            for attempt in (0, 1):
+                try:
+                    self.client._json(
+                        "POST", n.uri, "/internal/shards/announce", payload
+                    )
+                    break
+                except PeerError as e:
+                    if _refused(e):
+                        break
+                    # sent again once (the announce is idempotent), as a
+                    # POST on a stale pooled socket fails; not after a
+                    # timeout, which would cost the write another
+                    if attempt or isinstance(e.__cause__, TimeoutError):
+                        missed.append(f"{n.id}: {e}")
+                        break
+        return missed
+
+    def _tell_peers(self, index: str, took_write: dict[int, list[str]]) -> None:
+        """A write's announce before its acknowledgement (read-your-
+        writes through any node; reads make no RPCs to learn shards):
+        for each written shard not yet in ``_told_shards``, name the
+        owners that actually took it — a dead owner the fan-out skipped
+        must not be advertised as a holder, or reads routed there would
+        miss the data. A peer left untold fails the write with a 503
+        that names it: the data landed, but an acknowledgement would let
+        that peer answer partially. The client's retry announces again."""
+        told = self._told_shards.get(index, set())
+        untold = [sh for sh in took_write if sh not in told]
+        if not untold:
+            return
+        entries: dict[str, list[int]] = {}
+        for sh in untold:
+            for uri in took_write[sh]:
+                entries.setdefault(uri, []).append(sh)
+        missed = self._announce_shards(index, entries)
+        if missed:
+            raise ShardUnavailableError(
+                f"shards {sorted(untold)} of {index!r} were written but "
+                f"peers that serve reads were not told where: {missed}; "
+                "the write is not acknowledged, retry it"
+            )
+        with self._shard_cache_lock:
+            self._told_shards[index] = (
+                self._told_shards.get(index, set()) | set(untold)
+            )
 
     def _apply_shard_entries(self, payload: dict) -> None:
         # whole-set ASSIGNMENT only (never .update in place): this runs
@@ -1489,8 +1620,11 @@ class Cluster:
         node_by_id = {n.id: n for n in self.nodes}
         holdings = self._read_holdings(index)
         qctx = resilience.current_query_context()
+        probed: set[str] = set()
         for s in all_shards:
             primary = self._pick_read_node(index, s, holdings)
+            if primary is None and self._revive_owners(index, s, probed):
+                primary = self._pick_read_node(index, s, holdings)
             if primary is None:
                 # ?allow-partial=true opts into serving what survives:
                 # the skipped shard is recorded and surfaces on the
@@ -1646,6 +1780,28 @@ class Cluster:
             alive_owners[0],
         )
 
+    def _revive_owners(self, index: str, s: int, probed: set[str]) -> bool:
+        """Re-probe the dead-marked owners of shard ``s`` that this read
+        has not probed yet (``probed``, updated); True when one answered,
+        which marks it alive. Unlike the reference, which fails the read
+        at once when no owner is marked alive: a dead mark may be stale
+        by up to a heartbeat period (a peer that refused its probe while
+        it started, a leg that failed under load) while every owner
+        serves. A read pays this only where it would otherwise fail, one
+        probe a node (a refusal returns at once)."""
+        revived = False
+        for n in self.shard_nodes(index, s):
+            if n.id == self.me.id or n.alive or n.id in probed:
+                continue
+            probed.add(n.id)
+            try:
+                self._probe(n)
+            except PeerError:
+                continue
+            n.alive = True
+            revived = True
+        return revived
+
     def _timed_query_node(
         self,
         span_name: str,
@@ -1718,6 +1874,7 @@ class Cluster:
         stats = self.server.stats
         pending: list[tuple[str, list[int]]] = list(by_node.items())
         failed: set[str] = set()
+        probed: set[str] = set()
         holdings: dict[str, Any] | None = None
         while pending:
             node_id, node_shards = pending.pop()
@@ -1782,10 +1939,15 @@ class Cluster:
                     holdings = self._read_holdings(index)
                 lost: list[int] = []
                 replan: dict[str, list[int]] = {}
+                probed |= failed
                 for s in node_shards:
                     target = self._pick_read_node(
                         index, s, holdings, exclude=failed
                     )
+                    if target is None and self._revive_owners(index, s, probed):
+                        target = self._pick_read_node(
+                            index, s, holdings, exclude=failed
+                        )
                     if target is None:
                         lost.append(s)
                     else:
@@ -2125,7 +2287,6 @@ class Cluster:
                 new_args[fname] = row_id
                 call = Call(call.name, new_args, list(call.children), list(call.pos_args))
             shard = col_id // SHARD_WIDTH
-            is_new = shard not in self._known_shards.get(index, set())
             result = None
             took_write: list[str] = []
             for owner in self.shard_nodes(index, shard):
@@ -2147,17 +2308,13 @@ class Cluster:
                 result = r if result is None else result
             if result is None:
                 raise ShardUnavailableError(f"no alive owner for shard {shard}")
-            # known/announced only after the write landed (a failed
-            # attempt must not suppress the announce on retry), and only
+            # known/announced only after the write landed, and only
             # naming owners that actually took it
             with self._shard_cache_lock:
                 self._known_shards[index] = (
                     self._known_shards.get(index, set()) | {shard}
                 )
-            if is_new:
-                self._announce_shards(
-                    index, {uri: [shard] for uri in took_write}
-                )
+            self._tell_peers(index, {shard: took_write})
             return result
         # broadcast writes
         result: Any = None
@@ -2273,14 +2430,6 @@ class Cluster:
         cols = np.asarray(payload.get("columnIDs", []), dtype=np.uint64)
         shards = cols // np.uint64(SHARD_WIDTH)
         uniq_shards = [int(s) for s in np.unique(shards).tolist()]
-        # shards become "known" (and get announced) only AFTER successful
-        # delivery — marking them early would make a failed attempt
-        # permanently suppress the announce on the client's retry
-        new_shards = [
-            s
-            for s in uniq_shards
-            if s not in self._known_shards.get(index, set())
-        ]
         local: list[tuple[int, dict]] = []
         remote: list[tuple[int, Node, dict]] = []
         delivered: dict[int, int] = {}
@@ -2348,19 +2497,9 @@ class Cluster:
             self._known_shards[index] = (
                 self._known_shards.get(index, set()) | set(uniq_shards)
             )
-        if new_shards:
-            # synchronous announce BEFORE acking the import: a client may
-            # import through this node and immediately read through any
-            # other — peers' cached inventories must already name the new
-            # shards' owners (read-your-writes; reads make no RPCs).
-            # Entries list ONLY owners that actually took the write — a
-            # dead owner the fan-out skipped must not be advertised as a
-            # holder, or reads routed there would miss the data
-            entries: dict[str, list[int]] = {}
-            for sh in new_shards:
-                for uri in took_write.get(sh, []):
-                    entries.setdefault(uri, []).append(sh)
-            self._announce_shards(index, entries)
+        # synchronous announce BEFORE acking the import: a client may
+        # import through this node and immediately read through any other
+        self._tell_peers(index, took_write)
         # the local applies invalidated through api.import_*'s own hook,
         # but a coordinator that owns NONE of the shards never moved its
         # own stamp — and neither did any bystander peer
@@ -2428,14 +2567,12 @@ class Cluster:
                 f"no alive owner for shard {sh}; import rejected"
             )
         with self._shard_cache_lock:
-            known = self._known_shards.setdefault(index, set())
-            new_shard = sh not in known
-            known.add(sh)
-        if new_shard:
-            # synchronous announce BEFORE the ack, naming only the
-            # owners that actually took the frame (same read-your-writes
-            # rule as import_router)
-            self._announce_shards(index, {u: [sh] for u in took_write})
+            self._known_shards[index] = (
+                self._known_shards.get(index, set()) | {sh}
+            )
+        # synchronous announce BEFORE the ack, naming only the owners
+        # that actually took the frame (same rule as import_router)
+        self._tell_peers(index, {sh: took_write})
         # same rule as import_router: a non-owner coordinator's stamp
         # (and every bystander's) never moved — invalidate explicitly
         api._invalidate_results(index)

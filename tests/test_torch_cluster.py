@@ -11,21 +11,27 @@ of the parity set, sent to one node, answers with the reference
 cluster's JSON and the single node's. The other cases drive placement,
 replication, two-phase TopN, GroupBy's global child limit, key
 translation, a node down, a dead sole owner, a join, coalesced legs,
-and a node whose card failed its probe.
+and a node whose card failed its probe. The last cases hold reads right
+after an acknowledged write, while a node's probes of a peer fail or a
+node is cut off from its peers, exact or an error.
 """
 
 import json
 import socket
 import threading
+import time
 import urllib.error
 import urllib.request
 
+import numpy as np
 import pytest
 
 import pilosa_tpu.parallel.topology as ref_topology
 import pilosa_tpu_torch.parallel.topology as pt_topology
+from pilosa_tpu import cli as ref_cli
 from pilosa_tpu.server import Server as RefServer
 from pilosa_tpu.utils.config import Config as RefConfig
+from pilosa_tpu_torch import cli
 from pilosa_tpu_torch.parallel.client import InternalClient, PeerError
 from pilosa_tpu_torch.server import Server
 from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
@@ -50,21 +56,22 @@ def free_ports(n):
     return ports
 
 
-def _server(pkg, port, data_dir, seeds=None, replica_n=2, coordinator=False):
+def _server(pkg, port, data_dir, seeds=None, replica_n=2, coordinator=False, **extra):
     kw = dict(
         bind=f"127.0.0.1:{port}", data_dir=str(data_dir), seeds=seeds or [], replica_n=replica_n,
         coordinator=coordinator, anti_entropy_interval=0, result_cache_mode="off",
         route_mode="device", max_writes_per_request=MAX_WRITES, profiler_enabled=False,
-        diagnostics_interval=0,
+        diagnostics_interval=0, **extra,
     )
     if pkg == "ref":
         return RefServer(RefConfig(device_init_timeout=0, mesh_enabled=False, **kw))
     return Server(Config(**kw), device="cpu")
 
 
-def make_cluster(pkg, tmp_path, n=3, replica_n=2, start=None):
+def make_cluster(pkg, tmp_path, n=3, replica_n=2, start=None, **extra):
     """tests/test_cluster.py's harness: ``n`` nodes on free ports, node 0
-    the coordinator; ``start`` limits which nodes open."""
+    the coordinator; ``start`` limits which nodes open; ``extra`` config
+    keys go to every node."""
     ports = free_ports(n)
     seeds = [f"http://127.0.0.1:{p}" for p in ports]
     servers = []
@@ -72,7 +79,7 @@ def make_cluster(pkg, tmp_path, n=3, replica_n=2, start=None):
         if start is not None and i not in start:
             servers.append(None)
             continue
-        s = _server(pkg, ports[i], tmp_path / f"{pkg}{i}", seeds, replica_n, coordinator=(i == 0))
+        s = _server(pkg, ports[i], tmp_path / f"{pkg}{i}", seeds, replica_n, coordinator=(i == 0), **extra)
         s.open()
         servers.append(s)
     # startup heartbeats ran while later nodes were not listening yet
@@ -462,5 +469,346 @@ def test_a_failed_card_fails_its_legs_over_and_is_named_when_alone(tmp_path):
         assert status == 503 and "results" not in body
         assert bad_id in body["error"] and "failed its probe" in body["error"]
         assert "no CUDA-capable device" in body["error"]
+    finally:
+        shutdown(servers)
+
+
+# ------------------------------------- C5: reads right after an acknowledged import
+C5_SHARDS = 8
+C5_RECORDS = 4000
+C5_READS = ("TopN(f, n=10)", "Count(Union(Row(f=1), Row(f=2)))", "GroupBy(Rows(f))", "Sum(field=v)")
+# node 0's client cannot reach node 2's /status: the heartbeat probe that
+# timed out under load while node 2 serves. The reference's node 0 then
+# holds node 2 for dead and leaves it out of the import's writes and
+# shard announce.
+PROBE_LOST = {"path": "/status", "action": "blackhole"}
+# node 0's shard announce cannot reach node 2, which serves
+ANNOUNCE_LOST = {"path": "/internal/shards/announce", "action": "blackhole"}
+
+
+def c5_data():
+    """rows 1-2 over ``C5_SHARDS`` shards, and values of the int field v
+    on a third of their columns; with numpy's answer to each read."""
+    rng = np.random.default_rng(5)
+    rows = rng.integers(1, 3, C5_RECORDS)
+    cols = rng.integers(0, C5_SHARDS * SHARD_WIDTH, C5_RECORDS)
+    vcols = np.unique(cols)[::3]
+    vals = rng.integers(-100, 1000, vcols.size)
+    u = {r: np.unique(cols[rows == r]) for r in (1, 2)}
+    top = sorted(((r, int(u[r].size)) for r in (1, 2)), key=lambda rc: (-rc[1], rc[0]))
+    want = dict(zip(C5_READS, (
+        [{"id": r, "count": c} for r, c in top],
+        int(np.union1d(u[1], u[2]).size),
+        [{"group": [{"field": "f", "rowID": r}], "count": int(u[r].size)} for r in (1, 2)],
+        {"value": int(vals.sum()), "count": int(vals.size)},
+    )))
+    return (rows, cols, vcols, vals), want
+
+
+def c5_arm(servers, ports, rule):
+    """Node 0 arms ``rule`` against node 2 on its peer client and runs
+    one heartbeat."""
+    servers[0].fault_injector.set_rules([{**rule, "peer": f"127.0.0.1:{ports[2]}"}], seed=5)
+    servers[0].cluster._heartbeat_once()
+
+
+def c5_cluster(pkg, tmp_path, rule):
+    """Three nodes, ``replica_n = 2``, whose heartbeats run only when the
+    test runs them (so a stale view stays as the fault left it). Node 0
+    arms ``rule`` against node 2, and its heartbeat ticks once now and
+    once after each schema broadcast: the tick that, under load, falls
+    between the CLI's ``--create`` (whose broadcast reaches node 2 and
+    marks it alive in the reference) and its first frame."""
+    servers, ports, _ = make_cluster(pkg, tmp_path, heartbeat_interval=3600)
+    c5_arm(servers, ports, rule)
+    s0 = servers[0]
+    broadcast = s0.http.broadcast_schema
+
+    def broadcast_then_tick():
+        broadcast()
+        s0.cluster._heartbeat_once()
+
+    s0.http.broadcast_schema = broadcast_then_tick
+    return servers, ports
+
+
+def c5_import(pkg, port, tmp_path, data, create=True, create_v=True):
+    """``import --roaring --create`` of the records through one node, as
+    chip_smoke.py's fleet phase sends it (``create``: with ``--create``),
+    then v's values (``create_v``: into a new field v)."""
+    rows, cols, vcols, vals = data
+    csv = tmp_path / "c5.csv"
+    csv.write_text("".join(f"{r},{c}\n" for r, c in zip(rows.tolist(), cols.tolist())))
+    argv = ["import", str(csv), "--roaring", "--host", f"127.0.0.1:{port}", "-i", "c5", "-f", "f"]
+    assert (cli if pkg == "port" else ref_cli).main(argv + ["--create"] * create) == 0
+    if create_v:
+        ok(port, "POST", "/index/c5/field/v", {"options": {"type": "int", "min": -1000, "max": 1000}})
+    ok(port, "POST", "/index/c5/field/v/import-value", {"columnIDs": vcols.tolist(), "values": vals.tolist()})
+
+
+@pytest.fixture(scope="module")
+def probe_lost(tmp_path_factory):
+    """{pkg: ports} of a cluster of each package after the import through
+    node 0 under ``PROBE_LOST``, with numpy's answers under "want" and
+    whether node 0 held node 2 alive before the import under
+    "{pkg}_node2_alive"."""
+    data, want = c5_data()
+    out, servers = {"want": want}, []
+    try:
+        for pkg in PKGS:
+            tmp = tmp_path_factory.mktemp(f"c5_{pkg}")
+            srvs, ports = c5_cluster(pkg, tmp, PROBE_LOST)
+            servers += srvs
+            out[f"{pkg}_node2_alive"] = next(n for n in srvs[0].cluster.nodes if n.uri.endswith(f":{ports[2]}")).alive
+            c5_import(pkg, ports[0], tmp, data)
+            out[pkg] = ports
+        yield out
+    finally:
+        shutdown(servers)
+
+
+@pytest.mark.parametrize("pql", C5_READS)
+def test_reads_right_after_an_acknowledged_import_are_exact(probe_lost, pql):
+    """C5: the import through node 0 was acknowledged while node 0's probe
+    of node 2 was lost. Each read through each node, right away, equals
+    numpy: node 2 took its replicas and was told where the new shards
+    are, although its own heartbeat has not run since."""
+    for port in probe_lost["port"]:
+        assert query(port, "c5", pql) == [probe_lost["want"][pql]], port
+
+
+def test_reference_reads_partially_after_a_missed_announce(probe_lost):
+    """The reference's C5, pinned: its node 0 announces the new shards only
+    to the peers its heartbeat holds alive, so node 2, which serves,
+    knows none of them and counts short of numpy, with no error, until
+    its next heartbeat. Nodes 0 and 1 answer exactly."""
+    pql = C5_READS[1]
+    want = probe_lost["want"][pql]
+    ports = probe_lost["ref"]
+    assert not probe_lost["ref_node2_alive"]  # one lost probe dead-marked it
+    assert [query(p, "c5", pql) for p in ports[:2]] == [[want]] * 2
+    (got,) = query(ports[2], "c5", pql)
+    assert 0 <= got < want
+
+
+def test_an_import_that_cannot_tell_a_serving_peer_is_not_acknowledged(tmp_path):
+    """Node 0's shard announce cannot reach node 2, which serves: the
+    import fails with a 503 naming node 2 where the reference would
+    acknowledge it and node 2 would count short. Once the announce gets
+    through, the client's retry tells node 2, and every read through
+    every node equals numpy."""
+    data, want = c5_data()
+    servers, ports = c5_cluster("port", tmp_path, ANNOUNCE_LOST)
+    try:
+        with pytest.raises(Exception, match=r"HTTP 503.*were not told"):
+            c5_import("port", ports[0], tmp_path, data)
+        servers[0].fault_injector.clear()
+        c5_import("port", ports[0], tmp_path, data, create=False, create_v=True)
+        for port in ports:
+            for pql in C5_READS:
+                assert query(port, "c5", pql) == [want[pql]], (port, pql)
+    finally:
+        shutdown(servers)
+
+
+def test_a_peer_that_refused_while_it_restarted_is_told_of_new_shards(tmp_path):
+    """C5's other source: node 0's heartbeat found node 2 refusing while it
+    restarted, and node 0's next tick has not come. A Set through node 0
+    into a new shard that node 2 does not own is acknowledged only once
+    node 2, listening again, was told where it lives: the Count through
+    every node, right away, equals numpy."""
+    servers, ports, seeds = make_cluster("port", tmp_path, heartbeat_interval=3600)
+    try:
+        ok(ports[0], "POST", "/index/c5", {})
+        ok(ports[0], "POST", "/index/c5/field/f", {})
+        _import(ports[0], "c5", "f", [1] * C5_SHARDS, [s * SHARD_WIDTH for s in range(C5_SHARDS)])
+        c0, node2 = servers[0].cluster, servers[2].cluster.me.id
+        c0.client.close()  # no idle connection holds node 2's listener
+        servers[2].close()
+        c0._heartbeat_once()
+        assert not next(n for n in c0.nodes if n.id == node2).alive
+        servers[2] = _server("port", ports[2], tmp_path / "port2", seeds, 2, heartbeat_interval=3600)
+        servers[2].open()
+        new = next(s for s in range(C5_SHARDS, 64) if not c0.topology.owns(node2, "c5", s))
+        assert query(ports[0], "c5", f"Set({new * SHARD_WIDTH}, f=1)") == [True]
+        assert [query(p, "c5", "Count(Row(f=1))") for p in ports] == [[C5_SHARDS + 1]] * 3
+    finally:
+        shutdown(servers)
+
+
+def c6_second_write(pkg, servers, ports, tmp_path, write):
+    """After a first import with every node healthy, node 0 holds node 2
+    for dead (``PROBE_LOST``) while node 2 serves the replicas it holds;
+    then one more write through node 0 into shards node 2 owns: an
+    ``import --roaring`` of new records, or a Set. → numpy's Count of
+    Union(Row(f=1), Row(f=2)) after it."""
+    data, _ = c5_data()
+    rows, cols = data[0], data[1]
+    c5_import(pkg, ports[0], tmp_path, data)
+    c5_arm(servers, ports, PROBE_LOST)
+    node2 = servers[2].cluster.me.id
+    mine = [s for s in range(C5_SHARDS) if servers[0].cluster.topology.owns(node2, "c5", s)]
+    assert mine
+    new = np.array([s * SHARD_WIDTH + SHARD_WIDTH - 1 - k for s in mine for k in range(3)])
+    if write == "set":
+        assert query(ports[0], "c5", f"Set({int(new[0])}, f=1)") == [True]
+        new = new[:1]
+    else:
+        csv = tmp_path / "c6.csv"
+        csv.write_text("".join(f"1,{c}\n" for c in new.tolist()))
+        argv = ["import", str(csv), "--roaring", "--host", f"127.0.0.1:{ports[0]}", "-i", "c5", "-f", "f"]
+        assert (cli if pkg == "port" else ref_cli).main(argv) == 0
+    return int(np.union1d(cols, new).size)
+
+
+@pytest.mark.parametrize("write", ["import", "set"])
+def test_a_write_reaches_a_serving_owner_whose_probe_failed(tmp_path, write):
+    """C6: node 0's probe of node 2 failed without a refusal, so node 2 may
+    be serving (it is), and one lost probe does not make it down. The
+    write through node 0 lands on node 2's replica too, and the Count
+    through every node, right away, equals numpy: node 2 serves the
+    shards it holds itself."""
+    servers, ports, _ = make_cluster("port", tmp_path, heartbeat_interval=3600)
+    try:
+        want = c6_second_write("port", servers, ports, tmp_path, write)
+        for port in ports:
+            assert query(port, "c5", C5_READS[1]) == [want], port
+    finally:
+        shutdown(servers)
+
+
+def test_reference_skips_a_serving_owner_whose_probe_failed(tmp_path):
+    """The reference's C6, pinned: it acknowledges the import without node
+    2's replica, so node 2, which serves its own shards locally, counts
+    short of numpy, with no error."""
+    servers, ports, _ = make_cluster("ref", tmp_path, heartbeat_interval=3600)
+    try:
+        want = c6_second_write("ref", servers, ports, tmp_path, "import")
+        assert query(ports[0], "c5", C5_READS[1]) == [want]
+        (got,) = query(ports[2], "c5", C5_READS[1])
+        assert 0 <= got < want
+    finally:
+        shutdown(servers)
+
+
+# ------------------------------- C7: a stale dead mark at the coordinator
+# node 0's heartbeat loses its probes of both peers once: the ticks that
+# time out under load while the peers serve
+PROBES_LOST_ONCE = {"path": "/status", "action": "drop", "times": 2}
+C7_SHARDS = 64
+
+
+def c7_cluster(pkg, tmp_path):
+    """One bit of row 1 in each of ``C7_SHARDS`` shards, imported with
+    every node healthy; then node 0's heartbeat loses its probes of both
+    peers, which serve. → (servers, ports, whether node 0 still holds
+    each peer alive)"""
+    servers, ports, _ = make_cluster(pkg, tmp_path, heartbeat_interval=3600)
+    ok(ports[0], "POST", "/index/c7", {})
+    ok(ports[0], "POST", "/index/c7/field/f", {})
+    _import(ports[0], "c7", "f", [1] * C7_SHARDS, [s * SHARD_WIDTH + 3 for s in range(C7_SHARDS)])
+    c0 = servers[0].cluster
+    peers = {srv.cluster.me.id for srv in servers[1:]}
+    # shards that only the two peers hold: node 0 cannot serve them itself
+    assert any({o.id for o in c0.shard_nodes("c7", s)} == peers for s in range(C7_SHARDS))
+    servers[0].fault_injector.set_rules([PROBES_LOST_ONCE], seed=5)
+    c0._heartbeat_once()
+    return servers, ports, [n.alive for n in c0.nodes if n.id in peers]
+
+
+def test_a_lost_probe_leaves_serving_owners_to_reads(tmp_path):
+    """C7: node 0's probes of both peers were lost once while they serve.
+    The port does not dead-mark them for that, so a read of shards only
+    they hold answers exactly, where the reference fails it with a 503
+    ("no alive owner")."""
+    servers, ports, alive = c7_cluster("port", tmp_path)
+    try:
+        assert alive == [True, True]
+        assert query(ports[0], "c7", "Count(Row(f=1))") == [C7_SHARDS]
+        assert query(ports[0], "c7", "TopN(f, n=1)") == [[{"id": 1, "count": C7_SHARDS}]]
+    finally:
+        shutdown(servers)
+
+
+def test_a_read_reprobes_an_owner_that_refused_while_it_restarted(tmp_path):
+    """C7's other source: node 0's heartbeat found node 1 refusing while it
+    restarted, and node 0's next tick has not come. A read of the shards
+    only node 1 holds (``replica_n = 1``) re-probes it and answers
+    exactly, where the reference fails it with a 503 until the tick."""
+    servers, ports, seeds = make_cluster("port", tmp_path, n=2, replica_n=1, heartbeat_interval=3600)
+    try:
+        ok(ports[0], "POST", "/index/c7", {})
+        ok(ports[0], "POST", "/index/c7/field/f", {})
+        _import(ports[0], "c7", "f", [1] * C7_SHARDS, [s * SHARD_WIDTH + 3 for s in range(C7_SHARDS)])
+        c0, node1 = servers[0].cluster, servers[1].cluster.me.id
+        assert any(not c0.topology.owns(c0.me.id, "c7", s) for s in range(C7_SHARDS))
+        c0.client.close()  # no idle connection holds node 1's listener
+        servers[1].close()
+        c0._heartbeat_once()
+        assert not next(n for n in c0.nodes if n.id == node1).alive
+        servers[1] = _server("port", ports[1], tmp_path / "port1", seeds, 1, heartbeat_interval=3600)
+        servers[1].open()
+        assert query(ports[0], "c7", "Count(Row(f=1))") == [C7_SHARDS]
+    finally:
+        shutdown(servers)
+
+
+def test_reference_fails_a_read_on_a_stale_dead_mark(tmp_path):
+    """The reference's C7, pinned: an error, never a partial count."""
+    servers, ports, alive = c7_cluster("ref", tmp_path)
+    try:
+        assert alive == [False, False]
+        status, body = call(ports[0], "POST", "/index/c7/query", b"Count(Row(f=1))")
+        assert status == 503 and "no alive owner" in body["error"], (status, body)
+    finally:
+        shutdown(servers)
+
+
+# ---------------------------------- a node cut off from every peer
+# each blackholed request fails after this: a timeout's shape, never a
+# refusal (a host that is down, or a partition)
+CUT_DELAY_MS = 50
+CUT_LEASE_S = 1.0  # the nodes' lease, and twice it the time to count a peer down
+
+
+def test_a_cut_off_node_errors_while_the_others_write_without_it(tmp_path):
+    """Every path between node 2 and its peers is blackholed after a
+    delay. Node 2 stops coordinating queries once its lease lapses;
+    nodes 0 and 1 count it down after twice the lease and acknowledge
+    writes without it, within a bounded time. Then a Count through nodes
+    0 and 1 equals numpy, and through node 2 it is an error: node 2
+    holds every shard of the index but the newest, and never learns of
+    that one."""
+    servers, ports, _ = make_cluster("port", tmp_path, heartbeat_interval=0.1)
+    try:
+        for srv in servers:
+            srv.cluster.lease_s, srv.cluster.down_after_s = CUT_LEASE_S, 2 * CUT_LEASE_S
+        c0, node2 = servers[0].cluster, servers[2].cluster.me.id
+        ok(ports[0], "POST", "/index/cut", {})
+        ok(ports[0], "POST", "/index/cut/field/f", {})
+        mine = [s for s in range(64) if c0.topology.owns(node2, "cut", s)][:5]
+        old, new = mine[:4], mine[4]
+        _import(ports[0], "cut", "f", [1] * len(old), [s * SHARD_WIDTH for s in old])
+        assert [query(p, "cut", "Count(Row(f=1))") for p in ports] == [[len(old)]] * 3
+        cut = {"path": "", "action": "blackhole", "delay_ms": CUT_DELAY_MS}
+        servers[2].fault_injector.set_rules([cut], seed=5)
+        for srv in servers[:2]:
+            srv.fault_injector.set_rules([{**cut, "peer": f"127.0.0.1:{ports[2]}"}], seed=5)
+        t0, refused = time.monotonic(), 0
+        while True:
+            status, body = call(ports[0], "POST", "/index/cut/query", f"Set({new * SHARD_WIDTH}, f=1)".encode())
+            if status == 200:
+                break
+            refused += 1
+            assert time.monotonic() - t0 < 2 * CUT_LEASE_S + 30, (status, body)
+            time.sleep(0.05)
+        stall = time.monotonic() - t0
+        print(f"cut off: the first write acknowledged after {stall:.2f} s, {refused} refused before it "
+              f"(lease {CUT_LEASE_S} s, requests fail after {CUT_DELAY_MS} ms)")
+        # while node 0 may not count node 2 down, a write that node 2 owns fails
+        assert refused >= 1
+        assert [query(p, "cut", "Count(Row(f=1))") for p in ports[:2]] == [[len(old) + 1]] * 2
+        status, body = call(ports[2], "POST", "/index/cut/query", b"Count(Row(f=1))")
+        assert status == 503 and "heard from no peer" in body["error"], (status, body)
     finally:
         shutdown(servers)
