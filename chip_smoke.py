@@ -113,7 +113,11 @@ Run from the root of a checkout. In order:
      owners; over HTTP to node 0, then node 1, the headline Count, TopN
      (n=5 and ids=), Sum, Min and a filtered GroupBy, a Set read back
      from each replica; node 2 closed and every answer again from the
-     replicas; 8 keep-alive clients whose legs coalesce (fewer waves
+     replicas; a Set and a Clear in node 2's shards while it is closed,
+     node 2 reopened on its data dir (its join replaces the copies that
+     missed them) and the headline Count, TopN and Count(Row(f=1))
+     through node 2 and node 0 right away, with the reopen's and the
+     catch-up's seconds; 8 keep-alive clients whose legs coalesce (fewer waves
      than legs), all against numpy with the kernels each query must
      launch on some node; the HTTP p50s beside the serving phase's, the
      stacks and bytes of each node, the first query after the failover;
@@ -122,7 +126,9 @@ Run from the root of a checkout. In order:
      through ``import --roaring`` against the public port, config8's mix
      (a Count of a Union, TopN(n=10), GroupBy) against numpy, 8
      keep-alive clients, SIGKILL of child 1 (each answer meanwhile exact
-     or an error), its restart, the mix again, each child's stack budget
+     or an error) and a Set and a Clear in its shards through the public
+     port while it is down, its restart, the mix again with both writes
+     in every answer, each child's stack budget
      (70 % / 3 of the card) and its launches printed as SIGTERM ends it;
 3. each kernel against its plain torch version on the card at its
    path's shapes (all-ones and bit-31 words, rows -1 and >= R, _OOB
@@ -3796,6 +3802,21 @@ def cluster_path(torch, device: str, main: dict) -> tuple:
             if not srv._closed:
                 srv.close()
 
+    def drop_stacks(srv) -> None:
+        """Free a closed node's device stacks before another node opens
+        with its budget."""
+        import gc
+
+        st = srv.api.executor.compiler.stacks
+        with st._lock:
+            for entries in (st._cache, st._hot, st._tiered, st._bytes):
+                entries.clear()
+            st.resident_bytes = 0
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+
+    cfgs = []
     try:
         t0 = time.perf_counter()
         for attempt in range(BIND_ATTEMPTS):
@@ -3807,6 +3828,7 @@ def cluster_path(torch, device: str, main: dict) -> tuple:
                                  seeds=seeds, replica_n=CL_REPLICAS, coordinator=(i == 0), anti_entropy_interval=0,
                                  route_mode="device", result_cache_mode="off",
                                  device_stack_budget_bytes=budget or 0)
+                    cfgs.append(cfg)
                     nodes.append(Server(cfg, device=device))
                     nodes[-1].open()
                 break
@@ -3817,6 +3839,7 @@ def cluster_path(torch, device: str, main: dict) -> tuple:
                 log(f"cluster: {e}; the nodes start again on new ports")
                 close_nodes()
                 nodes.clear()
+                cfgs.clear()
         for srv in nodes:
             srv.cluster._heartbeat_once()
             if not srv.wait_mesh(600) or not srv.device_verdict[0]:
@@ -3831,13 +3854,18 @@ def cluster_path(torch, device: str, main: dict) -> tuple:
         # ------------------------------------------ data, on its owners
         t0 = time.perf_counter()
         owners = {s: [n.id for n in nodes[0].cluster.shard_nodes("bench", s)] for s in shards}
+        node2 = nodes[2].cluster.me.id
+        # two shards of node 2's, where a Set and a Clear land while it is
+        # closed (the last two it owns but the write shard)
+        missed = [s for s in reversed(shards) if node2 in owners[s] and s != write_shard][:2]
         held = {}
 
         def inject(views: list, fview, s: int) -> None:
             for view, src in views:
                 frag = view.create_fragment_if_not_exists(s)
-                if s == write_shard:
-                    # the Set lands here: true roaring storage
+                if s == write_shard or s in missed:
+                    # writes land here: true roaring storage (on disk, so
+                    # a node reopened on its data dir has it back)
                     r, c = np.nonzero(np.unpackbits(src[s % G].view(np.uint8), axis=1, bitorder="little"))
                     frag.union_positions(r.astype(np.uint64) * SHARD_WIDTH + c.astype(np.uint64))
                     continue
@@ -3880,10 +3908,12 @@ def cluster_path(torch, device: str, main: dict) -> tuple:
                            for r in range(R_PAD)) if c][:5]
         n_rows1 = sd.expect(lambda g: blocks[g][1])
 
-        def topn_want(n: int, ids=None, set_bit: int = 0) -> list:
+        def topn_want(n: int, ids=None, set_bit: int = 0, delta=None) -> list:
             """TopN's answer; ``set_bit`` 1 after the Set gave row 1 a bit
-            at a column in no other row and without a value of v."""
-            pairs = [(r, sd.expect(lambda g, r=r: blocks[g][r]) + (set_bit if r == 1 else 0))
+            at a column in no other row and without a value of v;
+            ``delta`` the bits later writes added to (removed from) rows."""
+            delta = {1: set_bit, **(delta or {})}
+            pairs = [(r, sd.expect(lambda g, r=r: blocks[g][r]) + delta.get(r, 0))
                      for r in (range(R_PAD) if ids is None else [i for i in ids if i < R_PAD])]
             pairs.sort(key=lambda rc: (-rc[1], rc[0]))
             return [{"id": r, "count": c} for r, c in pairs if c][:n]
@@ -4008,6 +4038,60 @@ def cluster_path(torch, device: str, main: dict) -> tuple:
         served(clients[1], "Count(Row(f=1))", n_rows1 + 1, {"tree_eval": {"count": 1}}, "via node 1 after node 2 closed")
         snap("after the failover")
 
+        # ------------------------------------------ node 2 misses writes, reopens
+        # through node 0 while node 2 is closed: a Set of row 2 at a free
+        # column of one of node 2's shards, a Clear of row 1 at a column
+        # of rows 1 and 2 in another. Node 0 leaves node 2 out and marks
+        # its copies stale; reopened on its data dir, node 2 replaces
+        # them from a current owner in its join, and every answer through
+        # it and through node 0 is exact right away
+        g_s, g_c = missed[0] % G, missed[1] % G
+        free_s = np.flatnonzero(np.unpackbits(sd.exists[g_s][0].view(np.uint8), bitorder="little") == 0)
+        both = np.flatnonzero(np.unpackbits((blocks[g_c][1] & blocks[g_c][2]).view(np.uint8), bitorder="little"))
+        set_col, clear_col = missed[0] * SHARD_WIDTH + int(free_s[0]), missed[1] * SHARD_WIDTH + int(both[0])
+        served(c0, f"Set({set_col}, f=2)", True, {}, "via node 0, node 2 closed")
+        served(c0, f"Clear({clear_col}, f=1)", True, {}, "via node 0, node 2 closed")
+        uri2 = nodes[2].uri
+        marked = sorted(nodes[0].cluster._stale_shards("bench", uri2))
+        if marked != sorted(missed):
+            raise AssertionError(f"cluster: node 0 marked node 2's copies of {marked} stale, not {sorted(missed)}")
+        want_head -= 1
+        rejoin = [(head, want_head, {"tree_eval": {"count": 1}}),
+                  ("TopN(f, n=5)", topn_want(5, delta={1: 0, 2: 1}), {"row_counts": {"rows": 1}}),
+                  ("Count(Row(f=1))", n_rows1, {"tree_eval": {"count": 1}})]
+        for pql, want, must in rejoin:
+            served(c0, pql, want, must, "via node 0, node 2 closed")
+        drop_stacks(nodes[2])
+        t0 = time.perf_counter()
+        nodes[2] = Server(cfgs[2], device=device)
+        nodes[2].open()
+        if not nodes[2].wait_mesh(600) or not nodes[2].device_verdict[0]:
+            raise AssertionError(f"cluster: node 2's device probe failed: {nodes[2].device_verdict}")
+        times["node2_reopen_s"] = time.perf_counter() - t0
+        times["node2_catch_up"] = nodes[2].cluster.last_catch_up
+        left = {i: sorted(nodes[i].cluster._stale_shards("bench", uri2)) for i in range(CL_NODES)}
+        if any(left.values()) or (nodes[2].cluster.last_catch_up or {}).get("shards") != len(missed):
+            raise AssertionError(f"cluster: node 2's catch-up {times['node2_catch_up']}, marks left {left}")
+        # the injected fragments live in memory only: injected again, as
+        # node 2's disk would give them back (the written shards are real
+        # roaring on its disk, and its join replaced them)
+        t0 = time.perf_counter()
+        idx2 = nodes[2].holder.index("bench")
+        fview2 = idx2.field("f").create_view_if_not_exists("standard")
+        views2 = [(fview2, blocks), (idx2.field("v").create_view_if_not_exists(VIEW_BSI), sd.bsi)]
+        for s in shards:
+            if node2 in owners[s] and s != write_shard and s not in missed:
+                inject(views2, fview2, s)
+        times["node2_reinject_s"] = time.perf_counter() - t0
+        log(f"ok  cluster: node 2 reopened on its data dir in {times['node2_reopen_s']:.1f} s (its join caught up "
+            f"{json.dumps(times['node2_catch_up'])}), fragments injected again in {times['node2_reinject_s']:.1f} s")
+        clients[2] = http_node(ports[2])
+        for i in (2, 0):
+            for pql, want, must in rejoin:
+                ms = served(clients[i], pql, want, must, f"via node {i}, node 2 reopened")["ms"]
+                times.setdefault("first_queries_after_reopen_ms", {}).setdefault(f"node{i}", {})[pql[:20]] = round(ms, 3)
+        snap("after node 2 reopened")
+
         # ------------------------------------------ 8 clients, one coordinator
         scheds = [srv.api.scheduler for srv in nodes[:2]]
 
@@ -4050,7 +4134,7 @@ def cluster_path(torch, device: str, main: dict) -> tuple:
         log("cluster times:", json.dumps(times))
         log("launches on the cluster path (all nodes):", json.dumps(launches))
         log("launches on the cluster path by mode:", json.dumps(by_mode))
-        for c in clients[:2]:
+        for c in clients:
             c.close()
     finally:
         close_nodes()
@@ -4089,6 +4173,7 @@ def fleet_path(torch, device: str, records: int = CLI_RECORDS, shards: int = CLI
 
     from pilosa_tpu_torch import cli
     from pilosa_tpu_torch.ops import _cuda
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
 
     on_card = device == "cuda"
     tmp = tempfile.TemporaryDirectory()
@@ -4191,13 +4276,16 @@ def fleet_path(torch, device: str, records: int = CLI_RECORDS, shards: int = CLI
         log(f"ok  fleet: import --roaring --create of {records} records  -> {said}")
 
         # ------------------------------------------------------ config8's mix
-        top = sorted(((1, int(u1.size)), (2, int(u2.size))), key=lambda rc: (-rc[1], rc[0]))
-        mix = [
-            ("Count(Union(Row(f=1), Row(f=2)))", int(np.union1d(u1, u2).size)),
-            ("TopN(f, n=10)", [{"id": r, "count": c} for r, c in top]),
-            ("GroupBy(Rows(f))", [{"group": [{"field": "f", "rowID": r}], "count": int(u.size)}
-                                  for r, u in ((1, u1), (2, u2))]),
-        ]
+        def make_mix(u1, u2) -> list:
+            top = sorted(((1, int(u1.size)), (2, int(u2.size))), key=lambda rc: (-rc[1], rc[0]))
+            return [
+                ("Count(Union(Row(f=1), Row(f=2)))", int(np.union1d(u1, u2).size)),
+                ("TopN(f, n=10)", [{"id": r, "count": c} for r, c in top]),
+                ("GroupBy(Rows(f))", [{"group": [{"field": "f", "rowID": r}], "count": int(u.size)}
+                                      for r, u in ((1, u1), (2, u2))]),
+            ]
+
+        mix = make_mix(u1, u2)
 
         def check_mix(tag: str, reps: int = 4) -> dict:
             lat = {}
@@ -4241,15 +4329,30 @@ def fleet_path(torch, device: str, records: int = CLI_RECORDS, shards: int = CLI
 
         # --------------------------------------------- SIGKILL of child 1
         victim = state()["processes"][1]
-        stop, answers = threading.Event(), {"exact": 0, "errors": 0}
+        with urllib.request.urlopen(victim["uri"] + "/status", timeout=WAIT_S) as r:
+            held1 = set(json.loads(r.read())["shards"].get("cli", []))
+        # while child 1 is down, through the public port: a Set of row 2 at
+        # a column in no row of one of its shards, and a Clear of row 1 at
+        # a column of rows 1 and 2 of another. The live children leave it
+        # out and mark its copies stale; its restart replaces them.
+        u12 = np.union1d(u1, u2)
+        both = np.intersect1d(u1, u2)
+        clear_col = int(next(c for c in both.tolist() if c // SHARD_WIDTH in held1))
+        set_shard = min(held1 - {clear_col // SHARD_WIDTH})
+        taken = set(u12[u12 // SHARD_WIDTH == set_shard].tolist())
+        set_col = next(c for c in range((set_shard + 1) * SHARD_WIDTH - 1, set_shard * SHARD_WIDTH, -1)
+                       if c not in taken)
+        want_after = want_head + 1  # the Set adds a column to the Union; the Clear's column stays in row 2
+        stop, acked, answers = threading.Event(), threading.Event(), {"exact": 0, "errors": 0}
         wrong = []
 
         def ask() -> None:
             while not stop.is_set():
+                after = acked.is_set()
                 try:
                     # short: an error is an allowed answer in this window
                     got = post("/index/cli/query", head.encode(), timeout=60)["results"][0]
-                    if got == want_head:
+                    if got == want_after or (not after and got == want_head):
                         answers["exact"] += 1
                     else:
                         wrong.append(got)
@@ -4257,11 +4360,39 @@ def fleet_path(torch, device: str, records: int = CLI_RECORDS, shards: int = CLI
                     answers["errors"] += 1
                 time.sleep(0.05)
 
+        def write(pql: str) -> float:
+            """``pql`` through the public port until acknowledged (a write
+            fails while a live child still holds child 1 for alive)."""
+            t1 = time.perf_counter()
+            while True:
+                try:
+                    post("/index/cli/query", pql.encode(), timeout=60)
+                    return time.perf_counter() - t1
+                except (urllib.error.URLError, OSError, ValueError):
+                    pass
+                if time.perf_counter() - t1 > WAIT_S:
+                    raise AssertionError(f"fleet: {pql} not acknowledged in {WAIT_S} s")
+                time.sleep(0.05)
+
         asker = threading.Thread(target=ask)
         asker.start()
         t0 = time.perf_counter()
         os.kill(victim["pid"], signal.SIGKILL)
         try:
+            times["set_while_down_s"] = write(f"Set({set_col}, f=2)")
+            acked.set()
+            times["clear_while_down_s"] = write(f"Clear({clear_col}, f=1)")
+            # the marks the live children hold on child 1's copies
+            marks = {}
+            for p in state()["processes"]:
+                if p["index"] != 1:
+                    with contextlib.suppress(urllib.error.URLError, OSError):
+                        with urllib.request.urlopen(p["uri"] + "/status", timeout=60) as r:
+                            rm = json.loads(r.read()).get("replicaMarks", {})
+                        marks[f"child{p['index']}"] = sum(m[0] == victim["uri"] for m in rm.get("marks", []))
+            times["marks_on_child1"] = marks
+            log(f"ok  fleet: Set({set_col}, f=2) and Clear({clear_col}, f=1) acknowledged while child 1 is down "
+                f"({times['set_while_down_s']:.2f} s, {times['clear_while_down_s']:.2f} s); marks on its copies {json.dumps(marks)}")
             deadline = time.monotonic() + 600
             while True:
                 p1 = state()["processes"][1]
@@ -4284,6 +4415,8 @@ def fleet_path(torch, device: str, records: int = CLI_RECORDS, shards: int = CLI
             raise AssertionError(f"fleet: the state file after the restart: {st['processes']}")
         log(f"ok  fleet: SIGKILL of child 1 (pid {victim['pid']}) -> restarted as pid {st['processes'][1]['pid']} "
             f"in {times['restart_ready_s']:.1f} s; meanwhile {json.dumps(answers)} (no partial count)")
+        u1, u2 = np.setdiff1d(u1, [clear_col]), np.union1d(u2, [set_col])
+        mix = make_mix(u1, u2)
         times["mix_p50_ms_after_restart"] = check_mix("after the restart")
 
         resident = {}

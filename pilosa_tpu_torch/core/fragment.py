@@ -632,6 +632,18 @@ class Fragment:
             self._mark_all_dirty()
             return incoming
 
+    def replace(self, data: bytes) -> None:
+        """Make the fragment's content exactly the serialized bitmap
+        ``data`` (a replica's catch-up from a current owner: a union
+        would keep the bits a missed Clear removed), durably: a full
+        snapshot, the ops log truncated."""
+        with self._lock:
+            incoming, consumed = roaring.deserialize(data)
+            roaring.replay_ops(incoming, data[consumed:])
+            self.bitmap = incoming
+            self.snapshot()
+            self._mark_all_dirty()
+
     def union_positions(self, positions: np.ndarray) -> None:
         """Bulk-OR fragment-relative positions: the import_roaring merge
         without the wire codec — build the delta's containers vectorized,

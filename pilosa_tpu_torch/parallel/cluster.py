@@ -23,6 +23,7 @@ concatenate — shards are disjoint column ranges; TopN/GroupBy merge by key).
 
 from __future__ import annotations
 
+import os
 import threading
 import time
 from collections import deque
@@ -53,6 +54,7 @@ from pilosa_tpu_torch.parallel.topology import (
     ShardUnavailableError,
     Topology,
 )
+from pilosa_tpu_torch.core import EXISTENCE_FIELD
 from pilosa_tpu_torch.encoding import frame
 from pilosa_tpu_torch.pql import Call, parse
 from pilosa_tpu_torch.roaring import serialize
@@ -66,6 +68,14 @@ from pilosa_tpu_torch.utils.tracing import GLOBAL_TRACER
 # a restart; the port never answers from the CPU instead)
 GATE_PENDING = "device probe in progress"
 GATE_FAILED = "failed its probe"
+# the 503 texts of a node that is up but must not answer a read from its
+# own copy (_check_leg): the copy missed acknowledged writes, a peer has
+# not heard the node for a lease, or it has not joined yet. A coordinator
+# fails such a leg over to another owner without dead-marking the node.
+STALE_COPY = "missed acknowledged writes"
+UNHEARD = "has not heard from this node"
+STARTING = "cluster state STARTING"
+NOT_SERVING = (GATE_PENDING, GATE_FAILED, STALE_COPY, UNHEARD, STARTING)
 
 HEARTBEAT_INTERVAL = 2.0
 
@@ -74,6 +84,16 @@ HEARTBEAT_INTERVAL = 2.0
 # coordinating queries; a peer counts as down after twice its lease
 # (Cluster.__init__)
 LEASE_S = 15.0
+
+
+# a peer that relays a missed-write mark to the node it names waits this
+# long for an answer: well under the writer's own RPC timeout, so the
+# writer hears the relay's failure rather than timing out on the relay
+RELAY_TIMEOUT_S = 5.0
+# a catch-up fetches a fragment again when a write lands on it between
+# the fetch and the replacement; this many times, then the shard stays
+# stale for the next pass
+CATCH_UP_ATTEMPTS = 4
 
 
 def _refused(err: PeerError) -> bool:
@@ -350,6 +370,36 @@ class Cluster:
         self.lease_s = max(LEASE_S, 3 * interval)
         self.down_after_s = 2 * self.lease_s
         self._heard: dict[str, float] = {}  # node id -> last answer or refusal
+        # node id -> (when the /status it answered was requested, the
+        # seconds it said it had not heard this node): the self-fence
+        # (_unheard_reason)
+        self._unheard: dict[str, tuple[float, float]] = {}
+        # Missed-write marks (C8-C10). A write that leaves an owner out
+        # (it refused, or counts as down) marks that owner's copy of each
+        # shard it wrote as stale, and tells every peer that may serve
+        # before the ack. Unlike the reference, whose returning replica
+        # answers from the copy it kept until anti-entropy unions the
+        # missed bits in (and whose union brings back the bits a missed
+        # Clear removed, on every owner), no node reads a shard from a
+        # copy marked stale for it, and that copy is replaced by a
+        # current owner's, never merged. A mark is (owner uri, index,
+        # shard) -> {writer boot: write number}, and a catch-up records
+        # the numbers it covered under the same key: both are per-boot
+        # maximums, so merging them in any order, from announces or from
+        # any /status, neither loses a mark nor revives a covered one.
+        self._marks: dict[tuple[str, str, int], dict[str, int]] = {}
+        self._caught: dict[tuple[str, str, int], dict[str, int]] = {}
+        self._covered_at: dict[tuple[str, str, int], float] = {}
+        # index -> shard -> uris whose copy is stale: rebuilt whole under
+        # _marks_lock, read lock-free on the read path like _peer_shards
+        self._stale_view: dict[str, dict[int, frozenset[str]]] = {}
+        self._marks_lock = sanitize.make_lock("Cluster._marks_lock")
+        self._boot = os.urandom(8).hex()
+        self._mark_seq = 0
+        self._catch_up_lock = sanitize.make_lock("Cluster._catch_up_lock")
+        self._catch_up_thread: threading.Thread | None = None
+        # {"shards", "seconds"} of the last catch-up that replaced any
+        self.last_catch_up: dict | None = None
         # the resilient RPC chain (docs/fault-tolerance.md): transport →
         # fault injection (armed via config or /debug/faults) → retry +
         # per-peer circuit breakers. Every data-plane call site below
@@ -499,6 +549,11 @@ class Cluster:
         self._announce_if_new()
         self._heartbeat_once()
         self._recover_on_join()
+        # the heartbeat above learned the missed-write marks from every
+        # peer's /status: a copy that missed writes while this node was
+        # down is replaced before it turns NORMAL (and until then, and
+        # for any shard no current owner could give, it answers no read)
+        self._catch_up()
         # inventories refresh AFTER the schema pull: the heartbeat above
         # ran with an empty holder (no indexes yet), so without this a
         # just-(re)started node would serve reads from only its local
@@ -522,10 +577,12 @@ class Cluster:
         # carries nodes + epoch + shard inventories)
         statuses: list[tuple[Node, dict]] = []
         for n in self._peers():
+            sent = time.monotonic()
             try:
                 st = self.client.status(n.uri, timeout=5.0)
             except PeerError:
                 continue
+            self._learn_from_status(n, st, sent)
             statuses.append((n, st))
             uris = {d.get("uri") for d in st.get("nodes", [])}
             if self.me.uri in uris:
@@ -661,6 +718,54 @@ class Cluster:
                     "the others may write without it; it coordinates no "
                     "query until a peer answers"
                 )
+        reason = self._unheard_reason()
+        if reason is not None:
+            raise ShardUnavailableError(reason)
+
+    def _unheard_reason(self) -> str | None:
+        """The self-fence: why this node may not answer reads, or None.
+        The lease above cannot see a node that hears its peers while
+        none of them hears it: its lease holds, but they count it down
+        after down_after_s and write without it, and their marks cannot
+        reach it. Each /status answer says how long its node has not
+        heard this one; an answer within lease_s saying more than
+        lease_s, from a peer that hears some node (_learn_from_status),
+        fences this node. It probes every heartbeat, well under
+        lease_s, so it fences itself before any peer may count it
+        down, and serves again once that peer hears it."""
+        now = time.monotonic()
+        for node_id, (at, ago) in list(self._unheard.items()):
+            if now - at <= self.lease_s and ago > self.lease_s:
+                return (
+                    f"peer {node_id} {UNHEARD} for {ago:.1f} s (lease "
+                    f"{self.lease_s:.0f} s): it may count this node down "
+                    "and write without it; this node answers no read "
+                    "until that peer hears it"
+                )
+        return None
+
+    def _check_leg(self, index: str, shards) -> None:
+        """A read leg is answered from this node's own copy only while
+        that copy holds every acknowledged write: not while the node
+        joins (it learns the marks in ``join``), not while a peer has
+        not heard it for a lease, and not for a shard marked stale for
+        it. The coordinator fails such a leg over (NOT_SERVING)."""
+        if self.state == STATE_STARTING:
+            raise ShardUnavailableError(
+                f"{STARTING}; its copies may lack writes it missed"
+            )
+        reason = self._unheard_reason()
+        if reason is not None:
+            raise ShardUnavailableError(reason)
+        mine = self._stale_shards(index, self.me.uri)
+        if mine:
+            hit = sorted(mine if shards is None else mine.intersection(shards))
+            if hit:
+                raise ShardUnavailableError(
+                    f"this node's copy of shards {hit[:8]} of {index!r} "
+                    f"{STALE_COPY} (marked stale by the writer); it "
+                    "answers them once it has caught up"
+                )
 
     def close(self) -> None:
         self._closed = True
@@ -778,6 +883,12 @@ class Cluster:
             self._adopt_topology(*best)
         if self.state in (STATE_NORMAL, STATE_DEGRADED):
             self.state = STATE_DEGRADED if degraded else STATE_NORMAL
+            # a heal: the probes above learned marks on this node's
+            # copies; replace them from a current owner that answered
+            # (off this thread — a catch-up moves whole fragments)
+            if self._stale_keys_of_mine():
+                self._start_catch_up()
+        self._forget_covered_marks()
         self._track_translate_primacy()
 
     def _track_translate_primacy(self) -> None:
@@ -922,14 +1033,47 @@ class Cluster:
     def _probe(self, node: Node, timeout: float = 5.0) -> dict:
         """``GET /status`` of a peer, noting when it last answered or
         refused (``_may_serve``, the lease in ``_check_ready``)."""
+        sent = time.monotonic()
         try:
             st = self.client.status(node.uri, timeout=timeout)
         except PeerError as e:
             if _refused(e):
                 self._heard[node.id] = time.monotonic()
             raise
+        # the marks first: the answer ends this node's lease lapse, and
+        # it must not serve a copy the answer marks stale meanwhile
+        self._learn_from_status(node, st, sent)
         self._heard[node.id] = time.monotonic()
         return st
+
+    def _learn_from_status(self, node: Node, st: dict, sent: float) -> None:
+        """What a peer's /status (requested at ``sent``) says beyond its
+        inventory: the missed-write marks it knows (so a heartbeat heals
+        any announce this node missed) and how long it has not heard
+        this node (the self-fence, ``_unheard_reason``; an answer to an
+        older request does not replace a newer one's)."""
+        self._merge_marks(st.get("replicaMarks"))
+        heard = st.get("heardAgoS") or {}
+        ago = heard.get(self.me.uri)
+        if min(heard.values(), default=0.0) > self.lease_s:
+            # the peer has heard from no node for its lease: it
+            # coordinates no write (its _check_ready), so its not
+            # hearing this node is no reason to fence (a healed node's
+            # first answers say so of every peer)
+            ago = 0.0
+        if isinstance(ago, (int, float)):
+            prev = self._unheard.get(node.id)
+            if prev is None or sent >= prev[0]:
+                self._unheard[node.id] = (sent, float(ago))
+
+    def heard_ago(self) -> dict[str, float]:
+        """Seconds since this node last heard each peer, by URI (served
+        on /status for the peers' self-fence)."""
+        now = time.monotonic()
+        return {
+            n.uri: round(now - self._heard_at(n), 3)
+            for n in self._peers(alive_only=False)
+        }
 
     def _heard_at(self, node: Node) -> float:
         # a node not probed yet counts as heard when first asked about
@@ -1010,6 +1154,11 @@ class Cluster:
                 for frag_info in inventory:
                     shard = frag_info["shard"]
                     if not self.topology.owns(self.me.id, idx_name, shard):
+                        continue
+                    if src.uri in self._stale_uris(idx_name, shard):
+                        # its copy missed acknowledged writes: merged in,
+                        # it would bring back the bits a missed Clear
+                        # removed (C10)
                         continue
                     jobs.append((
                         idx_name,
@@ -1113,6 +1262,8 @@ class Cluster:
         PeerError is swallowed — the next pass or source retries."""
         api = self.server.api
         local = self._local_fragment(index, field, view, shard)
+        if local is not None and self.me.uri in self._stale_uris(index, shard):
+            return  # a stale copy is replaced (_catch_up), never merged
         if local is not None and src_checksum:
             if fragment_checksum(serialize(local.bitmap)) == src_checksum:
                 return
@@ -1391,14 +1542,20 @@ class Cluster:
         """One status round-trip to re-pull a peer's inventory."""
         with self._shard_cache_lock:
             c0 = self._inv_clock
+        sent = time.monotonic()
         try:
             st = self.client.status(node.uri, timeout=5.0)
         except PeerError:
             return
+        self._learn_from_status(node, st, sent)
         self._apply_status_inventory(node, st, c0)
 
     def _announce_shards(
-        self, index: str, entries: dict[str, list[int]], replace: bool = False
+        self,
+        index: str,
+        entries: dict[str, list[int]],
+        replace: bool = False,
+        marks: list | None = None,
     ) -> list[str]:
         """Tell every peer which nodes (by URI) now hold which shards of
         an index, and apply the same update locally. ``replace`` swaps
@@ -1413,10 +1570,14 @@ class Cluster:
         (``_may_serve``) is told: untold, such a peer fans a read out
         over the shards it knows and answers a partial count until its
         next heartbeat. A peer that refuses this request is not
-        listening; it learns every holder's inventory in ``join``."""
+        listening; it learns every holder's inventory in ``join``.
+        ``marks`` (already merged here) ride along: each peer takes them
+        and relays them to the node they name (``_h_shards_announce``)."""
         payload: dict = {"index": index, "entries": entries}
         if replace:
             payload["replace"] = True
+        if marks:
+            payload["marks"] = marks
         self._apply_shard_entries(payload)
         missed: list[str] = []
         for n in self._peers(alive_only=False):
@@ -1439,29 +1600,45 @@ class Cluster:
                         break
         return missed
 
-    def _tell_peers(self, index: str, took_write: dict[int, list[str]]) -> None:
+    def _tell_peers(
+        self,
+        index: str,
+        took_write: dict[int, list[str]],
+        left_out: dict[int, list[Node]] | None = None,
+    ) -> None:
         """A write's announce before its acknowledgement (read-your-
         writes through any node; reads make no RPCs to learn shards):
         for each written shard not yet in ``_told_shards``, name the
         owners that actually took it — a dead owner the fan-out skipped
         must not be advertised as a holder, or reads routed there would
-        miss the data. A peer left untold fails the write with a 503
-        that names it: the data landed, but an acknowledgement would let
-        that peer answer partially. The client's retry announces again."""
+        miss the data. ``left_out`` names, by shard, the owners the write
+        skipped (refused, or down): their copies are marked stale, and
+        the marks go out even for told shards, since each write's marks
+        are new. A peer left untold fails the write with a 503 that
+        names it: the data landed, but an acknowledgement would let that
+        peer answer partially (or from a copy without it). The client's
+        retry announces again."""
+        marks = self._mark_left_out(index, left_out or {})
         told = self._told_shards.get(index, set())
         untold = [sh for sh in took_write if sh not in told]
-        if not untold:
+        if not untold and not marks:
             return
         entries: dict[str, list[int]] = {}
         for sh in untold:
             for uri in took_write[sh]:
                 entries.setdefault(uri, []).append(sh)
-        missed = self._announce_shards(index, entries)
+        missed = self._announce_shards(index, entries, marks=marks)
         if missed:
-            raise ShardUnavailableError(
+            what = (
                 f"shards {sorted(untold)} of {index!r} were written but "
-                f"peers that serve reads were not told where: {missed}; "
-                "the write is not acknowledged, retry it"
+                "peers that serve reads were not told where"
+                if untold
+                else f"shards {sorted(left_out or ())} of {index!r} were "
+                "written without an owner that is down, and peers that "
+                "serve reads were not told its copy is stale"
+            )
+            raise ShardUnavailableError(
+                f"{what}: {missed}; the write is not acknowledged, retry it"
             )
         with self._shard_cache_lock:
             self._told_shards[index] = (
@@ -1490,6 +1667,297 @@ class Cluster:
             self._known_shards[index] = self._known_shards.get(index, set()) | {
                 s for sh in payload.get("entries", {}).values() for s in sh
             }
+
+    # ------------------------------------------------ missed-write marks
+    def _mark_left_out(
+        self, index: str, left_out: dict[int, list[Node]]
+    ) -> list[list]:
+        """Mark each left-out owner's copy of its shards stale under one
+        new write number of this boot; → the marks on the wire."""
+        if not any(left_out.values()):
+            return []
+        with self._marks_lock:
+            self._mark_seq += 1
+            stamp = {self._boot: self._mark_seq}
+        marks = [
+            [n.uri, index, int(sh), stamp]
+            for sh, nodes in sorted(left_out.items())
+            for n in nodes
+        ]
+        self._merge_marks({"marks": marks})
+        return marks
+
+    def _merge_marks(self, body: dict | None) -> bool:
+        """Merge marks and catch-up records (``replicaMarks`` of /status,
+        an announce): per writer boot the larger write number wins, in
+        both tables. → whether anything was new."""
+        if not body:
+            return False
+        changed = False
+        with self._marks_lock:
+            for name, table in (("marks", self._marks), ("caught", self._caught)):
+                for uri, index, shard, stamps in body.get(name) or ():
+                    key = (uri, index, int(shard))
+                    cur = table.get(key)
+                    for boot, seq in stamps.items():
+                        if cur is None or cur.get(boot, 0) < seq:
+                            if cur is None:
+                                cur = table[key] = {}
+                            cur[boot] = int(seq)
+                            changed = True
+            if changed:
+                self._rebuild_stale_view()
+        return changed
+
+    def _is_stale(self, key: tuple[str, str, int]) -> bool:
+        # under _marks_lock: a write number past what catch-up covered
+        caught = self._caught.get(key, {})
+        return any(
+            seq > caught.get(boot, 0) for boot, seq in self._marks.get(key, {}).items()
+        )
+
+    def _rebuild_stale_view(self) -> None:
+        # under _marks_lock; whole-dict assignment for lock-free readers
+        view: dict[str, dict[int, set[str]]] = {}
+        now = time.monotonic()
+        for key in self._marks.keys() | self._caught.keys():
+            if self._is_stale(key):
+                uri, index, shard = key
+                view.setdefault(index, {}).setdefault(shard, set()).add(uri)
+                self._covered_at.pop(key, None)
+            else:
+                self._covered_at.setdefault(key, now)
+        self._stale_view = {
+            index: {s: frozenset(u) for s, u in by_shard.items()}
+            for index, by_shard in view.items()
+        }
+
+    def _forget_covered_marks(self) -> None:
+        """Drop marks a catch-up covered long ago, so /status does not
+        carry them forever. Safe whenever: a peer that still holds such
+        a mark revives it here, and the node it names only catches up
+        once more."""
+        horizon = time.monotonic() - 10 * self.lease_s
+        with self._marks_lock:
+            old = [k for k, t in self._covered_at.items() if t < horizon]
+            for key in old:
+                self._marks.pop(key, None)
+                self._caught.pop(key, None)
+                self._covered_at.pop(key, None)
+
+    def marks_snapshot(self) -> dict:
+        """The marks and catch-up records this node knows (``replicaMarks``
+        on /status): ``[owner uri, index, shard, {writer boot: write
+        number}]`` each; a copy is stale while a mark's number passes the
+        record's."""
+        with self._marks_lock:
+            return {
+                name: [[u, i, s, dict(st)] for (u, i, s), st in table.items()]
+                for name, table in (("marks", self._marks), ("caught", self._caught))
+            }
+
+    def _stale_uris(self, index: str, shard: int) -> frozenset[str]:
+        by_shard = self._stale_view.get(index)
+        return by_shard.get(shard, frozenset()) if by_shard else frozenset()
+
+    def _stale_shards(self, index: str, uri: str) -> set[int]:
+        by_shard = self._stale_view.get(index)
+        if not by_shard:
+            return set()
+        return {s for s, uris in by_shard.items() if uri in uris}
+
+    def _stale_keys_of_mine(self) -> dict[tuple[str, int], dict[str, int]]:
+        """(index, shard) -> the marks on this node's stale copies."""
+        with self._marks_lock:
+            return {
+                key[1:]: dict(stamps)
+                for key, stamps in self._marks.items()
+                if key[0] == self.me.uri and self._is_stale(key)
+            }
+
+    def _owned_shards(self, index: str, node: Node) -> dict[int, list[Node]]:
+        """Every known shard of ``index`` that ``node`` owns, for the
+        marks of a write that reaches all of them (a broadcast write)."""
+        return {
+            s: [node]
+            for s in self.global_shards(index)
+            if self.topology.owns(node.id, index, s)
+        }
+
+    def _relay_marks(self, payload: dict) -> None:
+        """Pass an announce's marks on to the nodes they name, where this
+        node may be serving with them: the writer cannot reach a node it
+        counts down, which may still be serving (C9: node 0 cannot reach
+        node 2, but node 2 reaches its peers). A relay that fails without
+        a refusal fails this announce, so the write is a 503 naming the
+        node; a node that refuses serves nothing and learns the marks in
+        ``join``."""
+        by_uri: dict[str, list] = {}
+        for mark in payload.get("marks") or ():
+            by_uri.setdefault(mark[0], []).append(mark)
+        for uri, marks in by_uri.items():
+            node = next((n for n in self.nodes if n.uri == uri), None)
+            if node is None or node.id == self.me.id or not self._may_serve(node):
+                continue
+            try:
+                self.client._json(
+                    "POST",
+                    uri,
+                    "/internal/shards/announce",
+                    {"index": payload["index"], "entries": {}, "marks": marks,
+                     "relayed": True},
+                    timeout=RELAY_TIMEOUT_S,
+                )
+            except PeerError as e:
+                if _refused(e):
+                    continue
+                raise ShardUnavailableError(
+                    f"{node.id} may be serving, and the mark that its copy "
+                    f"{STALE_COPY} could not be relayed to it: {e}"
+                ) from e
+
+    def _start_catch_up(self) -> None:
+        t = self._catch_up_thread
+        if t is not None and t.is_alive():
+            return
+        t = threading.Thread(target=self._catch_up, daemon=True, name="catch-up")
+        self._catch_up_thread = t
+        t.start()
+
+    def _catch_up(self) -> list[tuple[str, int]]:
+        """Replace every copy of this node's that is marked stale with a
+        current owner's (one that is not marked stale for the shard and
+        was heard within lease_s), every field and view of the
+        shard, and merge the index's attr stores; then record the marks
+        read before the copy as covered and tell every peer, which stop
+        routing around the copy. A union would keep the bits a missed
+        Clear removed. A shard no current owner could give stays stale.
+        → the (index, shard) pairs caught up."""
+        with self._catch_up_lock:
+            mine = self._stale_keys_of_mine()
+            if not mine:
+                return []
+            t0 = now = time.monotonic()
+            inventories: dict[tuple[str, str], list[dict]] = {}
+            schema_from: set[str] = set()
+            done: list[tuple[str, int]] = []
+            for index, shard in sorted(mine):
+                for src in self.shard_nodes(index, shard):
+                    if (
+                        src.id == self.me.id
+                        or src.uri in self._stale_uris(index, shard)
+                        or now - self._heard.get(src.id, -1e18) > self.lease_s
+                    ):
+                        continue
+                    try:
+                        if src.uri not in schema_from:
+                            self.server.api.apply_schema(
+                                self.client._json("GET", src.uri, "/schema"),
+                                validate=False,
+                            )
+                            schema_from.add(src.uri)
+                        if (src.uri, index) not in inventories:
+                            inventories[(src.uri, index)] = (
+                                self.client.fragment_inventory(src.uri, index)
+                            )
+                        self._replace_shard(
+                            src, index, shard, inventories[(src.uri, index)]
+                        )
+                    except PeerError as e:
+                        self.server.logger.log(
+                            f"catch-up of {index}/{shard} from {src.id}: {e}"
+                        )
+                        continue
+                    done.append((index, shard))
+                    break
+            if not done:
+                return []
+            for index in sorted({i for i, _ in done}):
+                idx = self.server.holder.index(index)
+                if idx is not None:
+                    self._sync_attr_stores(index, idx)
+                self.server.api._invalidate_results(index)
+            covered = [
+                [self.me.uri, index, shard, mine[(index, shard)]]
+                for index, shard in done
+            ]
+            self._merge_marks({"caught": covered})
+            by_index: dict[str, list] = {}
+            for rec in covered:
+                by_index.setdefault(rec[1], []).append(rec)
+            # best effort: a peer this misses keeps routing around the
+            # copy until its heartbeat reads the record on our /status
+            for n in self._peers(alive_only=False):
+                for index, recs in by_index.items():
+                    try:
+                        self.client._json(
+                            "POST", n.uri, "/internal/shards/announce",
+                            {"index": index, "entries": {}, "caught": recs},
+                            timeout=RELAY_TIMEOUT_S,
+                        )
+                    except PeerError:
+                        break
+            self.last_catch_up = {
+                "shards": len(done),
+                "seconds": round(time.monotonic() - t0, 3),
+            }
+            return done
+
+    def _replace_shard(
+        self, src: Node, index: str, shard: int, inventory: list[dict]
+    ) -> None:
+        """Make every fragment of ``shard`` here equal ``src``'s: each of
+        its fragments fetched whole, and a fragment it lacks emptied."""
+        idx = self.server.holder.index(index)
+        if idx is None:
+            return
+        theirs = {
+            (f["field"], f["view"]) for f in inventory if f["shard"] == shard
+        }
+        mine = {
+            (f_name, v_name)
+            for f_name, f in list(idx.fields.items())
+            for v_name, view in list(f.views.items())
+            if view.fragment(shard) is not None
+        }
+        for field, view in sorted(theirs | mine):
+            f = (
+                idx.existence_field()
+                if field == EXISTENCE_FIELD
+                else idx.field(field)
+            )
+            if f is None:
+                continue  # a field of the source's schema we cannot make
+            frag = f.create_view_if_not_exists(view).create_fragment_if_not_exists(
+                shard
+            )
+            for _ in range(CATCH_UP_ATTEMPTS):
+                # as _handoff_fragment: a write that lands here between
+                # the fetch and the replacement would be lost with the
+                # old copy, so the version is compared under the lock
+                v0 = frag.version
+                if (field, view) in theirs:
+                    with self.movement.transfer(
+                        "pull", index, field, view, shard, peer=src.uri
+                    ) as row:
+                        data = self._retrieve_with_backoff(
+                            src, index, field, view, shard
+                        )
+                        row["bytes"] = len(data)
+                        self.movement.throttle(len(data))
+                        self.movement.account("pull", len(data))
+                else:
+                    data = serialize_empty()
+                with frag._lock:
+                    if frag.version == v0:
+                        frag.replace(data)
+                        break
+            else:
+                raise PeerError(
+                    src.uri,
+                    f"catch-up of {index}/{field}/{view}/{shard}: a write "
+                    f"landed during each of {CATCH_UP_ATTEMPTS} fetches",
+                )
 
     # -------------------------------------------------------------- queries
     def query(self, index: str, pql: str, shards: list[int] | None) -> dict:
@@ -1633,6 +2101,13 @@ class Cluster:
                 if qctx is not None and qctx.allow_partial:
                     qctx.partial_shards.append(s)
                     continue
+                stale = self._stale_uris(index, s)
+                if stale:
+                    raise ShardUnavailableError(
+                        f"no current owner for shard {s}: the copies of "
+                        f"{sorted(stale)} {STALE_COPY} and have not caught "
+                        "up, and no other owner is alive"
+                    )
                 raise ShardUnavailableError(f"no alive owner for shard {s}")
             by_node.setdefault(primary.id, []).append(s)
         if not by_node:
@@ -1742,11 +2217,16 @@ class Cluster:
         node reporting the shard serves exact data through the window
         (reference: ResizeJob serves from the old assignment until the
         job completes). Last resort — nobody reports the shard at all —
-        is the first alive owner, which may still be pulling."""
+        is the first alive owner, which may still be pulling.
+
+        Never a node whose copy of ``s`` is marked stale (missed an
+        acknowledged write; ``_mark_left_out``), this node included: a
+        lookup in memory, like the holdings, so a read adds no RPC."""
+        stale = self._stale_uris(index, s)
         alive_owners = [
             n
             for n in self.shard_nodes(index, s)
-            if self._alive_for_read(n) and n.id not in exclude
+            if self._alive_for_read(n) and n.id not in exclude and n.uri not in stale
         ]
         if not alive_owners:
             return None
@@ -1759,11 +2239,11 @@ class Cluster:
             # linearly with nodes); otherwise pick a holder by a
             # PER-SHARD-stable hash: different shards land on
             # different replicas (aggregate load spreads), while one
-            # shard's reads stay pinned to one replica — alternating
-            # replicas per request would make a replica that missed a
-            # write (owner down at write time, repaired by the next
-            # anti-entropy pass) visible as answers FLAPPING between
-            # values on identical back-to-back queries.
+            # shard's reads stay pinned to one replica, whose stacks
+            # stay warm. A replica that missed a write (it was down
+            # when the write was acknowledged) is not among the
+            # holders: it is marked stale and gets no read of the shard
+            # until it has replaced its copy (_catch_up).
             local = next((n for n in holders if n.id == self.me.id), None)
             return (
                 local
@@ -1773,7 +2253,7 @@ class Cluster:
         read_alive = [
             n
             for n in self.nodes
-            if self._alive_for_read(n) and n.id not in exclude
+            if self._alive_for_read(n) and n.id not in exclude and n.uri not in stale
         ]
         return next(
             (n for n in read_alive if s in holdings[n.id]),
@@ -1913,7 +2393,7 @@ class Cluster:
                     node_shards,
                 )
             except PeerError as e:
-                gated = GATE_PENDING in str(e) or GATE_FAILED in str(e)
+                gated = any(text in str(e) for text in NOT_SERVING)
                 if not e.retryable and not gated:
                     # the peer ANSWERED with a permanent refusal (4xx):
                     # no replica would answer differently — fail loudly,
@@ -1928,8 +2408,12 @@ class Cluster:
                 # holder for the whole probe window, and a failed card
                 # is named in the error below when no replica survives;
                 # still fail THIS query's legs over to a surviving
-                # replica. Any other retryable failure: heartbeat state
-                # was stale — mark dead NOW so concurrent queries reroute.
+                # replica. The same for the peer's other NOT_SERVING
+                # answers: it is up, but its copy missed writes (this
+                # node learns the mark at its next heartbeat), a peer has
+                # not heard it, or it is still joining. Any other
+                # retryable failure: heartbeat state was stale — mark
+                # dead NOW so concurrent queries reroute.
                 if not gated:
                     node.alive = False
                 failed.add(node_id)
@@ -2289,8 +2773,10 @@ class Cluster:
             shard = col_id // SHARD_WIDTH
             result = None
             took_write: list[str] = []
+            left_out: list[Node] = []
             for owner in self.shard_nodes(index, shard):
                 if not self._probe_alive(owner):
+                    left_out.append(owner)
                     continue
                 if owner.id == self.me.id:
                     r = self.server.api.executor.execute(index, [call])[0]
@@ -2309,17 +2795,22 @@ class Cluster:
             if result is None:
                 raise ShardUnavailableError(f"no alive owner for shard {shard}")
             # known/announced only after the write landed, and only
-            # naming owners that actually took it
+            # naming owners that actually took it; the owners it left
+            # out are marked stale before the ack
             with self._shard_cache_lock:
                 self._known_shards[index] = (
                     self._known_shards.get(index, set()) | {shard}
                 )
-            self._tell_peers(index, {shard: took_write})
+            self._tell_peers(index, {shard: took_write}, {shard: left_out})
             return result
-        # broadcast writes
+        # broadcast writes: a node left out misses the write in every
+        # shard it owns
         result: Any = None
+        left_out = {}
         for n in self.nodes:
             if not self._probe_alive(n):
+                for s, nodes in self._owned_shards(index, n).items():
+                    left_out.setdefault(s, []).extend(nodes)
                 continue
             if n.id == self.me.id:
                 r = self.server.api.executor.execute(index, [call])[0]
@@ -2333,6 +2824,7 @@ class Cluster:
                 result = bool(result) | r
             else:
                 result = r if result is None else result
+        self._tell_peers(index, {}, left_out)
         return result
 
     def _route_attr_write(self, index: str, call: Call) -> None:
@@ -2369,13 +2861,19 @@ class Cluster:
             payload = {"index": index, "id": id_}
         payload["attrs"] = dict(call.args)
         payload["ts"] = time.time()
+        left_out: dict[int, list[Node]] = {}
         for n in self.nodes:
             if not self._probe_alive(n):
+                # its shards are marked, so its catch-up merges the attr
+                # stores it missed (_catch_up)
+                for s, nodes in self._owned_shards(index, n).items():
+                    left_out.setdefault(s, []).extend(nodes)
                 continue
             if n.id == self.me.id:
                 self._apply_attr_write(payload)
             else:
                 self.client.set_attrs(n.uri, payload)
+        self._tell_peers(index, {}, left_out)
         return None
 
     def _apply_attr_write(self, payload: dict) -> None:
@@ -2434,6 +2932,7 @@ class Cluster:
         remote: list[tuple[int, Node, dict]] = []
         delivered: dict[int, int] = {}
         took_write: dict[int, list[str]] = {}  # shard → owner URIs that got it
+        left_out: dict[int, list[Node]] = {}  # shard → owners it skipped
         for shard in uniq_shards:
             m = shards == shard
             sub = dict(payload)
@@ -2456,6 +2955,7 @@ class Cluster:
             delivered[sh] = 0
             for owner in self.shard_nodes(index, sh):
                 if not self._probe_alive(owner):
+                    left_out.setdefault(sh, []).append(owner)
                     continue
                 if owner.id == self.me.id:
                     local.append((sh, sub))
@@ -2499,7 +2999,8 @@ class Cluster:
             )
         # synchronous announce BEFORE acking the import: a client may
         # import through this node and immediately read through any other
-        self._tell_peers(index, took_write)
+        # (and must not read a skipped owner's copy without it)
+        self._tell_peers(index, took_write, left_out)
         # the local applies invalidated through api.import_*'s own hook,
         # but a coordinator that owns NONE of the shards never moved its
         # own stamp — and neither did any bystander peer
@@ -2525,11 +3026,11 @@ class Cluster:
             raise ValueError(f"index {index!r} not found")
         sh = int(shard)
         owners = self.shard_nodes(index, sh)
-        remote = [
-            o
-            for o in owners
-            if o.id != self.me.id and self._probe_alive(o)
-        ]
+        remote: list[Node] = []
+        left_out: list[Node] = []
+        for o in owners:
+            if o.id != self.me.id:
+                (remote if self._probe_alive(o) else left_out).append(o)
         local = any(o.id == self.me.id for o in owners)
         futs = []
         if remote:
@@ -2572,7 +3073,7 @@ class Cluster:
             )
         # synchronous announce BEFORE the ack, naming only the owners
         # that actually took the frame (same rule as import_router)
-        self._tell_peers(index, {sh: took_write})
+        self._tell_peers(index, {sh: took_write}, {sh: left_out})
         # same rule as import_router: a non-owner coordinator's stamp
         # (and every bystander's) never moved — invalidate explicitly
         api._invalidate_results(index)
@@ -2972,13 +3473,22 @@ class Cluster:
     def sync_holder(self) -> None:
         """Block-checksum diff + union merge against replica peers
         (reference: holderSyncer.SyncHolder), then tail key translations
-        from the primary."""
+        from the primary. Union is the merge between two CURRENT copies
+        only (C10): a copy here marked stale is first replaced from a
+        current owner (``_catch_up``) and never merged while stale, and
+        no block is pulled from an owner whose copy is marked stale —
+        the reference's pass unions such a copy in, which brings back
+        on every owner the bits an acknowledged Clear removed."""
         holder = self.server.holder
         dropped_indexes: set[str] = set()
+        self._catch_up()
         for idx_name, idx in list(holder.indexes.items()):
             for f_name, f in list(idx.fields.items()):
                 for v_name, view in list(f.views.items()):
                     for shard, frag in list(view.fragments.items()):
+                        stale = self._stale_uris(idx_name, shard)
+                        if self.me.uri in stale:
+                            continue  # no current owner gave a copy yet
                         owners = self.shard_nodes(idx_name, shard)
                         if not any(o.id == self.me.id for o in owners):
                             # resize handoff: a fragment this node no
@@ -2992,7 +3502,11 @@ class Cluster:
                                 dropped_indexes.add(idx_name)
                             continue
                         for owner in owners:
-                            if owner.id == self.me.id or not owner.alive:
+                            if (
+                                owner.id == self.me.id
+                                or not owner.alive
+                                or owner.uri in stale
+                            ):
                                 continue
                             try:
                                 self._sync_fragment(
@@ -3247,11 +3761,17 @@ class Cluster:
             if isinstance(body["query"], str)
             else body["query"]
         )
+        writes = self.server.api.count_query_writes(calls)
+        if not writes:
+            # a write leg still lands on a stale copy (the catch-up
+            # keeps writes that land meanwhile); a read leg does not
+            # read one
+            self._check_leg(body["index"], body.get("shards"))
         with self._hop_query_context(handler):
             results = self.server.api.scheduler.execute(
                 body["index"], calls, shards=body.get("shards")
             )
-        if self.server.api.count_query_writes(calls):
+        if writes:
             # replica-side durability barrier: the RPC ack a write leg
             # rides back on IS the coordinator's acknowledgement — its
             # ops-log appends must be on disk first (docs/durability.md)
@@ -3283,7 +3803,8 @@ class Cluster:
         api = self.server.api
         reqs = []
         wrote_indexes: set[str] = set()
-        for q in entries:
+        refused: dict[int, ShardUnavailableError] = {}  # entry → _check_leg
+        for i, q in enumerate(entries):
             stats.count("queries_served", tags={"path": "remote"})
             q_calls = q["query"]
             if isinstance(q_calls, str):
@@ -3297,6 +3818,12 @@ class Cluster:
                 q_calls
             ):
                 wrote_indexes.add(q["index"])
+            else:
+                try:
+                    self._check_leg(q["index"], q.get("shards"))
+                except ShardUnavailableError as e:
+                    refused[i] = e  # this entry's answer; no execution
+                    continue
             reqs.append(
                 (
                     q["index"],
@@ -3308,7 +3835,15 @@ class Cluster:
         with GLOBAL_TRACER.span("cluster.query_batch", queries=len(entries)):
             with stats.timer("internal_query_batch_seconds"):
                 with self._hop_query_context(handler):
-                    results = self.server.api.scheduler.execute_many(reqs)
+                    ran = iter(
+                        self.server.api.scheduler.execute_many(reqs)
+                        if reqs
+                        else ()
+                    )
+                    results = [
+                        refused[i] if i in refused else next(ran)
+                        for i in range(len(entries))
+                    ]
         if wrote_indexes:
             # the batcher coalesces read fan-out legs, but the RPC shape
             # doesn't FORBID writes — hold them to the same ack-barrier
@@ -3348,7 +3883,13 @@ class Cluster:
         return by_node
 
     def _h_shards_announce(self, handler) -> None:
-        self._apply_shard_entries(handler._json_body())
+        body = handler._json_body()
+        self._apply_shard_entries(body)
+        self._merge_marks(body)
+        if body.get("marks") and not body.get("relayed"):
+            # before the answer: the writer acknowledges only once every
+            # node that may serve has the marks (a failure here is a 503)
+            self._relay_marks(body)
         handler._json({"success": True})
 
     def _h_shards(self, handler) -> None:

@@ -898,24 +898,31 @@ class Handler(BaseHTTPRequestHandler):
         self._json({"success": True})
 
     def h_status(self) -> None:
-        self._json(
-            {
-                "state": self.api.state(),
-                "nodes": self.api.hosts(),
-                "localID": self.server.node_id,
-                "topologyEpoch": self.api.topology_epoch(),
-                # True while this node's translate stores are awaiting a
-                # full reconcile (boot / post-demotion): a fencing
-                # promoter pulls such unverified chains FIRST so verified
-                # peers' entries win any conflict
-                "translatePending": self.api.translate_pending(),
-                # full per-index shard inventory piggybacks on the
-                # heartbeat (reference: availableShards travels in
-                # gossip ClusterStatus) — peers route reads from this
-                # cache instead of polling node_shards per read
-                "shards": self.api.node_inventories(),
-            }
-        )
+        out = {
+            "state": self.api.state(),
+            "nodes": self.api.hosts(),
+            "localID": self.server.node_id,
+            "topologyEpoch": self.api.topology_epoch(),
+            # True while this node's translate stores are awaiting a
+            # full reconcile (boot / post-demotion): a fencing
+            # promoter pulls such unverified chains FIRST so verified
+            # peers' entries win any conflict
+            "translatePending": self.api.translate_pending(),
+            # full per-index shard inventory piggybacks on the
+            # heartbeat (reference: availableShards travels in
+            # gossip ClusterStatus) — peers route reads from this
+            # cache instead of polling node_shards per read
+            "shards": self.api.node_inventories(),
+        }
+        cluster = self.api.cluster
+        if cluster is not None:
+            # the missed-write marks this node knows, so a peer's
+            # heartbeat heals an announce it missed, and how long this
+            # node has not heard each peer, for the peer's self-fence
+            # (parallel/cluster.py: _merge_marks, _unheard_reason)
+            out["replicaMarks"] = cluster.marks_snapshot()
+            out["heardAgoS"] = cluster.heard_ago()
+        self._json(out)
 
     def h_info(self) -> None:
         self._json(self.api.info())
