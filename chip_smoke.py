@@ -3690,6 +3690,7 @@ def multihost_path(torch, device: str, n_shards: int = N_SHARDS) -> tuple:
 CL_NODES = 3
 CL_REPLICAS = 2
 CL_CLIENTS = 8  # concurrent keep-alive clients of one coordinator, 8 Counts each
+CL_MARK_ROUNDS = 5  # turns of writes with the marks file and without it
 
 
 # tries at starting the servers of a phase on fresh ports when a port
@@ -3753,10 +3754,15 @@ def cluster_path(torch, device: str, main: dict) -> tuple:
     numpy with the kernels it must launch (all nodes' counts, zeroed just
     before); a Set, then the Count of its row read from each replica over
     /internal/query. Node 2 closes: every answer again, from the
-    replicas. Then 8 keep-alive clients against node 0, whose remote
-    legs the scheduler coalesces (fewer waves than legs). Prints the HTTP
-    p50s beside the serving phase's, the stacks and bytes each node built,
-    and the first query's time after the failover. → ({}, the path's
+    replicas. A Set and a Clear in node 2's shards through node 0 leave
+    it out (and turns of such writes with the marks file and without
+    it); nodes 0 and 1 restart together and reload the marks from their
+    data dirs (C11); node 2 reopens, catches up, and every answer
+    through nodes 2, 0 and 1 is exact. Then 8 keep-alive clients
+    against node 0, whose remote legs the scheduler coalesces (fewer
+    waves than legs). Prints the HTTP p50s beside the serving phase's,
+    the stacks and bytes each node built, and the first query's time
+    after the failover and after each restart. → ({}, the path's
     launches)."""
     import tempfile
     import threading
@@ -4049,8 +4055,16 @@ def cluster_path(torch, device: str, main: dict) -> tuple:
         free_s = np.flatnonzero(np.unpackbits(sd.exists[g_s][0].view(np.uint8), bitorder="little") == 0)
         both = np.flatnonzero(np.unpackbits((blocks[g_c][1] & blocks[g_c][2]).view(np.uint8), bitorder="little"))
         set_col, clear_col = missed[0] * SHARD_WIDTH + int(free_s[0]), missed[1] * SHARD_WIDTH + int(both[0])
-        served(c0, f"Set({set_col}, f=2)", True, {}, "via node 0, node 2 closed")
-        served(c0, f"Clear({clear_col}, f=1)", True, {}, "via node 0, node 2 closed")
+        files0 = [dict(nodes[i].cluster.marks_file) for i in (0, 1)]
+        acks = {"set": round(served(c0, f"Set({set_col}, f=2)", True, {}, "via node 0, node 2 closed")["ms"], 3),
+                "clear": round(served(c0, f"Clear({clear_col}, f=1)", True, {}, "via node 0, node 2 closed")["ms"], 3)}
+        times["acks_ms (node 2 closed)"] = acks
+        # each write's marks on disk on node 0 before its announce, and on
+        # node 1 before it answered the announce
+        times["marks_file_writes (nodes 0, 1)"] = [
+            {"writes": nodes[i].cluster.marks_file["writes"] - f["writes"],
+             "ms": round((nodes[i].cluster.marks_file["seconds"] - f["seconds"]) * 1e3, 3)}
+            for i, f in zip((0, 1), files0)]
         uri2 = nodes[2].uri
         marked = sorted(nodes[0].cluster._stale_shards("bench", uri2))
         if marked != sorted(missed):
@@ -4061,7 +4075,88 @@ def cluster_path(torch, device: str, main: dict) -> tuple:
                   ("Count(Row(f=1))", n_rows1, {"tree_eval": {"count": 1}})]
         for pql, want, must in rejoin:
             served(c0, pql, want, must, "via node 0, node 2 closed")
+
+        # what the marks file adds to the acknowledgement of a write that
+        # leaves node 2 out: a Set and a Clear of one free bit of a shard
+        # already marked, in turns with the file on nodes 0 and 1 and
+        # without it (as before the file existed); then one write of the
+        # file on the checkout's own disk (the data dirs are in memory)
+        ab_col = missed[0] * SHARD_WIDTH + int(free_s[1])
+        paths = [nodes[i].cluster._marks_path for i in (0, 1)]
+        ab = {"file": [], "no file": []}
+        for r in range(2 * CL_MARK_ROUNDS):
+            on = r % 2 == 0
+            for i in (0, 1):
+                nodes[i].cluster._marks_path = paths[i] if on else None
+            for pql in (f"Set({ab_col}, f=2)", f"Clear({ab_col}, f=2)"):
+                t0 = time.perf_counter()
+                c0.ok("POST", "/index/bench/query", pql.encode())
+                ab["file" if on else "no file"].append((time.perf_counter() - t0) * 1e3)
+        for i in (0, 1):
+            nodes[i].cluster._marks_path = paths[i]
+            nodes[i].cluster._persist_marks()
+        times["ack_ms_p50 (marks file, no file)"] = {k: round(float(np.median(v)), 3) for k, v in ab.items()}
+        from pilosa_tpu_torch.utils import durable
+
+        body = json.dumps(nodes[0].cluster.marks_snapshot())
+        with tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(__file__))) as d:
+            lat = []
+            for _ in range(20):
+                t0 = time.perf_counter()
+                durable.atomic_write_file(os.path.join(d, "replica_marks.json"), body)
+                lat.append((time.perf_counter() - t0) * 1e3)
+        times["marks_write_ms_p50 (the checkout disk)"] = disk_ms = float(np.median(lat))
+        log(f"ok  cluster: writes leaving node 2 out acknowledged in {json.dumps(acks)} ms, marks file writes "
+            f"{json.dumps(times['marks_file_writes (nodes 0, 1)'])}; p50 with the file and without it "
+            f"{json.dumps(times['ack_ms_p50 (marks file, no file)'])} ms ({CL_MARK_ROUNDS} turns of a Set and a "
+            f"Clear each); the file ({len(body)} bytes) written on the checkout's disk in "
+            f"{disk_ms:.3f} ms (p50 of 20)")
+
+        # ------------------------------------------ nodes 0 and 1 restart together (C11)
+        # the marks on node 2's copies are now only in nodes 0 and 1's data
+        # dirs: both close, reopen, and reload them before their joins
         drop_stacks(nodes[2])
+        for i in (0, 1):
+            clients[i].close()
+            nodes[i].close()
+            drop_stacks(nodes[i])
+        t0 = time.perf_counter()
+        for i in (0, 1):
+            nodes[i] = Server(cfgs[i], device=device)
+            nodes[i].open()
+        for i in (0, 1):
+            if not nodes[i].wait_mesh(600) or not nodes[i].device_verdict[0]:
+                raise AssertionError(f"cluster: node {i}'s device probe failed: {nodes[i].device_verdict}")
+        for srv in nodes[:2]:
+            srv.cluster._heartbeat_once()
+        times["nodes01_reopen_s"] = time.perf_counter() - t0
+        times["marks_load_ms"] = [round(nodes[i].cluster.marks_load_s * 1e3, 3) for i in (0, 1)]
+        for i in (0, 1):
+            c = nodes[i].cluster
+            named = sorted(s for u, ix, s, _ in c.marks_snapshot()["marks"] if u == uri2 and ix == "bench")
+            if named != sorted(missed) or sorted(c._stale_shards("bench", uri2)) != sorted(missed):
+                raise AssertionError(f"cluster: node {i} reopened with marks on node 2's copies of {named}, "
+                                     f"stale {sorted(c._stale_shards('bench', uri2))}, not {sorted(missed)}")
+        t0 = time.perf_counter()
+        for i in (0, 1):
+            me = nodes[i].cluster.me.id
+            idx_i = nodes[i].holder.index("bench")
+            fview_i = idx_i.field("f").create_view_if_not_exists("standard")
+            views_i = [(fview_i, blocks), (idx_i.field("v").create_view_if_not_exists(VIEW_BSI), sd.bsi)]
+            for s in shards:
+                if me in owners[s] and s != write_shard and s not in missed:
+                    inject(views_i, fview_i, s)
+        times["nodes01_reinject_s"] = time.perf_counter() - t0
+        log(f"ok  cluster: nodes 0 and 1 reopened together on their data dirs in {times['nodes01_reopen_s']:.1f} s, "
+            f"the marks file loaded in {json.dumps(times['marks_load_ms'])} ms, each naming node 2's copies of "
+            f"{sorted(missed)}; fragments injected again in {times['nodes01_reinject_s']:.1f} s")
+        clients[0], clients[1] = http_node(ports[0]), http_node(ports[1])
+        c0 = clients[0]
+        for i in (0, 1):
+            for pql, want, must in rejoin:
+                ms = served(clients[i], pql, want, must, f"via node {i}, nodes 0 and 1 restarted")["ms"]
+                times.setdefault("first_queries_after_restart_ms", {}).setdefault(f"node{i}", {})[pql[:20]] = round(ms, 3)
+        snap("after nodes 0 and 1 restarted")
         t0 = time.perf_counter()
         nodes[2] = Server(cfgs[2], device=device)
         nodes[2].open()
@@ -4086,7 +4181,7 @@ def cluster_path(torch, device: str, main: dict) -> tuple:
         log(f"ok  cluster: node 2 reopened on its data dir in {times['node2_reopen_s']:.1f} s (its join caught up "
             f"{json.dumps(times['node2_catch_up'])}), fragments injected again in {times['node2_reinject_s']:.1f} s")
         clients[2] = http_node(ports[2])
-        for i in (2, 0):
+        for i in (2, 0, 1):
             for pql, want, must in rejoin:
                 ms = served(clients[i], pql, want, must, f"via node {i}, node 2 reopened")["ms"]
                 times.setdefault("first_queries_after_reopen_ms", {}).setdefault(f"node{i}", {})[pql[:20]] = round(ms, 3)

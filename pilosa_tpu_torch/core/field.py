@@ -19,6 +19,7 @@ import os
 import threading
 from dataclasses import asdict, dataclass
 from datetime import datetime
+from typing import TYPE_CHECKING
 
 import numpy as np
 
@@ -29,6 +30,9 @@ from pilosa_tpu_torch.core.translate import TranslateStore
 from pilosa_tpu_torch.core.view import VIEW_BSI, VIEW_STANDARD, View
 from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
 from pilosa_tpu_torch.utils import durable
+
+if TYPE_CHECKING:
+    from pilosa_tpu_torch.core.fragment import Fragment
 
 
 def _shard_slices(cols: np.ndarray):
@@ -263,6 +267,7 @@ class Field:
         for view_name in self._writable_views(timestamp):
             frag = self.create_view_if_not_exists(view_name).create_fragment_if_not_exists(shard)
             if self.options.field_type in (FIELD_MUTEX, FIELD_BOOL) and view_name == VIEW_STANDARD:
+                frag.capture_column_reset([col])
                 for other in frag.rows_containing(col):
                     if other != row:
                         frag.clear_bit(other, col)
@@ -283,6 +288,13 @@ class Field:
         if needed > self._bit_depth:
             self._bit_depth = needed
             self.save_meta()
+
+    def fit_depth(self, frag: Fragment) -> None:
+        """Widen the BSI depth to every magnitude plane of ``frag`` (a
+        replica's catch-up installs a copy whose values may be wider
+        than any this node wrote)."""
+        if frag.bitmap.count():
+            self._grow_depth(int(frag.bitmap.max()) // SHARD_WIDTH + 1 - BSI_OFFSET)
 
     def _check_range(self, lo: int, hi: int) -> None:
         """Reject values outside the declared [min, max] (reference:
@@ -309,6 +321,7 @@ class Field:
         self._grow_depth(abs(value).bit_length())
         shard = col // SHARD_WIDTH
         frag = self.create_view_if_not_exists(VIEW_BSI).create_fragment_if_not_exists(shard)
+        frag.capture_column_reset([col])
         changed = frag.set_bit(BSI_EXISTS, col)
         if value < 0:
             changed |= frag.set_bit(BSI_SIGN, col)
@@ -341,6 +354,7 @@ class Field:
         frag = view.fragment(col // SHARD_WIDTH) if view else None
         if frag is None:
             return False
+        frag.capture_column_reset([col])
         changed = frag.clear_bit(BSI_EXISTS, col)
         frag.clear_bit(BSI_SIGN, col)
         for k in range(self._bit_depth):
@@ -366,6 +380,7 @@ class Field:
             if frag is None:
                 continue
             c = cols[shards == shard]
+            frag.capture_column_reset(c)
             for row in all_rows:
                 frag.bulk_import(
                     np.full(c.size, row, dtype=np.uint64), c, clear=True
@@ -441,6 +456,7 @@ class Field:
             m = shards == shard
             c, v = cols[m], values[m]
             frag = self.create_view_if_not_exists(VIEW_BSI).create_fragment_if_not_exists(int(shard))
+            frag.capture_column_reset(c)
             zeros = np.zeros(c.size, dtype=np.uint64)
             frag.bulk_import(zeros + BSI_EXISTS, c)
             neg = v < 0

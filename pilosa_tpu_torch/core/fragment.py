@@ -57,6 +57,62 @@ ROWS_PER_BLOCK = 100  # anti-entropy block granularity (reference: HashBlockSize
 MIN_PADDED_ROWS = 8  # sublane tile for int32
 
 
+def _candidate_rows_of(bitmap: "roaring.Bitmap") -> list[int]:
+    """Sorted row IDs that MAY hold bits in ``bitmap``, derived from its
+    container keys (each key covers 2^16 positions; a key's span may
+    overlap several rows when SHARD_WIDTH < 2^16) — no full scan."""
+    candidates: set[int] = set()
+    for key in bitmap._containers.keys():
+        first = (key << 16) // SHARD_WIDTH
+        last = ((key + 1) << 16) - 1
+        candidates.update(range(first, last // SHARD_WIDTH + 1))
+    return sorted(candidates)
+
+
+def _column_positions(bitmap: "roaring.Bitmap", cols: np.ndarray) -> np.ndarray:
+    """The positions ``bitmap`` holds in the in-shard columns ``cols``,
+    in any row (a scan of its values, or of the candidate rows × cols
+    grid, whichever is smaller)."""
+    rows = np.asarray(_candidate_rows_of(bitmap), dtype=np.uint64)
+    if bitmap.count() <= rows.size * cols.size:
+        vals = bitmap.values()
+        return vals[np.isin(vals % np.uint64(SHARD_WIDTH), cols)]
+    grid = (rows[:, None] * np.uint64(SHARD_WIDTH) + cols[None, :]).ravel()
+    return grid[bitmap.contains_many(grid)]
+
+
+def _replay_captured(
+    bitmap: "roaring.Bitmap", captured: list, own: "roaring.Bitmap"
+) -> None:
+    """Apply a catch-up's captured writes (``Fragment.capture_ops``) to
+    the fetched copy ``bitmap``: the framed ops in the order this copy
+    applied them, then the regions that a captured write gave its whole
+    content take this copy's own content (``own``) there. Such a write
+    was worked out against this copy's old content (a mutex Set clears
+    the rows this copy held for the column), so its ops alone would
+    leave on the fetched copy what this copy lacked; this copy's own
+    content of the region is that write's and every later one's, which
+    is what the region must hold. A ``("range", (start, stop))`` is a
+    row range (ClearRow, Store, an anti-entropy block), a ``("columns",
+    cols)`` in-shard columns in every row (a mutex or bool Set, an int
+    value or its clear)."""
+    ranges, cols = [], []
+    for entry in captured:
+        if isinstance(entry, bytes):
+            roaring.replay_ops(bitmap, entry)
+        elif entry[0] == "range":
+            ranges.append(entry[1])
+        else:
+            cols.append(entry[1])
+    for start, stop in ranges:
+        bitmap.remove_many(bitmap.range_values(start, stop))
+        bitmap.add_many(own.range_values(start, stop))
+    if cols:
+        c = np.unique(np.concatenate(cols))
+        bitmap.remove_many(_column_positions(bitmap, c))
+        bitmap.add_many(_column_positions(own, c))
+
+
 def _pad_rows(n: int) -> int:
     p = MIN_PADDED_ROWS
     while p < n:
@@ -149,6 +205,10 @@ class Fragment:
         # raise it incrementally, removes leave it stale-high (harmless —
         # overestimates only pad), bulk rewrites reset it
         self._approx_max_pos = -1
+        # a replica's catch-up (``capture_ops``/``replace``): the framed
+        # ops this fragment applied since the capture was armed, and the
+        # regions of _replay_captured, or None
+        self._capture: list | None = None
 
     # ----------------------------------------------------------- lifecycle
     def open(self) -> None:
@@ -250,9 +310,14 @@ class Fragment:
         the inline snapshot (which pays serialize+fsync+rename inside
         the fragment lock, stalling the write path) remains only for
         standalone fragments."""
-        if self.path is None or not self._opened or self._dropped:
+        logged = self.path is not None and self._opened and not self._dropped
+        if not logged and self._capture is None:
             return
         framed = roaring.append_op(opcode, values)
+        if self._capture is not None:
+            self._capture.append(framed)
+        if not logged:
+            return
         durable.append_wal(self.path, framed)
         self.op_n += 1
         self.ops_bytes += len(framed)
@@ -266,9 +331,14 @@ class Fragment:
         append (group-fsynced at the ack barrier) instead of the full
         snapshot rewrite it used to pay, and the background Compactor
         folds the accumulated frames off the write path."""
-        if self.path is None or not self._opened or self._dropped:
+        logged = self.path is not None and self._opened and not self._dropped
+        if not logged and self._capture is None:
             return
         framed = roaring.append_union_op(frame)
+        if self._capture is not None:
+            self._capture.append(framed)
+        if not logged:
+            return
         durable.append_wal(self.path, framed)
         self.op_n += 1
         self.ops_bytes += len(framed)
@@ -421,12 +491,7 @@ class Fragment:
         """Sorted row IDs that MAY hold bits, derived from container keys
         (each key covers 2^16 positions; a key's span may overlap several
         rows when SHARD_WIDTH < 2^16) — no full scan."""
-        candidates: set[int] = set()
-        for key in self.bitmap._containers.keys():
-            first = (key << 16) // SHARD_WIDTH
-            last = ((key + 1) << 16) - 1
-            candidates.update(range(first, last // SHARD_WIDTH + 1))
-        return sorted(candidates)
+        return _candidate_rows_of(self.bitmap)
 
     def row_ids(self) -> list[int]:
         """Row IDs with ≥1 bit set (reference: fragment.rows). Memoized
@@ -488,6 +553,8 @@ class Fragment:
         """Remove every bit in a row (PQL ClearRow)."""
         with self._lock:
             start = row * SHARD_WIDTH
+            if self._capture is not None:
+                self._capture.append(("range", (start, start + SHARD_WIDTH)))
             positions = self.bitmap.range_values(start, start + SHARD_WIDTH)
             if positions.size == 0:
                 return False
@@ -560,6 +627,8 @@ class Fragment:
             if rows.size == 0:
                 return
             rel = np.asarray(cols, dtype=np.uint64) % np.uint64(SHARD_WIDTH)
+            if self._capture is not None:
+                self._capture.append(("columns", rel))
             # conflict scan, cost-adaptive: a big batch scans the whole
             # value set once (O(total bits)); a small batch against a big
             # fragment probes only the candidate (existing row × imported
@@ -632,14 +701,49 @@ class Fragment:
             self._mark_all_dirty()
             return incoming
 
+    def capture_ops(self) -> None:
+        """Arm the capture that ``replace`` replays: from here on every
+        op this fragment applies is also kept in memory (a replica's
+        catch-up arms it before it fetches the current owner's copy)."""
+        with self._lock:
+            if self._capture is None:
+                self._capture = []
+
+    def capture_column_reset(self, cols) -> None:
+        """Tell an armed capture that the write that follows gives the
+        columns ``cols`` their whole value (a mutex or bool Set, an int
+        value or its clear). That write's ops clear only the rows this
+        copy holds for them, and a catch-up is replacing this copy, so
+        ``replace`` gives those columns of the fetched copy this copy's
+        own content (a no-op while nothing is armed)."""
+        with self._lock:
+            if self._capture is not None:
+                self._capture.append(
+                    ("columns", np.asarray(cols, dtype=np.uint64) % np.uint64(SHARD_WIDTH))
+                )
+
+    def end_capture(self) -> None:
+        """Disarm the capture without replacing (a catch-up that failed)."""
+        with self._lock:
+            self._capture = None
+
     def replace(self, data: bytes) -> None:
         """Make the fragment's content exactly the serialized bitmap
         ``data`` (a replica's catch-up from a current owner: a union
-        would keep the bits a missed Clear removed), durably: a full
-        snapshot, the ops log truncated."""
+        would keep the bits a missed Clear removed), then replay on it
+        the ops captured since ``capture_ops`` and disarm the capture,
+        durably: a full snapshot, the ops log truncated. A write this
+        copy took while the owner's copy was being fetched is kept
+        whether or not the owner had it at the fetch: every captured op
+        is idempotent (a Set, a Clear, an import's union), and a write
+        whose ops depend on this copy's old content gives its region
+        this copy's own content (``_replay_captured``)."""
         with self._lock:
             incoming, consumed = roaring.deserialize(data)
             roaring.replay_ops(incoming, data[consumed:])
+            if self._capture:
+                _replay_captured(incoming, self._capture, self.bitmap)
+            self._capture = None
             self.bitmap = incoming
             self.snapshot()
             self._mark_all_dirty()
@@ -786,5 +890,9 @@ class Fragment:
             )
             self.bitmap.remove_many(existing)
             self.bitmap.add_many(incoming)
+            if self._capture is not None:
+                # logged by its snapshot, not by _append_op
+                self._capture.append(("range", (start, stop)))
+                self._capture.append(roaring.append_op(roaring.OP_ADD, incoming))
             self.snapshot()
             self._mark_all_dirty()

@@ -53,9 +53,13 @@ from pilosa_tpu_torch.utils import tracing
 from pilosa_tpu_torch.utils.tracing import GLOBAL_TRACER
 
 
-def apply_options(idx: "Index", call: "Call", res: Any) -> Any:
+def apply_options(
+    idx: "Index", call: "Call", res: Any, column_attrs: dict | None = None
+) -> Any:
     """Apply an Options() wrapper's result-shaping args (reference:
-    QueryRequest ColumnAttrs/ExcludeColumns/ExcludeRowAttrs)."""
+    QueryRequest ColumnAttrs/ExcludeColumns/ExcludeRowAttrs); the column
+    attributes come from ``column_attrs`` ({column: attrs}) when given,
+    else from the index's store."""
     if isinstance(res, RowResult):
         if call.arg("excludeColumns"):
             res.exclude_columns = True
@@ -63,8 +67,11 @@ def apply_options(idx: "Index", call: "Call", res: Any) -> Any:
             res.exclude_row_attrs = True
         if call.arg("columnAttrs"):
             sets = []
+            attrs_of = (
+                idx.column_attrs.attrs if column_attrs is None else column_attrs.get
+            )
             for col in res.columns().tolist():
-                attrs = idx.column_attrs.attrs(int(col))
+                attrs = attrs_of(int(col))
                 if attrs:
                     entry: dict = {"id": int(col), "attrs": attrs}
                     if idx.options.keys:
@@ -737,25 +744,33 @@ class Executor:
     def _attach_row_attrs(self, idx: Index, call: Call, res: RowResult) -> None:
         """Direct Row(field=row) results carry the row's attributes
         (reference: QueryResult Row.Attrs)."""
+        row = self._attr_row(idx, call)
+        if row is not None:
+            res.attrs = idx.field(row[0]).row_attrs.attrs(row[1])
+
+    def _attr_row(self, idx: Index, call: Call) -> tuple[str, int] | None:
+        """(field, row id) whose attributes a direct Row(field=row)
+        result carries, or None."""
         if call.name != "Row" or call.condition() is not None:
-            return
+            return None
         fa = call.field_arg()
         if fa is None:
-            return
+            return None
         field = idx.field(fa[0])
         if field is None:
-            return
+            return None
         row_id = fa[1]
         if isinstance(row_id, str):
             if not field.options.keys:
-                return
+                return None
             row_id = field.row_keys.translate_key(row_id, create=False)
             if row_id is None:
-                return
+                return None
         if isinstance(row_id, bool):
             row_id = int(row_id)
         if isinstance(row_id, int):
-            res.attrs = field.row_attrs.attrs(row_id)
+            return field.name, row_id
+        return None
 
     def _attach_keys(self, idx: Index, res: RowResult) -> None:
         if idx.options.keys:

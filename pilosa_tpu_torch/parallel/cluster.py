@@ -23,9 +23,11 @@ concatenate — shards are disjoint column ranges; TopN/GroupBy merge by key).
 
 from __future__ import annotations
 
+import json
 import os
 import threading
 import time
+import traceback
 from collections import deque
 from typing import Any
 
@@ -55,6 +57,7 @@ from pilosa_tpu_torch.parallel.topology import (
     Topology,
 )
 from pilosa_tpu_torch.core import EXISTENCE_FIELD
+from pilosa_tpu_torch.core.view import VIEW_BSI
 from pilosa_tpu_torch.encoding import frame
 from pilosa_tpu_torch.pql import Call, parse
 from pilosa_tpu_torch.roaring import serialize
@@ -90,10 +93,12 @@ LEASE_S = 15.0
 # long for an answer: well under the writer's own RPC timeout, so the
 # writer hears the relay's failure rather than timing out on the relay
 RELAY_TIMEOUT_S = 5.0
-# a catch-up fetches a fragment again when a write lands on it between
-# the fetch and the replacement; this many times, then the shard stays
-# stale for the next pass
-CATCH_UP_ATTEMPTS = 4
+# the shard number of a mark on a node's attribute stores of an index:
+# an attribute write that leaves a node out marks them as well as its
+# copy of each shard (a node may own no shard yet, C13)
+ATTRS_SHARD = -1
+# where a node keeps its missed-write marks, under its data dir (C11)
+MARKS_FILE = os.path.join(".cluster", "replica_marks.json")
 
 
 def _refused(err: PeerError) -> bool:
@@ -394,6 +399,21 @@ class Cluster:
         # _marks_lock, read lock-free on the read path like _peer_shards
         self._stale_view: dict[str, dict[int, frozenset[str]]] = {}
         self._marks_lock = sanitize.make_lock("Cluster._marks_lock")
+        # the two tables live in <data dir>/MARKS_FILE as well (C11): a
+        # change is on disk before the merge that made it returns, so
+        # before any answer or acknowledgement that rests on it, and a
+        # node reloads them before its join's first heartbeat. Writers
+        # of one generation share one file write (_persist_marks)
+        data_dir = server.holder.path
+        self._marks_path = (
+            os.path.join(data_dir, MARKS_FILE) if data_dir else None
+        )
+        self._marks_gen = 0  # bumped under _marks_lock by every change
+        self._marks_saved = 0  # the generation on disk
+        self._marks_file_lock = sanitize.make_lock("Cluster._marks_file_lock")
+        # the file writes made and their seconds; the last load's seconds
+        self.marks_file = {"writes": 0, "seconds": 0.0}
+        self.marks_load_s: float | None = None
         self._boot = os.urandom(8).hex()
         self._mark_seq = 0
         self._catch_up_lock = sanitize.make_lock("Cluster._catch_up_lock")
@@ -510,6 +530,7 @@ class Cluster:
         # Every subsequent allocation on the store re-pushes these first.
         self._unpushed_translate: dict[tuple[str, str | None], dict[str, int]] = {}
         self._unpushed_lock = sanitize.make_lock("Cluster._unpushed_lock")
+        self._load_marks()
 
     # ------------------------------------------------------------ membership
     @property
@@ -758,6 +779,12 @@ class Cluster:
         if reason is not None:
             raise ShardUnavailableError(reason)
         mine = self._stale_shards(index, self.me.uri)
+        if ATTRS_SHARD in mine:
+            # a leg may filter by attributes (TopN attrName=)
+            raise ShardUnavailableError(
+                f"this node's attributes of {index!r} {STALE_COPY} (marked "
+                "stale by the writer); it answers once it has caught up"
+            )
         if mine:
             hit = sorted(mine if shards is None else mine.intersection(shards))
             if hit:
@@ -1074,6 +1101,10 @@ class Cluster:
             n.uri: round(now - self._heard_at(n), 3)
             for n in self._peers(alive_only=False)
         }
+
+    def _heard_within_lease(self, node: Node) -> bool:
+        # a node never heard is not
+        return time.monotonic() - self._heard.get(node.id, -1e18) <= self.lease_s
 
     def _heard_at(self, node: Node) -> float:
         # a node not probed yet counts as heard when first asked about
@@ -1687,10 +1718,12 @@ class Cluster:
         self._merge_marks({"marks": marks})
         return marks
 
-    def _merge_marks(self, body: dict | None) -> bool:
+    def _merge_marks(self, body: dict | None, persist: bool = True) -> bool:
         """Merge marks and catch-up records (``replicaMarks`` of /status,
-        an announce): per writer boot the larger write number wins, in
-        both tables. → whether anything was new."""
+        an announce, the marks file): per writer boot the larger write
+        number wins, in both tables; the tables, these marks included,
+        are on disk when this returns (unless ``persist`` is off). →
+        whether anything was new."""
         if not body:
             return False
         changed = False
@@ -1706,7 +1739,59 @@ class Cluster:
                             cur[boot] = int(seq)
                             changed = True
             if changed:
+                self._marks_gen += 1
                 self._rebuild_stale_view()
+        if persist:
+            # also when nothing was new: a concurrent merge of the same
+            # marks may not have written them yet
+            self._persist_marks()
+        return changed
+
+    def _persist_marks(self) -> None:
+        """Write both tables to the marks file, atomically and durably,
+        once every change merged before this call is in what it writes
+        (a caller whose change a concurrent write already covered
+        returns without writing)."""
+        if self._marks_path is None:
+            return
+        with self._marks_lock:
+            want = self._marks_gen
+        with self._marks_file_lock:
+            if self._marks_saved >= want:
+                return
+            t0 = time.perf_counter()
+            with self._marks_lock:
+                gen = self._marks_gen
+                body = self._marks_tables()
+            os.makedirs(os.path.dirname(self._marks_path), exist_ok=True)
+            durable.atomic_write_file(
+                self._marks_path, json.dumps(body), op="marks-write"
+            )
+            self._marks_saved = gen
+            self.marks_file["writes"] += 1
+            self.marks_file["seconds"] += time.perf_counter() - t0
+
+    def _load_marks(self) -> bool:
+        """Merge the marks file into the tables (a missing file holds no
+        marks; the write is atomic, so a file is never torn). Keys
+        already covered start their forgetting horizon again
+        (``_rebuild_stale_view``). → whether anything was new."""
+        if self._marks_path is None:
+            return False
+        t0 = time.perf_counter()
+        try:
+            with open(self._marks_path) as f:
+                body = json.load(f)
+        except FileNotFoundError:
+            body = None
+        changed = self._merge_marks(body, persist=False)
+        if changed:
+            # what the file holds needs no write back
+            with self._marks_lock:
+                gen = self._marks_gen
+            with self._marks_file_lock:
+                self._marks_saved = max(self._marks_saved, gen)
+        self.marks_load_s = time.perf_counter() - t0
         return changed
 
     def _is_stale(self, key: tuple[str, str, int]) -> bool:
@@ -1744,6 +1829,10 @@ class Cluster:
                 self._marks.pop(key, None)
                 self._caught.pop(key, None)
                 self._covered_at.pop(key, None)
+            if old:
+                self._marks_gen += 1
+        if old:
+            self._persist_marks()
 
     def marks_snapshot(self) -> dict:
         """The marks and catch-up records this node knows (``replicaMarks``
@@ -1751,10 +1840,14 @@ class Cluster:
         number}]`` each; a copy is stale while a mark's number passes the
         record's."""
         with self._marks_lock:
-            return {
-                name: [[u, i, s, dict(st)] for (u, i, s), st in table.items()]
-                for name, table in (("marks", self._marks), ("caught", self._caught))
-            }
+            return self._marks_tables()
+
+    def _marks_tables(self) -> dict:
+        # under _marks_lock
+        return {
+            name: [[u, i, s, dict(st)] for (u, i, s), st in table.items()]
+            for name, table in (("marks", self._marks), ("caught", self._caught))
+        }
 
     def _stale_uris(self, index: str, shard: int) -> frozenset[str]:
         by_shard = self._stale_view.get(index)
@@ -1774,6 +1867,28 @@ class Cluster:
                 for key, stamps in self._marks.items()
                 if key[0] == self.me.uri and self._is_stale(key)
             }
+
+    def _write_waves(
+        self, index: str, shard: int | None, nodes: list[Node]
+    ) -> tuple[list[Node], list[Node]]:
+        """``nodes`` in the two waves a write reaches them in: those
+        whose copy of ``shard`` (of any shard of the index, for None) is
+        current, then those whose copy is marked stale. A stale owner
+        that takes a write then took it after every current owner did,
+        so a catch-up that has not armed its capture yet fetches a copy
+        that holds it (C12). Two writes from different coordinators to
+        one bit keep no cluster-wide order, as in the reference."""
+        by_shard = self._stale_view.get(index)
+        if not by_shard:
+            return list(nodes), []
+        if shard is None:
+            stale = {u for uris in by_shard.values() for u in uris}
+        else:
+            stale = by_shard.get(shard, frozenset())
+        return (
+            [n for n in nodes if n.uri not in stale],
+            [n for n in nodes if n.uri in stale],
+        )
 
     def _owned_shards(self, index: str, node: Node) -> dict[int, list[Node]]:
         """Every known shard of ``index`` that ``node`` owns, for the
@@ -1828,25 +1943,32 @@ class Cluster:
         """Replace every copy of this node's that is marked stale with a
         current owner's (one that is not marked stale for the shard and
         was heard within lease_s), every field and view of the
-        shard, and merge the index's attr stores; then record the marks
-        read before the copy as covered and tell every peer, which stop
-        routing around the copy. A union would keep the bits a missed
-        Clear removed. A shard no current owner could give stays stale.
+        shard, and merge the index's attr stores (a mark on the attr
+        stores alone, ``ATTRS_SHARD``, merges them from any current
+        node); then record the marks read before the copy as covered and
+        tell every peer, which stop routing around the copy. A union
+        would keep the bits a missed Clear removed. A shard that no
+        current owner gave, whatever the failure, stays stale.
         → the (index, shard) pairs caught up."""
         with self._catch_up_lock:
             mine = self._stale_keys_of_mine()
             if not mine:
                 return []
-            t0 = now = time.monotonic()
+            t0 = time.monotonic()
             inventories: dict[tuple[str, str], list[dict]] = {}
             schema_from: set[str] = set()
             done: list[tuple[str, int]] = []
             for index, shard in sorted(mine):
-                for src in self.shard_nodes(index, shard):
+                sources = (
+                    self._peers(alive_only=False)
+                    if shard == ATTRS_SHARD
+                    else self.shard_nodes(index, shard)
+                )
+                for src in sources:
                     if (
                         src.id == self.me.id
                         or src.uri in self._stale_uris(index, shard)
-                        or now - self._heard.get(src.id, -1e18) > self.lease_s
+                        or not self._heard_within_lease(src)
                     ):
                         continue
                     try:
@@ -1856,16 +1978,23 @@ class Cluster:
                                 validate=False,
                             )
                             schema_from.add(src.uri)
-                        if (src.uri, index) not in inventories:
-                            inventories[(src.uri, index)] = (
-                                self.client.fragment_inventory(src.uri, index)
+                        if shard == ATTRS_SHARD:
+                            idx = self.server.holder.index(index)
+                            if idx is not None:
+                                self._merge_attr_stores(src, index, idx)
+                        else:
+                            if (src.uri, index) not in inventories:
+                                inventories[(src.uri, index)] = (
+                                    self.client.fragment_inventory(src.uri, index)
+                                )
+                            self._replace_shard(
+                                src, index, shard, inventories[(src.uri, index)]
                             )
-                        self._replace_shard(
-                            src, index, shard, inventories[(src.uri, index)]
-                        )
-                    except PeerError as e:
+                    except Exception as e:  # noqa: BLE001 — the shard stays stale
                         self.server.logger.log(
-                            f"catch-up of {index}/{shard} from {src.id}: {e}"
+                            f"catch-up of {index}/{shard} from {src.id}: "
+                            + (str(e) if isinstance(e, PeerError)
+                               else traceback.format_exc())
                         )
                         continue
                     done.append((index, shard))
@@ -1906,8 +2035,16 @@ class Cluster:
     def _replace_shard(
         self, src: Node, index: str, shard: int, inventory: list[dict]
     ) -> None:
-        """Make every fragment of ``shard`` here equal ``src``'s: each of
-        its fragments fetched whole, and a fragment it lacks emptied."""
+        """Make every fragment of ``shard`` here equal ``src``'s, plus
+        the writes this node applies meanwhile (C12): each fragment's
+        capture is armed before the first fetch, so a write that lands
+        here while ``src``'s copies are fetched is replayed on them by
+        ``Fragment.replace``, whether or not ``src`` had it when it
+        answered. A write this node took before the capture was armed
+        is in ``src``'s copy already: a coordinator writes a stale owner
+        only after every current owner took the write
+        (``_write_waves``). Every fragment either side holds
+        is fetched (one ``src`` lacks comes back empty)."""
         idx = self.server.holder.index(index)
         if idx is None:
             return
@@ -1920,44 +2057,37 @@ class Cluster:
             for v_name, view in list(f.views.items())
             if view.fragment(shard) is not None
         }
-        for field, view in sorted(theirs | mine):
-            f = (
-                idx.existence_field()
-                if field == EXISTENCE_FIELD
-                else idx.field(field)
-            )
-            if f is None:
-                continue  # a field of the source's schema we cannot make
-            frag = f.create_view_if_not_exists(view).create_fragment_if_not_exists(
-                shard
-            )
-            for _ in range(CATCH_UP_ATTEMPTS):
-                # as _handoff_fragment: a write that lands here between
-                # the fetch and the replacement would be lost with the
-                # old copy, so the version is compared under the lock
-                v0 = frag.version
-                if (field, view) in theirs:
-                    with self.movement.transfer(
-                        "pull", index, field, view, shard, peer=src.uri
-                    ) as row:
-                        data = self._retrieve_with_backoff(
-                            src, index, field, view, shard
-                        )
-                        row["bytes"] = len(data)
-                        self.movement.throttle(len(data))
-                        self.movement.account("pull", len(data))
-                else:
-                    data = serialize_empty()
-                with frag._lock:
-                    if frag.version == v0:
-                        frag.replace(data)
-                        break
-            else:
-                raise PeerError(
-                    src.uri,
-                    f"catch-up of {index}/{field}/{view}/{shard}: a write "
-                    f"landed during each of {CATCH_UP_ATTEMPTS} fetches",
+        frags = []
+        try:
+            for field, view in sorted(theirs | mine):
+                f = (
+                    idx.existence_field()
+                    if field == EXISTENCE_FIELD
+                    else idx.field(field)
                 )
+                if f is None:
+                    continue  # a field of the source's schema we cannot make
+                frag = f.create_view_if_not_exists(
+                    view
+                ).create_fragment_if_not_exists(shard)
+                frag.capture_ops()
+                frags.append((f, field, view, frag))
+            for f, field, view, frag in frags:
+                with self.movement.transfer(
+                    "pull", index, field, view, shard, peer=src.uri
+                ) as row:
+                    data = self._retrieve_with_backoff(
+                        src, index, field, view, shard
+                    )
+                    row["bytes"] = len(data)
+                    self.movement.throttle(len(data))
+                    self.movement.account("pull", len(data))
+                frag.replace(data)
+                if view == VIEW_BSI:
+                    f.fit_depth(frag)
+        finally:
+            for *_, frag in frags:
+                frag.end_capture()  # a no-op once replaced
 
     # -------------------------------------------------------------- queries
     def query(self, index: str, pql: str, shards: list[int] | None) -> dict:
@@ -2178,11 +2308,66 @@ class Cluster:
             # stores replicate cluster-wide, so re-derive at the
             # coordinator (reference: executor reduce attaches attrs)
             idx = self.server.holder.index(index)
-            if idx is not None:
+            if idx is not None and self.me.uri in self._stale_uris(index, ATTRS_SHARD):
+                self._attach_current_attrs(index, idx, call, wrapper, result)
+            elif idx is not None:
                 self.server.api.executor._attach_row_attrs(idx, call, result)
                 if wrapper is not None:
                     apply_options(idx, wrapper, result)
         return result
+
+    def _attach_current_attrs(
+        self, index: str, idx, call: Call, wrapper: Call | None, result: RowResult
+    ) -> None:
+        """A coordinator whose attr stores of the index are marked stale
+        missed an attribute write (C13): a read's row attributes and,
+        under ``columnAttrs``, its column attributes come from a current
+        node instead of its own stores (no RPC when the read wants
+        neither)."""
+        row = self.server.api.executor._attr_row(idx, call)
+        cols = (
+            result.columns()
+            if wrapper is not None and wrapper.arg("columnAttrs")
+            else None
+        )
+        col_attrs = None
+        if row is not None or cols is not None:
+            row_attrs, col_attrs = self._current_attrs(index, row, cols)
+            if row is not None:
+                result.attrs = row_attrs
+        if wrapper is not None:
+            apply_options(idx, wrapper, result, column_attrs=col_attrs)
+
+    def _current_attrs(
+        self, index: str, row: tuple[str, int] | None, cols
+    ) -> tuple[dict, dict[int, dict]]:
+        """The attributes of ``row`` (field, id) and of the columns
+        ``cols`` from a peer whose attr stores are not marked stale and
+        that this node heard within lease_s; → (row attrs, {column:
+        attrs}). None answers: a 503 naming STALE_COPY."""
+        body = {
+            "index": index,
+            "field": row[0] if row else None,
+            "row": row[1] if row else None,
+            "columns": [] if cols is None else [int(c) for c in cols],
+        }
+        stale = self._stale_uris(index, ATTRS_SHARD)
+        errors = []
+        for n in self._peers(alive_only=False):
+            if n.uri in stale or not self._heard_within_lease(n):
+                continue
+            try:
+                got = self.client._json("POST", n.uri, "/internal/attrs/get", body)
+            except PeerError as e:
+                errors.append(f"{n.id}: {e}")
+                continue
+            return got.get("rowAttrs") or {}, {
+                int(c): a for c, a in (got.get("columnAttrs") or {}).items()
+            }
+        raise ShardUnavailableError(
+            f"this node's copies of {index!r} {STALE_COPY}, and no current "
+            f"node it heard gave the read's attributes: {errors or 'none heard'}"
+        )
 
     def _read_holdings(self, index: str) -> dict[str, Any]:
         """Per-node shard holdings resolved ONCE per read (the local
@@ -2774,7 +2959,10 @@ class Cluster:
             result = None
             took_write: list[str] = []
             left_out: list[Node] = []
-            for owner in self.shard_nodes(index, shard):
+            current, stale = self._write_waves(
+                index, shard, self.shard_nodes(index, shard)
+            )
+            for owner in current + stale:
                 if not self._probe_alive(owner):
                     left_out.append(owner)
                     continue
@@ -2807,7 +2995,8 @@ class Cluster:
         # shard it owns
         result: Any = None
         left_out = {}
-        for n in self.nodes:
+        current, stale = self._write_waves(index, None, self.nodes)
+        for n in current + stale:
             if not self._probe_alive(n):
                 for s, nodes in self._owned_shards(index, n).items():
                     left_out.setdefault(s, []).extend(nodes)
@@ -2864,8 +3053,11 @@ class Cluster:
         left_out: dict[int, list[Node]] = {}
         for n in self.nodes:
             if not self._probe_alive(n):
-                # its shards are marked, so its catch-up merges the attr
-                # stores it missed (_catch_up)
+                # its attr stores and its shards are marked: it reads
+                # attributes from a current node (_current_attrs) and
+                # serves no leg of the index until its catch-up merged
+                # the stores it missed (_catch_up)
+                left_out.setdefault(ATTRS_SHARD, []).append(n)
                 for s, nodes in self._owned_shards(index, n).items():
                     left_out.setdefault(s, []).extend(nodes)
                 continue
@@ -2928,8 +3120,10 @@ class Cluster:
         cols = np.asarray(payload.get("columnIDs", []), dtype=np.uint64)
         shards = cols // np.uint64(SHARD_WIDTH)
         uniq_shards = [int(s) for s in np.unique(shards).tolist()]
-        local: list[tuple[int, dict]] = []
-        remote: list[tuple[int, Node, dict]] = []
+        # two waves (_write_waves), each (local slices, remote slices):
+        # the owners whose copy is marked stale take their slices after
+        # every current owner took its own (C12)
+        waves: list[tuple[list, list]] = [([], []), ([], [])]
         delivered: dict[int, int] = {}
         took_write: dict[int, list[str]] = {}  # shard → owner URIs that got it
         left_out: dict[int, list[Node]] = {}  # shard → owners it skipped
@@ -2953,41 +3147,44 @@ class Cluster:
                     sub["timestamps"] = [ts[i] for i in np.flatnonzero(m).tolist()]
             sh = int(shard)
             delivered[sh] = 0
-            for owner in self.shard_nodes(index, sh):
-                if not self._probe_alive(owner):
-                    left_out.setdefault(sh, []).append(owner)
-                    continue
-                if owner.id == self.me.id:
-                    local.append((sh, sub))
+            groups = self._write_waves(index, sh, self.shard_nodes(index, sh))
+            for (local, remote), group in zip(waves, groups):
+                for owner in group:
+                    if not self._probe_alive(owner):
+                        left_out.setdefault(sh, []).append(owner)
+                    elif owner.id == self.me.id:
+                        local.append((sh, sub))
+                    else:
+                        remote.append((sh, owner, sub))
+        for local, remote in waves:
+            # remote shard slices fan out CONCURRENTLY (each delivery is
+            # an HTTP RPC; a sequential loop would make wide imports pay
+            # the sum of RTTs) and overlap the local applies; failures
+            # propagate exactly like the sequential path (fut.result
+            # re-raises)
+            futs = []
+            if remote:
+                pool = self._import_pool()
+                futs = [
+                    (sh, pool.submit(
+                        self.client.import_node, o.uri, index, field, sub, values
+                    ))
+                    for sh, o, sub in remote
+                ]
+            for sh, sub in local:
+                if values:
+                    api.import_values(index, field, sub)
                 else:
-                    remote.append((sh, owner, sub))
-        # remote shard slices fan out CONCURRENTLY (each delivery is an
-        # HTTP RPC; a sequential loop would make wide imports pay the
-        # sum of RTTs) and overlap the local applies; failures propagate
-        # exactly like the sequential path (fut.result re-raises)
-        futs = []
-        if remote:
-            pool = self._import_pool()
-            futs = [
-                (sh, pool.submit(
-                    self.client.import_node, o.uri, index, field, sub, values
-                ))
-                for sh, o, sub in remote
-            ]
-        for sh, sub in local:
-            if values:
-                api.import_values(index, field, sub)
-            else:
-                api.import_bits(index, field, sub)
-            delivered[sh] += 1
-            took_write.setdefault(sh, []).append(self.me.uri)
-        for sh, fut in futs:
-            # the receiver reports who actually APPLIED the slice — it
-            # may have re-forwarded to the current owners if our
-            # topology was stale, and the announce below must name the
-            # real holders
-            took_write.setdefault(sh, []).extend(fut.result())
-            delivered[sh] += 1
+                    api.import_bits(index, field, sub)
+                delivered[sh] += 1
+                took_write.setdefault(sh, []).append(self.me.uri)
+            for sh, fut in futs:
+                # the receiver reports who actually APPLIED the slice —
+                # it may have re-forwarded to the current owners if our
+                # topology was stale, and the announce below must name
+                # the real holders
+                took_write.setdefault(sh, []).extend(fut.result())
+                delivered[sh] += 1
         for sh, d in delivered.items():
             if d == 0:
                 raise ShardUnavailableError(
@@ -3025,44 +3222,49 @@ class Cluster:
         if self.server.holder.index(index) is None:
             raise ValueError(f"index {index!r} not found")
         sh = int(shard)
-        owners = self.shard_nodes(index, sh)
-        remote: list[Node] = []
         left_out: list[Node] = []
-        for o in owners:
-            if o.id != self.me.id:
-                (remote if self._probe_alive(o) else left_out).append(o)
-        local = any(o.id == self.me.id for o in owners)
-        futs = []
-        if remote:
-            pool = self._import_pool()
+        # two waves (_write_waves), each (local or not, remote owners):
+        # the owners whose copy is marked stale take the frame after
+        # every current owner took it (C12)
+        waves: list[tuple[bool, list[Node]]] = []
+        for group in self._write_waves(index, sh, self.shard_nodes(index, sh)):
+            remote: list[Node] = []
+            for o in group:
+                if o.id != self.me.id:
+                    (remote if self._probe_alive(o) else left_out).append(o)
+            waves.append((any(o.id == self.me.id for o in group), remote))
 
-            def push(node):
-                t0 = time.perf_counter()
-                with GLOBAL_TRACER.span(
-                    "cluster.import_roaring", node=node.id, shards=1
-                ):
-                    self.client.import_roaring(
-                        node.uri, index, field, view, sh, data
-                    )
-                if self.server.stats is not None:
-                    self.server.stats.timing(
-                        "fanout_rpc_seconds",
-                        time.perf_counter() - t0,
-                        tags={"node": node.id},
-                    )
+        def push(node):
+            t0 = time.perf_counter()
+            with GLOBAL_TRACER.span(
+                "cluster.import_roaring", node=node.id, shards=1
+            ):
+                self.client.import_roaring(
+                    node.uri, index, field, view, sh, data
+                )
+            if self.server.stats is not None:
+                self.server.stats.timing(
+                    "fanout_rpc_seconds",
+                    time.perf_counter() - t0,
+                    tags={"node": node.id},
+                )
 
-            futs = [(o, pool.submit(push, o)) for o in remote]
         bits = 0
         applied = 0
         took_write: list[str] = []
-        if local:
-            bits = api.import_roaring(index, field, sh, data, view=view)
-            applied += 1
-            took_write.append(self.me.uri)
-        for node, fut in futs:
-            fut.result()  # a failed replica leg fails the import loudly
-            applied += 1
-            took_write.append(node.uri)
+        for local, remote in waves:
+            futs = []
+            if remote:
+                pool = self._import_pool()
+                futs = [(o, pool.submit(push, o)) for o in remote]
+            if local:
+                bits = api.import_roaring(index, field, sh, data, view=view)
+                applied += 1
+                took_write.append(self.me.uri)
+            for node, fut in futs:
+                fut.result()  # a failed replica leg fails the import loudly
+                applied += 1
+                took_write.append(node.uri)
         if applied == 0:
             raise ShardUnavailableError(
                 f"no alive owner for shard {sh}; import rejected"
@@ -3578,23 +3780,28 @@ class Cluster:
         is key-wise last-writer-wins with tombstones (AttrStore
         .merge_block), so missed deletes propagate instead of being
         resurrected."""
-        stores: list[tuple[str | None, Any]] = [(None, idx.column_attrs)]
-        stores += [(f_name, f.row_attrs) for f_name, f in list(idx.fields.items())]
         for peer in self._peers():
             try:
-                for field_name, store in stores:
-                    theirs = self.client.attr_blocks(peer.uri, idx_name, field_name)
-                    mine = {b: c.hex() for b, c in store.block_checksums()}
-                    for block, checksum in theirs.items():
-                        if mine.get(block) == checksum:
-                            continue
-                        data = self.client.attr_block_data(
-                            peer.uri, idx_name, field_name, block
-                        )
-                        if data:
-                            store.merge_block(data)
+                self._merge_attr_stores(peer, idx_name, idx)
             except PeerError:
                 continue  # peer unreachable; skip its remaining stores
+
+    def _merge_attr_stores(self, peer: Node, idx_name: str, idx) -> None:
+        """Merge ``peer``'s column and row attr stores of the index into
+        this node's, block by block (raises ``PeerError``)."""
+        stores: list[tuple[str | None, Any]] = [(None, idx.column_attrs)]
+        stores += [(f_name, f.row_attrs) for f_name, f in list(idx.fields.items())]
+        for field_name, store in stores:
+            theirs = self.client.attr_blocks(peer.uri, idx_name, field_name)
+            mine = {b: c.hex() for b, c in store.block_checksums()}
+            for block, checksum in theirs.items():
+                if mine.get(block) == checksum:
+                    continue
+                data = self.client.attr_block_data(
+                    peer.uri, idx_name, field_name, block
+                )
+                if data:
+                    store.merge_block(data)
 
     def _sync_fragment(self, index, field, view, shard, frag, peer: Node) -> None:
         theirs = self.client.fragment_blocks(peer.uri, index, field, view, shard)
@@ -3672,6 +3879,7 @@ class Cluster:
             ): self._h_import_roaring,
             ("POST", re.compile(r"^/internal/attrs/set$")): self._h_attr_set,
             ("GET", re.compile(r"^/internal/attrs/blocks$")): self._h_attr_blocks,
+            ("POST", re.compile(r"^/internal/attrs/get$")): self._h_attrs_get,
             (
                 "GET",
                 re.compile(r"^/internal/attrs/block/data$"),
@@ -4194,6 +4402,29 @@ class Cluster:
         handler._json(
             {"blocks": [{"block": b, "checksum": c.hex()} for b, c in blocks]}
         )
+
+    def _h_attrs_get(self, handler) -> None:
+        """The attributes of one row and of a list of columns
+        (``_current_attrs``); a 503 while this node's own attr stores
+        are marked stale."""
+        body = handler._json_body()
+        index = body["index"]
+        if self.me.uri in self._stale_uris(index, ATTRS_SHARD):
+            raise ShardUnavailableError(
+                f"this node's attributes of {index!r} {STALE_COPY}"
+            )
+        idx = self.server.holder.index(index)
+        row_attrs: dict = {}
+        col_attrs: dict[str, dict] = {}
+        if idx is not None:
+            f = idx.field(body["field"]) if body.get("field") else None
+            if f is not None:
+                row_attrs = f.row_attrs.attrs(int(body["row"]))
+            for c in body.get("columns") or ():
+                attrs = idx.column_attrs.attrs(int(c))
+                if attrs:
+                    col_attrs[str(c)] = attrs
+        handler._json({"rowAttrs": row_attrs, "columnAttrs": col_attrs})
 
     def _h_attr_block_data(self, handler) -> None:
         store = self._attr_store_from_params(handler)

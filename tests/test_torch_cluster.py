@@ -781,8 +781,6 @@ def test_a_cut_off_node_errors_while_the_others_write_without_it(tmp_path):
     that one."""
     servers, ports, _ = make_cluster("port", tmp_path, heartbeat_interval=0.1)
     try:
-        for srv in servers:
-            srv.cluster.lease_s, srv.cluster.down_after_s = CUT_LEASE_S, 2 * CUT_LEASE_S
         c0, node2 = servers[0].cluster, servers[2].cluster.me.id
         ok(ports[0], "POST", "/index/cut", {})
         ok(ports[0], "POST", "/index/cut/field/f", {})
@@ -790,6 +788,11 @@ def test_a_cut_off_node_errors_while_the_others_write_without_it(tmp_path):
         old, new = mine[:4], mine[4]
         _import(ports[0], "cut", "f", [1] * len(old), [s * SHARD_WIDTH for s in old])
         assert [query(p, "cut", "Count(Row(f=1))") for p in ports] == [[len(old)]] * 3
+        # the short lease from here on: set up under the default one, as a
+        # stall of the whole process under load (every node of the test is
+        # one process) may outlast a 1 s lease and fence a healthy node
+        for srv in servers:
+            srv.cluster.lease_s, srv.cluster.down_after_s = CUT_LEASE_S, 2 * CUT_LEASE_S
         cut = {"path": "", "action": "blackhole", "delay_ms": CUT_DELAY_MS}
         servers[2].fault_injector.set_rules([cut], seed=5)
         for srv in servers[:2]:

@@ -254,13 +254,15 @@ def test_chip_smoke_rehearses_on_the_cpu(capsys):
     # and SIGTERM; the six programs on two ranks; the cluster's nodes,
     # 6 queries through each of two coordinators, the Set, its read-back
     # from the replicas, 3 Counts, 9 queries after the failover, the Set
-    # and the Clear while node 2 is closed, 3 queries then, its reopen,
-    # 3 queries through each of node 2 and node 0, and the 8 clients; the
+    # and the Clear while node 2 is closed, 3 queries then, the line of
+    # their acknowledgements and the marks file, the restart of nodes 0
+    # and 1, 3 queries through each of them, node 2's reopen, 3 queries
+    # through each of node 2, node 0 and node 1, and the 8 clients; the
     # fleet's start, its import, the mix before and after child 1's
     # restart (3 each), the Set and Clear while it is down, the restart
     # and SIGTERM
     mesh_layout = 10 + 1 + 1 + 1 + 4 + 1 + 13 + 1 + 2 + 4 + 3
-    cluster = 1 + 2 * 6 + 1 + 1 + 3 + 9 + 2 + 3 + 1 + 2 * 3 + 1
+    cluster = 1 + 2 * 6 + 1 + 1 + 3 + 9 + 2 + 3 + 1 + 1 + 2 * 3 + 1 + 3 * 3 + 1
     fleet = 1 + 1 + 3 + 1 + 1 + 3 + 1
     assert sum(line.startswith("ok  ") for line in lines) == (
         8 + 2 + 1 + 2 + 12 + 3 + 13 + 1 + 8 + 4 + 1 + 2 + 3 + 4 + 2 * mesh_layout + 1 + 1 + 2 * 5 + 9 + 6

@@ -15,6 +15,7 @@ without it. The ``test_reference_*`` cases pin the reference's stale
 answers in the same scenarios.
 """
 
+import json
 import time
 
 import pytest
@@ -413,15 +414,32 @@ def test_marks_merge_in_any_order_from_many_threads(tmp_path):
             chunks = [bodies[i::16] for i in range(16)]
             for chunk in chunks:
                 rng.shuffle(chunk)
-            threads = [threading.Thread(target=lambda ch=ch: [c._merge_marks(b) for b in ch]) for ch in chunks]
+            lost = []
+
+            def merge(chunk):
+                # each merge is on disk when it returns, whatever the
+                # other threads write meanwhile
+                for b in chunk:
+                    c._merge_marks(b)
+                    with open(c._marks_path) as f:
+                        disk = {name: {tuple(r[:3]): r[3] for r in rows} for name, rows in json.load(f).items()}
+                    lost.extend(r for name, rows in b.items() for r in rows
+                                if any(disk[name].get(tuple(r[:3]), {}).get(k, 0) < v for k, v in r[3].items()))
+
+            threads = [threading.Thread(target=merge, args=(ch,)) for ch in chunks]
             for t in threads:
                 t.start()
             for t in threads:
                 t.join(60)
-            assert not any(t.is_alive() for t in threads)
+            assert not any(t.is_alive() for t in threads) and not lost, lost[:3]
         finally:
             sys.setswitchinterval(switch)
         got = {(uri, shard) for uri in uris for shard in c._stale_shards("rc", uri)}
         assert got == want and want
+        # the marks file holds every merge: none lost between two writers
+        with open(c._marks_path) as f:
+            on_disk = json.load(f)
+        assert {name: sorted(map(str, rows)) for name, rows in on_disk.items()} == {
+            name: sorted(map(str, rows)) for name, rows in c.marks_snapshot().items()}
     finally:
         shutdown(servers)
