@@ -196,6 +196,7 @@ ZIPF_S = 2.0  # dropoff_cell's row skew: p(cell k) ∝ (k + 1)^-2
 # 10B-bit sparse feature matrix", as 2048-bit fingerprints on one card
 SIM_ROWS = 4_882_813  # x 2048 bits = 10.0 Gbit, a 1.25 GB matrix
 SIM_BLOCK = 16_384  # the all-pairs clustering block: a 1 GiB f32 output
+SIM_EDGE_SEED = 7  # the counts of K10's small sim route at its edge (4,096 and 4,097 rows)
 INT8_OPS_PER_S = 1.979e15  # H100 SXM dense int8 tensor rate (NVIDIA data sheet)
 
 
@@ -1449,6 +1450,8 @@ def residency_path(torch, device: str, taxi: dict, budget: "int | None" = None) 
         plain_ms=cuda_ms(torch, lambda: containers.sparse_count(tail_ids), 50),
         bound_ms=bound_ms(SPARSE_MAX_IDS * 4 + 8),
         library_ms=cuda_ms(torch, lambda: (tail_ids >= 0).sum(), 50),
+        graph_ms=graph_ms(torch, lambda: ops.container_count(sparse_store, tail_slot), 50),
+        library_graph_ms=graph_ms(torch, lambda: (tail_ids >= 0).sum(), 50),
     )
     times["container_count_run_ms"] = cuda_ms(torch, lambda: ops.container_count(run_store, day_slot), 50)
     times["container_count_run_plain_ms"] = cuda_ms(torch, lambda: containers.run_count(day_runs), 50)
@@ -2157,9 +2160,16 @@ def mesh_path(torch, device: str, main: dict, taxi: dict, sim_block: int) -> tup
     log("launches on the mesh path:", json.dumps(launches))
     log("launches on the mesh path by mode:", json.dumps({n: k.modes for n, k in _cuda.KERNELS.items() if k.modes}))
     path_kernels = ("tree_eval", "row_counts", "stack_delta", "bsi_sum", "bsi_minmax", "gb_counts", "gb_masks",
-                    "sim_select", "pairwise", "mesh_sim_keys", "mesh_pairwise_finish")
+                    "sim_select", "pairwise", "mesh_pairwise_finish")
     if on_card and (any(launches[n] <= 0 for n in path_kernels) or _cuda.BSI_SUM.modes.get("grouped", 0) <= 0):
         raise AssertionError(f"a kernel of the mesh path never launched: {launches}")
+    # every search of R_PAD rows (each k of each metric, and the p50's ten
+    # Tanimoto calls, a layout) finishes in one K10 small sim launch: no
+    # K12 keys
+    n_searches = len(MESH_LAYOUTS) * (2 * len(MESH_SEARCH_K) + 10)
+    if on_card and (_cuda.SIM_SELECT.modes.get("small sim", 0) != n_searches or launches["mesh_sim_keys"] != 0):
+        raise AssertionError(f"the mesh searches did not take K10's small sim route {n_searches} times and K12 "
+                             f"never: {_cuda.SIM_SELECT.modes}, mesh_sim_keys {launches['mesh_sim_keys']}")
     if launches["shift_words"] != 2 * on_card:
         raise AssertionError(f"Shift ran {launches['shift_words']} K7 launches, not one a layout")
 
@@ -2171,7 +2181,7 @@ def mesh_path(torch, device: str, main: dict, taxi: dict, sim_block: int) -> tup
     D = taxi["depth"]  # noqa: N806
     L, Z, C = bitwise.OP_LOAD, bitwise.OP_ZERO, bitwise.OP_CMP
     A, O, X, N = bitwise.OP_AND, bitwise.OP_OR, bitwise.OP_XOR, bitwise.OP_ANDNOT
-    errs = {n: 0 for n in path_kernels + ("row_counts_tree", "bsi_sum_tree", "bsi_minmax_tree")}
+    errs = {n: 0 for n in path_kernels + ("mesh_sim_keys", "row_counts_tree", "bsi_sum_tree", "bsi_minmax_tree")}
     tree_cases = [
         ([fb], [(0, 1), (0, 2)], [(L, 0), (L, 1), (A, 0)], [], s_l),
         ([fb, eb], [(1, 0), (0, 1)], [(L, 0), (L, 1), (N, 0)], [], s_l),
@@ -2227,6 +2237,34 @@ def mesh_path(torch, device: str, main: dict, taxi: dict, sim_block: int) -> tup
                 a_, b_ = sim.select_top(got[0], got[1], k), sim.select_top_plain(want[0], k)
                 errs["sim_select"] = max(errs["sim_select"], max_abs_err(torch, a_[0].view(torch.int32), b_[0].view(torch.int32)),
                                          max_abs_err(torch, a_[1], b_[1]))
+    # K10's small sim route (the search's scores and top-k in one launch)
+    # against its plain version: the search's R_PAD rows (the cases above),
+    # and 4,096 and 4,097 rows, the route's edge (past it K12's keys, held
+    # to their plain version there, and K10's tile or radix route), with
+    # 64 tied rows and 32 empty ones, a query of 2^26 bits and an empty
+    # query (then every cosine denominator is 0, and the union of every
+    # empty row), at k = 0, 1 and R
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SIM_EDGE_SEED)
+    edge_cases = []
+    for n in (sim.SELECT_TILE, sim.SELECT_TILE + 1):
+        pop_e = torch.randint(0, 1 << 26, (n,), generator=gen, device=dev)
+        inter_e = (pop_e * torch.rand(n, dtype=torch.float64, generator=gen, device=dev)).to(torch.int64)
+        pop_e[1:64], inter_e[1:64] = pop_e[0], inter_e[0]
+        pop_e[64:96], inter_e[64:96] = 0, 0
+        for q_bits in (1 << 26, 0):
+            edge_cases.append((inter_e, pop_e, torch.tensor([q_bits], dtype=torch.int64, device=dev)))
+    for metric in ("tanimoto", "cosine"):
+        for c in key_cases + edge_cases:
+            n = c[0].shape[0]
+            for k in sorted({0, 1, min(5, n), n}):
+                a_, b_ = sim.select_sim(*c, metric, k), sim.select_sim_plain(*c, metric, k)
+                errs["sim_select"] = max(errs["sim_select"], max_abs_err(torch, a_[0].view(torch.int32), b_[0].view(torch.int32)),
+                                         max_abs_err(torch, a_[1], b_[1]))
+            if n > sim.SELECT_TILE:
+                errs["mesh_sim_keys"] = max([errs["mesh_sim_keys"]] + [max_abs_err(torch, a, b) for a, b in zip(
+                    sim.mesh_sim_keys(*c, metric), sim.mesh_sim_keys_plain(*c, metric))])
+    past_tile = edge_cases[2]  # 4,097 rows, the query of 2^26 bits
     # the big block's 4x2 all-pairs block: K11 inter, and K12's finish
     pa_b, pb_b = pairwise_out["a"], pairwise_out["b"]
     inter_p = sim.pairwise(pa_b, pb_b, "inter")
@@ -2347,11 +2385,23 @@ def mesh_path(torch, device: str, main: dict, taxi: dict, sim_block: int) -> tup
             graph_ms=graph_ms(torch, lambda: sim.pairwise(pa_b, pb_b, "inter"), 10),
             library_graph_ms=graph_ms(torch, mm, 10),
             replaces="pilosa_tpu/parallel/mesh.py:786"),
+        # the search's finish up to 4,096 rows: one launch that reads each
+        # row's two counts and |q| once and writes the k answers
+        "sim_select small sim": dict(
+            ms=cuda_ms(torch, lambda: sim.select_sim(inter, row_pop, q_pop, "tanimoto", 5), 20),
+            plain_ms=cuda_ms(torch, lambda: sim.select_sim_plain(inter, row_pop, q_pop, "tanimoto", 5), 20),
+            bound_ms=bound_ms(2 * R_PAD * 8 + 8 + 5 * 8), library_ms=cuda_ms(torch, lambda: torch.topk(scores, 5), 20),
+            graph_ms=graph_ms(torch, lambda: sim.select_sim(inter, row_pop, q_pop, "tanimoto", 5), 20),
+            library_graph_ms=graph_ms(torch, lambda: torch.topk(scores, 5), 20),
+            shape=f"small sim, the search's scores and k = 5 of {R_PAD} rows, one launch",
+            replaces="pilosa_tpu/parallel/mesh.py:684"),
+        # K12's keys now serve only a search past 4,096 rows
         "mesh_sim_keys": dict(
-            ms=cuda_ms(torch, lambda: sim.mesh_sim_keys(inter, row_pop, q_pop, "tanimoto"), 20),
-            plain_ms=cuda_ms(torch, lambda: sim.mesh_sim_keys_plain(inter, row_pop, q_pop, "tanimoto"), 20),
-            bound_ms=bound_ms(3 * R_PAD * 8 + 8 + sim.SELECT_BINS * 4), library_ms=None,
-            shape=f"{R_PAD} rows"),
+            ms=cuda_ms(torch, lambda: sim.mesh_sim_keys(*past_tile, "tanimoto"), 20),
+            plain_ms=cuda_ms(torch, lambda: sim.mesh_sim_keys_plain(*past_tile, "tanimoto"), 20),
+            bound_ms=bound_ms(3 * past_tile[0].numel() * 8 + 8 + sim.SELECT_BINS * 4), library_ms=None,
+            graph_ms=graph_ms(torch, lambda: sim.mesh_sim_keys(*past_tile, "tanimoto"), 20),
+            shape=f"{past_tile[0].numel()} rows (a search past 4,096 rows)"),
         "mesh_pairwise_finish": dict(
             ms=cuda_ms(torch, lambda: sim.mesh_pairwise_finish(inter_p, a_pop, b_pop, "tanimoto"), 10),
             plain_ms=cuda_ms(torch, lambda: sim.mesh_pairwise_finish_plain(inter_p, a_pop, b_pop, "tanimoto"), 2),
@@ -2375,6 +2425,11 @@ def mesh_path(torch, device: str, main: dict, taxi: dict, sim_block: int) -> tup
             shape=f"max+tree under Row(cab_type=1), 4x2 block [32, {ts_l}, {w_l}]", replaces="pilosa_tpu/parallel/mesh.py:486"),
     }
     times["sim_select_k5_library"] = "torch.topk of the f32 scores"
+    # the search's finish as it was: K12's keys, then K10's small route
+    times["search_finish_two_launches_ms"] = cuda_ms(
+        torch, lambda: sim.select_top(*sim.mesh_sim_keys(inter, row_pop, q_pop, "tanimoto"), 5), 20)
+    times["search_finish_two_launches_graph_ms"] = graph_ms(
+        torch, lambda: sim.select_top(*sim.mesh_sim_keys(inter, row_pop, q_pop, "tanimoto"), 5), 20)
     times["pairwise_library"] = "torch._int_mm int8" if int_mm else "torch.matmul bf16"
     one = {"count": main["p50"]["count"], "topn": main["p50"]["topn"], "sum": taxi["p50"]["sum"], "groupby": taxi["p50"]["groupby"]}
     times["one_device_p50_ms"] = one
@@ -2562,6 +2617,7 @@ def graft_path(torch, device: str, main: dict) -> tuple:
         "count_keys": dict(
             ms=cuda_ms(torch, lambda: sim.count_keys(past), 20), plain_ms=cuda_ms(torch, lambda: sim.count_keys_plain(past), 20),
             bound_ms=bound_ms(2 * past.numel() * 8 + sim.SELECT_BINS * 4), library_ms=None,
+            graph_ms=graph_ms(torch, lambda: sim.count_keys(past), 20),
             shape=f"{past.numel()} counts (a top-k past 4,096 counts)", replaces="__graft_entry__.py:71"),
         "sim_select": dict(
             ms=cuda_ms(torch, lambda: ops.select_top_counts(counts, GRAFT_K), 20),
@@ -2603,8 +2659,8 @@ def mesh_programs_path(torch, device: str, graft: dict, main: dict, taxi: dict) 
     one-device p50 of the same work; ``top_rows`` of one fragment against
     numpy. The launch counts start after the one-device work and must be
     the programs' exact counts. Then K13 (on block (0, 0) as it was before
-    the ingest), K2, K4, K1, K12's mesh_sim_keys and K10's small int
-    route at the 4x2 blocks against their plain versions. Returns the
+    the ingest), K2, K4, K1, and K10's small int and small sim
+    routes at the 4x2 blocks against their plain versions. Returns the
     kernel entries and the path's launch counts."""
     from pilosa_tpu_torch import ops
     from pilosa_tpu_torch.core import VIEW_BSI
@@ -2729,19 +2785,19 @@ def mesh_programs_path(torch, device: str, graft: dict, main: dict, taxi: dict) 
     launches = {n: k.launches for n, k in _cuda.KERNELS.items()}
     log("launches on the mesh programs path:", json.dumps(launches))
     log("launches on the mesh programs path by mode:", json.dumps({n: k.modes for n, k in _cuda.KERNELS.items() if k.modes}))
-    path_kernels = ("ingest_counts", "row_counts", "bsi_sum", "tree_eval", "sim_select", "mesh_sim_keys")
+    path_kernels = ("ingest_counts", "row_counts", "bsi_sum", "tree_eval", "sim_select")
     # each program runs 12 times a layout (the checked call, the p50's
     # warm-up and ten): K13, K4 and K1 once a block, K2 four times a block
-    # (topn, count_and, and the search's |a ∩ q| and |a|), K12 and K10 on
-    # the lead device: one K10 small int launch a topn (no count_keys), and
-    # mesh_sim_keys and one K10 small launch a search
+    # (topn, count_and, and the search's |a ∩ q| and |a|), K10 on the lead
+    # device: one small int launch a topn (no count_keys), and one small
+    # sim launch a search (no mesh_sim_keys)
     calls = len(MESH_LAYOUTS) * (1 + 1 + 10)
     per_block = calls * MESH_POSITIONS
     want_launches = {n: 0 for n in launches}
     want_launches.update(ingest_counts=per_block, row_counts=4 * per_block, bsi_sum=per_block, tree_eval=per_block,
-                mesh_sim_keys=calls, sim_select=2 * calls)
+                sim_select=2 * calls)
     want_modes = {"row_counts": {"filtered": 3 * per_block, "rows": per_block},
-                  "sim_select": {"small int": calls, "small": calls}}
+                  "sim_select": {"small int": calls, "small sim": calls}}
     if on_card and (launches != want_launches or any(_cuda.KERNELS[n].modes != m for n, m in want_modes.items())):
         raise AssertionError(f"the mesh programs did not launch their kernels once a block: {launches} != {want_launches}")
     for prog, ms in one_p50.items():
@@ -2768,8 +2824,12 @@ def mesh_programs_path(torch, device: str, graft: dict, main: dict, taxi: dict) 
     q4 = pop4[1:2].contiguous()
     errs["sim_select"] = max(max_abs_err(torch, a, b) for a, b in zip(
         ops.select_top_counts(counts4, GRAFT_K), topn.select_top_counts_plain(counts4, GRAFT_K)))
-    errs["mesh_sim_keys"] = max(max_abs_err(torch, a, b) for a, b in zip(
-        sim.mesh_sim_keys(counts4, pop4, q4, "tanimoto"), sim.mesh_sim_keys_plain(counts4, pop4, q4, "tanimoto")))
+    errs["sim_select small sim"] = 0
+    for metric in ("tanimoto", "cosine"):
+        for k in (0, 1, GRAFT_K, n_rows):
+            a_, b_ = sim.select_sim(counts4, pop4, q4, metric, k), sim.select_sim_plain(counts4, pop4, q4, metric, k)
+            errs["sim_select small sim"] = max(errs["sim_select small sim"], max_abs_err(
+                torch, a_[0].view(torch.int32), b_[0].view(torch.int32)), max_abs_err(torch, a_[1], b_[1]))
     log("max |kernel - plain| on the mesh programs' 4x2 blocks:", json.dumps(errs))
     if any(errs.values()):
         raise AssertionError(f"a kernel disagrees with its plain version: {errs}")
@@ -2777,6 +2837,7 @@ def mesh_programs_path(torch, device: str, graft: dict, main: dict, taxi: dict) 
     # --------------------------------------------------------- timings
     plane, splane = s_l * w_l * 4, sb.shape[1] * w_l * 4
     block = f"4x2 block [{n_rows}, {s_l}, {w_l}]"
+    scores4 = sim.mesh_pairwise_finish_plain(counts4.to(torch.float32)[None], pop4.to(torch.float32), q4.to(torch.float32), "tanimoto")[0]
     # K13 writes every vector with a delta bit, whether or not the block
     # holds it already: a repeat on the ingested block moves the first
     # call's bytes
@@ -2808,10 +2869,15 @@ def mesh_programs_path(torch, device: str, graft: dict, main: dict, taxi: dict) 
             graph_ms=graph_ms(torch, lambda: ops.select_top_counts(counts4, GRAFT_K), 20),
             library_graph_ms=graph_ms(torch, lambda: torch.topk(counts4, GRAFT_K), 20),
             shape=f"small int, k = {GRAFT_K} of {n_rows} counts, one launch", replaces="pilosa_tpu/parallel/mesh.py:650"),
-        "mesh_sim_keys": dict(
-            ms=cuda_ms(torch, lambda: sim.mesh_sim_keys(counts4, pop4, q4, "tanimoto"), 20),
-            plain_ms=cuda_ms(torch, lambda: sim.mesh_sim_keys_plain(counts4, pop4, q4, "tanimoto"), 20),
-            bound_ms=bound_ms(3 * n_rows * 8 + 8 + sim.SELECT_BINS * 4), library_ms=None, shape=f"{n_rows} rows"),
+        "sim_select small sim": dict(
+            ms=cuda_ms(torch, lambda: sim.select_sim(counts4, pop4, q4, "tanimoto", GRAFT_K), 20),
+            plain_ms=cuda_ms(torch, lambda: sim.select_sim_plain(counts4, pop4, q4, "tanimoto", GRAFT_K), 20),
+            bound_ms=bound_ms(2 * n_rows * 8 + 8 + GRAFT_K * 8),
+            library_ms=cuda_ms(torch, lambda: torch.topk(scores4, GRAFT_K), 20),
+            graph_ms=graph_ms(torch, lambda: sim.select_sim(counts4, pop4, q4, "tanimoto", GRAFT_K), 20),
+            library_graph_ms=graph_ms(torch, lambda: torch.topk(scores4, GRAFT_K), 20),
+            shape=f"small sim, the search's scores and k = {GRAFT_K} of {n_rows} rows, one launch",
+            replaces="pilosa_tpu/parallel/mesh.py:684"),
     }
     times["one_device_p50_ms"] = one_p50
     log("mesh programs times:", json.dumps(times))
@@ -3658,17 +3724,19 @@ def multihost_path(torch, device: str, n_shards: int = N_SHARDS) -> tuple:
     # each rank, per call of each program: K2 four times a block (count_and
     # once, the search's |a ∩ q| and |a|, topn once), K1 count twice a
     # block (the tree, the search's |q|), K4 and K13 once a block, K10's
-    # small int once (topn) and small once with K12 once (the search)
+    # small int once (topn) and small sim once (the search, no K12)
     per_block = MH_CALLS * MH_POSITIONS
     want_launches = {n: 0 for n in _cuda.KERNELS}
     want_launches.update(row_counts=4 * per_block, tree_eval=2 * per_block, bsi_sum=per_block,
-                         ingest_counts=per_block, sim_select=2 * MH_CALLS, mesh_sim_keys=MH_CALLS)
+                         ingest_counts=per_block, sim_select=2 * MH_CALLS)
+    want_select = {"small int": MH_CALLS, "small sim": MH_CALLS}
     launches = {n: 0 for n in _cuda.KERNELS}
     for res in results:
         log(f"launches of multihost rank {res['rank']}:", json.dumps(res["launches"]))
         log(f"launches of multihost rank {res['rank']} by mode:", json.dumps(res["modes"]))
-        if on_card and res["launches"] != want_launches:
-            raise AssertionError(f"multihost rank {res['rank']}: launches {res['launches']} != {want_launches}")
+        if on_card and (res["launches"] != want_launches or res["modes"].get("sim_select") != want_select):
+            raise AssertionError(f"multihost rank {res['rank']}: launches {res['launches']} != {want_launches}, "
+                                 f"or K10's {res['modes'].get('sim_select')} != {want_select}")
         for n, c in res["launches"].items():
             launches[n] += c
     times = {"ranks_wall_s": wall_s, "one_process_p50_ms": one_p50,
@@ -4948,7 +5016,9 @@ def main(
             raise AssertionError(f"a kernel disagrees with its plain version: {errs}")
         del delta_cases[0]
         # the mesh path's search on one device: row 1 against every row of
-        # the whole stack (K2 twice, K12, K10), for the mesh's answers
+        # the whole stack (K2 twice, K12, K10's small route), for the
+        # mesh's answers: the route the mesh search took before its small
+        # sim launch, so the mesh holds that launch to it bit for bit
         inter1, pop1 = ops.row_counts(fm, fm[1].contiguous()), ops.row_counts(fm)
         mesh_ctx["search"] = {}
         for metric in ("tanimoto", "cosine"):

@@ -31,29 +31,19 @@
 //   row is the key's index), as lax.top_k breaks them. The first-digit
 //   histogram (key >> 52) is written as mesh_sim_keys writes it.
 //
-// The intrinsics (__fadd_rn, __fmul_rn, __fsqrt_rn, __fdiv_rn) keep
-// nvcc from contracting a product into a sum and give the IEEE results.
+// The scores and keys are sim_score.cuh's, which K10's small sim route
+// shares: the search's finish takes that route (one launch, no keys in
+// global memory) up to 4,096 rows, and this entry only past them.
 // Bound on the H100: bytes. Both passes read their counts once and write
 // their output once; the search's histogram is one shared-memory
 // atomic per row and one global atomic per non-empty bin and block.
 #include "common.cuh"
+#include "sim_score.cuh"
 
 #define MF_BINS 4096
 #define MF_FIRST_SHIFT 52
-#define MF_TANIMOTO 0
-#define MF_COSINE 1
 
 typedef unsigned long long u64;
-
-__device__ __forceinline__ float mf_score(float fi, float fa, float fb,
-                                          int metric) {
-  if (metric == MF_TANIMOTO) {
-    const float uni = __fsub_rn(__fadd_rn(fa, fb), fi);
-    return uni > 0.f ? __fdiv_rn(fi, uni) : 0.f;
-  }
-  const float den = __fsqrt_rn(__fmul_rn(fa, fb));
-  return den > 0.f ? __fdiv_rn(fi, den) : 0.f;
-}
 
 __global__ void __launch_bounds__(PT_BLOCK)
     mesh_sim_keys_kernel(const long long* __restrict__ inter,
@@ -68,10 +58,10 @@ __global__ void __launch_bounds__(PT_BLOCK)
   const long long step = (long long)gridDim.x * PT_BLOCK;
   for (long long row = (long long)blockIdx.x * PT_BLOCK + threadIdx.x;
        row < n; row += step) {
-    const float sc = mf_score(__ll2float_rn(inter[row]),
-                              __ll2float_rn(row_pop[row]), fq, metric);
-    const u64 key = ((u64)__float_as_uint(sc) << 32) |
-                    (u64)(0xffffffffu - (unsigned)row);
+    const u64 key = sim_score_key(
+        sim_metric_score(__ll2float_rn(inter[row]),
+                         __ll2float_rn(row_pop[row]), fq, metric),
+        row);
     keys[row] = key;
     atomicAdd(&s_hist[(unsigned)(key >> MF_FIRST_SHIFT)], 1u);
   }
@@ -92,7 +82,7 @@ __global__ void __launch_bounds__(PT_BLOCK)
   for (long long i = (long long)blockIdx.x * PT_BLOCK + threadIdx.x;
        i < total; i += step) {
     const long long r = i / m, c = i - r * m;
-    out[i] = mf_score(inter[i], a_pop[r], b_pop[c], metric);
+    out[i] = sim_metric_score(inter[i], a_pop[r], b_pop[c], metric);
   }
 }
 
@@ -126,7 +116,8 @@ static unsigned mf_grid(long long items) {
 PT_EXPORT int mesh_sim_keys(const void* inter, const void* row_pop,
                             const void* q_pop, long long n, int metric,
                             void* keys, void* hist, void* stream) {
-  if (n < 0 || n > 0x7fffffffLL || (metric != MF_TANIMOTO && metric != MF_COSINE)) {
+  if (n < 0 || n > 0x7fffffffLL ||
+      (metric != SIM_METRIC_TANIMOTO && metric != SIM_METRIC_COSINE)) {
     return (int)cudaErrorInvalidValue;
   }
   if (n == 0) return (int)cudaGetLastError();
@@ -141,7 +132,8 @@ PT_EXPORT int mesh_sim_keys(const void* inter, const void* row_pop,
 PT_EXPORT int mesh_pairwise_finish(const void* inter, const void* a_pop,
                                    const void* b_pop, long long n, long long m,
                                    int metric, void* out, void* stream) {
-  if (n < 0 || m < 0 || (metric != MF_TANIMOTO && metric != MF_COSINE)) {
+  if (n < 0 || m < 0 ||
+      (metric != SIM_METRIC_TANIMOTO && metric != SIM_METRIC_COSINE)) {
     return (int)cudaErrorInvalidValue;
   }
   if (n == 0 || m == 0) return (int)cudaGetLastError();

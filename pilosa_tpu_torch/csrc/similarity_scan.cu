@@ -46,7 +46,10 @@
 // network and decodes the first k: one launch and no scratch; in the int
 // mode it can read the int64 counts and build their keys itself, so a
 // top-k of a few counts is one launch where it was K12, ten K10 launches
-// and five fills. Above that, a radix select over the keys' six digits
+// and five fills; and on the "small sim" route it reads the mesh search's
+// reduced counts (inter, |row|, |query|) and scores them into their keys
+// itself (sim_score.cuh, as K12's mesh_sim_keys does), so the search's
+// finish is one launch where it was K12's and this one. Above that, a radix select over the keys' six digits
 // (12, 12, 12, 12, 12 and 4 bits, most significant first: all 64). K9's
 // histogram gives the first digit; each later level is a histogram pass
 // over the keys that match the prefix chosen so far, and a one-block pick
@@ -64,6 +67,7 @@
 // launches, and the radix sort reads and writes the k gathered keys once
 // a pass whose byte varies.
 #include "common.cuh"
+#include "sim_score.cuh"
 
 #define SIM_BITS 12
 #define SIM_BINS (1 << SIM_BITS)
@@ -502,23 +506,45 @@ __device__ __forceinline__ void sim_decode(u64 key, unsigned row, long long i,
   }
 }
 
+// What the small route's block reads as its entries: the keys; int64
+// counts, whose key is count ^ 2^63; or a search's int64 counts inter =
+// |row ∩ query| with |row| and |query| beside them, whose key is the
+// score's (sim_score_key).
+#define SIM_FROM_KEYS 0
+#define SIM_FROM_COUNTS 1
+#define SIM_FROM_SCORES 2
+
 // One block: load m <= SIM_TILE entries into shared memory, pad them to
-// n_pad, sort them and decode the first k. `src` holds the keys, or with
-// `counts` the int64 counts whose key is count ^ 2^63; `rows` the rows
-// beside them (PAIR; null: an entry's row is its index). A pad is key 0
-// and, with rows, row 2^32 - 1, so it sorts after every real entry: a
-// score key is above 0 (its low half is 2^32 - 1 - row), and a count of
-// -2^63 (key 0) has a row below 2^31, which wins the tie.
+// n_pad, sort them and decode the first k. `src` holds what `from` says;
+// `rows` the rows beside them (PAIR; null: an entry's row is its index);
+// `row_pop`, `q_pop` and `metric` the rest of a score's counts
+// (SIM_FROM_SCORES, score keys only). A pad is key 0 and, with rows, row
+// 2^32 - 1, so it sorts after every real entry: a score key is above 0
+// (its low half is 2^32 - 1 - row), and a count of -2^63 (key 0) has a
+// row below 2^31, which wins the tie.
 template <bool PAIR>
 __global__ void __launch_bounds__(SIM_SORT_THREADS)
     sim_small_kernel(const u64* __restrict__ src, const unsigned* __restrict__ rows, int m,
-                     int n_pad, int counts, long long k, void* __restrict__ values,
-                     int* __restrict__ ids) {
+                     int n_pad, int from, const long long* __restrict__ row_pop,
+                     const long long* __restrict__ q_pop, int metric, long long k,
+                     void* __restrict__ values, int* __restrict__ ids) {
   __shared__ u64 s[SIM_TILE];
   __shared__ unsigned sr[PAIR ? SIM_TILE : 1];
+  const float fq = from == SIM_FROM_SCORES ? __ll2float_rn(*q_pop) : 0.f;
   for (int i = threadIdx.x; i < n_pad; i += blockDim.x) {
     const bool real = i < m;
-    s[i] = real ? (counts ? src[i] ^ (1ull << 63) : src[i]) : 0ull;
+    u64 key = 0ull;
+    if (real) {
+      key = src[i];
+      if (from == SIM_FROM_COUNTS) {
+        key ^= 1ull << 63;
+      } else if (from == SIM_FROM_SCORES) {
+        key = sim_score_key(sim_metric_score(__ll2float_rn((long long)key),
+                                             __ll2float_rn(row_pop[i]), fq, metric),
+                            i);
+      }
+    }
+    s[i] = key;
     if (PAIR) sr[i] = real ? (rows != nullptr ? rows[i] : (unsigned)i) : 0xffffffffu;
   }
   __syncthreads();
@@ -791,6 +817,9 @@ static int sim_sort_threads(long long n_pad) {
 //                     int_bits > 0), one block, one launch;
 //   SIM_SMALL_COUNTS: n <= SIM_TILE int64 counts, whose keys the block
 //                     builds itself (count ^ 2^63), one launch;
+//   SIM_SMALL_SIM:    n <= SIM_TILE counts of a search (keys: inter,
+//                     with row_pop, q_pop and metric), whose score keys
+//                     the block builds itself, one launch;
 //   SIM_TILE_ROUTE:   the radix select, the compaction, and k <= SIM_TILE
 //                     gathered keys sorted in one block;
 //   SIM_RADIX:        the radix select, the compaction, and k > SIM_TILE
@@ -799,8 +828,11 @@ static int sim_sort_threads(long long n_pad) {
 #define SIM_SMALL_COUNTS 1
 #define SIM_TILE_ROUTE 2
 #define SIM_RADIX 3
+#define SIM_SMALL_SIM 4
 
-// keys: int64[n] (counts for SIM_SMALL_COUNTS); hist0: the keys' top-digit
+// keys: int64[n] (counts for SIM_SMALL_COUNTS, inter for SIM_SMALL_SIM,
+// with row_pop int64[n], q_pop int64[1] and metric 0 Tanimoto or 1
+// cosine; null and 0 on the other routes); hist0: the keys' top-digit
 // histogram (sim_scan, mesh_sim_keys, count_keys; the select routes);
 // zeroed: zeroed int64[SIM_HIST_LEVELS * SIM_BINS / 2 + SIM_STATE_WORDS]
 // (16,544), the select's level
@@ -810,12 +842,16 @@ static int sim_sort_threads(long long n_pad) {
 // f32[k], or the row bits b of count keys (n <= 2^b), then values is
 // int64[k]; ids: int32[k]. Returns cudaGetLastError().
 PT_EXPORT int sim_select(const void* keys, long long n, const void* hist0, void* zeroed,
-                         void* work, long long k, int int_bits, int route, void* values,
+                         void* work, long long k, int int_bits, int route,
+                         const void* row_pop, const void* q_pop, int metric, void* values,
                          void* ids, void* stream) {
-  const bool small = route == SIM_SMALL || route == SIM_SMALL_COUNTS;
+  const bool small = route == SIM_SMALL || route == SIM_SMALL_COUNTS || route == SIM_SMALL_SIM;
   if (n < 1 || n > 0x7fffffffLL || k < 1 || k > n || int_bits < 0 || int_bits > 31 ||
-      (int_bits > 0 && n > (1ll << int_bits)) || route < SIM_SMALL || route > SIM_RADIX ||
+      (int_bits > 0 && n > (1ll << int_bits)) || route < SIM_SMALL || route > SIM_SMALL_SIM ||
       (small && n > SIM_TILE) || (route == SIM_SMALL_COUNTS && int_bits == 0) ||
+      (route == SIM_SMALL_SIM &&
+       (int_bits != 0 || row_pop == nullptr || q_pop == nullptr ||
+        (metric != SIM_METRIC_TANIMOTO && metric != SIM_METRIC_COSINE))) ||
       (route == SIM_TILE_ROUTE && k > SIM_TILE) || (route == SIM_RADIX && k <= SIM_TILE) ||
       (!small && (hist0 == nullptr || zeroed == nullptr || work == nullptr))) {
     return (int)cudaErrorInvalidValue;
@@ -826,12 +862,15 @@ PT_EXPORT int sim_select(const void* keys, long long n, const void* hist0, void*
     const long long pad = sim_pow2(n);
     const int threads = sim_sort_threads(pad);
     if (pair) {
-      sim_small_kernel<true><<<1, threads, 0, s>>>((const u64*)keys, nullptr, (int)n, (int)pad,
-                                                   route == SIM_SMALL_COUNTS, k, values,
-                                                   (int*)ids);
+      sim_small_kernel<true><<<1, threads, 0, s>>>(
+          (const u64*)keys, nullptr, (int)n, (int)pad,
+          route == SIM_SMALL_COUNTS ? SIM_FROM_COUNTS : SIM_FROM_KEYS, nullptr, nullptr, 0, k,
+          values, (int*)ids);
     } else {
-      sim_small_kernel<false><<<1, threads, 0, s>>>((const u64*)keys, nullptr, (int)n, (int)pad,
-                                                    0, k, values, (int*)ids);
+      sim_small_kernel<false><<<1, threads, 0, s>>>(
+          (const u64*)keys, nullptr, (int)n, (int)pad,
+          route == SIM_SMALL_SIM ? SIM_FROM_SCORES : SIM_FROM_KEYS, (const long long*)row_pop,
+          (const long long*)q_pop, metric, k, values, (int*)ids);
     }
     return (int)cudaGetLastError();
   }
@@ -868,11 +907,12 @@ PT_EXPORT int sim_select(const void* keys, long long n, const void* hist0, void*
     const long long n_pad = sim_pow2(k);
     const int threads = sim_sort_threads(n_pad);
     if (pair) {
-      sim_small_kernel<true><<<1, threads, 0, s>>>(a, ra, (int)k, (int)n_pad, 0, k, values,
-                                                   (int*)ids);
+      sim_small_kernel<true><<<1, threads, 0, s>>>(a, ra, (int)k, (int)n_pad, SIM_FROM_KEYS,
+                                                   nullptr, nullptr, 0, k, values, (int*)ids);
     } else {
-      sim_small_kernel<false><<<1, threads, 0, s>>>(a, nullptr, (int)k, (int)n_pad, 0, k, values,
-                                                    (int*)ids);
+      sim_small_kernel<false><<<1, threads, 0, s>>>(a, nullptr, (int)k, (int)n_pad,
+                                                    SIM_FROM_KEYS, nullptr, nullptr, 0, k,
+                                                    values, (int*)ids);
     }
   } else if (pair) {
     sim_radix_sort<true>(a, ra, k, int_bits, st, values, ids, s);

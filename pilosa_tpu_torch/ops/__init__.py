@@ -40,7 +40,9 @@ names the reference function it replaces (paths under pilosa_tpu/):
 - K10 ``similarity.select_top`` (csrc/similarity_scan.cu) <- the
   ``jax.lax.top_k`` of ops/similarity.py:25: the k largest keys in
   order → f32 scores[k], int32 ids[k]; ``similarity.select_counts``, its
-  one-launch route for the top-k of up to 4,096 int64 counts;
+  one-launch route for the top-k of up to 4,096 int64 counts; and
+  ``similarity.select_sim``, its one-launch route for the mesh search's
+  scores and top-k from up to 4,096 rows' reduced counts;
 - K11 ``similarity.pairwise`` (csrc/pairwise.cu) <- ops/similarity.py:51
   ``pairwise_intersections`` (and :44 ``_unpack_bits_bf16``, B14-mm) with
   the epilogues of :63 ``tanimoto_matrix`` and :72 ``cosine_matrix`` →
@@ -48,11 +50,11 @@ names the reference function it replaces (paths under pilosa_tpu/):
 - K12 ``similarity.mesh_sim_keys`` and ``similarity.mesh_pairwise_finish``
   (csrc/mesh_finish.cu) <- parallel/mesh.py:684 and :796, the score
   lines of the mesh similarity programs: K10's keys from reduced
-  counts, and the all-pairs epilogue on counts summed over the mesh;
-  and ``similarity.count_keys`` <- the ``lax.top_k`` of int64 counts
-  (parallel/mesh.py:647-652, ops/topn.py:24): the keys that K10's int
-  mode selects, ties in row order, for ``topn.select_top_counts`` past
-  4,096 counts;
+  counts past 4,096 rows, and the all-pairs epilogue on counts summed
+  over the mesh; and ``similarity.count_keys`` <- the ``lax.top_k`` of
+  int64 counts (parallel/mesh.py:647-652, ops/topn.py:24): the keys that
+  K10's int mode selects, ties in row order, for
+  ``topn.select_top_counts`` past 4,096 counts;
 - K13 ``topn.ingest_counts`` (csrc/ingest_counts.cu) <-
   parallel/mesh.py:852 ``_ingest_prog`` and __graft_entry__.py:65
   ``query_step``: ``matrix |= delta`` in place with every row's count

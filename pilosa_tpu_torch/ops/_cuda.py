@@ -263,7 +263,7 @@ SIM_SCAN = Kernel(
 )
 SIM_SELECT = Kernel(
     "sim_select",
-    [_VP, _LL, _VP, _VP, _VP, _LL, _I, _I, _VP, _VP, _VP],
+    [_VP, _LL, _VP, _VP, _VP, _LL, _I, _I, _VP, _VP, _I, _VP, _VP],
     # tanimoto_search's jax.lax.top_k; its int mode the lax.top_k of int64
     # counts (mesh.py:647-652, ops/topn.py:24)
     "pilosa_tpu/ops/similarity.py:25",

@@ -23,6 +23,10 @@ are ``int32[.., W]`` views of the reference's ``uint32`` words.
   the elementwise finish of the mesh engine's programs
   (parallel/mesh.py) on counts reduced over the mesh: the search's K10
   keys, and the all-pairs scores from summed intersection counts.
+- ``select_sim``: the mesh search's whole finish, its scores and their
+  top-k. Up to 4,096 rows K10's one-launch ``small sim`` route reads the
+  reduced counts and scores them into their keys itself (no
+  ``mesh_sim_keys``); past that, K12's keys and K10's select.
 - ``select_counts`` (K10's one-launch ``small int`` route, up to 4,096
   counts), or ``count_keys`` (K12) and ``select_top``'s int mode (K10):
   the top-k of int64 counts (``topn.select_top_counts``), keys ``count ^
@@ -65,7 +69,7 @@ _SIGN = -(1 << 63)
 SELECT_TILE = 4096
 # K10's routes (csrc/similarity_scan.cu): the C entry's route number by
 # the name ``select_route`` gives (the int mode appends " int")
-SELECT_ROUTES = {"small": 0, "small counts": 1, "tile": 2, "radix": 3}
+SELECT_ROUTES = {"small": 0, "small counts": 1, "tile": 2, "radix": 3, "small sim": 4}
 # the select's zeroed level histograms and state, in int64 words
 SELECT_ZEROED_WORDS = (len(SELECT_SHIFTS) - 1 + SELECT_ROW_LEVELS) * SELECT_BINS // 2 + 160
 # K10's radix sort: 8-bit digits, RADIX_TILE keys a block
@@ -233,7 +237,8 @@ def _launch_select(src: torch.Tensor, hist, k: int, int_bits: int, route: str, c
     route builds their keys itself). Its launches count under the route's
     name, but ``count_keys``' keys on the small int route count as
     ``small int keys``, apart from the counts route that
-    ``select_top_counts`` takes."""
+    ``select_top_counts`` takes. (``select_sim`` launches the small sim
+    route itself.)"""
     dev = src.device
     values = torch.empty(k, dtype=torch.int64 if int_bits else torch.float32, device=dev)
     ids = torch.empty(k, dtype=torch.int32, device=dev)
@@ -245,7 +250,8 @@ def _launch_select(src: torch.Tensor, hist, k: int, int_bits: int, route: str, c
     _cuda.SIM_SELECT.launch(
         dev, src.data_ptr(), src.shape[0], None if hist is None else hist.data_ptr(),
         None if zeroed is None else zeroed.data_ptr(), None if work is None else work.data_ptr(),
-        k, int_bits, SELECT_ROUTES["small counts" if counts else base], values.data_ptr(), ids.data_ptr(),
+        k, int_bits, SELECT_ROUTES["small counts" if counts else base], None, None, 0,
+        values.data_ptr(), ids.data_ptr(),
         mode=route + (" keys" if route == "small int" and not counts else ""),
     )
     return values, ids
@@ -446,13 +452,7 @@ def mesh_sim_keys_plain(
     return keys, hist
 
 
-def mesh_sim_keys(
-    inter: torch.Tensor, row_pop: torch.Tensor, q_pop: torch.Tensor, metric: str
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """Scores of a one-vs-all search from its reduced counts (K12):
-    ``inter`` = |a ∩ q| and ``row_pop`` = |a| (int64[R]), ``q_pop`` = |q|
-    (an int64 of one element) → (int64[R] keys, int32[SELECT_BINS]
-    histogram) for ``select_top`` (K10)."""
+def _check_sim(inter: torch.Tensor, row_pop: torch.Tensor, q_pop: torch.Tensor, metric: str) -> None:
     if metric not in MESH_METRICS:
         raise ValueError(f"metric must be one of {sorted(MESH_METRICS)}, got {metric!r}")
     dev = inter.device
@@ -461,6 +461,17 @@ def mesh_sim_keys(
             raise ValueError(f"{what} must be contiguous int64 on {dev}")
     if inter.dim() != 1 or row_pop.shape != inter.shape or q_pop.numel() != 1:
         raise ValueError(f"inter {tuple(inter.shape)}, row_pop {tuple(row_pop.shape)} and q_pop must be [R], [R], [1]")
+
+
+def mesh_sim_keys(
+    inter: torch.Tensor, row_pop: torch.Tensor, q_pop: torch.Tensor, metric: str
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Scores of a one-vs-all search from its reduced counts (K12):
+    ``inter`` = |a ∩ q| and ``row_pop`` = |a| (int64[R]), ``q_pop`` = |q|
+    (an int64 of one element) → (int64[R] keys, int32[SELECT_BINS]
+    histogram) for ``select_top`` (K10)."""
+    _check_sim(inter, row_pop, q_pop, metric)
+    dev = inter.device
     if dev.type == "cpu":
         return mesh_sim_keys_plain(inter, row_pop, q_pop, metric)
     n = inter.shape[0]
@@ -472,6 +483,44 @@ def mesh_sim_keys(
             keys.data_ptr(), hist.data_ptr(), mode=metric,
         )
     return keys, hist
+
+
+def select_sim_plain(
+    inter: torch.Tensor, row_pop: torch.Tensor, q_pop: torch.Tensor, metric: str, k: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``select_sim``, plain: K12's plain keys and K10's plain select."""
+    return select_top_plain(mesh_sim_keys_plain(inter, row_pop, q_pop, metric)[0], k)
+
+
+def select_sim(
+    inter: torch.Tensor, row_pop: torch.Tensor, q_pop: torch.Tensor, metric: str, k: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The k best rows of a one-vs-all search from its reduced counts
+    (``mesh_sim_keys``' arguments) → (f32 scores[k], int32 ids[k]),
+    equal bit for bit to ``select_top(*mesh_sim_keys(...), k)``. Up to
+    SELECT_TILE rows it is one K10 launch on the ``small sim`` route,
+    which scores the rows into their keys in shared memory; past that,
+    K12's keys and K10's ``tile`` or ``radix`` route."""
+    _check_sim(inter, row_pop, q_pop, metric)
+    n = inter.shape[0]
+    if not 0 <= k <= n:
+        raise ValueError(f"k = {k} is not in [0, {n}]")
+    dev = inter.device
+    if dev.type == "cpu":
+        return select_sim_plain(inter, row_pop, q_pop, metric, k)
+    route = select_route(n, k)
+    if route == "none":
+        return torch.empty(0, dtype=torch.float32, device=dev), torch.empty(0, dtype=torch.int32, device=dev)
+    if route != "small":
+        return select_top(*mesh_sim_keys(inter, row_pop, q_pop, metric), k)
+    scores = torch.empty(k, dtype=torch.float32, device=dev)
+    ids = torch.empty(k, dtype=torch.int32, device=dev)
+    _cuda.SIM_SELECT.launch(
+        dev, inter.data_ptr(), n, None, None, None, k, 0, SELECT_ROUTES["small sim"],
+        row_pop.data_ptr(), q_pop.data_ptr(), MESH_METRICS[metric], scores.data_ptr(), ids.data_ptr(),
+        mode="small sim",
+    )
+    return scores, ids
 
 
 def mesh_pairwise_finish_plain(

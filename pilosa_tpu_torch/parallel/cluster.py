@@ -23,6 +23,7 @@ concatenate — shards are disjoint column ranges; TopN/GroupBy merge by key).
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import threading
@@ -93,6 +94,10 @@ LEASE_S = 15.0
 # long for an answer: well under the writer's own RPC timeout, so the
 # writer hears the relay's failure rather than timing out on the relay
 RELAY_TIMEOUT_S = 5.0
+# a peer that a catch-up's barrier asks (C14, Cluster._drain_peers)
+# waits this long for the writes it began without the marks being caught
+# up; the catching-up node waits twice as long for its answer
+DRAIN_WAIT_S = RELAY_TIMEOUT_S
 # the shard number of a mark on a node's attribute stores of an index:
 # an attribute write that leaves a node out marks them as well as its
 # copy of each shard (a node may own no shard yet, C13)
@@ -418,6 +423,13 @@ class Cluster:
         self._mark_seq = 0
         self._catch_up_lock = sanitize.make_lock("Cluster._catch_up_lock")
         self._catch_up_thread: threading.Thread | None = None
+        # the writes this node coordinates that are in flight, by (index,
+        # the marks generation they were planned under): a catch-up's
+        # barrier waits for those planned before its marks (C14)
+        self._in_flight: dict[tuple[str, int], int] = {}
+        self._in_flight_cv = threading.Condition(
+            sanitize.make_lock("Cluster._in_flight_lock")
+        )
         # {"shards", "seconds"} of the last catch-up that replaced any
         self.last_catch_up: dict | None = None
         # the resilient RPC chain (docs/fault-tolerance.md): transport →
@@ -430,6 +442,10 @@ class Cluster:
             stats=server.stats,
             injector=getattr(server, "fault_injector", None),
         )
+        # the time limit of one write leg, the client's RPC timeout: a
+        # catch-up's barrier waits for no peer unheard for longer than
+        # down_after_s plus this (_drain_peers)
+        self.leg_timeout_s = self.client.timeout
         # per-peer fan-out leg coalescer: concurrent legs to one node
         # share a multi-query /internal/query/batch RPC (batch-mode=off
         # restores the one-RPC-per-leg path)
@@ -729,6 +745,13 @@ class Cluster:
             raise ShardUnavailableError(
                 "cluster state STARTING; retry when the node has joined"
             )
+        self._check_lease()
+
+    def _check_lease(self) -> None:
+        """The self-fence of a coordinator: it starts no query, and a
+        write it coordinates sends no further leg, once it has heard
+        from no peer for lease_s or a peer says it has not heard this
+        node for that long (``_unheard_reason``)."""
         peers = self._peers(alive_only=False)
         if peers:
             quiet = time.monotonic() - max(self._heard_at(n) for n in peers)
@@ -1890,6 +1913,104 @@ class Cluster:
             [n for n in nodes if n.uri in stale],
         )
 
+    @contextlib.contextmanager
+    def _planning(self, index: str):
+        """Count a write this node coordinates as in flight, under the
+        marks generation it is planned with, from before it reads the
+        stale view (``_write_waves``) until its legs and its announce
+        have ended (C14). The view it reads is at least that new: the
+        view is rebuilt with every bump of the generation, under the
+        same lock. A barrier that read a newer generation after merging
+        its marks and found this write not yet counted saw it before it
+        read the view, so the write sees those marks."""
+        with self._marks_lock:
+            key = (index, self._marks_gen)
+        with self._in_flight_cv:
+            self._in_flight[key] = self._in_flight.get(key, 0) + 1
+        try:
+            yield
+        finally:
+            with self._in_flight_cv:
+                if self._in_flight[key] == 1:
+                    del self._in_flight[key]
+                else:
+                    self._in_flight[key] -= 1
+                self._in_flight_cv.notify_all()
+
+    def _drain_writes(self, index: str, marks: list) -> None:
+        """A peer's half of a catch-up's barrier (C14): merge the marks
+        that the asker catches up, then wait until every write this node
+        began on ``index`` under an older marks generation has ended,
+        acknowledged or failed. A write planned from then on sees the
+        marks, so it reaches the stale owner only after every current
+        owner took it (``_write_waves``). Raises ShardUnavailableError
+        if such a write is still in flight after DRAIN_WAIT_S."""
+        self._merge_marks({"marks": marks})
+        with self._marks_lock:
+            gen = self._marks_gen
+        deadline = time.monotonic() + DRAIN_WAIT_S
+        with self._in_flight_cv:
+            while any(i == index and g < gen for i, g in self._in_flight):
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    raise ShardUnavailableError(
+                        f"writes to {index!r} that {self.me.id} began "
+                        "before it knew the marks being caught up are "
+                        f"still in flight after {DRAIN_WAIT_S:.0f} s"
+                    )
+                self._in_flight_cv.wait(left)
+
+    def _drain_peers(self, index: str, marks: list) -> bool:
+        """A catch-up's barrier before it arms its captures on ``index``
+        (C14): every node that may coordinate a write, this one
+        included, merges ``marks`` (this node's own, being caught up)
+        and answers once no write it began without them is in flight
+        (``_drain_writes``). Without it a write whose coordinator had
+        not learned a mark may reach this stale copy first and the
+        current owner only after this node fetched that owner's copy:
+        the capture is not armed yet, so nothing would replay it. After
+        the barrier every write reaches this node after the current
+        owners took it, or lands after the capture is armed (C12).
+
+        Two kinds of peer are not waited for. One that refuses the
+        request is not listening, so it coordinates nothing; one that
+        restarted answers with no write of its old boot in flight. One
+        this node has not heard for ``down_after_s + leg_timeout_s``
+        has fenced itself (by down_after_s it has heard from no peer for
+        a lease, or its probe of this node said it was not heard for
+        one; ``_check_lease``), so it sends no further write leg, and a
+        leg it sent before has ended within its RPC timeout. A peer
+        heard more recently that does not answer keeps the index's
+        shards stale, as a failed fetch does; the next heartbeat tries
+        again. So a closed coordinator delays no catch-up, and one cut
+        off keeps the shards stale at most down_after_s + leg_timeout_s
+        after this node last heard it (60 s at the default 15 s lease
+        and 30 s RPC timeout), plus one heartbeat. A catch-up pays one
+        round trip to each peer per index, and waits for the writes
+        begun before the marks, at most DRAIN_WAIT_S. → whether every
+        peer answered or was skipped."""
+        try:
+            self._drain_writes(index, marks)
+            horizon = self.down_after_s + self.leg_timeout_s
+            for n in self._peers(alive_only=False):
+                if time.monotonic() - self._heard_at(n) > horizon:
+                    continue
+                try:
+                    self.client._json(
+                        "POST", n.uri, "/internal/marks/drain",
+                        {"index": index, "marks": marks},
+                        timeout=2 * DRAIN_WAIT_S,
+                    )
+                except PeerError as e:
+                    if not _refused(e):
+                        raise ShardUnavailableError(
+                            f"{n.id} did not drain its writes: {e}"
+                        ) from e
+        except ShardUnavailableError as e:
+            self.server.logger.log(f"catch-up of {index} waits: {e}")
+            return False
+        return True
+
     def _owned_shards(self, index: str, node: Node) -> dict[int, list[Node]]:
         """Every known shard of ``index`` that ``node`` owns, for the
         marks of a write that reaches all of them (a broadcast write)."""
@@ -1947,8 +2068,11 @@ class Cluster:
         stores alone, ``ATTRS_SHARD``, merges them from any current
         node); then record the marks read before the copy as covered and
         tell every peer, which stop routing around the copy. A union
-        would keep the bits a missed Clear removed. A shard that no
-        current owner gave, whatever the failure, stays stale.
+        would keep the bits a missed Clear removed. Before the first
+        copy of an index, every peer that may write has drained the
+        writes it began without the marks (``_drain_peers``, C14). A
+        shard that no current owner gave, whatever the failure, stays
+        stale.
         → the (index, shard) pairs caught up."""
         with self._catch_up_lock:
             mine = self._stale_keys_of_mine()
@@ -1958,7 +2082,15 @@ class Cluster:
             inventories: dict[tuple[str, str], list[dict]] = {}
             schema_from: set[str] = set()
             done: list[tuple[str, int]] = []
+            drained: dict[str, bool] = {}
             for index, shard in sorted(mine):
+                if index not in drained:
+                    drained[index] = self._drain_peers(index, [
+                        [self.me.uri, i, s, stamps]
+                        for (i, s), stamps in mine.items() if i == index
+                    ])
+                if not drained[index]:
+                    continue
                 sources = (
                     self._peers(alive_only=False)
                     if shard == ATTRS_SHARD
@@ -2043,8 +2175,10 @@ class Cluster:
         answered. A write this node took before the capture was armed
         is in ``src``'s copy already: a coordinator writes a stale owner
         only after every current owner took the write
-        (``_write_waves``). Every fragment either side holds
-        is fetched (one ``src`` lacks comes back empty)."""
+        (``_write_waves``), and every write planned before its
+        coordinator knew the marks has ended (``_drain_peers``). Every
+        fragment either side holds is fetched (one ``src`` lacks comes
+        back empty)."""
         idx = self.server.holder.index(index)
         if idx is None:
             return
@@ -2956,65 +3090,69 @@ class Cluster:
                 new_args[fname] = row_id
                 call = Call(call.name, new_args, list(call.children), list(call.pos_args))
             shard = col_id // SHARD_WIDTH
-            result = None
-            took_write: list[str] = []
-            left_out: list[Node] = []
-            current, stale = self._write_waves(
-                index, shard, self.shard_nodes(index, shard)
-            )
-            for owner in current + stale:
-                if not self._probe_alive(owner):
-                    left_out.append(owner)
+            with self._planning(index):
+                result = None
+                took_write: list[str] = []
+                left_out: list[Node] = []
+                current, stale = self._write_waves(
+                    index, shard, self.shard_nodes(index, shard)
+                )
+                for owner in current + stale:
+                    self._check_lease()
+                    if not self._probe_alive(owner):
+                        left_out.append(owner)
+                        continue
+                    if owner.id == self.me.id:
+                        r = self.server.api.executor.execute(index, [call])[0]
+                    else:
+                        remote, _ = self._timed_query_node(
+                            "cluster.write_fanout",
+                            owner,
+                            index,
+                            call.to_pql(),
+                            [shard],
+                            write=True,
+                        )
+                        r = remote[0]
+                    took_write.append(owner.uri)
+                    result = r if result is None else result
+                if result is None:
+                    raise ShardUnavailableError(f"no alive owner for shard {shard}")
+                # known/announced only after the write landed, and only
+                # naming owners that actually took it; the owners it left
+                # out are marked stale before the ack
+                with self._shard_cache_lock:
+                    self._known_shards[index] = (
+                        self._known_shards.get(index, set()) | {shard}
+                    )
+                self._tell_peers(index, {shard: took_write}, {shard: left_out})
+                return result
+        # broadcast writes: a node left out misses the write in every
+        # shard it owns
+        with self._planning(index):
+            result: Any = None
+            left_out = {}
+            current, stale = self._write_waves(index, None, self.nodes)
+            for n in current + stale:
+                self._check_lease()
+                if not self._probe_alive(n):
+                    for s, nodes in self._owned_shards(index, n).items():
+                        left_out.setdefault(s, []).extend(nodes)
                     continue
-                if owner.id == self.me.id:
+                if n.id == self.me.id:
                     r = self.server.api.executor.execute(index, [call])[0]
                 else:
                     remote, _ = self._timed_query_node(
-                        "cluster.write_fanout",
-                        owner,
-                        index,
-                        call.to_pql(),
-                        [shard],
+                        "cluster.write_fanout", n, index, call.to_pql(), None,
                         write=True,
                     )
                     r = remote[0]
-                took_write.append(owner.uri)
-                result = r if result is None else result
-            if result is None:
-                raise ShardUnavailableError(f"no alive owner for shard {shard}")
-            # known/announced only after the write landed, and only
-            # naming owners that actually took it; the owners it left
-            # out are marked stale before the ack
-            with self._shard_cache_lock:
-                self._known_shards[index] = (
-                    self._known_shards.get(index, set()) | {shard}
-                )
-            self._tell_peers(index, {shard: took_write}, {shard: left_out})
+                if isinstance(r, bool):
+                    result = bool(result) | r
+                else:
+                    result = r if result is None else result
+            self._tell_peers(index, {}, left_out)
             return result
-        # broadcast writes: a node left out misses the write in every
-        # shard it owns
-        result: Any = None
-        left_out = {}
-        current, stale = self._write_waves(index, None, self.nodes)
-        for n in current + stale:
-            if not self._probe_alive(n):
-                for s, nodes in self._owned_shards(index, n).items():
-                    left_out.setdefault(s, []).extend(nodes)
-                continue
-            if n.id == self.me.id:
-                r = self.server.api.executor.execute(index, [call])[0]
-            else:
-                remote, _ = self._timed_query_node(
-                    "cluster.write_fanout", n, index, call.to_pql(), None,
-                    write=True,
-                )
-                r = remote[0]
-            if isinstance(r, bool):
-                result = bool(result) | r
-            else:
-                result = r if result is None else result
-        self._tell_peers(index, {}, left_out)
-        return result
 
     def _route_attr_write(self, index: str, call: Call) -> None:
         """Attr writes broadcast with ONE coordinator-assigned timestamp
@@ -3050,22 +3188,24 @@ class Cluster:
             payload = {"index": index, "id": id_}
         payload["attrs"] = dict(call.args)
         payload["ts"] = time.time()
-        left_out: dict[int, list[Node]] = {}
-        for n in self.nodes:
-            if not self._probe_alive(n):
-                # its attr stores and its shards are marked: it reads
-                # attributes from a current node (_current_attrs) and
-                # serves no leg of the index until its catch-up merged
-                # the stores it missed (_catch_up)
-                left_out.setdefault(ATTRS_SHARD, []).append(n)
-                for s, nodes in self._owned_shards(index, n).items():
-                    left_out.setdefault(s, []).extend(nodes)
-                continue
-            if n.id == self.me.id:
-                self._apply_attr_write(payload)
-            else:
-                self.client.set_attrs(n.uri, payload)
-        self._tell_peers(index, {}, left_out)
+        with self._planning(index):
+            left_out: dict[int, list[Node]] = {}
+            for n in self.nodes:
+                self._check_lease()
+                if not self._probe_alive(n):
+                    # its attr stores and its shards are marked: it reads
+                    # attributes from a current node (_current_attrs) and
+                    # serves no leg of the index until its catch-up merged
+                    # the stores it missed (_catch_up)
+                    left_out.setdefault(ATTRS_SHARD, []).append(n)
+                    for s, nodes in self._owned_shards(index, n).items():
+                        left_out.setdefault(s, []).extend(nodes)
+                    continue
+                if n.id == self.me.id:
+                    self._apply_attr_write(payload)
+                else:
+                    self.client.set_attrs(n.uri, payload)
+            self._tell_peers(index, {}, left_out)
         return None
 
     def _apply_attr_write(self, payload: dict) -> None:
@@ -3120,84 +3260,86 @@ class Cluster:
         cols = np.asarray(payload.get("columnIDs", []), dtype=np.uint64)
         shards = cols // np.uint64(SHARD_WIDTH)
         uniq_shards = [int(s) for s in np.unique(shards).tolist()]
-        # two waves (_write_waves), each (local slices, remote slices):
-        # the owners whose copy is marked stale take their slices after
-        # every current owner took its own (C12)
-        waves: list[tuple[list, list]] = [([], []), ([], [])]
-        delivered: dict[int, int] = {}
-        took_write: dict[int, list[str]] = {}  # shard → owner URIs that got it
-        left_out: dict[int, list[Node]] = {}  # shard → owners it skipped
-        for shard in uniq_shards:
-            m = shards == shard
-            sub = dict(payload)
-            sub["columnIDs"] = cols[m].tolist()
-            if values:
-                if payload.get("clear"):
-                    # value-clear carries no values list (api.import_values
-                    # clears the listed columns and returns)
-                    sub.pop("values", None)
-                else:
-                    vals = payload.get("values", [])
-                    sub["values"] = [vals[i] for i in np.flatnonzero(m).tolist()]
-            else:
-                rows = payload.get("rowIDs", [])
-                sub["rowIDs"] = [rows[i] for i in np.flatnonzero(m).tolist()]
-                ts = payload.get("timestamps")
-                if ts:
-                    sub["timestamps"] = [ts[i] for i in np.flatnonzero(m).tolist()]
-            sh = int(shard)
-            delivered[sh] = 0
-            groups = self._write_waves(index, sh, self.shard_nodes(index, sh))
-            for (local, remote), group in zip(waves, groups):
-                for owner in group:
-                    if not self._probe_alive(owner):
-                        left_out.setdefault(sh, []).append(owner)
-                    elif owner.id == self.me.id:
-                        local.append((sh, sub))
-                    else:
-                        remote.append((sh, owner, sub))
-        for local, remote in waves:
-            # remote shard slices fan out CONCURRENTLY (each delivery is
-            # an HTTP RPC; a sequential loop would make wide imports pay
-            # the sum of RTTs) and overlap the local applies; failures
-            # propagate exactly like the sequential path (fut.result
-            # re-raises)
-            futs = []
-            if remote:
-                pool = self._import_pool()
-                futs = [
-                    (sh, pool.submit(
-                        self.client.import_node, o.uri, index, field, sub, values
-                    ))
-                    for sh, o, sub in remote
-                ]
-            for sh, sub in local:
+        with self._planning(index):
+            # two waves (_write_waves), each (local slices, remote slices):
+            # the owners whose copy is marked stale take their slices after
+            # every current owner took its own (C12)
+            waves: list[tuple[list, list]] = [([], []), ([], [])]
+            delivered: dict[int, int] = {}
+            took_write: dict[int, list[str]] = {}  # shard → owner URIs that got it
+            left_out: dict[int, list[Node]] = {}  # shard → owners it skipped
+            for shard in uniq_shards:
+                m = shards == shard
+                sub = dict(payload)
+                sub["columnIDs"] = cols[m].tolist()
                 if values:
-                    api.import_values(index, field, sub)
+                    if payload.get("clear"):
+                        # value-clear carries no values list (api.import_values
+                        # clears the listed columns and returns)
+                        sub.pop("values", None)
+                    else:
+                        vals = payload.get("values", [])
+                        sub["values"] = [vals[i] for i in np.flatnonzero(m).tolist()]
                 else:
-                    api.import_bits(index, field, sub)
-                delivered[sh] += 1
-                took_write.setdefault(sh, []).append(self.me.uri)
-            for sh, fut in futs:
-                # the receiver reports who actually APPLIED the slice —
-                # it may have re-forwarded to the current owners if our
-                # topology was stale, and the announce below must name
-                # the real holders
-                took_write.setdefault(sh, []).extend(fut.result())
-                delivered[sh] += 1
-        for sh, d in delivered.items():
-            if d == 0:
-                raise ShardUnavailableError(
-                    f"no alive owner for shard {sh}; import rejected"
+                    rows = payload.get("rowIDs", [])
+                    sub["rowIDs"] = [rows[i] for i in np.flatnonzero(m).tolist()]
+                    ts = payload.get("timestamps")
+                    if ts:
+                        sub["timestamps"] = [ts[i] for i in np.flatnonzero(m).tolist()]
+                sh = int(shard)
+                delivered[sh] = 0
+                groups = self._write_waves(index, sh, self.shard_nodes(index, sh))
+                for (local, remote), group in zip(waves, groups):
+                    for owner in group:
+                        if not self._probe_alive(owner):
+                            left_out.setdefault(sh, []).append(owner)
+                        elif owner.id == self.me.id:
+                            local.append((sh, sub))
+                        else:
+                            remote.append((sh, owner, sub))
+            for local, remote in waves:
+                self._check_lease()
+                # remote shard slices fan out CONCURRENTLY (each delivery is
+                # an HTTP RPC; a sequential loop would make wide imports pay
+                # the sum of RTTs) and overlap the local applies; failures
+                # propagate exactly like the sequential path (fut.result
+                # re-raises)
+                futs = []
+                if remote:
+                    pool = self._import_pool()
+                    futs = [
+                        (sh, pool.submit(
+                            self.client.import_node, o.uri, index, field, sub, values
+                        ))
+                        for sh, o, sub in remote
+                    ]
+                for sh, sub in local:
+                    if values:
+                        api.import_values(index, field, sub)
+                    else:
+                        api.import_bits(index, field, sub)
+                    delivered[sh] += 1
+                    took_write.setdefault(sh, []).append(self.me.uri)
+                for sh, fut in futs:
+                    # the receiver reports who actually APPLIED the slice —
+                    # it may have re-forwarded to the current owners if our
+                    # topology was stale, and the announce below must name
+                    # the real holders
+                    took_write.setdefault(sh, []).extend(fut.result())
+                    delivered[sh] += 1
+            for sh, d in delivered.items():
+                if d == 0:
+                    raise ShardUnavailableError(
+                        f"no alive owner for shard {sh}; import rejected"
+                    )
+            with self._shard_cache_lock:
+                self._known_shards[index] = (
+                    self._known_shards.get(index, set()) | set(uniq_shards)
                 )
-        with self._shard_cache_lock:
-            self._known_shards[index] = (
-                self._known_shards.get(index, set()) | set(uniq_shards)
-            )
-        # synchronous announce BEFORE acking the import: a client may
-        # import through this node and immediately read through any other
-        # (and must not read a skipped owner's copy without it)
-        self._tell_peers(index, took_write, left_out)
+            # synchronous announce BEFORE acking the import: a client may
+            # import through this node and immediately read through any other
+            # (and must not read a skipped owner's copy without it)
+            self._tell_peers(index, took_write, left_out)
         # the local applies invalidated through api.import_*'s own hook,
         # but a coordinator that owns NONE of the shards never moved its
         # own stamp — and neither did any bystander peer
@@ -3222,60 +3364,62 @@ class Cluster:
         if self.server.holder.index(index) is None:
             raise ValueError(f"index {index!r} not found")
         sh = int(shard)
-        left_out: list[Node] = []
-        # two waves (_write_waves), each (local or not, remote owners):
-        # the owners whose copy is marked stale take the frame after
-        # every current owner took it (C12)
-        waves: list[tuple[bool, list[Node]]] = []
-        for group in self._write_waves(index, sh, self.shard_nodes(index, sh)):
-            remote: list[Node] = []
-            for o in group:
-                if o.id != self.me.id:
-                    (remote if self._probe_alive(o) else left_out).append(o)
-            waves.append((any(o.id == self.me.id for o in group), remote))
+        with self._planning(index):
+            left_out: list[Node] = []
+            # two waves (_write_waves), each (local or not, remote owners):
+            # the owners whose copy is marked stale take the frame after
+            # every current owner took it (C12)
+            waves: list[tuple[bool, list[Node]]] = []
+            for group in self._write_waves(index, sh, self.shard_nodes(index, sh)):
+                remote: list[Node] = []
+                for o in group:
+                    if o.id != self.me.id:
+                        (remote if self._probe_alive(o) else left_out).append(o)
+                waves.append((any(o.id == self.me.id for o in group), remote))
 
-        def push(node):
-            t0 = time.perf_counter()
-            with GLOBAL_TRACER.span(
-                "cluster.import_roaring", node=node.id, shards=1
-            ):
-                self.client.import_roaring(
-                    node.uri, index, field, view, sh, data
-                )
-            if self.server.stats is not None:
-                self.server.stats.timing(
-                    "fanout_rpc_seconds",
-                    time.perf_counter() - t0,
-                    tags={"node": node.id},
-                )
+            def push(node):
+                t0 = time.perf_counter()
+                with GLOBAL_TRACER.span(
+                    "cluster.import_roaring", node=node.id, shards=1
+                ):
+                    self.client.import_roaring(
+                        node.uri, index, field, view, sh, data
+                    )
+                if self.server.stats is not None:
+                    self.server.stats.timing(
+                        "fanout_rpc_seconds",
+                        time.perf_counter() - t0,
+                        tags={"node": node.id},
+                    )
 
-        bits = 0
-        applied = 0
-        took_write: list[str] = []
-        for local, remote in waves:
-            futs = []
-            if remote:
-                pool = self._import_pool()
-                futs = [(o, pool.submit(push, o)) for o in remote]
-            if local:
-                bits = api.import_roaring(index, field, sh, data, view=view)
-                applied += 1
-                took_write.append(self.me.uri)
-            for node, fut in futs:
-                fut.result()  # a failed replica leg fails the import loudly
-                applied += 1
-                took_write.append(node.uri)
-        if applied == 0:
-            raise ShardUnavailableError(
-                f"no alive owner for shard {sh}; import rejected"
-            )
-        with self._shard_cache_lock:
-            self._known_shards[index] = (
-                self._known_shards.get(index, set()) | {sh}
-            )
-        # synchronous announce BEFORE the ack, naming only the owners
-        # that actually took the frame (same rule as import_router)
-        self._tell_peers(index, {sh: took_write}, {sh: left_out})
+            bits = 0
+            applied = 0
+            took_write: list[str] = []
+            for local, remote in waves:
+                self._check_lease()
+                futs = []
+                if remote:
+                    pool = self._import_pool()
+                    futs = [(o, pool.submit(push, o)) for o in remote]
+                if local:
+                    bits = api.import_roaring(index, field, sh, data, view=view)
+                    applied += 1
+                    took_write.append(self.me.uri)
+                for node, fut in futs:
+                    fut.result()  # a failed replica leg fails the import loudly
+                    applied += 1
+                    took_write.append(node.uri)
+            if applied == 0:
+                raise ShardUnavailableError(
+                    f"no alive owner for shard {sh}; import rejected"
+                )
+            with self._shard_cache_lock:
+                self._known_shards[index] = (
+                    self._known_shards.get(index, set()) | {sh}
+                )
+            # synchronous announce BEFORE the ack, naming only the owners
+            # that actually took the frame (same rule as import_router)
+            self._tell_peers(index, {sh: took_write}, {sh: left_out})
         # same rule as import_router: a non-owner coordinator's stamp
         # (and every bystander's) never moved — invalidate explicitly
         api._invalidate_results(index)
@@ -3917,6 +4061,10 @@ class Cluster:
             ): self._h_shards_announce,
             (
                 "POST",
+                re.compile(r"^/internal/marks/drain$"),
+            ): self._h_marks_drain,
+            (
+                "POST",
                 re.compile(r"^/internal/cache/invalidate$"),
             ): self._h_cache_invalidate,
         }
@@ -4098,6 +4246,11 @@ class Cluster:
             # before the answer: the writer acknowledges only once every
             # node that may serve has the marks (a failure here is a 503)
             self._relay_marks(body)
+        handler._json({"success": True})
+
+    def _h_marks_drain(self, handler) -> None:
+        body = handler._json_body()
+        self._drain_writes(body["index"], body.get("marks") or [])
         handler._json({"success": True})
 
     def _h_shards(self, handler) -> None:

@@ -792,9 +792,10 @@ class MeshQueryEngine:
         """(matrix [R, S, W], query [S, W], both in grid mode, k) → (f32
         scores[k], int32 ids[k]) on the lead device: per block K2 gives
         |a ∩ q| (the query block as the filter) and |a|, K1 counts |q|;
-        the reduction tree sums the three; K12 scores them into K10's
-        keys and K10 takes the top k, ties to the lower row, k clamped to
-        R, as ``lax.top_k``."""
+        the reduction tree sums the three; ``select_sim`` scores them and
+        takes the top k, ties to the lower row, k clamped to R, as
+        ``lax.top_k``: up to 4,096 rows in one K10 launch (``small sim``),
+        past that K12's keys and K10's select."""
         if matrix.mode != "grid" or query.mode != "grid":
             raise ValueError(
                 f"the search takes grid-placed arrays (S divisible by the shards axis, W by the "
@@ -816,8 +817,7 @@ class MeshQueryEngine:
         q_pop = self._psum_both(self._each(lambda i, j: ops.tree_eval(
             [query.blocks[i][j][None]], [(0, 0)], load, s_l, count=True, n_words=w_l,
         ))).reshape(1)
-        keys, hist = similarity.mesh_sim_keys(inter, row_pop, q_pop, metric)
-        return similarity.select_top(keys, hist, k)
+        return similarity.select_sim(inter, row_pop, q_pop, metric, k)
 
     def tanimoto(self, matrix: MeshArray, query: MeshArray, k: int):
         """Top-k rows by Tanimoto similarity to the query (BASELINE config

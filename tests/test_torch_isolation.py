@@ -218,12 +218,16 @@ def test_chip_smoke_rehearses_on_the_cpu(capsys):
         ("similarity", "sim_scan"), ("similarity", "sim_select"), ("similarity", "pairwise"),
         ("mesh", "tree_eval"), ("mesh", "row_counts"), ("mesh", "stack_delta"), ("mesh", "bsi_sum"), ("mesh", "bsi_sum"),
         ("mesh", "bsi_minmax"), ("mesh", "gb_counts"), ("mesh", "gb_masks"), ("mesh", "sim_select"),
-        ("mesh", "pairwise"), ("mesh", "mesh_sim_keys"), ("mesh", "mesh_pairwise_finish"),
+        ("mesh", "pairwise"), ("mesh", "sim_select"), ("mesh", "mesh_sim_keys"), ("mesh", "mesh_pairwise_finish"),
         *(("mesh", n) for n in fused),
         ("graft", "ingest_counts"), ("graft", "count_keys"), ("graft", "sim_select"),
         ("mesh_programs", "ingest_counts"), ("mesh_programs", "row_counts"), ("mesh_programs", "bsi_sum"),
-        ("mesh_programs", "tree_eval"), ("mesh_programs", "sim_select"), ("mesh_programs", "mesh_sim_keys"),
+        ("mesh_programs", "tree_eval"), ("mesh_programs", "sim_select"), ("mesh_programs", "sim_select"),
     ]
+    # the mesh search's finish: K10's one-launch small sim route on both
+    # mesh paths, and K12's keys timed past 4,096 rows, where they still run
+    assert [k["path"] for k in kernels if (k["shape"] or "").startswith("small sim")] == ["mesh", "mesh_programs"]
+    assert next(k for k in kernels if k["name"] == "mesh_sim_keys")["shape"].startswith("4097 rows")
     assert all(k["max_abs_err"] == 0 for k in kernels)
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms"}

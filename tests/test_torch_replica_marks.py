@@ -14,6 +14,7 @@ stale takes a read's attributes from a current owner, or answers 503.
 
 import json
 import os
+import threading
 import time
 
 import numpy as np
@@ -24,7 +25,7 @@ from pilosa_tpu_torch.parallel.cluster import Cluster
 from pilosa_tpu_torch.pql import parse
 from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
 
-from test_torch_cluster import _server, call, make_cluster, ok, shutdown
+from test_torch_cluster import CUT_LEASE_S, _server, call, make_cluster, ok, shutdown
 from test_torch_replica_catchup import (
     CUT,
     N_SHARDS,
@@ -36,6 +37,7 @@ from test_torch_replica_catchup import (
     load,
     missed_writes,
     reopen_node2,
+    set_bit,
     write,
 )
 
@@ -343,6 +345,175 @@ def test_a_coordinator_writes_a_stale_owner_after_the_current_one(tmp_path, monk
         assert order == [other, 2]
         assert servers[2].cluster._catch_up() == [("rc", shard)]
         check(ports, m)
+    finally:
+        shutdown(servers)
+
+
+# ------------------------------------------------------------------ C14
+JOIN_S = 20.0  # the most a test waits for node 2's catch-up
+
+
+def race_catch_up(servers, coord, shard):
+    """Start node 2's catch-up in a thread; return once it has returned,
+    or once node ``coord`` has the mark it catches up (its barrier
+    reached that node). → (the thread, the list its answer goes to)"""
+    c, c2 = servers[coord].cluster, servers[2].cluster
+    done, got = threading.Event(), []
+
+    def run():
+        try:
+            got.append(c2._catch_up())
+        finally:
+            done.set()
+
+    t = threading.Thread(target=run, daemon=True, name="test-catch-up")
+    t.start()
+    deadline = time.monotonic() + JOIN_S
+    while not (done.wait(0.02) or c2.me.uri in c._stale_uris("rc", shard)):
+        assert time.monotonic() < deadline, "node 2's catch-up neither returned nor reached the coordinator"
+    return t, got
+
+
+@pytest.mark.parametrize("kind", ["set", "clear", "import"])
+def test_a_write_begun_before_its_coordinator_learned_a_mark_is_kept(tmp_path, monkeypatch, kind):
+    """C14: node 2's copy of a shard whose owner list puts node 2 first
+    is marked stale on both owners; the third node, which owns no copy
+    of it, has not learned the mark. That node coordinates a write
+    there: its leg to node 2 lands on the stale copy first. Ahead of its
+    leg to the other owner node 2 starts its catch-up, which fetches
+    that owner's copy; the leg goes on once the catch-up has returned or
+    has reached the coordinator. After the ack and the catch-up node 2's
+    copy counts what the other owner's does, every read through every
+    node equals numpy, and an anti-entropy pass on each node changes no
+    answer (a Clear stays cleared)."""
+    servers, ports, _ = make_cluster("port", tmp_path, heartbeat_interval=3600)
+    try:
+        m, _, _ = load(servers, ports)
+        c0 = servers[0].cluster
+        ids = [srv.cluster.me.id for srv in servers]
+        shard = next(s for s in range(4 * N_SHARDS) if c0.shard_nodes("rc", s)[0].id == ids[2])
+        other = ids.index(c0.shard_nodes("rc", shard)[1].id)
+        coord = 3 - other - 2
+        cc = servers[coord].cluster
+        if kind == "clear" and not any(c // SHARD_WIDTH == shard for c in m.rows[1]):
+            set_bit(ports[0], m, 1, shard * SHARD_WIDTH + 7)
+        uri_other, uri2 = servers[other].cluster.me.uri, servers[2].cluster.me.uri
+        mark = {"index": "rc", "entries": {}, "marks": [[uri2, "rc", shard, {"test": 1}]]}
+        for srv in (servers[other], servers[2]):
+            srv.cluster._merge_marks(mark)
+        assert not cc._stale_uris("rc", shard)
+        raced = []
+        if kind == "import":
+            first_leg = threading.Event()
+            real_import = cc.client.import_node
+
+            def import_node(uri, *args, **kwargs):
+                if uri == uri_other and not raced:
+                    assert first_leg.wait(JOIN_S), "the coordinator's leg to node 2 did not end"
+                    raced.append(race_catch_up(servers, coord, shard))
+                out = real_import(uri, *args, **kwargs)
+                if uri == uri2:
+                    first_leg.set()
+                return out
+
+            monkeypatch.setattr(cc.client, "import_node", import_node)
+        else:
+            real_leg = Cluster._timed_query_node
+
+            def leg(self, span, node, index, pql, shards, write=False):
+                if self is cc and write and node.id == ids[other] and not raced:
+                    raced.append(race_catch_up(servers, coord, shard))
+                return real_leg(self, span, node, index, pql, shards, write=write)
+
+            monkeypatch.setattr(Cluster, "_timed_query_node", leg)
+        if kind == "clear":
+            col = min(c for c in m.rows[1] if c // SHARD_WIDTH == shard)
+            write(ports[coord], f"Clear({col}, f=1)")
+            m.rows[1].discard(col)
+        else:
+            col = shard * SHARD_WIDTH + 500
+            if kind == "set":
+                write(ports[coord], f"Set({col}, f=1)")
+            else:
+                ok(ports[coord], "POST", "/index/rc/field/f/import", {"rowIDs": [1], "columnIDs": [col]})
+            m.rows[1].add(col)
+        monkeypatch.undo()
+        ((t, got),) = raced
+        t.join(JOIN_S)
+        assert not t.is_alive() and got == [[("rc", shard)]], got
+        assert not any(srv.cluster._stale_uris("rc", shard) for srv in servers)
+        assert local_count(servers[2], shard) == local_count(servers[other], shard)
+        check(ports, m)
+        for srv in servers:
+            srv.cluster.sync_holder()
+        assert local_count(servers[2], shard) == local_count(servers[other], shard)
+        check(ports, m)
+    finally:
+        shutdown(servers)
+
+
+LEG_S = 2.0  # a write leg's time limit in the barrier's liveness test
+
+
+@pytest.mark.parametrize("how", ["closed", "cut"])
+def test_a_silent_coordinator_keeps_a_shard_stale_no_longer_than_the_bound(tmp_path, how):
+    """C14, the barrier's liveness: node 2's copy of a shard that nodes 0
+    and 2 own is marked stale on every node, and node 1 goes silent. A
+    closed node 1 refuses the barrier and is not waited for: node 2's
+    first catch-up replaces the copy. A node 1 cut off from node 2 both
+    ways (with the short lease, and a write leg's time limit of
+    ``LEG_S``, from the cut on) is waited for while it may still write:
+    the shard stays stale until ``down_after_s + leg_timeout_s`` after
+    node 2 last heard node 1, and is current right after. Then every
+    read through nodes 0 and 2 equals numpy."""
+    servers, ports, _ = make_cluster("port", tmp_path, heartbeat_interval=3600)
+    try:
+        m, _, shared = load(servers, ports)
+        c0, c2 = servers[0].cluster, servers[2].cluster
+        shard = shared[0]
+        mark = {"index": "rc", "entries": {}, "marks": [[c2.me.uri, "rc", shard, {"test": 1}]]}
+        for srv in servers:
+            srv.cluster._merge_marks(mark)
+        node = {srv.cluster.me.id: n for srv in servers for n in c2.nodes if n.id == srv.cluster.me.id}
+        node0, node1 = node[c0.me.id], node[servers[1].cluster.me.id]
+        node2 = next(n for n in c0.nodes if n.id == c2.me.id)
+        if how == "closed":
+            for srv in (servers[0], servers[2]):
+                srv.cluster.client.close()  # no idle connection holds node 1's listener
+            servers[1].close()
+            servers[1] = None
+            t0 = time.monotonic()
+            assert c2._catch_up() == [("rc", shard)]
+            print(f"closed: caught up in {time.monotonic() - t0:.3f} s")
+        else:
+            c2._probe(node1)
+            lease = c0.lease_s
+            for srv in servers:
+                srv.cluster.lease_s, srv.cluster.down_after_s = CUT_LEASE_S, 2 * CUT_LEASE_S
+            c2.leg_timeout_s = LEG_S
+            servers[2].fault_injector.set_rules([{**CUT, "peer": f"127.0.0.1:{ports[1]}"}], seed=5)
+            servers[1].fault_injector.set_rules([{**CUT, "peer": f"127.0.0.1:{ports[2]}"}], seed=5)
+            bound = c2._heard_at(node1) + c2.down_after_s + c2.leg_timeout_s
+            tries = []
+            while True:
+                # a heartbeat's probes: nodes 0 and 2 keep hearing each other
+                c0._probe(node2)
+                c2._probe(node0)
+                got = c2._catch_up()
+                tries.append(time.monotonic())
+                if got:
+                    break
+                assert tries[-1] < bound + JOIN_S, "node 2 stayed stale past the barrier's bound"
+                time.sleep(0.1)
+            assert got == [("rc", shard)]
+            assert len(tries) > 1 and bound < tries[-1] < bound + JOIN_S
+            print(f"cut: caught up {tries[-1] - bound:.3f} s past the bound, after {len(tries)} tries")
+            # the reads below make no heartbeat: under the short lease a
+            # stall of the process would fence the node that serves them
+            for srv in servers:
+                srv.cluster.lease_s, srv.cluster.down_after_s = lease, 2 * lease
+        assert not c2._stale_shards("rc", c2.me.uri)
+        check([ports[0], ports[2]], m)
     finally:
         shutdown(servers)
 

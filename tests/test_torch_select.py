@@ -14,11 +14,14 @@ import jax
 import numpy as np
 import pytest
 import torch
+from jax.sharding import NamedSharding, PartitionSpec as P
 
 from pilosa_tpu.ops import similarity as ref
+from pilosa_tpu.parallel import mesh as ref_mesh
 from pilosa_tpu_torch import ops
 from pilosa_tpu_torch.ops import _cuda, topn
 from pilosa_tpu_torch.ops import similarity as sim
+from pilosa_tpu_torch.parallel.mesh import MeshContext, MeshQueryEngine, make_mesh
 
 
 @pytest.mark.parametrize("int_bits", [0, 13])
@@ -63,7 +66,8 @@ def test_select_layout_is_the_sources_defines():
     assert sim.SELECT_ZEROED_WORDS == d["SIM_HIST_LEVELS"] * (1 << d["SIM_BITS"]) // 2 + d["SIM_STATE_WORDS"]
     assert sim.RADIX_BINS == d["RS_BINS"] and sim.RADIX_TILE == d["PT_BLOCK"] * d["RS_ITEMS"]
     assert sim.SELECT_ROUTES == {
-        "small": d["SIM_SMALL"], "small counts": d["SIM_SMALL_COUNTS"], "tile": d["SIM_TILE_ROUTE"], "radix": d["SIM_RADIX"]}
+        "small": d["SIM_SMALL"], "small counts": d["SIM_SMALL_COUNTS"], "tile": d["SIM_TILE_ROUTE"], "radix": d["SIM_RADIX"],
+        "small sim": d["SIM_SMALL_SIM"]}
     # work: the k keys (twice, then the [RS_BINS, blocks] int32 table, on
     # the radix route) in int64 words, then the rows (twice on the radix route)
     for k in (1, 4096, 4097, 1 << 20):
@@ -120,6 +124,76 @@ def test_search_at_the_one_block_edge_matches_reference(n_rows):
         assert np.array_equal(got_s.numpy().view(np.uint32), np.asarray(want_s).view(np.uint32))
 
 
+# ------------------------------------------- the mesh search's finish
+SIM_SHARDS, SIM_WORDS = 4, 8  # a row's shards and words a shard: one shard and 4 words a position
+
+
+def _sim_rows(n_rows: int) -> tuple[np.ndarray, np.ndarray]:
+    """uint32[R, 4, 8] fingerprints and a uint32[4, 8] query: random rows
+    with ties (rows 1-3 equal row 0), an empty row (4), a full one (5)
+    and the query itself (6) where R allows."""
+    rng = np.random.default_rng(n_rows)
+    shape = (n_rows, SIM_SHARDS, SIM_WORDS)
+    m = rng.integers(0, 2**32, shape, dtype=np.uint32) & rng.integers(0, 2**32, shape, dtype=np.uint32)
+    q = rng.integers(0, 2**32, shape[1:], dtype=np.uint32)
+    m[1:4] = m[0]
+    m[4:5] = 0
+    m[5:6] = 0xFFFFFFFF
+    m[6:7] = q
+    return m, q
+
+
+def _pop(x: np.ndarray) -> np.ndarray:
+    """Set bits of each row of ``x`` (any leading shape) as int64."""
+    return np.unpackbits(x.reshape(*x.shape[:-2], -1).view(np.uint8), axis=-1).sum(axis=-1).astype(np.int64)
+
+
+@pytest.mark.parametrize("metric", ["tanimoto", "cosine"])
+@pytest.mark.parametrize("n_rows", [1, 8, 4096, 4097])
+def test_select_sim_equals_the_keys_select_and_the_reference_mesh_search(n_rows, metric):
+    """Bit for bit: ``select_sim`` and its plain version, on numpy's
+    counts of the rows, against K12's plain keys and K10's plain select
+    and against the reference's mesh search on its 8 CPU devices, at k =
+    0, 1 and R, on both sides of the one-launch route (4,096 rows); and
+    up to 8 rows the port's mesh search (``make_mesh(["cpu"] * 8,
+    words_axis=2)``, whose plain row counts loop over the rows) too.
+    Ties take the lower row; an empty query makes every union of an
+    empty row and every cosine denominator 0."""
+    m, q = _sim_rows(n_rows)
+    rmesh = ref_mesh.make_mesh(jax.devices(), words_axis=2)
+    reng = ref_mesh.MeshQueryEngine(rmesh)
+    rm = jax.device_put(m, NamedSharding(rmesh, P(None, "shards", "words")))
+    ctx = MeshContext(make_mesh(["cpu"] * 8, words_axis=2))
+    eng = MeshQueryEngine(ctx.mesh)
+    pm = ctx.place_stack(m)
+    assert pm.mode == "grid"
+    for query in (q, np.zeros_like(q)):
+        inter = torch.from_numpy(_pop(m & query[None]))
+        row_pop, q_pop = torch.from_numpy(_pop(m)), torch.from_numpy(_pop(query[None]))
+        rq = jax.device_put(query, NamedSharding(rmesh, P("shards", "words")))
+        pq = ctx.place_rows(query)
+        for k in sorted({0, 1, n_rows}):
+            want = sim.select_top_plain(sim.mesh_sim_keys_plain(inter, row_pop, q_pop, metric)[0], k)
+            r_scores, r_ids = (np.asarray(x) for x in getattr(reng, metric)(rm, rq, k))
+            gots = [sim.select_sim(inter, row_pop, q_pop, metric, k), sim.select_sim_plain(inter, row_pop, q_pop, metric, k)]
+            if n_rows <= 8:
+                gots.append(getattr(eng, metric)(pm, pq, k))
+            for got in gots:
+                assert np.array_equal(got[0].numpy().view(np.uint32), want[0].numpy().view(np.uint32)), (k, got, want)
+                assert np.array_equal(got[1].numpy(), want[1].numpy()), (k, got, want)
+                assert np.array_equal(got[0].numpy().view(np.uint32), r_scores.view(np.uint32)), k
+                assert np.array_equal(got[1].numpy(), r_ids), k
+    if n_rows >= 8:
+        # the tie block comes out in row order, and an empty row scores 0
+        scores, ids = sim.select_sim_plain(inter, row_pop, q_pop, metric, n_rows)
+        assert (scores == 0).all()  # the empty query: every score is 0, the rows in order
+        assert ids.tolist() == list(range(n_rows))
+    with pytest.raises(ValueError):
+        sim.select_sim(inter, row_pop, q_pop, metric, n_rows + 1)
+    with pytest.raises(ValueError):
+        sim.select_sim(inter, row_pop, q_pop, "jaccard", 1)
+
+
 # ------------------------------------------------- the launch plans on meta
 
 
@@ -128,7 +202,7 @@ def launches(monkeypatch):
     """The C entries replaced by recorders: (kernel name, mode, args) per
     launch."""
     calls = []
-    for name in ("sim_select", "count_keys", "pairwise"):
+    for name in ("sim_select", "count_keys", "pairwise", "mesh_sim_keys"):
         kern = _cuda.KERNELS[name]
         monkeypatch.setattr(kern, "launch", lambda dev, *args, mode="", _n=name: calls.append((_n, mode, args)))
     return calls
@@ -175,6 +249,26 @@ def test_score_keys_take_their_route(launches):
     assert counts.dtype == torch.int64 and ids.shape == (4,)
     name, got_mode, args = launches[-1]
     assert (name, got_mode) == ("sim_select", "small int keys") and args[7] == sim.SELECT_ROUTES["small"]
+
+
+def test_mesh_search_finish_is_one_launch_up_to_the_tile(launches):
+    """``select_sim``: K10's small sim route alone up to 4,096 rows (the
+    reduced counts, with |row|, |query| and the metric beside them, and
+    no histogram or scratch); past that K12's keys and K10's select."""
+    for n, k, metric in ((8, 8, "tanimoto"), (4096, 1, "cosine")):
+        launches.clear()
+        scores, ids = sim.select_sim(_meta(n, torch.int64), _meta(n, torch.int64), _meta(1, torch.int64), metric, k)
+        assert scores.shape == (k,) and scores.dtype == torch.float32 and ids.dtype == torch.int32
+        ((name, mode, args),) = launches
+        assert (name, mode) == ("sim_select", "small sim") and args[1] == n
+        assert args[2:5] == (None, None, None) and args[5:8] == (k, 0, sim.SELECT_ROUTES["small sim"])
+        assert args[8] is not None and args[9] is not None and args[10] == sim.MESH_METRICS[metric]
+    launches.clear()
+    sim.select_sim(_meta(4097, torch.int64), _meta(4097, torch.int64), _meta(1, torch.int64), "cosine", 10)
+    assert [(n, m) for n, m, _a in launches] == [("mesh_sim_keys", "cosine"), ("sim_select", "tile")]
+    launches.clear()
+    sim.select_sim(_meta(8, torch.int64), _meta(8, torch.int64), _meta(1, torch.int64), "tanimoto", 0)
+    assert launches == []
 
 
 def test_pairwise_takes_any_int32_row_count(launches):
